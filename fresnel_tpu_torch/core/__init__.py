@@ -1,0 +1,15 @@
+from fresnel_tpu_torch.core.camera import Camera
+from fresnel_tpu_torch.core.gaussians import (
+    quaternion_normalize,
+    quaternion_to_rotation_matrix,
+    rotation_6d_to_quaternion,
+    rotation_matrix_to_quaternion,
+)
+
+__all__ = [
+    "Camera",
+    "quaternion_normalize",
+    "quaternion_to_rotation_matrix",
+    "rotation_6d_to_quaternion",
+    "rotation_matrix_to_quaternion",
+]
