@@ -1,5 +1,6 @@
 from fresnel_tpu_torch.core.camera import Camera
 from fresnel_tpu_torch.core.gaussians import (
+    GaussianCloud,
     quaternion_normalize,
     quaternion_to_rotation_matrix,
     rotation_6d_to_quaternion,
@@ -8,6 +9,7 @@ from fresnel_tpu_torch.core.gaussians import (
 
 __all__ = [
     "Camera",
+    "GaussianCloud",
     "quaternion_normalize",
     "quaternion_to_rotation_matrix",
     "rotation_6d_to_quaternion",

@@ -1,14 +1,49 @@
-"""Rotation math for Gaussians (wxyz quaternions).
+"""Gaussian cloud container and rotation math (wxyz quaternions).
 
-Counterpart of the rotation helpers in fresnel_tpu/core/gaussians.py: the
-same formulas in the same order, including the branch-free 4-case
-matrix->quaternion select and the degenerate-axis fallback of the 6D
-parameterisation.
+Counterpart of fresnel_tpu/core/gaussians.py: `GaussianCloud` with its
+flat (N, 14) interchange [pos 3, scale 3, quat wxyz 4, rgb 3, opacity 1],
+and the rotation helpers with the same formulas in the same order,
+including the branch-free 4-case matrix->quaternion select and the
+degenerate-axis fallback of the 6D parameterisation.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianCloud:
+    """A (possibly batched) cloud of 3D Gaussians; float32 tensors.
+
+      positions (..., N, 3), scales (..., N, 3), rotations (..., N, 4)
+      wxyz, colors (..., N, 3) in [0, 1], opacities (..., N) in [0, 1].
+      The JAX class's optional `phases` is not ported: nothing on the
+      port's paths renders phases.
+    """
+
+    positions: torch.Tensor
+    scales: torch.Tensor
+    rotations: torch.Tensor
+    colors: torch.Tensor
+    opacities: torch.Tensor
+
+    @property
+    def num_gaussians(self) -> int:
+        return self.positions.shape[-2]
+
+    def to_flat(self) -> torch.Tensor:
+        """Pack into (..., N, 14): [pos3, scale3, quat4, rgb3, opacity1]."""
+        return torch.cat([self.positions, self.scales, self.rotations,
+                          self.colors, self.opacities[..., None]], dim=-1)
+
+    @classmethod
+    def from_flat(cls, flat: torch.Tensor) -> "GaussianCloud":
+        return cls(positions=flat[..., 0:3], scales=flat[..., 3:6],
+                   rotations=flat[..., 6:10], colors=flat[..., 10:13],
+                   opacities=flat[..., 13])
 
 
 def quaternion_normalize(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

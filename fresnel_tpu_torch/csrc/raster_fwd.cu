@@ -28,17 +28,14 @@
 //     chunk is a TPU lane trick that Hopper does not need;
 //   * the loop stops at the tile's count, not at M.
 // It uses expf (not __expf) and no fast math, and, like both JAX
-// compositors, it does not stop a pixel early at low transmittance.
+// compositors, it does not stop a pixel early at low transmittance.  The
+// alpha of a slot comes from raster_common.cuh, shared with the backward.
 
-#include <cuda_runtime.h>
+#include "raster_common.cuh"
 
 namespace {
 
-constexpr int TS = 16;
-constexpr int PIX = TS * TS;
-constexpr int PACK = 12;
-constexpr int CHUNK = 64;
-constexpr float ALPHA_MAX = 0.99f;
+using namespace raster;
 
 __global__ void __launch_bounds__(PIX)
 raster_fwd_kernel(const float* __restrict__ pack,
@@ -51,10 +48,8 @@ raster_fwd_kernel(const float* __restrict__ pack,
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
-  const int tx = tile % n_tiles_x;
-  const int ty = tile / n_tiles_x;
-  const float px = static_cast<float>(tx * TS + (p % TS));
-  const float py = static_cast<float>(ty * TS + (p / TS));
+  float px, py;
+  pixel_coords(tile, p, n_tiles_x, &px, &py);
 
   const int n = min(max(counts[tile], 0), max_per_tile);
   const float* src = pack + static_cast<size_t>(tile) * max_per_tile * PACK;
@@ -65,20 +60,11 @@ raster_fwd_kernel(const float* __restrict__ pack,
   for (int base = 0; base < n; base += CHUNK) {
     const int cnt = min(CHUNK, n - base);
     __syncthreads();  // every thread is done with the previous chunk
-    for (int i = p; i < cnt * PACK; i += PIX) {
-      sh[i] = src[base * PACK + i];
-    }
+    stage_chunk(sh, src + base * PACK, cnt, p);
     __syncthreads();
     for (int j = 0; j < cnt; ++j) {
       const float* g = sh + j * PACK;
-      const float dx = px - g[0];
-      const float dy = py - g[1];
-      const float rr = g[5];
-      float alpha = 0.0f;
-      if (fabsf(dx) <= rr && fabsf(dy) <= rr) {
-        const float m = g[2] * dx * dx + 2.0f * g[3] * dx * dy + g[4] * dy * dy;
-        alpha = fminf(expf(-0.5f * m) * g[9], ALPHA_MAX);
-      }
+      const float alpha = eval_alpha(g, px, py).alpha;
       const float w = alpha * T;
       acc_r += w * g[6];
       acc_g += w * g[7];

@@ -9,8 +9,10 @@ Counterpart of fresnel_tpu/render/tile.py for the path bench.py runs:
   4. one packed gather of a per-Gaussian (N + 1, 12) table through a
      sentinel row (opacity 0, radius -1) into (T, M, 12);
   5. front-to-back compositing of each tile, through
-     `render.raster.composite_tiles_packed`: the hand-written CUDA kernel
-     for CUDA tensors, the plain `_composite_tiles` for CPU tensors.
+     `render.raster.composite_tiles_packed`: the hand-written CUDA kernels
+     for CUDA tensors (K1 forward, K2 backward), their plain versions for
+     CPU tensors.  The gradient of the pack flows back through the packed
+     gather to projection; the radius carries none.
 
 Options of the JAX renderer that this path does not run raise
 NotImplementedError: the "search", "stream", "rows" and "chunked" binnings
@@ -33,7 +35,7 @@ from fresnel_tpu_torch.render.projection import (
     project_gaussians,
 )
 
-ALPHA_MAX = 0.99
+ALPHA_MAX = raster.ALPHA_MAX
 # Sentinel-row radius: the inside-box test |d| <= -1 is false everywhere.
 SENTINEL_RADIUS = -1.0
 PACK = 12       # [mean 2, conic 3, radius, rgb 3, opacity, depth, pad]
@@ -202,9 +204,9 @@ def _composite_tiles(px, py, g_mean, g_conic, g_color, g_op, g_depth,
     chunk = cfg.chunk
     if M % chunk:
         raise ValueError(f"M={M} is not a multiple of chunk={chunk}")
-    acc_c = torch.zeros((T_tiles, P, 3), dtype=torch.float32, device=px.device)
-    acc_d = torch.zeros((T_tiles, P), dtype=torch.float32, device=px.device)
-    Tr = torch.ones((T_tiles, P), dtype=torch.float32, device=px.device)
+    acc_c = torch.zeros((T_tiles, P, 3), dtype=px.dtype, device=px.device)
+    acc_d = torch.zeros((T_tiles, P), dtype=px.dtype, device=px.device)
+    Tr = torch.ones((T_tiles, P), dtype=px.dtype, device=px.device)
     for i in range(M // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
         mean, conic = g_mean[:, sl], g_conic[:, sl]
@@ -315,7 +317,8 @@ def render_tiled(positions: torch.Tensor, scales: torch.Tensor,
     """Render a Gaussian cloud to a (3, H, W) image in [0, 1].
 
     Runs on the device of `positions`: on CUDA the compositing goes
-    through the hand-written kernel, on the CPU through its plain version.
+    through the hand-written kernels (forward and backward), on the CPU
+    through their plain versions; the image is differentiable on both.
     Output order: img[, depth (H, W)][, transmittance (H, W)][, overflow
     (4,) int32 = [dropped_pairs, total_pairs, overflow_tiles,
     max_tile_hits]].

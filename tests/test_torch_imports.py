@@ -67,3 +67,17 @@ class TestDevice:
         from fresnel_tpu_torch.pipeline import image_to_3dgs
         with pytest.raises(RuntimeError, match="CUDA"):
             image_to_3dgs(None, torch.zeros(8, 8, 3))
+
+    def test_fit_scene_raises_without_cuda(self):
+        import numpy as np
+        from fresnel_tpu_torch.train.fit_teacher import fit_scene
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fit_scene(np.zeros((3, 16, 16), np.float32),
+                      np.zeros((16, 16), np.float32), steps=1, grid=2, K=1,
+                      res=16)
+
+    def test_refine_raises_without_cuda(self):
+        import numpy as np
+        from fresnel_tpu_torch.cli import refine
+        with pytest.raises(RuntimeError, match="CUDA"):
+            refine(np.zeros((16, 16, 3), np.float32), steps=1)

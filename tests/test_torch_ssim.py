@@ -1,0 +1,86 @@
+"""Port parity: SSIM and the Sobel filter against the JAX package, on the
+CPU.
+
+Both sides are float32.  The port filters separably (rows, then columns)
+where JAX convolves with the 2-D window, so sums differ in rounding only:
+SSIM within 2e-6, its gradient within 1e-4 of the gradient's largest
+entry, Sobel maps within 1e-6.  The 2-D window itself is bit-identical.
+"""
+
+import importlib
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from fresnel_tpu.physics.fresnel_zones import sobel_gradients as jsobel
+
+from fresnel_tpu_torch.physics.fresnel_zones import sobel_gradients
+
+# The packages' __init__ export the function `ssim` under the module's name.
+jssim_mod = importlib.import_module("fresnel_tpu.losses.ssim")
+tssim_mod = importlib.import_module("fresnel_tpu_torch.losses.ssim")
+
+
+def _pair(shape, seed, smooth):
+    rng = np.random.default_rng(seed)
+    if smooth:
+        B, C, H, W = shape
+        y, x = np.mgrid[0:H, 0:W] / max(H, W)
+        a = 0.5 + 0.4 * np.sin(6 * x[None, None] + rng.uniform(0, 6, (B, C, 1, 1))
+                               ) * np.cos(4 * y[None, None])
+    else:
+        a = rng.uniform(size=shape)
+    b = np.clip(a + rng.normal(scale=0.08, size=shape), 0, 1)
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+@pytest.mark.parametrize("size", [11, 12, 15])
+def test_window_matches_jax(size):
+    j = np.asarray(jssim_mod._gaussian_window(size, 1.5))
+    taps = tssim_mod._gaussian_window(size, 1.5)
+    np.testing.assert_array_equal(np.outer(taps, taps), j)
+
+
+@pytest.mark.parametrize("shape,smooth", [
+    ((1, 3, 32, 32), False), ((2, 3, 40, 48), True),
+    ((1, 3, 8, 9), False),          # window shrinks to 7
+    ((1, 1, 6, 6), True),           # window shrinks to 5
+])
+def test_ssim_and_grad_match_jax(shape, smooth):
+    a, b = _pair(shape, seed=sum(shape), smooth=smooth)
+    jv, jg = jax.value_and_grad(lambda x: jssim_mod.ssim(x, jnp.asarray(b)))(
+        jnp.asarray(a))
+    ta = torch.from_numpy(a).requires_grad_()
+    tv = tssim_mod.ssim(ta, torch.from_numpy(b))
+    tv.backward()
+    assert abs(tv.item() - float(jv)) <= 2e-6
+    jg = np.asarray(jg)
+    err = np.abs(ta.grad.numpy() - jg).max()
+    assert err <= 1e-4 * np.abs(jg).max(), err
+
+
+def test_ssim_per_image_and_loss():
+    a, b = _pair((3, 3, 24, 24), seed=1, smooth=True)
+    j = np.asarray(jssim_mod.ssim(jnp.asarray(a), jnp.asarray(b),
+                                  size_average=False))
+    t = tssim_mod.ssim(torch.from_numpy(a), torch.from_numpy(b),
+                       size_average=False)
+    np.testing.assert_allclose(t.numpy(), j, atol=2e-6)
+    # (C, H, W) inputs are batched; ssim_loss is 1 - ssim.
+    jl = float(jssim_mod.ssim_loss(jnp.asarray(a[0]), jnp.asarray(b[0])))
+    tl = tssim_mod.ssim_loss(torch.from_numpy(a[0]), torch.from_numpy(b[0]))
+    assert abs(tl.item() - jl) <= 2e-6
+    assert abs(tssim_mod.ssim(torch.from_numpy(a), torch.from_numpy(a)).item()
+               - 1.0) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(20, 30), (2, 17, 9), (2, 1, 16, 16)])
+def test_sobel_matches_jax(shape):
+    x = np.random.default_rng(len(shape)).uniform(size=shape).astype(
+        np.float32)
+    for j, t in zip(jsobel(jnp.asarray(x)), sobel_gradients(torch.from_numpy(x))):
+        assert t.shape == shape
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-6)
