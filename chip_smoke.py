@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py
 
-Two main paths run through the entry points a user calls:
-`pipeline.image_to_3dgs` (image -> 3DGS, bench.py's path) and
+Three main paths run through the entry points a user calls:
+`pipeline.image_to_3dgs` (image -> 3DGS, bench.py's path),
 `train.fit_teacher.fit_scene` (`fresnel refine`: per-scene Adam fit through
-the rasterizer).  Phases, each printing one JSON line; any failure raises
-and the script exits non-zero:
+the rasterizer) and `render.tile.render_tiled` / `cli.render` / `cli.orbit`
+on a cloud of a million Gaussians (`fresnel render` and `orbit`).  Phases,
+each printing one JSON line; any failure raises and the script exits
+non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
-   2. build       compile both compositing kernels from
-                  fresnel_tpu_torch/csrc/ into build/ (one nvcc each, run
-                  together, sm_90a), with ptxas's registers, shared memory
-                  and spills;
+   2. build       compile the four kernels from fresnel_tpu_torch/csrc/
+                  into build/ (one nvcc each, run together, sm_90a), with
+                  ptxas's registers, shared memory and spills;
    3. kernel      K1 against its plain PyTorch version at the image->3DGS
                   path's shapes (the pack of a decoded 5 476-Gaussian cloud,
                   T = 1024 tiles, M = 256), max abs error <= 1e-5, and the
@@ -48,13 +49,52 @@ and the script exits non-zero:
   12. cli         the function under `refine` (cli.refine) at full width for
                   20 steps, writing a PLY to a temporary directory that is
                   read back: 5 476 rows, all finite;
-  13. refine_profile  torch.profiler over 5 refine steps.
+  13. refine_profile  torch.profiler over 5 refine steps;
+  14. kernel_table  K3 (the rank table) against its plain version at the
+                  render path's full width (a million depth-sorted
+                  Gaussians of `test_cloud`, T = 1024 tiles): table and
+                  cumulative totals bitwise equal, in one group and in 4
+                  (y_offset); median times of K3, its plain version and the
+                  mask + matmul build (table_build="xla"); bound;
+  15. kernel_stream K4 (streaming compaction) against its plain version and
+                  against the search binning at the same width, M = 256:
+                  tables bitwise equal, two launches equal; median times;
+                  the stream positions at which tiles filled; bound (from
+                  the inputs read once, the tables written and one count
+                  per Gaussian and per kept hit, not from this kernel's
+                  tile-major scan, whose test count is logged beside it);
+  16. binnings_agree  at 200 000 Gaussians all five binnings (search with
+                  both table builds and 1 and 4 groups) give the tables of
+                  the pair binning, bit for bit;
+  17. render_path render_tiled at full width (a million Gaussians, 512^2,
+                  M = 256) over 4 distinct clouds after a warmup, under the
+                  default config (search binning: K3 + K1) and under
+                  binning="stream" (K4 + K1), launch counts reset just
+                  before and read just after each; images of the two equal
+                  bit for bit, finite, in [0, 1], not all background;
+                  overflow telemetry; stage times; K1 against its plain
+                  version on this path's pack; peak device memory;
+  18. render_reference  the render at 120 000 Gaussians on the card and on
+                  the CPU: tables identical on identical sorted inputs,
+                  image within a mean absolute error of 1e-4;
+  19. render_cli  cli.render at its defaults (512^2, M = 512) on a
+                  million-Gaussian cloud written with core.io.save_binary
+                  and read back, and cli.orbit with 8 views at 256^2,
+                  launch counts reset just before and read just after;
+                  then K3 and K1 against their plain versions at the
+                  shapes these two gave them (the 512^2 pose at M = 512:
+                  T = 1024; each of the 8 orbit poses at 256^2: T = 256, a
+                  16 x 16 grid), K3 bit for bit and K1 within 1e-5, and
+                  every image bit for bit against render_tiled with the
+                  mask + matmul table build, which launches no K3;
+  20. render_profile  torch.profiler over 2 full-width renders.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and fresnel_tpu_torch only.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -89,7 +129,9 @@ REFINE = dict(grid=37, K=4, res=256, max_per_tile=1024, lr=1e-2,
               depth_offset_init=-0.13)
 REFINE_STEPS = 100
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 outside the
-# tensor cores.
+# tensor cores.  The data sheet gives no rate for 32-bit integer
+# arithmetic; the integer kernels K3 and K4 are held to the float32 rate,
+# which the integer units do not exceed, so their bounds stay lower bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # One pixel-Gaussian evaluation in K1: offsets, quadratic form, box test,
@@ -103,6 +145,16 @@ OPS_PER_EVAL = 21
 # over the tile's pixels (10).
 OPS_PER_EVAL_BWD = 90
 PACK_BYTES = 12 * 4
+# The render path at full width: the configuration of the JAX package's
+# experiments/bench_stream_binning.py.
+RENDER = dict(n=1_000_000, res=512, max_per_tile=256, spread=0.8,
+              z_offset=-2.0, scale=0.02)
+RENDER_CLOUDS = 4
+AGREE_N = 200_000
+RENDER_REF_N = 120_000
+# One (tile, Gaussian) entry of K3, one Gaussian read by K4 and one hit it
+# keeps: four integer compares and one count.
+OPS_PER_TEST = 5
 
 
 def log(phase, **kw):
@@ -179,18 +231,491 @@ def profile_ms(torch, fn, n):
                 top_kernels_ms=dict(top))
 
 
+def reset_counts(raster, binning, stream_binning):
+    raster.launches = raster.launches_bwd = 0
+    binning.launches = stream_binning.launches = 0
+
+
+def read_counts(raster, binning, stream_binning):
+    return dict(k1=raster.launches, k2=raster.launches_bwd,
+                k3=binning.launches, k4=stream_binning.launches)
+
+
+def max_abs_diff(torch, a, b, rows=64):
+    """max |a - b| of two large 2-D tensors, in float32, a slab at a time."""
+    worst = 0.0
+    for r in range(0, a.shape[0], rows):
+        worst = max(worst, (a[r:r + rows].float()
+                            - b[r:r + rows].float()).abs().max().item())
+    return worst
+
+
+def tables_equal(torch, a, b):
+    """Two (tile_indices, tile_valid) tables: same validity, same live
+    entries, and the same dead entries (index 0)."""
+    (ai, av), (bi, bv) = a, b
+    return bool(torch.equal(av, bv)
+                and torch.equal(torch.where(av, ai, -1),
+                                torch.where(bv, bi, -1))
+                and torch.equal(ai, bi))
+
+
+def render_phases(torch, dev, k1, path_launches):
+    """Phases 14-20: the large-cloud render path.  Returns the kernel-table
+    entries of K3 and K4."""
+    from fresnel_tpu_torch import cli
+    from fresnel_tpu_torch.core import io as gio
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.core.gaussians import GaussianCloud
+    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
+
+    counters = (raster, binning, stream_binning)
+    n, res, M = RENDER["n"], RENDER["res"], RENDER["max_per_tile"]
+    ts = 16
+    ntx = nty = res // ts
+    T = ntx * nty
+    cam = Camera.default_training(res)
+    cfg = tile.TileRendererConfig(max_per_tile=M)
+    cfg_stream = tile.TileRendererConfig(max_per_tile=M, binning="stream")
+
+    def cloud_of(seed, count=n):
+        return GaussianCloud.test_cloud(
+            count, seed=seed, spread=RENDER["spread"],
+            z_offset=RENDER["z_offset"], scale=RENDER["scale"])
+
+    def fields(c):
+        return (c.positions, c.scales, c.rotations, c.colors, c.opacities)
+
+    def kernels_at_shapes(cl, camera, c):
+        """K3 and K1 against their plain versions on what `render_tiled`
+        hands them for cloud `cl` under `camera` and config `c` (search
+        binning): K3 bit for bit, K1's largest absolute error."""
+        gx, gy = -(-camera.width // ts), -(-camera.height // ts)
+        sp_ = tile.project_sorted(*fields(cl), camera, c)
+        xlo, xhi, ylo, yhi, vis_, n2_ = tile._padded_intervals(
+            sp_.means2d, sp_.radii, sp_.visible, ts)
+        b_ = (xlo, torch.where(vis_, xhi, -1), ylo,
+              torch.where(vis_, yhi, -1))
+        groups_ = tile.search_groups(cl.num_gaussians, gx, gy)
+        gy_g = -(-gy // groups_)
+        k3_equal = True
+        for g in range(groups_):
+            got_ = binning.build_rank_table(*b_, gx, gy_g, n2_,
+                                            y_offset=g * gy_g)
+            ref_ = binning.build_rank_table_plain(*b_, gx, gy_g, n2_,
+                                                  y_offset=g * gy_g)
+            k3_equal &= bool(torch.equal(got_[0], ref_[0])
+                             and torch.equal(got_[1], ref_[1]))
+            del got_, ref_
+        tp_ = tile.pack_tiles(*fields(cl), camera, c)
+        fwd_ = raster.composite_tiles_packed(tp_.pack, tp_.counts,
+                                             tp_.n_tiles_x)
+        plain_ = raster.composite_tiles_plain(tp_.pack, tp_.counts,
+                                              tp_.n_tiles_x)
+        return dict(grid=[gx, gy], n2=n2_, groups=groups_,
+                    M=int(tp_.pack.shape[1]),
+                    occupied_slots=int(tp_.counts.sum().item()),
+                    k3_bitwise_equal=k3_equal,
+                    k1_max_abs_err=max((g_ - r_).abs().max().item()
+                                       for g_, r_ in zip(fwd_, plain_)))
+
+    # 14. kernel_table (K3) at full width
+    with torch.no_grad():
+        sp = tile.project_sorted(*fields(cloud_of(0).to(dev)), cam, cfg)
+        cxlo, cxhi, cylo, cyhi, vis, n2 = tile._padded_intervals(
+            sp.means2d, sp.radii, sp.visible, ts)
+        bounds = (cxlo, torch.where(vis, cxhi, -1), cylo,
+                  torch.where(vis, cyhi, -1))
+        tab, cum = binning.build_rank_table(*bounds, ntx, nty, n2)
+        torch.cuda.synchronize()
+        ref_tab, ref_cum = binning.build_rank_table_plain(*bounds, ntx, nty,
+                                                          n2)
+        table_equal = bool(torch.equal(tab, ref_tab))
+        cumtot_equal = bool(torch.equal(cum, ref_cum))
+        table_err = 0.0 if table_equal else max_abs_diff(torch, tab, ref_tab)
+        cum_err = (cum - ref_cum).abs().max().item()
+        del ref_tab
+        groups = 4
+        nty_g = nty // groups
+        grouped_equal = True
+        for g in range(groups):
+            tab_g, cum_g = binning.build_rank_table(
+                *bounds, ntx, nty_g, n2, y_offset=g * nty_g)
+            rows = slice(g * nty_g * ntx, (g + 1) * nty_g * ntx)
+            grouped_equal &= bool(torch.equal(tab_g, tab[rows])
+                                  and torch.equal(cum_g, ref_cum[rows]))
+            del tab_g, cum_g
+
+        def mask_build():
+            ax = torch.arange(ntx, dtype=torch.int32, device=dev)[:, None]
+            ay = torch.arange(nty, dtype=torch.int32, device=dev)[:, None]
+            hx = (ax >= cxlo[None]) & (ax <= cxhi[None])
+            hy = (ay >= cylo[None]) & (ay <= cyhi[None]) & vis[None]
+            return tile._rank_table_from_hits(
+                (hy[:, None, :] & hx[None, :, :]).reshape(T, n2))
+
+        xla_tab, xla_cum = mask_build()
+        xla_equal = bool(torch.equal(xla_tab, tab)
+                         and torch.equal(xla_cum, cum))
+        del xla_tab, xla_cum, tab, cum
+        k3_ms = cuda_median_ms(torch, lambda: binning.build_rank_table(
+            *bounds, ntx, nty, n2), n=20)
+        k3_plain_ms = cuda_median_ms(
+            torch, lambda: binning.build_rank_table_plain(
+                *bounds, ntx, nty, n2), n=3, warmup=1)
+        xla_ms = cuda_median_ms(torch, mask_build, n=5, warmup=1)
+    k3_bound_ms, k3_bound_by, k3_work = bound(
+        T * n2 * 2 + T * (n2 // 256) * 4 + 4 * n2 * 4, T * n2 * OPS_PER_TEST)
+    log("kernel_table", name="bin_table", n_gaussians=n, n2=n2, T=T,
+        table_bitwise_equal=table_equal, cumtot_bitwise_equal=cumtot_equal,
+        max_abs_err=max(table_err, float(cum_err)),
+        grouped_bitwise_equal=grouped_equal, groups=groups,
+        mask_build_bitwise_equal=xla_equal, ms=k3_ms, plain_ms=k3_plain_ms,
+        mask_build_ms=xla_ms, table_bytes=T * n2 * 2, **k3_work,
+        bound_ms=k3_bound_ms, bound_by=k3_bound_by)
+    if not (table_equal and cumtot_equal and grouped_equal and xla_equal):
+        fail("K3 disagrees with its plain version")
+    k3 = dict(max_abs_err=max(table_err, float(cum_err)), ms=k3_ms,
+              plain_ms=k3_plain_ms, bound_ms=k3_bound_ms,
+              bound_by=k3_bound_by)
+
+    # 15. kernel_stream (K4) at full width
+    with torch.no_grad():
+        sorted_in = (sp.means2d, sp.radii, sp.visible)
+        got = stream_binning.bin_gaussians_stream(*sorted_in, ntx, nty, ts, M)
+        again = stream_binning.bin_gaussians_stream(*sorted_in, ntx, nty, ts,
+                                                    M)
+        torch.cuda.synchronize()
+        plain = stream_binning.bin_gaussians_stream_plain(*sorted_in, ntx,
+                                                          nty, ts, M)
+        search = tile._bin_gaussians_search(*sorted_in, ntx, nty, ts, M)
+        eq_plain = tables_equal(torch, got, plain)
+        eq_search = tables_equal(torch, got, search)
+        eq_again = tables_equal(torch, got, again)
+        k4_err = float((torch.where(got[1], got[0], -1)
+                        - torch.where(plain[1], plain[0], -1)).abs().max())
+        counts = got[1].sum(dim=1)
+        full = counts == M
+        # The stream position after which a tile needs nothing more: its
+        # M-th hit, or the end of the stream if it never fills.
+        need = torch.where(full, got[0][:, M - 1].long() + 1, n)
+        fill = need[full].double()
+        iv = stream_binning.stream_intervals(*sorted_in, ntx, nty, ts)
+        k4_ms = cuda_median_ms(
+            torch, lambda: stream_binning.bin_gaussians_stream(
+                *sorted_in, ntx, nty, ts, M), n=20)
+        k4_launch_ms = cuda_median_ms(
+            torch, lambda: stream_binning._launch(iv, ntx, nty, M), n=20)
+        k4_plain_ms = cuda_median_ms(
+            torch, lambda: stream_binning.bin_gaussians_stream_plain(
+                *sorted_in, ntx, nty, ts, M), n=3, warmup=1)
+        search_ms = cuda_median_ms(
+            torch, lambda: tile._bin_gaussians_search(
+                *sorted_in, ntx, nty, ts, M), n=5, warmup=1)
+        del plain, search, again, iv
+    # The function's work: every Gaussian's interval is read and tested
+    # once, and the tiles it covers follow from the interval, so one count
+    # per hit that this run's data keeps (a tile's hits up to its M-th).
+    # What this implementation's tile-major scan tests, the sum over tiles
+    # of `need`, is logged beside it and is no part of the bound.
+    scan_tests = int(need.sum().item())
+    kept_hits = int(counts.sum().item())
+    k4_bound_ms, k4_bound_by, k4_work = bound(
+        n * (2 * 4 + 4 + 1) + T * M * (4 + 1),
+        (n + kept_hits) * OPS_PER_TEST)
+    log("kernel_stream", name="bin_stream", n_gaussians=n, T=T, M=M,
+        equals_plain=eq_plain, equals_search=eq_search,
+        repeat_bitwise_equal=eq_again, max_abs_err=k4_err, ms=k4_ms,
+        launch_only_ms=k4_launch_ms, plain_ms=k4_plain_ms,
+        search_binning_ms=search_ms, tiles_filled=int(full.sum().item()),
+        fill_position_mean=fill.mean().item() if fill.numel() else None,
+        fill_position_max=fill.max().item() if fill.numel() else None,
+        kept_hits=kept_hits, tile_scan_interval_tests=scan_tests,
+        tile_scan_ops_ms=scan_tests * OPS_PER_TEST / F32_OPS_PER_S * 1e3,
+        **k4_work, bound_ms=k4_bound_ms, bound_by=k4_bound_by)
+    if not (eq_plain and eq_search and eq_again):
+        fail("K4 disagrees with its plain version or the search binning")
+    k4 = dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms,
+              bound_ms=k4_bound_ms, bound_by=k4_bound_by)
+    del sp, sorted_in, got, bounds, cxlo, cxhi, cylo, cyhi, vis
+
+    # 16. binnings_agree at 200 000 Gaussians
+    with torch.no_grad():
+        sp = tile.project_sorted(*fields(cloud_of(1, AGREE_N).to(dev)), cam,
+                                 cfg)
+        a = (sp.means2d, sp.radii, sp.visible, ntx, nty, ts, M)
+        ref = tile._bin_gaussians(*a)
+        _, _, cylo, cyhi = binning.tile_intervals(sp.means2d, sp.radii, ts)
+        ay = torch.arange(nty, dtype=torch.int32, device=dev)[:, None]
+        row_hits = ((ay >= cylo[None]) & (ay <= cyhi[None])
+                    & sp.visible[None]).sum(dim=1)
+        n2 = -(-AGREE_N // 256) * 256
+        auto_cap = -(-min(max(2 * ntx * M, 4 * n2 // nty), n2) // 256) * 256
+        fit = (row_hits <= auto_cap).repeat_interleave(ntx)
+        rows_auto = tile._bin_gaussians_rows(*a)
+        agree = {
+            "search_pallas_g1": tile._bin_gaussians_search(
+                *a, groups=1, table="pallas"),
+            "search_pallas_g4": tile._bin_gaussians_search(
+                *a, groups=4, table="pallas"),
+            "search_xla_g1": tile._bin_gaussians_search(
+                *a, groups=1, table="xla"),
+            "search_xla_g4": tile._bin_gaussians_search(
+                *a, groups=4, table="xla"),
+            "stream": stream_binning.bin_gaussians_stream(*a),
+            "rows_all_fit": tile._bin_gaussians_rows(
+                *a, row_capacity=int(row_hits.max().item())),
+            "chunked": tile._bin_gaussians_chunked(*a),
+        }
+        agree = {k: tables_equal(torch, v, ref) for k, v in agree.items()}
+        agree["rows_auto_capacity"] = tables_equal(
+            torch, (rows_auto[0][fit], rows_auto[1][fit]),
+            (ref[0][fit], ref[1][fit]))
+    log("binnings_agree", n_gaussians=AGREE_N, T=T, M=M, equal_to_pairs=agree,
+        rows_auto_capacity=auto_cap, row_hits_max=int(row_hits.max().item()),
+        tile_rows_within_auto_capacity=int((row_hits <= auto_cap).sum()),
+        tiles_at_cap=int(ref[1].all(dim=1).sum().item()))
+    if not all(agree.values()):
+        fail(f"binnings disagree: {agree}")
+    del sp, a, ref, rows_auto, fit
+
+    # 17. render_path: render_tiled at full width, both binning kernels
+    clouds = [cloud_of(10 + i).to(dev) for i in range(RENDER_CLOUDS)]
+    results = {}
+    with torch.no_grad():
+        for name, c in (("search", cfg), ("stream", cfg_stream)):
+            tile.render_tiled(*fields(clouds[0]), cam, config=c)   # warmup
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(*counters)
+            events, outs = [], []
+            t0 = time.perf_counter()
+            for cl in clouds:
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                outs.append(tile.render_tiled(*fields(cl), cam, config=c,
+                                              return_overflow=True))
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / len(clouds) * 1e3
+            path_launches[f"render_{name}"] = read_counts(*counters)
+            results[name] = dict(
+                images=[o[0] for o in outs],
+                overflow=[o[1].tolist() for o in outs],
+                e2e_ms=[s.elapsed_time(e) for s, e in events],
+                host_ms=host_ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        # Stage times, and K1 on this path's pack.
+        stage_names = ("project_sort", "binning_search", "binning_stream",
+                       "gather", "raster_fwd")
+        per_stage = {s_: [] for s_ in stage_names}
+        for cl in clouds:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            sp = tile.project_sorted(*fields(cl), cam, cfg)
+            ev[1].record()
+            idx, valid = tile.bin_tiles(sp.means2d, sp.radii, sp.visible,
+                                        ntx, nty, M, cfg)
+            ev[2].record()
+            tile.bin_tiles(sp.means2d, sp.radii, sp.visible, ntx, nty, M,
+                           cfg_stream)
+            ev[3].record()
+            pack, counts = tile.gather_pack(sp, idx, valid)
+            ev[4].record()
+            raster.composite_tiles_packed(pack, counts, ntx)
+            ev[5].record()
+            torch.cuda.synchronize()
+            for i, s_ in enumerate(stage_names):
+                per_stage[s_].append(ev[i].elapsed_time(ev[i + 1]))
+        fwd = raster.composite_tiles_packed(pack, counts, ntx)
+        fwd_ref = raster.composite_tiles_plain(pack, counts, ntx)
+        k1_errs = {nm: (g - r).abs().max().item() for nm, g, r in zip(
+            ("color", "depth", "transmittance"), fwd, fwd_ref)}
+        k1_ms = cuda_median_ms(torch, lambda: raster.composite_tiles_packed(
+            pack, counts, ntx))
+        k1_plain_ms = cuda_median_ms(
+            torch, lambda: raster.composite_tiles_plain(pack, counts, ntx),
+            n=10)
+        occupied = int(counts.sum().item())
+        k1_bound_ms, k1_bound_by, _ = bound(
+            occupied * PACK_BYTES + T * 4 + T * raster.PIX * 5 * 4,
+            occupied * raster.PIX * OPS_PER_EVAL)
+        tiles_at_cap = int((counts == M).sum().item())
+        del sp, idx, valid, pack, counts, fwd, fwd_ref
+    same = all(torch.equal(a_, b_) for a_, b_ in zip(
+        results["search"]["images"], results["stream"]["images"]))
+    imgs = results["search"]["images"]
+    ok_img = all(tuple(i.shape) == (3, res, res)
+                 and bool(torch.isfinite(i).all())
+                 and i.min().item() >= 0.0 and i.max().item() <= 1.0
+                 and i.max().item() > 0.1 for i in imgs)
+    log("render_path", n_gaussians=n, res=res, M=M, clouds=len(clouds),
+        launches={k: path_launches[f"render_{k}"] for k in results},
+        e2e_ms_median={k: statistics.median(v["e2e_ms"])
+                       for k, v in results.items()},
+        e2e_ms={k: v["e2e_ms"] for k, v in results.items()},
+        host_ms_per_render={k: v["host_ms"] for k, v in results.items()},
+        stage_ms_median={k: statistics.median(v)
+                         for k, v in per_stage.items()},
+        images_bitwise_equal=same,
+        image_mean=[i.mean().item() for i in imgs],
+        overflow_dropped_total_tiles_max=results["search"]["overflow"],
+        peak_mem_gb={k: v["peak_mem_gb"] for k, v in results.items()},
+        k1_at_render_shapes=dict(max_abs_err=k1_errs, tol=KERNEL_TOL,
+                                 ms=k1_ms, plain_ms=k1_plain_ms,
+                                 bound_ms=k1_bound_ms, bound_by=k1_bound_by,
+                                 occupied_slots=occupied,
+                                 tiles_at_cap=tiles_at_cap))
+    want = {"render_search": dict(k1=len(clouds), k2=0, k3=len(clouds), k4=0),
+            "render_stream": dict(k1=len(clouds), k2=0, k3=0, k4=len(clouds))}
+    for k, v in want.items():
+        if path_launches[k] != v:
+            fail(f"{k} launched {path_launches[k]}, expected {v}")
+    if not (same and ok_img):
+        fail("the full-width renders are not finite, equal images in [0, 1]")
+    if results["search"]["overflow"] != results["stream"]["overflow"]:
+        fail("overflow telemetry differs between the binnings")
+    if not max(k1_errs.values()) <= KERNEL_TOL:
+        fail(f"K1 disagrees with its plain version at the render shapes: "
+             f"{k1_errs}")
+    k1["max_abs_err"] = max(k1["max_abs_err"], max(k1_errs.values()))
+    del results, imgs
+
+    # 18. render_reference: 120 000 Gaussians on the card and on the CPU
+    with torch.no_grad():
+        small = cloud_of(2, RENDER_REF_N)
+        sp_c = tile.project_sorted(*fields(small), cam, cfg)
+        tab_c = tile.bin_tiles(sp_c.means2d, sp_c.radii, sp_c.visible, ntx,
+                               nty, M, cfg)
+        reset_counts(*counters)
+        tab_g = tile.bin_tiles(sp_c.means2d.to(dev), sp_c.radii.to(dev),
+                               sp_c.visible.to(dev), ntx, nty, M, cfg)
+        tab_s = tile.bin_tiles(sp_c.means2d.to(dev), sp_c.radii.to(dev),
+                               sp_c.visible.to(dev), ntx, nty, M, cfg_stream)
+        ref_counts = read_counts(*counters)
+        tables_same = (tables_equal(torch, (tab_g[0].cpu(), tab_g[1].cpu()),
+                                    tab_c)
+                       and tables_equal(torch,
+                                        (tab_s[0].cpu(), tab_s[1].cpu()),
+                                        tab_c))
+        sp_g = tile.project_sorted(*fields(small.to(dev)), cam, cfg)
+        iv_c = torch.stack(binning.tile_intervals(sp_c.means2d, sp_c.radii,
+                                                  ts))
+        iv_g = torch.stack(binning.tile_intervals(sp_g.means2d, sp_g.radii,
+                                                  ts)).cpu()
+        img_c = tile.render_tiled(*fields(small), cam, config=cfg)
+        img_g = tile.render_tiled(*fields(small.to(dev)), cam, config=cfg)
+        img_err = (img_g.cpu() - img_c).abs()
+    log("render_reference", n_gaussians=RENDER_REF_N, res=res, M=M,
+        tables_identical_on_identical_inputs=tables_same,
+        launches_on_card=ref_counts,
+        gaussians_whose_intervals_differ=int(
+            (iv_c != iv_g).any(dim=0).sum().item()),
+        img_mean_abs=img_err.mean().item(), img_max_abs=img_err.max().item(),
+        img_mean_tol=REF_IMG_MEAN_TOL)
+    if not (tables_same and ref_counts["k3"] == 1 and ref_counts["k4"] == 1):
+        fail("the card's tables differ from the CPU's on identical inputs")
+    if not img_err.mean().item() <= REF_IMG_MEAN_TOL:
+        fail("the card's large-cloud render disagrees with the CPU's")
+    del sp_c, sp_g, tab_c, tab_g, tab_s, small
+
+    # 19. render_cli: the functions under `render` and `orbit`
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cloud.bin")
+        gio.save_binary(path, clouds[0])
+        loaded = gio.load_binary(path)
+        cli.render(loaded, device=dev)                             # warmup
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        img = cli.render(loaded, device=dev)
+        torch.cuda.synchronize()
+        render_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        azimuths, views = cli.orbit(loaded, views=8, size=256, device=dev)
+        torch.cuda.synchronize()
+        orbit_ms = (time.perf_counter() - t0) * 1e3
+        path_launches["render_cli"] = read_counts(*counters)
+        # K3 and K1 at the shapes that path gave them, and its images
+        # against the table build that launches no K3.
+        on_card = loaded.to(dev)
+        cli_checks = {}
+        with torch.no_grad():
+            for label, c_cam, m_cli, shown in (
+                    [("render", Camera.from_pose(0.0, 0.0, 512, distance=2.0),
+                      512, img)]
+                    + [(f"orbit_az{int(az):03d}",
+                        Camera.from_pose(0.0, np.radians(az), 256,
+                                         distance=2.0), 256, v)
+                       for az, v in zip(azimuths, views)]):
+                c_cli = tile.TileRendererConfig(max_per_tile=m_cli)
+                chk = kernels_at_shapes(on_card, c_cam, c_cli)
+                before_k3 = binning.launches
+                via_masks = tile.render_tiled(
+                    *fields(on_card), c_cam,
+                    config=dataclasses.replace(c_cli, table_build="xla"))
+                chk["image_equals_mask_build"] = bool(
+                    torch.equal(shown, via_masks)
+                    and binning.launches == before_k3)
+                cli_checks[label] = chk
+        del on_card
+        cli_k1_err = max(c["k1_max_abs_err"] for c in cli_checks.values())
+        cli_ok = all(c["k3_bitwise_equal"] and c["image_equals_mask_build"]
+                     and c["k1_max_abs_err"] <= KERNEL_TOL
+                     for c in cli_checks.values())
+        good = (loaded.num_gaussians == n
+                and tuple(img.shape) == (3, 512, 512)
+                and tuple(views.shape) == (8, 3, 256, 256)
+                and bool(torch.isfinite(img).all())
+                and bool(torch.isfinite(views).all())
+                and img.max().item() > 0.1
+                and all(v.max().item() > 0.1 for v in views))
+        log("render_cli", n_gaussians=loaded.num_gaussians,
+            file_bytes=os.path.getsize(path), render_ms=render_ms,
+            render_shape=list(img.shape), render_mean=img.mean().item(),
+            orbit_views=len(azimuths), orbit_ms_per_view=orbit_ms / 8,
+            orbit_shape=list(views.shape),
+            orbit_means=[v.mean().item() for v in views],
+            launches=path_launches["render_cli"],
+            kernels_at_cli_shapes=cli_checks, k1_tol=KERNEL_TOL)
+        if not good:
+            fail("cli.render / cli.orbit gave a bad image")
+        if not cli_ok:
+            fail(f"a kernel disagrees with its plain version at the shapes "
+                 f"of cli.render / cli.orbit: {cli_checks}")
+        k1["max_abs_err"] = max(k1["max_abs_err"], cli_k1_err)
+        if path_launches["render_cli"] != dict(k1=9, k2=0, k3=9, k4=0):
+            fail(f"render + orbit launched {path_launches['render_cli']}")
+        del loaded, img, views
+
+    # 20. render_profile
+    n_prof = 2
+    with torch.no_grad():
+        prof = profile_ms(torch, lambda: [
+            tile.render_tiled(*fields(cl), cam, config=cfg)
+            for cl in clouds[:n_prof]], n_prof)
+    log("render_profile", renders=n_prof, wall_ms_per_render=prof["wall_ms"],
+        device_ms_per_render=prof["device_ms"],
+        device_busy_share=prof["device_busy_share"],
+        kernels_per_render=prof["kernels"],
+        top_kernels_ms_per_render=prof["top_kernels_ms"])
+    return k3, k4
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     sys.path.insert(0, HERE)
-    from fresnel_tpu_torch import cli, pipeline
+    from fresnel_tpu_torch import _build, cli, pipeline
     from fresnel_tpu_torch.core import io as gio
     from fresnel_tpu_torch.core.camera import Camera
     from fresnel_tpu_torch.models.decoders import head_transform
     from fresnel_tpu_torch.models.encoders import gradient_depth_estimate
-    from fresnel_tpu_torch.render import raster, tile
+    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
     from fresnel_tpu_torch.train import fit_teacher
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -209,9 +734,10 @@ def main():
         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0])
 
-    # 2. build, both kernels at once
+    # 2. build, all four kernels at once
+    counters = (raster, binning, stream_binning)
     t0 = time.perf_counter()
-    built = raster.build()
+    built = _build.build()
     log("build", seconds=time.perf_counter() - t0,
         libraries={k: os.path.relpath(p, HERE) for k, (p, _) in built.items()},
         ptxas={k: [ln.strip() for ln in out.splitlines()
@@ -270,7 +796,7 @@ def main():
     for img in images[:2]:                                   # warmup
         pipeline.image_to_3dgs(models, img, camera, device=dev)
     torch.cuda.synchronize()
-    raster.launches = raster.launches_bwd = 0
+    reset_counts(*counters)
     events = []
     outs = []
     t0 = time.perf_counter()
@@ -283,7 +809,7 @@ def main():
         events.append((start, end))
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / len(images) * 1e3
-    path_launches = {"image_to_3dgs": (raster.launches, raster.launches_bwd)}
+    path_launches = {"image_to_3dgs": read_counts(*counters)}
     e2e = [s.elapsed_time(e) for s, e in events]
     for pos, img in outs:
         if tuple(pos.shape) != (1, 5476, 3) or not torch.isfinite(pos).all():
@@ -291,11 +817,12 @@ def main():
         if tuple(img.shape) != (3, 512, 512) or not torch.isfinite(img).all() \
                 or img.min().item() < 0.0 or img.max().item() > 1.0:
             fail(f"bad image {tuple(img.shape)}")
-    if path_launches["image_to_3dgs"] != (len(images), 0):
+    if path_launches["image_to_3dgs"] != dict(k1=len(images), k2=0, k3=0,
+                                              k4=0):
         fail(f"kernels launched {path_launches['image_to_3dgs']} times in "
              f"{len(images)} calls")
     log("main_path", images=len(images),
-        launches=path_launches["image_to_3dgs"][0],
+        launches=path_launches["image_to_3dgs"]["k1"],
         e2e_ms_median=statistics.median(e2e), e2e_ms=e2e,
         host_ms_per_image=host_ms,
         image_mean=[o[1].mean().item() for o in outs],
@@ -476,7 +1003,7 @@ def main():
     fit_teacher.fit_scene(scene, depth, steps=5, **fit_kw)      # warmup
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    raster.launches = raster.launches_bwd = 0
+    reset_counts(*counters)
     start, end = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
     t0 = time.perf_counter()
@@ -486,7 +1013,7 @@ def main():
     end.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
-    path_launches["refine"] = (raster.launches, raster.launches_bwd)
+    path_launches["refine"] = read_counts(*counters)
     losses = metrics["losses"]
     log("refine_path", steps=REFINE_STEPS, config=REFINE,
         launches_k1=raster.launches, launches_k2=raster.launches_bwd,
@@ -497,7 +1024,8 @@ def main():
         loss_first=losses[0], loss_last=losses[-1],
         depth_offset=float(teacher["depth_offset"]),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    if path_launches["refine"] != (REFINE_STEPS + 1, REFINE_STEPS):
+    if path_launches["refine"] != dict(k1=REFINE_STEPS + 1, k2=REFINE_STEPS,
+                                       k3=0, k4=0):
         fail(f"refine launched K1, K2 {path_launches['refine']} times in "
              f"{REFINE_STEPS} steps")
     if len(losses) != REFINE_STEPS or not np.all(np.isfinite(losses)):
@@ -551,22 +1079,30 @@ def main():
         kernels_per_step=prof["kernels"],
         top_kernels_ms_per_step=prof["top_kernels_ms"])
 
+    # 14-20. the large-cloud render path (K3, K4, K1)
+    k3, k4 = render_phases(torch, dev, k1, path_launches)
+
     print(smi, flush=True)
-    total = {p: sum(v[i] for v in path_launches.values())
-             for i, p in enumerate(("k1", "k2"))}
+
+    def entry(key, name, replaces, numbers):
+        return {"name": name, "route": "cuda",
+                "source": f"fresnel_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces,
+                "launches": sum(v[key] for v in path_launches.values()),
+                "launches_by_path": {p: v[key]
+                                     for p, v in path_launches.items()},
+                **numbers, "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "raster_fwd", "route": "cuda",
-         "source": "fresnel_tpu_torch/csrc/raster_fwd.cu",
-         "replaces": "fresnel_tpu/render/pallas_raster.py:135",
-         "launches": total["k1"],
-         "launches_by_path": {p: v[0] for p, v in path_launches.items()},
-         **k1, "library_ms": None},
-        {"name": "raster_bwd", "route": "cuda",
-         "source": "fresnel_tpu_torch/csrc/raster_bwd.cu",
-         "replaces": "fresnel_tpu/render/pallas_raster.py:179",
-         "launches": total["k2"],
-         "launches_by_path": {p: v[1] for p, v in path_launches.items()},
-         **k2, "library_ms": None}]}), flush=True)
+        entry("k1", "raster_fwd", "fresnel_tpu/render/pallas_raster.py:135",
+              k1),
+        entry("k2", "raster_bwd", "fresnel_tpu/render/pallas_raster.py:179",
+              k2),
+        entry("k3", "bin_table", "fresnel_tpu/render/pallas_binning.py:44",
+              k3),
+        entry("k4", "bin_stream",
+              "fresnel_tpu/render/pallas_stream_binning.py:56", k4)]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -44,6 +45,29 @@ class GaussianCloud:
         return cls(positions=flat[..., 0:3], scales=flat[..., 3:6],
                    rotations=flat[..., 6:10], colors=flat[..., 10:13],
                    opacities=flat[..., 13])
+
+    def to(self, device) -> "GaussianCloud":
+        return GaussianCloud(*(getattr(self, f.name).to(device)
+                               for f in dataclasses.fields(self)))
+
+    @classmethod
+    def test_cloud(cls, n: int = 100, seed: int = 0, spread: float = 0.5,
+                   z_offset: float = -3.0, scale: float = 0.1
+                   ) -> "GaussianCloud":
+        """A random cloud in front of the default camera, on the CPU.  The
+        draws are numpy's, so the arrays equal the JAX package's
+        `test_cloud` bit for bit from the same seed."""
+        rng = np.random.default_rng(seed)
+        pos = rng.normal(size=(n, 3)).astype(np.float32) * spread
+        pos[:, 2] += z_offset
+        rots = np.zeros((n, 4), np.float32)
+        rots[:, 0] = 1.0
+        colors = rng.uniform(size=(n, 3)).astype(np.float32)
+        return cls(positions=torch.from_numpy(pos),
+                   scales=torch.full((n, 3), scale, dtype=torch.float32),
+                   rotations=torch.from_numpy(rots),
+                   colors=torch.from_numpy(colors),
+                   opacities=torch.full((n,), 0.8, dtype=torch.float32))
 
 
 def quaternion_normalize(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

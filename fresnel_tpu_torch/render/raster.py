@@ -2,9 +2,9 @@
 
 Counterpart of fresnel_tpu/render/pallas_raster.py.  The forward kernel
 (K1) is csrc/raster_fwd.cu, the backward kernel (K2, the analytic VJP) is
-csrc/raster_bwd.cu; both include csrc/raster_common.cuh.  Each is compiled
-with nvcc for sm_90a at first use into `build/` at the root of the
-checkout and bound through a plain C function loaded with ctypes.
+csrc/raster_bwd.cu; both include csrc/raster_common.cuh.  `_build` compiles
+each with nvcc for sm_90a at first use and binds its plain C function with
+ctypes.
 
 `composite_tiles_packed` goes through the autograd Function `_Composite`
 on both devices: for CUDA tensors its forward launches K1 and its backward
@@ -15,93 +15,20 @@ K2; for CPU tensors they run the plain versions `composite_tiles_plain` and
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from fresnel_tpu_torch import _build
 
 TS = 16
 PIX = TS * TS
 PACK = 12
 ALPHA_MAX = 0.99
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-KERNELS = ("raster_fwd", "raster_bwd")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
 launches = 0        # K1 launches
 launches_bwd = 0    # K2 launches
-_libs: Dict[str, ctypes.CDLL] = {}
-
-
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the compositing kernels")
-
-
-def _library(name: str) -> Path:
-    """Library path for kernel `name`; its name hashes every source under
-    csrc/ and the flags, so any edit is rebuilt."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
-        h.update(src.name.encode() + src.read_bytes())
-    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
-
-
-def build(names: Sequence[str] = KERNELS) -> Dict[str, Tuple[Path, str]]:
-    """Compile the kernels `names` into BUILD_DIR, one nvcc process each,
-    all started together; a library already built is reused.
-
-    Returns {name: (library path, compiler output: ptxas's registers,
-    shared memory and spills, empty when the library was already built)}."""
-    out: Dict[str, Tuple[Path, str]] = {}
-    procs = {}
-    for name in names:
-        lib = _library(name)
-        if lib.exists():
-            out[name] = (lib, "")
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, (lib, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu "
-                               f"({proc.returncode}):\n{log}")
-        os.replace(tmp, lib)
-        out[name] = (lib, log)
-    return out
-
-
-def _load(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        path, _ = build([name])[name]
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        n_ptr = 5 if name == "raster_fwd" else 9
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs[name]
 
 
 def _tile_grid(T: int, M: int, counts: torch.Tensor, n_tiles_x: int,
@@ -233,11 +160,6 @@ def _check_pixels(pack: torch.Tensor, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be on {pack.device}")
 
 
-def _stream(device) -> int:
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
-
-
 def _launch_fwd(pack: torch.Tensor, counts: torch.Tensor, n_tiles_x: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 on CUDA tensors."""
@@ -249,12 +171,9 @@ def _launch_fwd(pack: torch.Tensor, counts: torch.Tensor, n_tiles_x: int
     trans = torch.empty((T, PIX), dtype=torch.float32, device=pack.device)
     if T == 0:
         return color, depth, trans
-    err = _load("raster_fwd").raster_fwd(
-        pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
-        depth.data_ptr(), trans.data_ptr(), T, M, n_tiles_x,
-        _stream(pack.device))
-    if err != 0:
-        raise RuntimeError(f"raster_fwd launch failed with CUDA error {err}")
+    _build.launch("raster_fwd", pack.device,
+                  (pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
+                   depth.data_ptr(), trans.data_ptr()), (T, M, n_tiles_x))
     launches += 1
     return color, depth, trans
 
@@ -270,13 +189,11 @@ def _launch_bwd(pack, counts, n_tiles_x: int, color, depth, trans, g_color,
     grad = torch.empty_like(pack)
     if T == 0:
         return grad
-    err = _load("raster_bwd").raster_bwd(
-        pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
-        depth.data_ptr(), trans.data_ptr(), g_color.data_ptr(),
-        g_depth.data_ptr(), g_trans.data_ptr(), grad.data_ptr(), T, M,
-        n_tiles_x, _stream(pack.device))
-    if err != 0:
-        raise RuntimeError(f"raster_bwd launch failed with CUDA error {err}")
+    _build.launch("raster_bwd", pack.device,
+                  (pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
+                   depth.data_ptr(), trans.data_ptr(), g_color.data_ptr(),
+                   g_depth.data_ptr(), g_trans.data_ptr(), grad.data_ptr()),
+                  (T, M, n_tiles_x))
     launches_bwd += 1
     return grad
 

@@ -1,4 +1,4 @@
-"""The compositing kernels on the card against their plain versions.
+"""The CUDA kernels on the card against their plain versions.
 
 Needs an NVIDIA GPU and nvcc; skips without them.  It imports no JAX, so
 on a machine without JAX run it with `--noconftest`:
@@ -9,15 +9,20 @@ Kernels and plain versions differ only in summation order (sequential
 transmittance and suffix sums against the chunked cumprod / cumsum, a
 warp-shuffle tree against torch's sum over pixels), all in float32: K1 at
 atol 1e-5, K2 per field within BWD_TOL = 1e-4 of that field's largest
-plain value (chip_smoke.py's bound).
+plain value (chip_smoke.py's bound).  The binning kernels K3 and K4 are
+integer functions and are held bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from fresnel_tpu_torch import _build
 from fresnel_tpu_torch.core.camera import Camera
+from fresnel_tpu_torch.core.gaussians import GaussianCloud
+from fresnel_tpu_torch.render import binning
 from fresnel_tpu_torch.render import raster
+from fresnel_tpu_torch.render import stream_binning
 from fresnel_tpu_torch.render import tile
 
 pytestmark = pytest.mark.cuda
@@ -211,3 +216,140 @@ def test_fit_scene_on_card_takes_both_kernels(cuda):
                      max_per_tile=256, depth_offset_init=-0.13, device=cuda)
     assert raster.launches - f0 == 4 and raster.launches_bwd - b0 == 3
     assert np.all(np.isfinite(m["losses"]))
+
+
+def _sorted_inputs(n, width, height, seed):
+    """Depth-sorted means2d, radii, visible of a test cloud, on the CPU."""
+    cloud = GaussianCloud.test_cloud(n, seed=seed, spread=0.7, z_offset=-2.0,
+                                     scale=0.03)
+    cam = Camera.create(fx=0.8 * width, fy=0.8 * width, cx=width / 2,
+                        cy=height / 2, width=width, height=height,
+                        view=Camera.default_training(width).view)
+    sp = tile.project_sorted(cloud.positions, cloud.scales, cloud.rotations,
+                             cloud.colors, cloud.opacities, cam,
+                             tile.TileRendererConfig())
+    return sp.means2d, sp.radii, sp.visible
+
+
+BIN_SHAPES = [(20_000, 256, 256, 64), (12_345, 208, 112, 256)]
+
+
+@pytest.mark.parametrize("n,width,height,M", BIN_SHAPES)
+@pytest.mark.parametrize("groups", [1, 4])
+def test_rank_table_kernel_matches_plain(cuda, n, width, height, M, groups):
+    m2, rad, vis = _sorted_inputs(n, width, height, seed=n)
+    ntx, nty = -(-width // 16), -(-height // 16)
+    cxlo, cxhi, cylo, cyhi, vis, n2 = tile._padded_intervals(m2, rad, vis, 16)
+    bounds = [b.to(cuda) for b in (cxlo, torch.where(vis, cxhi, -1), cylo,
+                                   torch.where(vis, cyhi, -1))]
+    nty_g = -(-nty // groups)
+    for g in range(groups):
+        before = binning.launches
+        tab, cum = binning.build_rank_table(*bounds, ntx, nty_g, n2,
+                                            y_offset=g * nty_g)
+        torch.cuda.synchronize()
+        assert binning.launches == before + 1
+        ref_tab, ref_cum = binning.build_rank_table_plain(
+            *bounds, ntx, nty_g, n2, y_offset=g * nty_g)
+        assert tab.is_cuda and tab.dtype == torch.bfloat16
+        assert torch.equal(tab, ref_tab) and torch.equal(cum, ref_cum)
+    # The search over the kernel's tables on the card equals the CPU's.
+    got = tile._bin_gaussians_search(m2.to(cuda), rad.to(cuda),
+                                     vis[:n].to(cuda), ntx, nty, 16, M,
+                                     groups=groups)
+    ref = tile._bin_gaussians_search(m2, rad, vis[:n], ntx, nty, 16, M,
+                                     groups=groups)
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert torch.equal(got[1].cpu(), ref[1])
+
+
+@pytest.mark.parametrize("n,width,height,M", BIN_SHAPES)
+def test_stream_kernel_matches_plain(cuda, n, width, height, M):
+    m2, rad, vis = (a.to(cuda) for a in _sorted_inputs(n, width, height,
+                                                        seed=n + 1))
+    ntx, nty = -(-width // 16), -(-height // 16)
+    before = stream_binning.launches
+    ti, tv = stream_binning.bin_gaussians_stream(m2, rad, vis, ntx, nty, 16, M)
+    ti2, tv2 = stream_binning.bin_gaussians_stream(m2, rad, vis, ntx, nty,
+                                                   16, M)
+    torch.cuda.synchronize()
+    assert stream_binning.launches == before + 2
+    assert ti.is_cuda and ti.dtype == torch.int32 and tv.dtype == torch.bool
+    assert torch.equal(ti, ti2) and torch.equal(tv, tv2)
+    ri, rv = stream_binning.bin_gaussians_stream_plain(m2, rad, vis, ntx, nty,
+                                                       16, M)
+    assert torch.equal(tv, rv) and torch.equal(ti, ri)
+    si, sv = tile._bin_gaussians_search(m2, rad, vis, ntx, nty, 16, M)
+    assert torch.equal(tv, sv) and torch.equal(ti, si)
+    assert tv.all(dim=1).any() and not tv.all(), \
+        "the case should fill some tiles and not others"
+
+
+def test_binning_on_cpu_tensors_launches_no_kernel(cuda):
+    m2, rad, vis = _sorted_inputs(3000, 128, 128, seed=0)
+    before = (binning.launches, stream_binning.launches, raster.launches)
+    tile._bin_gaussians_search(m2, rad, vis, 8, 8, 16, 64)
+    stream_binning.bin_gaussians_stream(m2, rad, vis, 8, 8, 16, 64)
+    assert (binning.launches, stream_binning.launches,
+            raster.launches) == before
+
+
+def test_binning_wrappers_reject_bad_inputs(cuda):
+    v = torch.zeros(256, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        binning.build_rank_table(v.long(), v, v, v, 2, 2, 256)
+    with pytest.raises(ValueError):
+        binning.build_rank_table(v, v, v, v[:128], 2, 2, 256)
+    with pytest.raises(ValueError):
+        binning.build_rank_table(v, v, v, v.cpu(), 2, 2, 256)
+    with pytest.raises(ValueError):
+        stream_binning._launch(torch.zeros((8, 4), device=cuda), 2, 2, 32)
+    with pytest.raises(ValueError):
+        stream_binning._launch(
+            torch.zeros((8, 8), dtype=torch.int32, device=cuda)[:, :4], 2, 2,
+            32)
+
+
+@pytest.mark.parametrize("name", ["bin_table", "bin_stream"])
+def test_broken_build_raises_on_cuda_tensors(cuda, name, monkeypatch,
+                                             tmp_path):
+    """A kernel that does not build raises; nothing falls back to the
+    plain version."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / f"{name}.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    m2, rad, vis = (a.to(cuda) for a in _sorted_inputs(500, 64, 64, seed=3))
+    before = (binning.launches, stream_binning.launches)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        if name == "bin_table":
+            tile._bin_gaussians_search(m2, rad, vis, 4, 4, 16, 32)
+        else:
+            stream_binning.bin_gaussians_stream(m2, rad, vis, 4, 4, 16, 32)
+    assert (binning.launches, stream_binning.launches) == before
+
+
+@pytest.mark.parametrize("binning_name,counter", [
+    ("auto", "search"), ("stream", "stream")])
+def test_large_cloud_render_takes_binning_kernel(cuda, binning_name, counter):
+    """120 000 Gaussians (past the "auto" threshold): the default config
+    launches K3 and K1, binning="stream" K4 and K1; both images equal."""
+    cloud = GaussianCloud.test_cloud(120_000, seed=0, spread=0.8,
+                                     z_offset=-2.0, scale=0.02).to(cuda)
+    cam = Camera.default_training(256)
+    args = (cloud.positions, cloud.scales, cloud.rotations, cloud.colors,
+            cloud.opacities, cam)
+    before = (binning.launches, stream_binning.launches, raster.launches)
+    with torch.no_grad():
+        img = tile.render_tiled(*args, config=tile.TileRendererConfig(
+            binning=binning_name))
+        ref = tile.render_tiled(*args, config=tile.TileRendererConfig(
+            binning="search", table_build="xla"))
+    torch.cuda.synchronize()
+    after = (binning.launches, stream_binning.launches, raster.launches)
+    assert after[2] - before[2] == 2
+    assert after[0] - before[0] == (1 if counter == "search" else 0)
+    assert after[1] - before[1] == (1 if counter == "stream" else 0)
+    assert torch.equal(img, ref) and img.max() > 0.1

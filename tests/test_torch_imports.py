@@ -81,3 +81,12 @@ class TestDevice:
         from fresnel_tpu_torch.cli import refine
         with pytest.raises(RuntimeError, match="CUDA"):
             refine(np.zeros((16, 16, 3), np.float32), steps=1)
+
+    def test_render_and_orbit_raise_without_cuda(self):
+        from fresnel_tpu_torch.cli import orbit, render
+        from fresnel_tpu_torch.core.gaussians import GaussianCloud
+        cloud = GaussianCloud.test_cloud(4)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            render(cloud, size=16)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            orbit(cloud, views=1, size=16)

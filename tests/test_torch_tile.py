@@ -171,10 +171,6 @@ class TestCompositor:
 
 class TestNotPorted:
     @pytest.mark.parametrize("cfg", [
-        tt.TileRendererConfig(binning="search"),
-        tt.TileRendererConfig(binning="stream"),
-        tt.TileRendererConfig(binning="rows"),
-        tt.TileRendererConfig(binning="chunked"),
         tt.TileRendererConfig(depth_sort="counting"),
         tt.TileRendererConfig(tile_size=8),
         tt.TileRendererConfig(hard_cutoff=False),
@@ -193,7 +189,3 @@ class TestNotPorted:
                             phases=torch.zeros(5),
                             config=tt.TileRendererConfig(
                                 use_phase_blending=True))
-
-    def test_auto_binning_past_search_threshold_raises(self):
-        with pytest.raises(NotImplementedError):
-            tt._check_supported(tt.TileRendererConfig(), 98304, None)
