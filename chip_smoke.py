@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab ROOT [ROOT ...]
 
 Three main paths run through the entry points a user calls:
 `pipeline.image_to_3dgs` (image -> 3DGS, bench.py's path),
@@ -16,8 +17,16 @@ non-zero:
                   ptxas's registers, shared memory and spills;
    3. kernel      K1 against its plain PyTorch version at the image->3DGS
                   path's shapes (the pack of a decoded 5 476-Gaussian cloud,
-                  T = 1024 tiles, M = 256), max abs error <= 1e-5, and the
-                  median time of each over >= 20 launches (CUDA events);
+                  T = 1024 tiles, M = 256), max abs error <= 1e-5; K1's
+                  device time (50 calls back to back behind a sleep that
+                  hides the host's time) and its time per call (CUDA
+                  events), the plain version's per call;
+                  the pack's count distribution, the segment length the
+                  kernels choose, the (tile, segment) units, the blocks
+                  launched and the bytes of the segment scratch; the
+                  bound from the pixel-slot pairs inside the slots' boxes
+                  (the rest is exactly 0), the count over all pairs beside
+                  it;
    4. main_path   image_to_3dgs at full width (ViT-S/14 x 2 at 518^2 in bf16,
                   decoder K = 4, 512^2 render) over 8 distinct images after
                   warmup, with the launch counts reset just before and read
@@ -31,8 +40,12 @@ non-zero:
                   (the pack of the full-width refine init: grid 37, K 4,
                   5 476 Gaussians, 256^2, M = 1024) with cotangents from a
                   seed: per field, max abs error <= 1e-4 of that field's
-                  largest plain value; K1 on that pack too, max abs error
-                  <= 1e-5; median times; occupancy; bound;
+                  largest plain value, bit for bit from run to run; K1 on
+                  that pack too, max abs error <= 1e-5, timed as the
+                  refine step launches it (leaving the segment prefixes);
+                  K2 handed K1's prefixes (as the refine step launches it)
+                  and called alone (it recomputes them), bit for bit
+                  equal; median times; units; bound;
    9. refine_grad the refine loss and the gradient of {raw, depth_offset} at
                   that init on the card (K1 + K2) against the CPU (plain
                   versions), float32, and the card against itself;
@@ -72,8 +85,10 @@ non-zero:
                   binning="stream" (K4 + K1), launch counts reset just
                   before and read just after each; images of the two equal
                   bit for bit, finite, in [0, 1], not all background;
-                  overflow telemetry; stage times; K1 against its plain
-                  version on this path's pack; peak device memory;
+                  overflow telemetry; stage times; K1, and K2 with
+                  cotangents from a seed, against their plain versions on
+                  this path's pack (T = 1024, M = 256), K2 by both routes;
+                  peak device memory;
   18. render_reference  the render at 120 000 Gaussians on the card and on
                   the CPU: tables identical on identical sorted inputs,
                   image within a mean absolute error of 1e-4;
@@ -91,11 +106,24 @@ non-zero:
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
+With `--ab`, each ROOT is a checkout of this repository (a parent commit
+unpacked with `git archive` into a git-ignored directory, or `.`), given
+in turns (`.archive/parent . . .archive/parent`) so that drift on the card
+shows.  For each root in order, a subprocess imports that checkout's
+`fresnel_tpu_torch` (building its compositing kernels into its `build/`),
+builds this script's image, refine and render packs with it, and times
+through the public functions every version has: K1 at all three, K2 with
+cotangents from a seed and K1 + K2 through autograd (a refine step's pair)
+at the refine and render packs.  Each as `ms` on the device, `call_ms` per
+call and the device ms of each kernel by name (torch.profiler), with
+ptxas's registers and spills; one JSON line per root.
+
 Imports torch, numpy and fresnel_tpu_torch only.
 """
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -108,10 +136,14 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_IMAGES = 8
 N_TIMED = 30
+# ~20 ms of device sleep at the H100's clocks: longer than the host takes to
+# queue 50 calls of a compositing kernel's wrapper.
+SLEEP_CYCLES = 40_000_000
 KERNEL_TOL = 1e-5
 # K2 per field, relative to the field's largest plain value: the kernel and
 # the plain version differ in summation order only (sequential suffix sums
-# and a shuffle tree against cumsum and torch.sum), in float32.
+# from each segment's prefix and a shuffle tree against cumsum and
+# torch.sum), in float32.
 KERNEL_BWD_TOL = 1e-4
 REF_POS_TOL = 1e-4
 REF_IMG_MEAN_TOL = 1e-4
@@ -136,7 +168,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # One pixel-Gaussian evaluation in K1: offsets, quadratic form, box test,
 # alpha, weights, four sums and the transmittance update (~20 FLOP) and one
-# exp.
+# exp.  Counted for the pixels inside the slot's box only: outside it every
+# term is exactly 0.
 OPS_PER_EVAL = 21
 # One pixel-slot evaluation in K2 (counted from csrc/raster_bwd.cu): K1's
 # alpha (~17), the weight and four suffix updates (9), the clamp and
@@ -144,7 +177,12 @@ OPS_PER_EVAL = 21
 # terms (~26), the transmittance update (2) and ten adds of the reduction
 # over the tile's pixels (10).
 OPS_PER_EVAL_BWD = 90
+# Per slot of a tile, the pixels its box covers: mx +- r, my +- r, each
+# rounded to a pixel.
+OPS_PER_SLOT_BOX = 8
 PACK_BYTES = 12 * 4
+PIX_F = 256             # pixels per tile
+FIELDS = ("positions", "scales", "rotations", "colors", "opacities")
 # The render path at full width: the configuration of the JAX package's
 # experiments/bench_stream_binning.py.
 RENDER = dict(n=1_000_000, res=512, max_per_tile=256, spread=0.8,
@@ -177,6 +215,40 @@ def cuda_median_ms(torch, fn, n=N_TIMED, warmup=3):
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def device_ms(torch, fn, n=50, reps=5):
+    """Device ms of one call of fn: n calls back to back behind a sleep that
+    keeps the card busy while the host queues them, so the host's time per
+    call (Python, allocation, launch) is hidden; the median over `reps`
+    such runs.  Also whether the host finished queueing before the sleep
+    ended in every run (else the host's time leaks in)."""
+    fn()
+    torch.cuda.synchronize()
+    per_call, hidden = [], True
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        hidden &= host_ms < ev[0].elapsed_time(ev[1])
+        per_call.append(ev[1].elapsed_time(ev[2]) / n)
+    return statistics.median(per_call), hidden
+
+
+def kernel_times(torch, fn):
+    """A compositing kernel's time two ways: `ms` on the device (device_ms)
+    and `call_ms`, CUDA events around each call (cuda_median_ms), which
+    holds the host's time per call whenever that exceeds the kernel's."""
+    ms, hidden = device_ms(torch, fn)
+    return dict(ms=ms, call_ms=cuda_median_ms(torch, fn),
+                host_time_hidden=hidden)
 
 
 def bound(bytes_moved, ops):
@@ -250,6 +322,103 @@ def max_abs_diff(torch, a, b, rows=64):
     return worst
 
 
+def pack_stats(torch, raster, pack, counts, ntx):
+    """A pack's count distribution, the (tile, segment) units K1 and K2 run
+    for it (the segment length L they choose, the units, the blocks
+    launched, the tiles that need a fold, the heaviest unit's slots, the
+    scratch bytes) and the pixel-slot pairs inside the slots' boxes (the
+    rest K1 skips, and K2 where a whole warp is outside)."""
+    T, M = pack.shape[:2]
+    resident = raster.resident_blocks(pack.device.index)
+    L = raster.segment_length(counts, M, resident)
+    c = counts.long()
+    pix = torch.arange(raster.PIX, device=pack.device)
+    pairs_in = warps_in = 0
+    for t0 in range(0, T, 64):
+        t = torch.arange(t0, min(T, t0 + 64), device=pack.device)[:, None]
+        g = pack[t0:t0 + 64]
+        r = g[..., 5, None]
+        px = (t % ntx * 16 + pix % 16).float()[:, None, :]
+        py = (t // ntx * 16 + pix // 16).float()[:, None, :]
+        inside = (((px - g[..., 0, None]).abs() <= r)
+                  & ((py - g[..., 1, None]).abs() <= r)
+                  & (torch.arange(M, device=pack.device)
+                     < counts[t0:t0 + 64, None])[..., None])
+        pairs_in += int(inside.sum().item())
+        warps_in += int(inside.view(*inside.shape[:2], -1, 32).any(-1).sum()
+                        .item())
+    occupied = max(1, int(c.sum().item()))
+    n_seg = (c + L - 1) // L
+    return dict(counts_max=int(c.max().item()),
+                counts_median=c.float().median().item(),
+                counts_p99=torch.quantile(c.float(), 0.99).item(),
+                tiles_at_cap=int((c == M).sum().item()), seg=raster.SEG,
+                segment_length=L, units=int(n_seg.sum().item()),
+                blocks_launched=min(max(resident, T),
+                                    T * max(1, -(-M // raster.SEG))),
+                merged_tiles=int((n_seg > 1).sum().item()),
+                heaviest_unit_slots=min(int(c.max().item()), L),
+                scratch_bytes=(math.prod(raster.scratch_shape(T, M)) * 4
+                               + T * 4),
+                box_pixel_pairs=pairs_in,
+                box_pixel_share=pairs_in / (occupied * raster.PIX),
+                box_warp_share=warps_in / (occupied * raster.PIX // 32))
+
+
+def compositing_bounds(stats, T, M, occupied):
+    """The bounds of K1 and K2 on a pack: the bytes the function moves and
+    the operations it does on the pixel-slot pairs inside the slots' boxes
+    (plus each slot's box), beside the count over all pairs
+    (`all_pairs_ops`: every pair, as if no term were 0)."""
+    box_ops = occupied * OPS_PER_SLOT_BOX
+    out = {}
+    for name, per_pair, bytes_moved in (
+            ("k1", OPS_PER_EVAL,
+             occupied * PACK_BYTES + T * 4 + T * PIX_F * 5 * 4),
+            ("k2", OPS_PER_EVAL_BWD,
+             occupied * PACK_BYTES + T * 4 + T * PIX_F * 10 * 4
+             + T * M * PACK_BYTES)):
+        ms, by, work = bound(bytes_moved,
+                             stats["box_pixel_pairs"] * per_pair + box_ops)
+        all_pairs = occupied * PIX_F * per_pair
+        out[name] = dict(**work, bound_ms=ms, bound_by=by,
+                         all_pairs_ops=all_pairs,
+                         all_pairs_bound_ms=bound(bytes_moved, all_pairs)[0])
+    return out
+
+
+def k2_routes(torch, raster, pack, counts, ntx, fwd, cots):
+    """K2 handed K1's segment prefixes (as the refine step launches it) and
+    called alone (it recomputes them): whether both give the same bits, and
+    each one's times."""
+    with torch.no_grad():
+        prefix = raster._launch_fwd(pack, counts, ntx, keep_prefix=True)[3]
+        alone = raster.composite_tiles_bwd(pack, counts, ntx, *fwd, *cots)
+        handed = raster._launch_bwd(pack, counts, ntx, *fwd, *cots,
+                                    prefix=prefix)
+        return dict(routes_bitwise_equal=bool(torch.equal(alone, handed)),
+                    handed=kernel_times(torch, lambda: raster._launch_bwd(
+                        pack, counts, ntx, *fwd, *cots, prefix=prefix)),
+                    alone=kernel_times(
+                        torch, lambda: raster.composite_tiles_bwd(
+                            pack, counts, ntx, *fwd, *cots)))
+
+
+BWD_FIELDS = ("mx", "my", "ca", "cb", "cc", "radius", "R", "G", "B",
+              "opacity", "depth", "pad")
+
+
+def bwd_errors(got, ref):
+    """Per field of K2's gradient: max abs error, the plain version's
+    largest value, and their ratio (the error the tolerance holds)."""
+    scale = {f: ref[..., i].abs().max().item()
+             for i, f in enumerate(BWD_FIELDS)}
+    err = {f: (got[..., i] - ref[..., i]).abs().max().item()
+           for i, f in enumerate(BWD_FIELDS)}
+    rel = {f: err[f] / scale[f] if scale[f] else err[f] for f in BWD_FIELDS}
+    return err, scale, rel
+
+
 def tables_equal(torch, a, b):
     """Two (tile_indices, tile_valid) tables: same validity, same live
     entries, and the same dead entries (index 0)."""
@@ -260,13 +429,67 @@ def tables_equal(torch, a, b):
                 and torch.equal(ai, bi))
 
 
-def render_phases(torch, dev, k1, path_launches):
+def fields(cloud):
+    return tuple(getattr(cloud, k) for k in FIELDS)
+
+
+def render_cloud(seed, count=RENDER["n"]):
+    """A cloud of the render path's configuration, on the CPU."""
+    from fresnel_tpu_torch.core.gaussians import GaussianCloud
+
+    return GaussianCloud.test_cloud(
+        count, seed=seed, spread=RENDER["spread"],
+        z_offset=RENDER["z_offset"], scale=RENDER["scale"])
+
+
+def decoded_pack(torch, models, image):
+    """The image->3DGS path's TilePack of one image (the decoded cloud under
+    the path's camera), and the number of decoded Gaussians."""
+    from fresnel_tpu_torch import pipeline
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.render import tile
+
+    with torch.no_grad():
+        x = pipeline.resize_to_model(image)
+        out = models.decoder(models.dino(x), models.depth(x))
+        tp = tile.pack_tiles(*[out[k][0] for k in FIELDS],
+                             Camera.default_training(pipeline.RENDER_SIZE))
+    return tp, int(out["positions"].shape[1])
+
+
+def refine_init(torch, dev):
+    """The refine path at full width from seed 0: (scene, depth, camera,
+    config, the initial raw parameters, the init's TilePack)."""
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.models.decoders import head_transform
+    from fresnel_tpu_torch.models.encoders import gradient_depth_estimate
+    from fresnel_tpu_torch.render import tile
+    from fresnel_tpu_torch.train import fit_teacher
+
+    scene = smooth_image(REFINE["res"], 0)
+    depth = gradient_depth_estimate(
+        torch.from_numpy(scene.transpose(1, 2, 0).copy()).to(dev),
+        REFINE["res"]).cpu().numpy()
+    cam = Camera.default_training(REFINE["res"])
+    cfg = tile.TileRendererConfig(max_per_tile=REFINE["max_per_tile"])
+    raw0 = fit_teacher.init_raw(scene, depth, cam, grid=REFINE["grid"],
+                                K=REFINE["K"])
+    with torch.no_grad():
+        head = head_transform(torch.from_numpy(raw0).to(dev),
+                              torch.from_numpy(depth).to(dev)[None],
+                              torch.tensor(REFINE["depth_offset_init"],
+                                           device=dev))
+        tp = tile.pack_tiles(*[head[k][0] for k in FIELDS], cam.to(dev), cfg)
+    return scene, depth, cam, cfg, raw0, tp
+
+
+def render_phases(torch, dev, k1, k2, path_launches):
     """Phases 14-20: the large-cloud render path.  Returns the kernel-table
-    entries of K3 and K4."""
+    entries of K3 and K4 (and raises K1's and K2's errors to what this
+    path's pack showed)."""
     from fresnel_tpu_torch import cli
     from fresnel_tpu_torch.core import io as gio
     from fresnel_tpu_torch.core.camera import Camera
-    from fresnel_tpu_torch.core.gaussians import GaussianCloud
     from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
 
     counters = (raster, binning, stream_binning)
@@ -277,14 +500,6 @@ def render_phases(torch, dev, k1, path_launches):
     cam = Camera.default_training(res)
     cfg = tile.TileRendererConfig(max_per_tile=M)
     cfg_stream = tile.TileRendererConfig(max_per_tile=M, binning="stream")
-
-    def cloud_of(seed, count=n):
-        return GaussianCloud.test_cloud(
-            count, seed=seed, spread=RENDER["spread"],
-            z_offset=RENDER["z_offset"], scale=RENDER["scale"])
-
-    def fields(c):
-        return (c.positions, c.scales, c.rotations, c.colors, c.opacities)
 
     def kernels_at_shapes(cl, camera, c):
         """K3 and K1 against their plain versions on what `render_tiled`
@@ -321,7 +536,7 @@ def render_phases(torch, dev, k1, path_launches):
 
     # 14. kernel_table (K3) at full width
     with torch.no_grad():
-        sp = tile.project_sorted(*fields(cloud_of(0).to(dev)), cam, cfg)
+        sp = tile.project_sorted(*fields(render_cloud(0).to(dev)), cam, cfg)
         cxlo, cxhi, cylo, cyhi, vis, n2 = tile._padded_intervals(
             sp.means2d, sp.radii, sp.visible, ts)
         bounds = (cxlo, torch.where(vis, cxhi, -1), cylo,
@@ -441,8 +656,8 @@ def render_phases(torch, dev, k1, path_launches):
 
     # 16. binnings_agree at 200 000 Gaussians
     with torch.no_grad():
-        sp = tile.project_sorted(*fields(cloud_of(1, AGREE_N).to(dev)), cam,
-                                 cfg)
+        sp = tile.project_sorted(
+            *fields(render_cloud(1, AGREE_N).to(dev)), cam, cfg)
         a = (sp.means2d, sp.radii, sp.visible, ntx, nty, ts, M)
         ref = tile._bin_gaussians(*a)
         _, _, cylo, cyhi = binning.tile_intervals(sp.means2d, sp.radii, ts)
@@ -480,7 +695,7 @@ def render_phases(torch, dev, k1, path_launches):
     del sp, a, ref, rows_auto, fit
 
     # 17. render_path: render_tiled at full width, both binning kernels
-    clouds = [cloud_of(10 + i).to(dev) for i in range(RENDER_CLOUDS)]
+    clouds = [render_cloud(10 + i).to(dev) for i in range(RENDER_CLOUDS)]
     results = {}
     with torch.no_grad():
         for name, c in (("search", cfg), ("stream", cfg_stream)):
@@ -533,17 +748,30 @@ def render_phases(torch, dev, k1, path_launches):
         fwd_ref = raster.composite_tiles_plain(pack, counts, ntx)
         k1_errs = {nm: (g - r).abs().max().item() for nm, g, r in zip(
             ("color", "depth", "transmittance"), fwd, fwd_ref)}
-        k1_ms = cuda_median_ms(torch, lambda: raster.composite_tiles_packed(
+        k1_t = kernel_times(torch, lambda: raster.composite_tiles_packed(
             pack, counts, ntx))
         k1_plain_ms = cuda_median_ms(
             torch, lambda: raster.composite_tiles_plain(pack, counts, ntx),
             n=10)
         occupied = int(counts.sum().item())
-        k1_bound_ms, k1_bound_by, _ = bound(
-            occupied * PACK_BYTES + T * 4 + T * raster.PIX * 5 * 4,
-            occupied * raster.PIX * OPS_PER_EVAL)
-        tiles_at_cap = int((counts == M).sum().item())
-        del sp, idx, valid, pack, counts, fwd, fwd_ref
+        stats = pack_stats(torch, raster, pack, counts, ntx)
+        bounds_r = compositing_bounds(stats, T, M, occupied)
+        # K2 at this pack, the other shape the training slice gives it.
+        crng = np.random.default_rng(2)
+        cots = [torch.from_numpy(crng.normal(size=tuple(o.shape)).astype(
+            np.float32)).to(dev) for o in fwd]
+        k2_got = raster.composite_tiles_bwd(pack, counts, ntx, *fwd, *cots)
+        k2_again = raster.composite_tiles_bwd(pack, counts, ntx, *fwd, *cots)
+        k2_ref = raster.composite_tiles_bwd_plain(pack, counts, ntx, *fwd,
+                                                  *cots)
+        k2_err, _, k2_rel = bwd_errors(k2_got, k2_ref)
+        k2_repeat = bool(torch.equal(k2_got, k2_again))
+        k2_plain_ms = cuda_median_ms(
+            torch, lambda: raster.composite_tiles_bwd_plain(
+                pack, counts, ntx, *fwd, *cots), n=5, warmup=1)
+        routes = k2_routes(torch, raster, pack, counts, ntx, fwd, cots)
+        del sp, idx, valid, pack, counts, fwd, fwd_ref, cots, k2_got
+        del k2_again, k2_ref
     same = all(torch.equal(a_, b_) for a_, b_ in zip(
         results["search"]["images"], results["stream"]["images"]))
     imgs = results["search"]["images"]
@@ -563,11 +791,18 @@ def render_phases(torch, dev, k1, path_launches):
         image_mean=[i.mean().item() for i in imgs],
         overflow_dropped_total_tiles_max=results["search"]["overflow"],
         peak_mem_gb={k: v["peak_mem_gb"] for k, v in results.items()},
+        pack_stats=stats,
         k1_at_render_shapes=dict(max_abs_err=k1_errs, tol=KERNEL_TOL,
-                                 ms=k1_ms, plain_ms=k1_plain_ms,
-                                 bound_ms=k1_bound_ms, bound_by=k1_bound_by,
-                                 occupied_slots=occupied,
-                                 tiles_at_cap=tiles_at_cap))
+                                 **k1_t, plain_ms=k1_plain_ms,
+                                 occupied_slots=occupied, **bounds_r["k1"]),
+        k2_at_render_shapes=dict(max_abs_err=k2_err, rel_err=k2_rel,
+                                 tol=KERNEL_BWD_TOL,
+                                 repeat_bitwise_equal=k2_repeat,
+                                 **routes["alone"], plain_ms=k2_plain_ms,
+                                 handed=routes["handed"],
+                                 routes_bitwise_equal=routes[
+                                     "routes_bitwise_equal"],
+                                 **bounds_r["k2"]))
     want = {"render_search": dict(k1=len(clouds), k2=0, k3=len(clouds), k4=0),
             "render_stream": dict(k1=len(clouds), k2=0, k3=0, k4=len(clouds))}
     for k, v in want.items():
@@ -577,15 +812,21 @@ def render_phases(torch, dev, k1, path_launches):
         fail("the full-width renders are not finite, equal images in [0, 1]")
     if results["search"]["overflow"] != results["stream"]["overflow"]:
         fail("overflow telemetry differs between the binnings")
-    if not max(k1_errs.values()) <= KERNEL_TOL:
+    k1_err = max(k1_errs.values())
+    if not k1_err <= KERNEL_TOL:
         fail(f"K1 disagrees with its plain version at the render shapes: "
              f"{k1_errs}")
-    k1["max_abs_err"] = max(k1["max_abs_err"], max(k1_errs.values()))
+    if not (max(k2_rel.values()) <= KERNEL_BWD_TOL and k2_repeat
+            and routes["routes_bitwise_equal"]):
+        fail(f"K2 disagrees with its plain version at the render shapes, "
+             f"across its routes or from run to run: {k2_rel}")
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
+    k2["max_abs_err"] = max(k2["max_abs_err"], max(k2_err.values()))
     del results, imgs
 
     # 18. render_reference: 120 000 Gaussians on the card and on the CPU
     with torch.no_grad():
-        small = cloud_of(2, RENDER_REF_N)
+        small = render_cloud(2, RENDER_REF_N)
         sp_c = tile.project_sorted(*fields(small), cam, cfg)
         tab_c = tile.bin_tiles(sp_c.means2d, sp_c.radii, sp_c.visible, ntx,
                                nty, M, cfg)
@@ -713,8 +954,6 @@ def main():
     from fresnel_tpu_torch import _build, cli, pipeline
     from fresnel_tpu_torch.core import io as gio
     from fresnel_tpu_torch.core.camera import Camera
-    from fresnel_tpu_torch.models.decoders import head_transform
-    from fresnel_tpu_torch.models.encoders import gradient_depth_estimate
     from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
     from fresnel_tpu_torch.train import fit_teacher
 
@@ -750,12 +989,7 @@ def main():
         np.float32)).to(dev) for _ in range(N_IMAGES)]
     camera = Camera.default_training(pipeline.RENDER_SIZE)
     models = pipeline.build_models(seed=0, device=dev)
-    with torch.no_grad():
-        x = pipeline.resize_to_model(images[0])
-        out = models.decoder(models.dino(x), models.depth(x))
-        args = [out[k][0] for k in
-                ("positions", "scales", "rotations", "colors", "opacities")]
-        tp = tile.pack_tiles(*args, camera)
+    tp, n_decoded = decoded_pack(torch, models, images[0])
     pack, counts = tp.pack, tp.counts
     T, M, _ = pack.shape
     with torch.no_grad():
@@ -767,7 +1001,7 @@ def main():
                                   got, ref)}
     max_err = max(errs.values())
     with torch.no_grad():
-        kernel_ms = cuda_median_ms(
+        k1_t = kernel_times(
             torch, lambda: raster.composite_tiles_packed(pack, counts,
                                                          tp.n_tiles_x))
         plain_ms = cuda_median_ms(
@@ -776,21 +1010,18 @@ def main():
     occupied = int(counts.sum().item())
     totals = tile._tile_totals(tp.means2d, tp.radii, tp.visible,
                                tp.n_tiles_x, tp.n_tiles_y, 16)
-    bound_ms, bound_by, work = bound(
-        occupied * PACK_BYTES + T * 4 + T * raster.PIX * 5 * 4,
-        occupied * raster.PIX * OPS_PER_EVAL)
-    log("kernel", name="raster_fwd", T=T, M=M, n_gaussians=int(args[0].shape[0]),
-        max_abs_err=errs, tol=KERNEL_TOL, ms=kernel_ms, plain_ms=plain_ms,
-        occupied_slots=occupied, counts_mean=occupied / T,
-        counts_max=int(counts.max().item()),
-        tiles_at_cap=int((counts == M).sum().item()),
+    stats = pack_stats(torch, raster, pack, counts, tp.n_tiles_x)
+    b1 = compositing_bounds(stats, T, M, occupied)["k1"]
+    log("kernel", name="raster_fwd", T=T, M=M, n_gaussians=n_decoded,
+        max_abs_err=errs, tol=KERNEL_TOL, **k1_t, plain_ms=plain_ms,
+        occupied_slots=occupied, counts_mean=occupied / T, **stats,
         total_pairs=int(totals.sum().item()),
         dropped_pairs=int(torch.clamp(totals - M, min=0).sum().item()),
-        **work, bound_ms=bound_ms, bound_by=bound_by)
+        **b1)
     if not max_err <= KERNEL_TOL:
         fail(f"kernel disagrees with its plain version: {errs}")
-    k1 = dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-              bound_ms=bound_ms, bound_by=bound_by)
+    k1 = dict(max_abs_err=max_err, ms=k1_t["ms"], plain_ms=plain_ms,
+              bound_ms=b1["bound_ms"], bound_by=b1["bound_by"])
 
     # 4. main path, through the entry point a user calls
     for img in images[:2]:                                   # warmup
@@ -886,24 +1117,10 @@ def main():
     del models
 
     # 8. kernel_bwd (K2), at the refine path's shapes: the full-width init
-    scene = smooth_image(REFINE["res"], 0)
-    depth = gradient_depth_estimate(
-        torch.from_numpy(scene.transpose(1, 2, 0).copy()).to(dev),
-        REFINE["res"]).cpu().numpy()
-    cam_r = Camera.default_training(REFINE["res"])
-    cfg_r = tile.TileRendererConfig(max_per_tile=REFINE["max_per_tile"])
-    raw0 = fit_teacher.init_raw(scene, depth, cam_r, grid=REFINE["grid"],
-                                K=REFINE["K"])
+    scene, depth, cam_r, cfg_r, raw0, tp = refine_init(torch, dev)
+    pack, counts = tp.pack, tp.counts
+    T, M, _ = pack.shape
     with torch.no_grad():
-        hout = head_transform(torch.from_numpy(raw0).to(dev),
-                              torch.from_numpy(depth).to(dev)[None],
-                              torch.tensor(REFINE["depth_offset_init"],
-                                           device=dev))
-        tp = tile.pack_tiles(*[hout[k][0] for k in (
-            "positions", "scales", "rotations", "colors", "opacities")],
-            cam_r.to(dev), cfg_r)
-        pack, counts = tp.pack, tp.counts
-        T, M, _ = pack.shape
         fwd = raster.composite_tiles_packed(pack, counts, tp.n_tiles_x)
         fwd_ref = raster.composite_tiles_plain(pack, counts, tp.n_tiles_x)
         fwd_errs = {name: (g - r).abs().max().item() for name, g, r in zip(
@@ -918,53 +1135,48 @@ def main():
         ref = raster.composite_tiles_bwd_plain(pack, counts, tp.n_tiles_x,
                                                *fwd, *cots)
         torch.cuda.synchronize()
-        fields = ("mx", "my", "ca", "cb", "cc", "radius", "R", "G", "B",
-                  "opacity", "depth", "pad")
-        scale = {f: ref[..., i].abs().max().item()
-                 for i, f in enumerate(fields)}
-        ferr = {f: (got[..., i] - ref[..., i]).abs().max().item()
-                for i, f in enumerate(fields)}
-        rel = {f: ferr[f] / scale[f] if scale[f] else ferr[f] for f in fields}
-        bwd_ms = cuda_median_ms(torch, lambda: raster.composite_tiles_bwd(
-            pack, counts, tp.n_tiles_x, *fwd, *cots))
+        ferr, scale, rel = bwd_errors(got, ref)
+        routes = k2_routes(torch, raster, pack, counts, tp.n_tiles_x, fwd,
+                           cots)
         bwd_plain_ms = cuda_median_ms(
             torch, lambda: raster.composite_tiles_bwd_plain(
                 pack, counts, tp.n_tiles_x, *fwd, *cots), n=10)
-        fwd_ms_refine = cuda_median_ms(
-            torch, lambda: raster.composite_tiles_packed(pack, counts,
-                                                         tp.n_tiles_x))
+        # K1 as the refine step launches it: leaving the segment prefixes.
+        fwd_t = kernel_times(torch, lambda: raster._launch_fwd(
+            pack, counts, tp.n_tiles_x, keep_prefix=True))
         fwd_plain_ms_refine = cuda_median_ms(
             torch, lambda: raster.composite_tiles_plain(pack, counts,
                                                         tp.n_tiles_x), n=10)
     occupied = int(counts.sum().item())
-    bwd_bound_ms, bwd_bound_by, bwd_work = bound(
-        occupied * PACK_BYTES + T * 4 + T * raster.PIX * 10 * 4
-        + T * M * PACK_BYTES,
-        occupied * raster.PIX * OPS_PER_EVAL_BWD)
-    fwd_bound_refine, _, _ = bound(
-        occupied * PACK_BYTES + T * 4 + T * raster.PIX * 5 * 4,
-        occupied * raster.PIX * OPS_PER_EVAL)
+    stats = pack_stats(torch, raster, pack, counts, tp.n_tiles_x)
+    bounds_r = compositing_bounds(stats, T, M, occupied)
+    repeat_equal = bool(torch.equal(got, again))
     log("kernel_bwd", name="raster_bwd", T=T, M=M, n_gaussians=raw0.size // 16,
         max_abs_err=ferr, field_scale=scale, rel_err=rel,
-        tol=KERNEL_BWD_TOL, repeat_bitwise_equal=bool(torch.equal(got, again)),
-        ms=bwd_ms, plain_ms=bwd_plain_ms,
-        occupied_slots=occupied, counts_mean=occupied / T,
-        counts_max=int(counts.max().item()),
-        tiles_at_cap=int((counts == M).sum().item()),
-        **bwd_work, bound_ms=bwd_bound_ms, bound_by=bwd_bound_by,
+        tol=KERNEL_BWD_TOL, repeat_bitwise_equal=repeat_equal,
+        **routes["handed"],
+        routes_bitwise_equal=routes["routes_bitwise_equal"],
+        ms_alone=routes["alone"]["ms"],
+        call_ms_alone=routes["alone"]["call_ms"],
+        plain_ms=bwd_plain_ms, occupied_slots=occupied,
+        counts_mean=occupied / T, **stats, **bounds_r["k2"],
         k1_at_refine_shapes=dict(max_abs_err=fwd_errs, tol=KERNEL_TOL,
-                                 ms=fwd_ms_refine,
+                                 keep_prefix=True, **fwd_t,
                                  plain_ms=fwd_plain_ms_refine,
-                                 bound_ms=fwd_bound_refine))
+                                 **bounds_r["k1"]))
     if not max(fwd_errs.values()) <= KERNEL_TOL:
         fail(f"K1 disagrees with its plain version at the refine shapes: "
              f"{fwd_errs}")
-    if not max(rel.values()) <= KERNEL_BWD_TOL:
-        fail(f"K2 disagrees with its plain version: {rel}")
+    if not (max(rel.values()) <= KERNEL_BWD_TOL
+            and routes["routes_bitwise_equal"]):
+        fail(f"K2 disagrees with its plain version or across its routes: "
+             f"{rel}")
+    if not repeat_equal:
+        fail("K2 does not repeat bit for bit")
     k1["max_abs_err"] = max(k1["max_abs_err"], max(fwd_errs.values()))
-    k2 = dict(max_abs_err=max(ferr.values()), ms=bwd_ms,
-              plain_ms=bwd_plain_ms, bound_ms=bwd_bound_ms,
-              bound_by=bwd_bound_by)
+    k2 = dict(max_abs_err=max(ferr.values()), ms=routes["handed"]["ms"],
+              plain_ms=bwd_plain_ms, bound_ms=bounds_r["k2"]["bound_ms"],
+              bound_by=bounds_r["k2"]["bound_by"])
 
     # 9. refine_grad: loss and gradient at the init, card against CPU
     def loss_and_grad(device):
@@ -1080,7 +1292,7 @@ def main():
         top_kernels_ms_per_step=prof["top_kernels_ms"])
 
     # 14-20. the large-cloud render path (K3, K4, K1)
-    k3, k4 = render_phases(torch, dev, k1, path_launches)
+    k3, k4 = render_phases(torch, dev, k1, k2, path_launches)
 
     print(smi, flush=True)
 
@@ -1108,5 +1320,93 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def ab_measure(root):
+    """K1 and K2 of the checkout at `root` on this script's image, refine
+    and render packs: a dict of device ms, call ms and device ms by kernel
+    name (the --ab mode)."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    from fresnel_tpu_torch import _build, pipeline
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.render import raster, tile
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    built = _build.build(["raster_fwd", "raster_bwd"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    image = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(512, 512, 3)).astype(np.float32)).to(dev)
+    models = pipeline.build_models(seed=0, device=dev)
+    packs = dict(image=decoded_pack(torch, models, image)[0])
+    del models
+    packs["refine"] = refine_init(torch, dev)[-1]
+    with torch.no_grad():
+        packs["render"] = tile.pack_tiles(
+            *fields(render_cloud(10).to(dev)),
+            Camera.default_training(RENDER["res"]),
+            tile.TileRendererConfig(max_per_tile=RENDER["max_per_tile"]))
+    result = dict(root=root, device=torch.cuda.get_device_name(0),
+                  ptxas={k: [ln.split("info    : ")[-1].strip()
+                             for ln in out.splitlines()
+                             if "registers" in ln or "spill" in ln]
+                         for k, (_, out) in built.items()},
+                  kernels={})
+    for name, tp in packs.items():
+        pack, counts, ntx = tp.pack, tp.counts, tp.n_tiles_x
+
+        def k1():
+            with torch.no_grad():
+                return raster.composite_tiles_packed(pack, counts, ntx)
+
+        calls = dict(k1=k1)
+        if name != "image":
+            outs = k1()
+            rng = np.random.default_rng(1)
+            cots = [torch.from_numpy(rng.normal(size=tuple(o.shape)).astype(
+                np.float32)).to(dev) for o in outs]
+
+            def k2():
+                return raster.composite_tiles_bwd(pack, counts, ntx, *outs,
+                                                  *cots)
+
+            def k1_k2():
+                """A refine step's pair: K1 on a pack that needs a
+                gradient, then K2 through autograd."""
+                p = pack.detach().requires_grad_()
+                torch.autograd.backward(
+                    raster.composite_tiles_packed(p, counts, ntx), cots)
+
+            calls.update(k2=k2, k1_k2_autograd=k1_k2)
+        for kernel, fn in calls.items():
+            prof = profile_ms(torch, lambda: [fn() for _ in range(10)], 10)
+            result["kernels"][f"{kernel}_{name}"] = dict(
+                **kernel_times(torch, fn),
+                occupied_slots=int(counts.sum().item()),
+                device_ms_by_kernel=prof["top_kernels_ms"])
+    return result
+
+
+def ab(roots):
+    """The --ab mode: ab_measure of each root in a process of its own, in
+    the order given; one JSON line per root."""
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--ab-measure", root], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            fail(f"{root}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ab-measure"] and len(sys.argv) == 3:
+        print(json.dumps(ab_measure(sys.argv[2])), flush=True)
+    elif sys.argv[1:2] == ["--ab"] and len(sys.argv) > 2:
+        ab(sys.argv[2:])
+    elif len(sys.argv) > 1:
+        raise SystemExit(__doc__)
+    else:
+        main()

@@ -10,11 +10,21 @@ ctypes.
 on both devices: for CUDA tensors its forward launches K1 and its backward
 K2; for CPU tensors they run the plain versions `composite_tiles_plain` and
 `composite_tiles_bwd_plain`.  There is no fall back from one to the other.
-`launches` and `launches_bwd` count kernel launches.
+`launches` and `launches_bwd` count calls of each kernel's C entry point
+(K2's also launches K1's kernel as its pre-pass when it is not handed K1's
+segment prefixes).
+
+Both kernels split a tile's list into segments that run as separate
+blocks, the segment length set on the card from the pack's work, at least
+SEG slots (csrc/raster_common.cuh).  When the pack needs a gradient, the
+forward leaves each segment's prefix in a scratch tensor, which
+`_Composite` saves for the backward; `composite_tiles_bwd`, called alone,
+has K2 recompute them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -26,6 +36,10 @@ TS = 16
 PIX = TS * TS
 PACK = 12
 ALPHA_MAX = 0.99
+
+SEG = 64            # the shortest segment of K1 and K2 (raster_common.cuh)
+NPART = 5           # floats per pixel and segment in the scratch
+BLOCKS_PER_SM = 8   # of K1's kernel, by its launch bounds
 
 launches = 0        # K1 launches
 launches_bwd = 0    # K2 launches
@@ -160,40 +174,97 @@ def _check_pixels(pack: torch.Tensor, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be on {pack.device}")
 
 
-def _launch_fwd(pack: torch.Tensor, counts: torch.Tensor, n_tiles_x: int
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1 on CUDA tensors."""
+def scratch_shape(T: int, M: int) -> Tuple[int, ...]:
+    """Shape of the kernels' per-segment scratch: (ceil(M / SEG), T, 5,
+    256), with no rows when no tile can have two segments."""
+    n_seg = -(-M // SEG)
+    return (n_seg if n_seg > 1 else 0, T, NPART, PIX)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(index: int) -> int:
+    """Blocks of K1's kernel that CUDA device `index` holds at once; it
+    sets the segment length, so K1 and K2 are given the same."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * BLOCKS_PER_SM
+
+
+def segment_length(counts: torch.Tensor, M: int, resident: int) -> int:
+    """The segment length L the kernels choose for a pack, on the host:
+    the card's share of the occupied slots, sum(count) / resident, rounded
+    up to a multiple of SEG, within [SEG, max(SEG, M)]."""
+    total = int(counts.clamp(0, M).sum().item())
+    share = -(-total // resident)
+    return SEG * min(max(1, -(-M // SEG)), max(1, -(-share // SEG)))
+
+
+# Per (device, stream): the per-tile arrival counters of K1's fold, zero
+# between launches (the unit that folds a tile sets its counter back).
+_tickets = {}
+
+
+def _tile_tickets(T: int, device) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < T:
+        buf = torch.zeros(T, dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
+
+
+def _launch_fwd(pack: torch.Tensor, counts: torch.Tensor, n_tiles_x: int,
+                keep_prefix: bool = False) -> Tuple[torch.Tensor, ...]:
+    """K1 on CUDA tensors: (color, depth, trans, prefix), prefix the
+    segment prefixes for K2 when `keep_prefix`, else None."""
     global launches
     _check_inputs(pack, counts)
     T, M, _ = pack.shape
+    part = torch.empty(scratch_shape(T, M), dtype=torch.float32,
+                       device=pack.device)
     color = torch.empty((T, PIX, 3), dtype=torch.float32, device=pack.device)
     depth = torch.empty((T, PIX), dtype=torch.float32, device=pack.device)
     trans = torch.empty((T, PIX), dtype=torch.float32, device=pack.device)
+    prefix = part if keep_prefix else None
     if T == 0:
-        return color, depth, trans
+        return color, depth, trans, prefix
     _build.launch("raster_fwd", pack.device,
                   (pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
-                   depth.data_ptr(), trans.data_ptr()), (T, M, n_tiles_x))
+                   depth.data_ptr(), trans.data_ptr(), part.data_ptr(),
+                   _tile_tickets(T, pack.device).data_ptr()),
+                  (T, M, n_tiles_x, resident_blocks(pack.device.index or 0),
+                   int(keep_prefix)))
     launches += 1
-    return color, depth, trans
+    return color, depth, trans, prefix
 
 
 def _launch_bwd(pack, counts, n_tiles_x: int, color, depth, trans, g_color,
-                g_depth, g_trans) -> torch.Tensor:
-    """K2 on CUDA tensors."""
+                g_depth, g_trans, prefix=None) -> torch.Tensor:
+    """K2 on CUDA tensors.  `prefix` is K1's for the same pack and counts;
+    without it K2 recomputes it first."""
     global launches_bwd
     _check_inputs(pack, counts)
     _check_pixels(pack, color=color, depth=depth, trans=trans,
                   g_color=g_color, g_depth=g_depth, g_trans=g_trans)
     T, M, _ = pack.shape
+    if prefix is None:
+        part = torch.empty(scratch_shape(T, M), dtype=torch.float32,
+                           device=pack.device)
+    elif (tuple(prefix.shape) != scratch_shape(T, M)
+          or prefix.dtype != torch.float32 or prefix.device != pack.device
+          or not prefix.is_contiguous()):
+        raise ValueError("prefix must be K1's for this pack")
+    else:
+        part = prefix
     grad = torch.empty_like(pack)
     if T == 0:
         return grad
     _build.launch("raster_bwd", pack.device,
                   (pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
                    depth.data_ptr(), trans.data_ptr(), g_color.data_ptr(),
-                   g_depth.data_ptr(), g_trans.data_ptr(), grad.data_ptr()),
-                  (T, M, n_tiles_x))
+                   g_depth.data_ptr(), g_trans.data_ptr(), part.data_ptr(),
+                   _tile_tickets(T, pack.device).data_ptr(), grad.data_ptr()),
+                  (T, M, n_tiles_x, resident_blocks(pack.device.index or 0),
+                   int(prefix is not None)))
     launches_bwd += 1
     return grad
 
@@ -219,30 +290,38 @@ def composite_tiles_bwd(pack, counts, n_tiles_x: int, color, depth, trans,
 
 
 class _Composite(torch.autograd.Function):
-    """K1 forward and K2 backward on CUDA tensors; the plain versions of
-    both on CPU tensors.  Only the pack gets a gradient, and only once: K2
-    has no derivative, so a second derivative raises on both devices."""
+    """K1 forward and K2 backward on CUDA tensors, K2 taking the segment
+    prefixes K1 left; the plain versions of both on CPU tensors.  Only the
+    pack gets a gradient, and only once: K2 has no derivative, so a second
+    derivative raises on both devices."""
 
     @staticmethod
     def forward(ctx, pack, counts, n_tiles_x: int, chunk: int):
         if _device_of(pack) == "cuda":
-            out = _launch_fwd(pack, counts, n_tiles_x)
+            *out, prefix = _launch_fwd(pack, counts, n_tiles_x,
+                                       keep_prefix=ctx.needs_input_grad[0])
         else:
             out = composite_tiles_plain(pack, counts, n_tiles_x, chunk)
-        ctx.save_for_backward(pack, counts, *out)
+            prefix = None
+        ctx.save_for_backward(pack, counts, *out, prefix)
         ctx.n_tiles_x, ctx.chunk = n_tiles_x, chunk
-        return out
+        return tuple(out)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_color, g_depth, g_trans):
         # Autograd hands unused outputs' cotangents over as zeros (the
         # Function's default), so all three are tensors here.
-        pack, counts, color, depth, trans = ctx.saved_tensors
-        grad = composite_tiles_bwd(
-            pack, counts, ctx.n_tiles_x, color, depth, trans,
-            g_color.contiguous(), g_depth.contiguous(), g_trans.contiguous(),
-            chunk=ctx.chunk)
+        pack, counts, color, depth, trans, prefix = ctx.saved_tensors
+        cots = (g_color.contiguous(), g_depth.contiguous(),
+                g_trans.contiguous())
+        if _device_of(pack) == "cuda":
+            grad = _launch_bwd(pack, counts, ctx.n_tiles_x, color, depth,
+                               trans, *cots, prefix=prefix)
+        else:
+            grad = composite_tiles_bwd_plain(
+                pack, counts, ctx.n_tiles_x, color, depth, trans, *cots,
+                chunk=ctx.chunk)
         return grad, None, None, None
 
 

@@ -6,11 +6,15 @@ on a machine without JAX run it with `--noconftest`:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Kernels and plain versions differ only in summation order (sequential
-transmittance and suffix sums against the chunked cumprod / cumsum, a
-warp-shuffle tree against torch's sum over pixels), all in float32: K1 at
-atol 1e-5, K2 per field within BWD_TOL = 1e-4 of that field's largest
-plain value (chip_smoke.py's bound).  The binning kernels K3 and K4 are
-integer functions and are held bit for bit.
+transmittance and suffix sums within a segment and an in-order fold of the
+segments, against the chunked cumprod / cumsum; a warp-shuffle tree
+against torch's sum over pixels), all in float32: K1 at atol 1e-5, K2 per
+field within BWD_TOL = 1e-4 of that field's largest plain value
+(chip_smoke.py's bound).  K1 and K2 are held on count patterns around
+the segment boundaries and on packs for which the kernels choose segments
+of SEG, 2 SEG and 4 SEG slots, or whole tiles; K1's segment prefixes
+against the plain forward of each tile's slots before the segment.  The
+binning kernels K3 and K4 are integer functions and are held bit for bit.
 """
 
 import numpy as np
@@ -57,13 +61,40 @@ def _pack(T, M, counts, seed, width):
     return torch.from_numpy(pack), torch.from_numpy(counts)
 
 
-@pytest.mark.parametrize("T,M,ntx", [(6, 64, 3), (64, 256, 8), (1024, 256, 32),
-                                     (256, 1024, 16)])
-def test_kernel_matches_plain(cuda, T, M, ntx):
-    rng = np.random.default_rng(T)
-    counts = rng.integers(0, M + 1, T)
-    counts[0], counts[-1] = 0, M
-    pack, cnt = _pack(T, M, counts, T, ntx * 16)
+def _counts(pattern, T, M, seed):
+    """Tile counts: random (with an empty tile and one at the cap), every
+    tile at the cap, counts on both sides of each segment length, all
+    empty, one slot, or one tile at the cap among empty ones."""
+    if pattern == "random":
+        counts = np.random.default_rng(seed).integers(0, M + 1, T)
+        counts[0], counts[-1] = 0, M
+        return counts
+    if pattern == "cap":
+        return np.full(T, M)
+    if pattern == "around_seg":
+        edges = [k * raster.SEG + d for k in (1, 2, 3) for d in (-1, 0, 1)]
+        return np.minimum([edges[i % len(edges)] for i in range(T)], M)
+    if pattern == "empty":
+        return np.zeros(T, int)
+    if pattern == "one_slot":
+        return np.ones(T, int)
+    if pattern == "heavy_among_empty":
+        counts = np.zeros(T, int)
+        counts[T // 3] = M
+        return counts
+    raise ValueError(pattern)
+
+
+PATTERNS = ["cap", "around_seg", "empty", "one_slot", "heavy_among_empty"]
+FWD_CASES = ([(6, 64, 3, "random"), (64, 256, 8, "random"),
+              (1024, 256, 32, "random"), (1024, 256, 32, "cap"),
+              (256, 1024, 16, "random"), (256, 1024, 16, "cap")]
+             + [(64, 256, 8, p) for p in PATTERNS])
+
+
+@pytest.mark.parametrize("T,M,ntx,pattern", FWD_CASES)
+def test_kernel_matches_plain(cuda, T, M, ntx, pattern):
+    pack, cnt = _pack(T, M, _counts(pattern, T, M, T), T, ntx * 16)
     pack, cnt = pack.to(cuda), cnt.to(cuda)
     before = raster.launches
     got = raster.composite_tiles_packed(pack, cnt, ntx)
@@ -73,6 +104,33 @@ def test_kernel_matches_plain(cuda, T, M, ntx):
     for g, r in zip(got, ref):
         assert g.shape == r.shape and g.is_cuda
         torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+    outs = raster._launch_fwd(pack, cnt, ntx, keep_prefix=True)
+    for g, r in zip(outs[:3], ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+    _assert_prefixes(pack, cnt, ntx, outs[3])
+
+
+def _length(cnt, M):
+    return raster.segment_length(cnt, M, raster.resident_blocks(
+        cnt.device.index))
+
+
+def _assert_prefixes(pack, cnt, ntx, part):
+    """Segment k >= 1 of a tile split into more than one holds the plain
+    forward of the tile's first k * L slots: (R, G, B, depth, T_in)."""
+    T, M, _ = pack.shape
+    assert tuple(part.shape) == raster.scratch_shape(T, M)
+    L = _length(cnt, M)
+    n_seg = (cnt.long() + L - 1) // L
+    for k in range(1, -(-M // L)):
+        tiles = torch.nonzero(n_seg > k).flatten()
+        if not len(tiles):
+            continue
+        c, d, t = raster.composite_tiles_plain(
+            pack[:, :k * L].contiguous(), cnt.clamp(max=k * L), ntx)
+        want = torch.cat([c, d[..., None], t[..., None]], -1)[tiles]
+        got = part[k, tiles].transpose(1, 2)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -121,12 +179,15 @@ def _assert_fields_close(got, ref):
         assert err <= BWD_TOL * max(scale, 1e-30), (f, err, scale)
 
 
-@pytest.mark.parametrize("T,M,ntx", [(6, 64, 3), (64, 256, 8), (256, 1024, 16)])
-def test_bwd_kernel_matches_plain(cuda, T, M, ntx):
-    rng = np.random.default_rng(T + 1)
-    counts = rng.integers(0, M + 1, T)
-    counts[0], counts[-1] = 0, M
-    pack, cnt = _pack(T, M, counts, T, ntx * 16)
+BWD_CASES = ([(6, 64, 3, "random"), (64, 256, 8, "random"),
+              (1024, 256, 32, "random"), (1024, 256, 32, "cap"),
+              (256, 1024, 16, "random"), (256, 1024, 16, "cap")]
+             + [(64, 256, 8, p) for p in PATTERNS])
+
+
+@pytest.mark.parametrize("T,M,ntx,pattern", BWD_CASES)
+def test_bwd_kernel_matches_plain(cuda, T, M, ntx, pattern):
+    pack, cnt = _pack(T, M, _counts(pattern, T, M, T + 1), T, ntx * 16)
     pack, cnt = pack.to(cuda), cnt.to(cuda)
     outs = raster.composite_tiles_plain(pack, cnt, ntx)
     cots = _cots(T, M, cuda)
@@ -140,6 +201,55 @@ def test_bwd_kernel_matches_plain(cuda, T, M, ntx):
     _assert_fields_close(got, ref)
     dead = torch.arange(M, device=cuda)[None, :] >= cnt[:, None]
     assert torch.all(got[dead] == 0) and torch.all(got[..., [5, 11]] == 0)
+    # K2 alone recomputes the segment prefixes; handed K1's, it gives the
+    # same bits.
+    fwd = raster._launch_fwd(pack, cnt, ntx, keep_prefix=True)
+    alone = raster._launch_bwd(pack, cnt, ntx, *fwd[:3], *cots)
+    handed = raster._launch_bwd(pack, cnt, ntx, *fwd[:3], *cots,
+                                prefix=fwd[3])
+    assert torch.equal(alone, handed)
+    _assert_fields_close(alone, raster.composite_tiles_bwd_plain(
+        pack, cnt, ntx, *fwd[:3], *cots))
+
+
+@pytest.mark.parametrize("pattern", ["random", "cap"])
+def test_kernels_repeat_bitwise(cuda, pattern):
+    """Two launches of K1, and of K2 by both routes, on the same inputs
+    give the same bits: every merge and every sum has a fixed order."""
+    T, M, ntx = 256, 1024, 16
+    pack, cnt = _pack(T, M, _counts(pattern, T, M, 3), 3, ntx * 16)
+    pack, cnt = pack.to(cuda), cnt.to(cuda)
+    cots = _cots(T, 4, cuda)
+    first = raster._launch_fwd(pack, cnt, ntx, keep_prefix=True)
+    second = raster._launch_fwd(pack, cnt, ntx, keep_prefix=True)
+    assert all(torch.equal(a, b) for a, b in zip(first[:3], second[:3]))
+    # The scratch rows that hold prefixes: segments of tiles that have more
+    # than one (the rest is never written).
+    part, part2 = first[3], second[3]
+    L = _length(cnt, M)
+    n_seg = (cnt.long() + L - 1) // L
+    held = (torch.arange(part.shape[0], device=cuda)[:, None]
+            < torch.where(n_seg > 1, n_seg, 0)[None, :])
+    assert torch.equal(part[held], part2[held])
+    grads = [raster._launch_bwd(pack, cnt, ntx, *first[:3], *cots,
+                                prefix=prefix)
+             for prefix in (None, None, first[3], second[3])]
+    assert all(torch.equal(grads[0], g) for g in grads[1:])
+    p = pack.clone().requires_grad_()
+    outs = raster.composite_tiles_packed(p, cnt, ntx)
+    sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+    assert torch.equal(p.grad, grads[0])
+
+
+def test_bwd_rejects_prefix_of_another_shape(cuda):
+    pack, cnt = _pack(8, 256, _counts("cap", 8, 256, 0), 0, 64)
+    pack, cnt = pack.to(cuda), cnt.to(cuda)
+    fwd = raster._launch_fwd(pack, cnt, 4, keep_prefix=True)
+    cots = _cots(4, 0, cuda)
+    with pytest.raises(ValueError, match="prefix"):
+        raster._launch_bwd(pack[:4].contiguous(), cnt[:4].contiguous(), 4,
+                           *(o[:4].contiguous() for o in fwd[:3]), *cots,
+                           prefix=fwd[3])
 
 
 def test_bwd_wrapper_rejects_bad_inputs(cuda):
@@ -310,11 +420,13 @@ def test_binning_wrappers_reject_bad_inputs(cuda):
             32)
 
 
-@pytest.mark.parametrize("name", ["bin_table", "bin_stream"])
+@pytest.mark.parametrize("name", ["bin_table", "bin_stream", "raster_fwd",
+                                  "raster_bwd"])
 def test_broken_build_raises_on_cuda_tensors(cuda, name, monkeypatch,
                                              tmp_path):
     """A kernel that does not build raises; nothing falls back to the
-    plain version."""
+    plain version.  K2's pre-pass (K1's kernel, built into K2's library) is
+    launched by K2's C entry point, so it raises with it."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     (csrc / f"{name}.cu").write_text("this is not CUDA\n")
@@ -322,13 +434,41 @@ def test_broken_build_raises_on_cuda_tensors(cuda, name, monkeypatch,
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_libs", {})
     m2, rad, vis = (a.to(cuda) for a in _sorted_inputs(500, 64, 64, seed=3))
-    before = (binning.launches, stream_binning.launches)
+    pack, cnt = _pack(4, 256, [256, 65, 0, 3], 0, 32)
+    pack, cnt = pack.to(cuda), cnt.to(cuda)
+    def counts():
+        return (binning.launches, stream_binning.launches, raster.launches,
+                raster.launches_bwd)
+
+    before = counts()
     with pytest.raises(RuntimeError, match="nvcc failed"):
         if name == "bin_table":
             tile._bin_gaussians_search(m2, rad, vis, 4, 4, 16, 32)
-        else:
+        elif name == "bin_stream":
             stream_binning.bin_gaussians_stream(m2, rad, vis, 4, 4, 16, 32)
-    assert (binning.launches, stream_binning.launches) == before
+        elif name == "raster_fwd":
+            raster.composite_tiles_packed(pack, cnt, 2)
+        else:
+            outs = raster.composite_tiles_plain(pack, cnt, 2)
+            raster.composite_tiles_bwd(pack, cnt, 2, *outs,
+                                       *_cots(4, 0, cuda))
+    assert counts() == before
+
+
+def test_entry_point_launch_error_raises(cuda):
+    """A launch that the C entry point refuses (here: no resident blocks,
+    which the segment length divides by) raises; nothing is counted."""
+    pack, cnt = _pack(4, 256, [256, 65, 0, 3], 0, 32)
+    pack, cnt = pack.to(cuda), cnt.to(cuda)
+    part = torch.empty(raster.scratch_shape(4, 256), device=cuda)
+    tickets = torch.zeros(4, dtype=torch.int32, device=cuda)
+    out = [torch.empty((4, 256, 3), device=cuda)] + [
+        torch.empty((4, 256), device=cuda) for _ in range(2)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("raster_fwd", pack.device,
+                      (pack.data_ptr(), cnt.data_ptr(),
+                       *(t.data_ptr() for t in out + [part, tickets])),
+                      (4, 256, 2, 0, 0))
 
 
 @pytest.mark.parametrize("binning_name,counter", [
