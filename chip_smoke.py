@@ -67,12 +67,19 @@ non-zero:
                   render path's full width (a million depth-sorted
                   Gaussians of `test_cloud`, T = 1024 tiles): table and
                   cumulative totals bitwise equal, in one group and in 4
-                  (y_offset); median times of K3, its plain version and the
-                  mask + matmul build (table_build="xla"); bound;
+                  (y_offset); K3's device time (50 calls back to back
+                  behind a sleep) and its time per call; median times of
+                  its plain version and the mask + matmul build
+                  (table_build="xla"); bound;
   15. kernel_stream K4 (streaming compaction) against its plain version and
                   against the search binning at the same width, M = 256:
-                  tables bitwise equal, two launches equal; median times;
-                  the stream positions at which tiles filled; bound (from
+                  tables bitwise equal, two launches equal; device time
+                  and time per call of the wrapper (with the interval
+                  preparation) and of the launch alone; median times of
+                  the plain version and the search binning; the stream
+                  positions at which tiles filled; K4's chunks, its open
+                  (chunk, tile) pairs and the Gaussians their walks read;
+                  bound (from
                   the inputs read once, the tables written and one count
                   per Gaussian and per kept hit, not from this kernel's
                   tile-major scan, whose test count is logged beside it);
@@ -110,13 +117,16 @@ With `--ab`, each ROOT is a checkout of this repository (a parent commit
 unpacked with `git archive` into a git-ignored directory, or `.`), given
 in turns (`.archive/parent . . .archive/parent`) so that drift on the card
 shows.  For each root in order, a subprocess imports that checkout's
-`fresnel_tpu_torch` (building its compositing kernels into its `build/`),
+`fresnel_tpu_torch` (building its four kernels into its `build/`),
 builds this script's image, refine and render packs with it, and times
-through the public functions every version has: K1 at all three, K2 with
+through the functions every version has: K1 at all three, K2 with
 cotangents from a seed and K1 + K2 through autograd (a refine step's pair)
-at the refine and render packs.  Each as `ms` on the device, `call_ms` per
-call and the device ms of each kernel by name (torch.profiler), with
-ptxas's registers and spills; one JSON line per root.
+at the refine and render packs; K3 (`build_rank_table`), K4
+(`bin_gaussians_stream`) and K4's launch alone (`_launch`) on the render
+path's million depth-sorted Gaussians.  Each as `ms` on the device,
+`call_ms` per call and the device ms of each kernel by name
+(torch.profiler), with ptxas's registers and spills of all four kernels;
+one JSON line per root.
 
 Imports torch, numpy and fresnel_tpu_torch only.
 """
@@ -242,11 +252,13 @@ def device_ms(torch, fn, n=50, reps=5):
     return statistics.median(per_call), hidden
 
 
-def kernel_times(torch, fn):
-    """A compositing kernel's time two ways: `ms` on the device (device_ms)
-    and `call_ms`, CUDA events around each call (cuda_median_ms), which
-    holds the host's time per call whenever that exceeds the kernel's."""
-    ms, hidden = device_ms(torch, fn)
+def kernel_times(torch, fn, n=50):
+    """A kernel's time two ways: `ms` on the device (device_ms over n calls;
+    fewer where the host's time per call is large, so the sleep still
+    hides it) and `call_ms`, CUDA events around each call
+    (cuda_median_ms), which holds the host's time per call whenever that
+    exceeds the kernel's."""
+    ms, hidden = device_ms(torch, fn, n=n)
     return dict(ms=ms, call_ms=cuda_median_ms(torch, fn),
                 host_time_hidden=hidden)
 
@@ -573,8 +585,8 @@ def render_phases(torch, dev, k1, k2, path_launches):
         xla_equal = bool(torch.equal(xla_tab, tab)
                          and torch.equal(xla_cum, cum))
         del xla_tab, xla_cum, tab, cum
-        k3_ms = cuda_median_ms(torch, lambda: binning.build_rank_table(
-            *bounds, ntx, nty, n2), n=20)
+        k3_t = kernel_times(torch, lambda: binning.build_rank_table(
+            *bounds, ntx, nty, n2))
         k3_plain_ms = cuda_median_ms(
             torch, lambda: binning.build_rank_table_plain(
                 *bounds, ntx, nty, n2), n=3, warmup=1)
@@ -585,12 +597,13 @@ def render_phases(torch, dev, k1, k2, path_launches):
         table_bitwise_equal=table_equal, cumtot_bitwise_equal=cumtot_equal,
         max_abs_err=max(table_err, float(cum_err)),
         grouped_bitwise_equal=grouped_equal, groups=groups,
-        mask_build_bitwise_equal=xla_equal, ms=k3_ms, plain_ms=k3_plain_ms,
+        mask_build_bitwise_equal=xla_equal, **k3_t, plain_ms=k3_plain_ms,
         mask_build_ms=xla_ms, table_bytes=T * n2 * 2, **k3_work,
         bound_ms=k3_bound_ms, bound_by=k3_bound_by)
     if not (table_equal and cumtot_equal and grouped_equal and xla_equal):
         fail("K3 disagrees with its plain version")
-    k3 = dict(max_abs_err=max(table_err, float(cum_err)), ms=k3_ms,
+    k3 = dict(max_abs_err=max(table_err, float(cum_err)), ms=k3_t["ms"],
+              call_ms=k3_t["call_ms"],
               plain_ms=k3_plain_ms, bound_ms=k3_bound_ms,
               bound_by=k3_bound_by)
 
@@ -616,18 +629,30 @@ def render_phases(torch, dev, k1, k2, path_launches):
         need = torch.where(full, got[0][:, M - 1].long() + 1, n)
         fill = need[full].double()
         iv = stream_binning.stream_intervals(*sorted_in, ntx, nty, ts)
-        k4_ms = cuda_median_ms(
+        n_chunks, capacity, _ = stream_binning.stream_plan(n, T, M)
+        # The open (chunk, tile) pairs are the chunks that hold a kept hit
+        # of the tile; a place walk reads its chunk up to its last one.
+        chunk_len = stream_binning.STREAM_CHUNK
+        tiles = torch.arange(T, device=dev)[:, None].expand(T, M)[got[1]]
+        idx = got[0][got[1]].long()
+        key = tiles * n_chunks + idx // chunk_len
+        last = torch.full((T * n_chunks,), -1, dtype=torch.long, device=dev)
+        last.scatter_reduce_(0, key, idx, "amax")
+        opened = last >= 0
+        open_pairs = int(opened.sum().item())
+        place_reads = int((last[opened] % chunk_len + 1).sum().item())
+        k4_t = kernel_times(
             torch, lambda: stream_binning.bin_gaussians_stream(
                 *sorted_in, ntx, nty, ts, M), n=20)
-        k4_launch_ms = cuda_median_ms(
-            torch, lambda: stream_binning._launch(iv, ntx, nty, M), n=20)
+        k4_launch_t = kernel_times(
+            torch, lambda: stream_binning._launch(iv, ntx, nty, M))
         k4_plain_ms = cuda_median_ms(
             torch, lambda: stream_binning.bin_gaussians_stream_plain(
                 *sorted_in, ntx, nty, ts, M), n=3, warmup=1)
         search_ms = cuda_median_ms(
             torch, lambda: tile._bin_gaussians_search(
                 *sorted_in, ntx, nty, ts, M), n=5, warmup=1)
-        del plain, search, again, iv
+        del plain, search, again, iv, tiles, idx, key, last, opened
     # The function's work: every Gaussian's interval is read and tested
     # once, and the tiles it covers follow from the interval, so one count
     # per hit that this run's data keeps (a tile's hits up to its M-th).
@@ -640,8 +665,13 @@ def render_phases(torch, dev, k1, k2, path_launches):
         (n + kept_hits) * OPS_PER_TEST)
     log("kernel_stream", name="bin_stream", n_gaussians=n, T=T, M=M,
         equals_plain=eq_plain, equals_search=eq_search,
-        repeat_bitwise_equal=eq_again, max_abs_err=k4_err, ms=k4_ms,
-        launch_only_ms=k4_launch_ms, plain_ms=k4_plain_ms,
+        repeat_bitwise_equal=eq_again, max_abs_err=k4_err, **k4_t,
+        launch_only_ms=k4_launch_t["ms"],
+        launch_only_call_ms=k4_launch_t["call_ms"],
+        launch_only_host_time_hidden=k4_launch_t["host_time_hidden"],
+        chunk=chunk_len, chunks=n_chunks, pair_capacity=capacity,
+        open_pairs=open_pairs, place_gaussians_read=place_reads,
+        plain_ms=k4_plain_ms,
         search_binning_ms=search_ms, tiles_filled=int(full.sum().item()),
         fill_position_mean=fill.mean().item() if fill.numel() else None,
         fill_position_max=fill.max().item() if fill.numel() else None,
@@ -650,7 +680,11 @@ def render_phases(torch, dev, k1, k2, path_launches):
         **k4_work, bound_ms=k4_bound_ms, bound_by=k4_bound_by)
     if not (eq_plain and eq_search and eq_again):
         fail("K4 disagrees with its plain version or the search binning")
-    k4 = dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms,
+    # `ms` is the launch's, as the bound is the function's from the
+    # intervals; the wrapper adds their preparation (~10 torch ops).
+    k4 = dict(max_abs_err=k4_err, ms=k4_launch_t["ms"],
+              call_ms=k4_launch_t["call_ms"], wrapper_ms=k4_t["ms"],
+              plain_ms=k4_plain_ms,
               bound_ms=k4_bound_ms, bound_by=k4_bound_by)
     del sp, sorted_in, got, bounds, cxlo, cxhi, cylo, cyhi, vis
 
@@ -1321,19 +1355,21 @@ def main():
 
 
 def ab_measure(root):
-    """K1 and K2 of the checkout at `root` on this script's image, refine
-    and render packs: a dict of device ms, call ms and device ms by kernel
-    name (the --ab mode)."""
+    """The four kernels of the checkout at `root`: K1 and K2 on this
+    script's image, refine and render packs, K3 and K4 on the render
+    path's million depth-sorted Gaussians (T = 1024, M = 256); a dict of
+    device ms, call ms and device ms by kernel name (the --ab mode)."""
     import torch
 
     sys.path.insert(0, os.path.abspath(root))
     from fresnel_tpu_torch import _build, pipeline
     from fresnel_tpu_torch.core.camera import Camera
-    from fresnel_tpu_torch.render import raster, tile
+    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
 
     if not torch.cuda.is_available():
         fail("CUDA is not available")
-    built = _build.build(["raster_fwd", "raster_bwd"])
+    built = _build.build(["raster_fwd", "raster_bwd", "bin_table",
+                          "bin_stream"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -1343,11 +1379,20 @@ def ab_measure(root):
     packs = dict(image=decoded_pack(torch, models, image)[0])
     del models
     packs["refine"] = refine_init(torch, dev)[-1]
+    cam = Camera.default_training(RENDER["res"])
+    cfg = tile.TileRendererConfig(max_per_tile=RENDER["max_per_tile"])
     with torch.no_grad():
-        packs["render"] = tile.pack_tiles(
-            *fields(render_cloud(10).to(dev)),
-            Camera.default_training(RENDER["res"]),
-            tile.TileRendererConfig(max_per_tile=RENDER["max_per_tile"]))
+        cloud = render_cloud(10).to(dev)
+        packs["render"] = tile.pack_tiles(*fields(cloud), cam, cfg)
+        sp = tile.project_sorted(*fields(cloud), cam, cfg)
+        del cloud
+    ntx = nty = RENDER["res"] // 16
+    M = RENDER["max_per_tile"]
+    xlo, xhi, ylo, yhi, vis, n2 = tile._padded_intervals(
+        sp.means2d, sp.radii, sp.visible, 16)
+    bounds = (xlo, torch.where(vis, xhi, -1), ylo, torch.where(vis, yhi, -1))
+    sorted_in = (sp.means2d, sp.radii, sp.visible)
+    iv = stream_binning.stream_intervals(*sorted_in, ntx, nty, 16)
     result = dict(root=root, device=torch.cuda.get_device_name(0),
                   ptxas={k: [ln.split("info    : ")[-1].strip()
                              for ln in out.splitlines()
@@ -1385,6 +1430,20 @@ def ab_measure(root):
             result["kernels"][f"{kernel}_{name}"] = dict(
                 **kernel_times(torch, fn),
                 occupied_slots=int(counts.sum().item()),
+                device_ms_by_kernel=prof["top_kernels_ms"])
+    with torch.no_grad():
+        calls = dict(
+            k3=lambda: binning.build_rank_table(*bounds, ntx, nty, n2),
+            k4=lambda: stream_binning.bin_gaussians_stream(
+                *sorted_in, ntx, nty, 16, M),
+            k4_launch=lambda: stream_binning._launch(iv, ntx, nty, M))
+        for kernel, fn in calls.items():
+            # Each result is dropped at once: K3's table is 2 GB.
+            prof = profile_ms(torch, lambda: [fn() and None
+                                              for _ in range(10)], 10)
+            result["kernels"][f"{kernel}_render"] = dict(
+                **kernel_times(torch, fn, n=20 if kernel == "k4" else 50),
+                n_gaussians=RENDER["n"], n2=n2,
                 device_ms_by_kernel=prof["top_kernels_ms"])
     return result
 

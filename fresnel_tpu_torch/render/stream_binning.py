@@ -10,7 +10,9 @@ by `_build` at first use) or raises; for CPU tensors it runs
 other.  `launches` counts K4 launches.
 
 Both are integer functions: the kernel's tables equal the plain version's
-bit for bit, dead slots (index 0) included.
+bit for bit, dead slots (index 0) included.  K4 cuts the stream into
+chunks of STREAM_CHUNK Gaussians that it counts and places in parallel;
+`stream_plan` gives the scratch that takes.
 """
 
 from __future__ import annotations
@@ -22,7 +24,22 @@ import torch
 from fresnel_tpu_torch import _build
 from fresnel_tpu_torch.render.binning import tile_intervals
 
+STREAM_CHUNK = 1024  # Gaussians per chunk of K4's count and place steps
+
 launches = 0    # K4 launches
+
+
+def stream_plan(n: int, n_tiles: int, max_per_tile: int
+                ) -> Tuple[int, int, int]:
+    """K4's plan for n Gaussians: (chunks C, capacity of the open-pair
+    list, scratch int32s).  A (chunk, tile) pair is open when it holds hits
+    of the tile below its M-th, so a tile has at most min(C, M) of them.
+    The scratch holds the pair records (4 ints each), the (C, T) chunk
+    counts and their prefixes, a stop per tile and the pair count."""
+    n_chunks = -(-n // STREAM_CHUNK)
+    capacity = n_tiles * min(n_chunks, max_per_tile)
+    return n_chunks, capacity, 4 * capacity + 2 * n_chunks * n_tiles + \
+        n_tiles + 1
 
 
 def stream_intervals(means2d, radii, visible, n_tiles_x: int, n_tiles_y: int,
@@ -84,8 +101,9 @@ def _launch(iv: torch.Tensor, n_tiles_x: int, n_tiles_y: int,
     if iv.dtype != torch.int32 or iv.dim() != 2 or iv.shape[1] != 4:
         raise ValueError("intervals must be (N, 4) int32, got "
                          f"{iv.dtype} {tuple(iv.shape)}")
-    if not iv.is_contiguous():
-        raise ValueError("intervals must be contiguous")
+    if not iv.is_contiguous() or iv.data_ptr() % 16:
+        raise ValueError("intervals must be contiguous and 16-byte aligned "
+                         "(one int4 load per Gaussian)")
     if max_per_tile <= 0:
         raise ValueError(f"max_per_tile={max_per_tile} must be positive")
     dev = iv.device
@@ -95,10 +113,15 @@ def _launch(iv: torch.Tensor, n_tiles_x: int, n_tiles_y: int,
     counts = torch.empty((T,), dtype=torch.int32, device=dev)
     if T == 0:
         return out, valid
+    n = iv.shape[0]
+    scratch_ints = stream_plan(n, T, max_per_tile)[2]
+    if scratch_ints >= 2 ** 31:
+        raise ValueError(f"K4's scratch of {scratch_ints} ints is past int32")
+    scratch = torch.empty(scratch_ints, dtype=torch.int32, device=dev)
     _build.launch("bin_stream", dev,
                   (iv.data_ptr(), out.data_ptr(), valid.data_ptr(),
-                   counts.data_ptr()), (iv.shape[0], T, max_per_tile,
-                                        n_tiles_x))
+                   counts.data_ptr(), scratch.data_ptr()),
+                  (n, T, max_per_tile, n_tiles_x, STREAM_CHUNK, scratch_ints))
     launches += 1
     return out, valid
 

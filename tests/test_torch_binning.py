@@ -398,3 +398,32 @@ class TestRenderBinnings:
             self._render(binning="quadtree")
         with pytest.raises(ValueError, match="table_build"):
             self._render(table_build="mosaic")
+
+
+@pytest.mark.parametrize("n,M", [(0, 64), (77, 64), (9000, 64), (9000, 4096),
+                                 (20000, 16)])
+def test_stream_plan_holds_every_open_pair(n, M):
+    """K4's host-side plan: ceil(n / chunk) chunks, its scratch, and a pair
+    list that holds every open (chunk, tile) pair, counted here from the
+    plain hit matrix of the JAX side's sorted inputs (a pair is open when
+    the chunk has hits of the tile and the tile holds fewer than M before
+    it)."""
+    ntx = nty = 8
+    m2, rad, vis = (_t(a) for a in _sorted_inputs(max(n, 1), seed=5))
+    iv = tstream.stream_intervals(m2[:n], rad[:n], vis[:n], ntx, nty, 16)
+    chunk = tstream.STREAM_CHUNK
+    n_chunks, capacity, scratch = tstream.stream_plan(n, ntx * nty, M)
+    assert n_chunks == -(-n // chunk)
+    assert scratch == 4 * capacity + 2 * n_chunks * ntx * nty + ntx * nty + 1
+    ax = torch.arange(ntx)[:, None]
+    ay = torch.arange(nty)[:, None]
+    hit = (((ay >= iv[:, 2]) & (ay <= iv[:, 3]))[:, None]
+           & ((ax >= iv[:, 0]) & (ax <= iv[:, 1]))[None]).reshape(ntx * nty, n)
+    per_chunk = torch.nn.functional.pad(
+        hit.int(), (0, n_chunks * chunk - n)).reshape(ntx * nty, n_chunks,
+                                                     chunk).sum(2)
+    before = torch.cumsum(per_chunk, 1) - per_chunk
+    n_open = int(((per_chunk > 0) & (before < M)).sum())
+    assert n_open <= capacity == ntx * nty * min(n_chunks, M)
+    if n == 20000:     # more chunks than M: the capacity is M per tile
+        assert n_chunks > M and n_open > 0

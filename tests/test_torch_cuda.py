@@ -341,13 +341,62 @@ def _sorted_inputs(n, width, height, seed):
     return sp.means2d, sp.radii, sp.visible
 
 
-BIN_SHAPES = [(20_000, 256, 256, 64), (12_345, 208, 112, 256)]
+def _bin_inputs(kind, n, width, height, seed):
+    """Depth-ordered means2d, radii, visible on the CPU: a projected test
+    cloud ("cloud"), or made with numpy from `seed`: boxes of random
+    centres and radii, some invisible, with centres up to 40 px off the
+    image ("random"); every box covering the whole grid ("all_hit"); a
+    cloud with nothing visible ("invisible")."""
+    if kind in ("cloud", "invisible"):
+        m2, rad, vis = _sorted_inputs(n, width, height, seed)
+        return m2, rad, vis & (kind == "cloud")
+    rng = np.random.default_rng(seed)
+    if kind == "all_hit":
+        m2 = np.tile([[width / 2, height / 2]], (n, 1))
+        rad = np.full(n, 2.0 * max(width, height))
+        vis = np.ones(n, dtype=bool)
+    else:
+        m2 = np.stack([rng.uniform(-40, width + 40, n),
+                       rng.uniform(-40, height + 40, n)], axis=1)
+        rad = rng.uniform(0.5, 40.0, n)
+        vis = rng.uniform(size=n) < 0.9
+    return (torch.from_numpy(m2.astype(np.float32)),
+            torch.from_numpy(rad.astype(np.float32)), torch.from_numpy(vis))
 
 
-@pytest.mark.parametrize("n,width,height,M", BIN_SHAPES)
+# (kind, n, width, height, M).  K3 walks tile rows 4 at a time, one chunk
+# of 256 per warp, and sums chunk totals 2 048 at a time; K4 counts and
+# places chunks of STREAM_CHUNK = 1024 and scans 128 chunk counts a step.
+TABLE_CASES = {
+    "cloud_20000": ("cloud", 20_000, 256, 256, 64),
+    "cloud_12345": ("cloud", 12_345, 208, 112, 256),
+    "chunk_all_hit": ("all_hit", 768, 64, 48, 64),       # counts of 256
+    "all_empty": ("invisible", 5_000, 128, 128, 64),
+    "n2_256": ("random", 200, 96, 64, 64),
+    "rows_not_multiple": ("random", 3_000, 208, 80, 64),  # 13 x 5 tiles
+    # 2 071 chunks: the running sum's second segment of 2 048 totals.
+    "chunks_past_scan_segment": ("random", 530_000, 32, 32, 64),
+}
+STREAM_CASES = {
+    "cloud_20000": ("cloud", 20_000, 256, 256, 64),
+    "cloud_12345": ("cloud", 12_345, 208, 112, 256),
+    "never_fill": ("random", 9_000, 128, 128, 4_096),
+    "all_full_first_chunk": ("all_hit", 5_000, 128, 128, 64),
+    "m_above_n": ("random", 100, 128, 128, 256),
+    "n_ragged": ("random", 2 * 4_096 + 77, 128, 96, 64),
+    "empty_stream": ("random", 0, 128, 128, 64),
+    "m_not_32": ("random", 3_000, 128, 128, 50),
+    "grid_9100_tiles": ("random", 20_000, 1_600, 1_456, 64),
+    # 196 chunks: past the 128 whose counts one scan step loads.
+    "chunks_past_scan_step": ("random", 200_000, 64, 64, 65_536),
+}
+
+
+@pytest.mark.parametrize("case", list(TABLE_CASES))
 @pytest.mark.parametrize("groups", [1, 4])
-def test_rank_table_kernel_matches_plain(cuda, n, width, height, M, groups):
-    m2, rad, vis = _sorted_inputs(n, width, height, seed=n)
+def test_rank_table_kernel_matches_plain(cuda, case, groups):
+    kind, n, width, height, M = TABLE_CASES[case]
+    m2, rad, vis = _bin_inputs(kind, n, width, height, seed=n)
     ntx, nty = -(-width // 16), -(-height // 16)
     cxlo, cxhi, cylo, cyhi, vis, n2 = tile._padded_intervals(m2, rad, vis, 16)
     bounds = [b.to(cuda) for b in (cxlo, torch.where(vis, cxhi, -1), cylo,
@@ -357,12 +406,19 @@ def test_rank_table_kernel_matches_plain(cuda, n, width, height, M, groups):
         before = binning.launches
         tab, cum = binning.build_rank_table(*bounds, ntx, nty_g, n2,
                                             y_offset=g * nty_g)
+        tab2, cum2 = binning.build_rank_table(*bounds, ntx, nty_g, n2,
+                                              y_offset=g * nty_g)
         torch.cuda.synchronize()
-        assert binning.launches == before + 1
+        assert binning.launches == before + 2
         ref_tab, ref_cum = binning.build_rank_table_plain(
             *bounds, ntx, nty_g, n2, y_offset=g * nty_g)
         assert tab.is_cuda and tab.dtype == torch.bfloat16
         assert torch.equal(tab, ref_tab) and torch.equal(cum, ref_cum)
+        assert torch.equal(tab, tab2) and torch.equal(cum, cum2)
+    if kind == "all_hit":
+        assert int(ref_tab.float().max()) == 256
+    if kind == "invisible":
+        assert int(cum.max()) == 0
     # The search over the kernel's tables on the card equals the CPU's.
     got = tile._bin_gaussians_search(m2.to(cuda), rad.to(cuda),
                                      vis[:n].to(cuda), ntx, nty, 16, M,
@@ -373,10 +429,11 @@ def test_rank_table_kernel_matches_plain(cuda, n, width, height, M, groups):
     assert torch.equal(got[1].cpu(), ref[1])
 
 
-@pytest.mark.parametrize("n,width,height,M", BIN_SHAPES)
-def test_stream_kernel_matches_plain(cuda, n, width, height, M):
-    m2, rad, vis = (a.to(cuda) for a in _sorted_inputs(n, width, height,
-                                                        seed=n + 1))
+@pytest.mark.parametrize("case", list(STREAM_CASES))
+def test_stream_kernel_matches_plain(cuda, case):
+    kind, n, width, height, M = STREAM_CASES[case]
+    m2, rad, vis = (a.to(cuda) for a in _bin_inputs(kind, n, width, height,
+                                                     seed=n + 1))
     ntx, nty = -(-width // 16), -(-height // 16)
     before = stream_binning.launches
     ti, tv = stream_binning.bin_gaussians_stream(m2, rad, vis, ntx, nty, 16, M)
@@ -389,10 +446,20 @@ def test_stream_kernel_matches_plain(cuda, n, width, height, M):
     ri, rv = stream_binning.bin_gaussians_stream_plain(m2, rad, vis, ntx, nty,
                                                        16, M)
     assert torch.equal(tv, rv) and torch.equal(ti, ri)
-    si, sv = tile._bin_gaussians_search(m2, rad, vis, ntx, nty, 16, M)
-    assert torch.equal(tv, sv) and torch.equal(ti, si)
-    assert tv.all(dim=1).any() and not tv.all(), \
-        "the case should fill some tiles and not others"
+    if n:   # the search binning needs at least one chunk of 256
+        si, sv = tile._bin_gaussians_search(m2, rad, vis, ntx, nty, 16, M)
+        assert torch.equal(tv, sv) and torch.equal(ti, si)
+    full = tv.all(dim=1)
+    if kind == "cloud":
+        assert full.any() and not tv.all(), \
+            "the case should fill some tiles and not others"
+    elif kind == "all_hit":
+        assert full.all() and torch.equal(
+            ti, torch.arange(M, dtype=torch.int32, device=cuda).expand_as(ti))
+    elif case == "never_fill":
+        assert tv.any() and not full.any()
+    elif case == "empty_stream":
+        assert not tv.any() and not ti.any()
 
 
 def test_binning_on_cpu_tensors_launches_no_kernel(cuda):
@@ -418,6 +485,10 @@ def test_binning_wrappers_reject_bad_inputs(cuda):
         stream_binning._launch(
             torch.zeros((8, 8), dtype=torch.int32, device=cuda)[:, :4], 2, 2,
             32)
+    with pytest.raises(ValueError, match="aligned"):
+        stream_binning._launch(
+            torch.zeros(33, dtype=torch.int32, device=cuda)[1:].view(8, 4),
+            2, 2, 32)
 
 
 @pytest.mark.parametrize("name", ["bin_table", "bin_stream", "raster_fwd",
