@@ -4,11 +4,13 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab ROOT [ROOT ...]
 
-Three main paths run through the entry points a user calls:
+Four main paths run through the entry points a user calls:
 `pipeline.image_to_3dgs` (image -> 3DGS, bench.py's path),
 `train.fit_teacher.fit_scene` (`fresnel refine`: per-scene Adam fit through
-the rasterizer) and `render.tile.render_tiled` / `cli.render` / `cli.orbit`
-on a cloud of a million Gaussians (`fresnel render` and `orbit`).  Phases,
+the rasterizer), `render.tile.render_tiled` / `cli.render` / `cli.orbit`
+on a cloud of a million Gaussians (`fresnel render` and `orbit`), and
+decoder training, `train.harness.Trainer` and its CLI
+(`fresnel-torch train`), at the flagship trained model's config.  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
@@ -46,6 +48,10 @@ non-zero:
                   K2 handed K1's prefixes (as the refine step launches it)
                   and called alone (it recomputes them), bit for bit
                   equal; median times; units; bound;
+      kernel_small_m  K1 and K2 against their plain versions on the packs
+                  render_tiled makes at M = 32 (N = 20) and M = 96 (N = 70,
+                  the m_cap rounding), at the same tolerances, K2 bit for
+                  bit run to run;
    9. refine_grad the refine loss and the gradient of {raw, depth_offset} at
                   that init on the card (K1 + K2) against the CPU (plain
                   versions), float32, and the card against itself;
@@ -109,7 +115,33 @@ non-zero:
                   16 x 16 grid), K3 bit for bit and K1 within 1e-5, and
                   every image bit for bit against render_tiled with the
                   mask + matmul table build, which launches no K3;
-  20. render_profile  torch.profiler over 2 full-width renders.
+  20. render_profile  torch.profiler over 2 full-width renders;
+  21. train_reference  a small training config (64^2, grid 8, encoder width
+                  16, K 4, batch 2, M 256, dropout 0) on the card and on the
+                  CPU from the same init and batches, 3 steps: losses within
+                  1e-4 relative, each parameter leaf's mean absolute
+                  difference within 1e-5 (the leaves of zero gradient
+                  only logged);
+  22. train_path  the flagship config (results/exp2_k8_model.msgpack.json:
+                  exp 2, K 8, scale_bias -2.6, opacity_bias 1.5,
+                  depth_offset_init -0.128, ImageEncoder 384 / 37 / 64,
+                  256^2, M 1024, batch 8, AdamW 2e-4 cosine, weight decay
+                  1e-5, loss weights rgb 1 ssim 0.5 depth 0.1 boundary 0.1)
+                  on a 16-scene synthetic_corpus (seed 0) with the port's
+                  feature caches: 2 warmup steps, then 20 timed steps (CUDA
+                  events) with the launch counts reset just before; K1 and
+                  K2 once each per step, every loss finite, the mean loss of
+                  the last 5 steps below the first 5's; ms per step,
+                  images/s, peak memory, overflow telemetry;
+      train_kernels  K1 and K2 against their plain versions at the training
+                  pack (T = 8 x 256, M = 1024, one launch for the batch),
+                  K2 bit for bit run to run and by both routes; times,
+                  bounds; the batch's render + backward through the one
+                  pack against 8 separate render_tiled calls;
+  23. train_profile  torch.profiler over 4 training steps;
+  24. train_cli   train_gaussian_decoder.main at the flagship flags on the
+                  corpus, one epoch: checkpoint and sidecar written,
+                  load_checkpoint bit for bit, encode (8, 37, 37, 384).
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -126,7 +158,9 @@ at the refine and render packs; K3 (`build_rank_table`), K4
 path's million depth-sorted Gaussians.  Each as `ms` on the device,
 `call_ms` per call and the device ms of each kernel by name
 (torch.profiler), with ptxas's registers and spills of all four kernels;
-one JSON line per root.
+and the refine step at full width (`fit_scene`: ms per step over 20
+steps, device ms per step and top kernels over 5); one JSON line per
+root.
 
 Imports torch, numpy and fresnel_tpu_torch only.
 """
@@ -135,6 +169,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -167,6 +203,12 @@ REFINE_LOSS_RTOL = 1e-5
 # losses and the mean abs difference of raw.
 REF_LOSS_RTOL = 1e-4
 REF_RAW_MEAN_TOL = 1e-4
+# train_reference: each parameter leaf's mean absolute card-CPU difference
+# after 3 steps (one Adam step moves an entry by about lr = 2e-4), except
+# the leaves whose gradient is zero in exact arithmetic, which step on
+# rounding noise of either sign (tests/test_torch_trainer.py names them).
+REF_PARAM_MEAN_TOL = 1e-5
+REF_ZERO_GRAD = r"res\.\d\.conv1\.bias|attn\.k\.bias"
 REFINE = dict(grid=37, K=4, res=256, max_per_tile=1024, lr=1e-2,
               depth_offset_init=-0.13)
 REFINE_STEPS = 100
@@ -200,6 +242,30 @@ RENDER = dict(n=1_000_000, res=512, max_per_tile=256, spread=0.8,
 RENDER_CLOUDS = 4
 AGREE_N = 200_000
 RENDER_REF_N = 120_000
+# The flagship trained model, results/exp2_k8_model.msgpack.json: exp 2,
+# K 8, surface-init head biases, depth_offset_init -0.128, the jointly
+# trained ImageEncoder (feature_dim 384, grid 37, width 64, attn_pool 1),
+# 256^2, max_per_tile 1024, batch 8, AdamW lr 2e-4 cosine over 300 epochs,
+# weight decay 1e-5, loss weights rgb 1, ssim 0.5, depth 0.1, boundary 0.1,
+# no augmentation, its HFGS terms off.
+TRAIN = dict(experiment=2, gaussians_per_patch=8, scale_bias=-2.6,
+             opacity_bias=1.5, depth_offset_init=-0.128, train_encoder=True,
+             feature_dim=384, feature_size=37, encoder_width=64,
+             image_size=256, max_per_tile=1024, batch_size=8, epochs=300,
+             lr=2e-4, weight_decay=1e-5, rgb_weight=1.0, ssim_weight=0.5,
+             depth_weight=0.1, boundary_weight=0.1, lpips_weight=0.0,
+             use_augmentation=False, seed=0)
+TRAIN_HFGS = dict(use_phase_retrieval_loss=False, use_frequency_loss=False,
+                  learnable_wavelengths=False)
+TRAIN_SCENES = 16
+TRAIN_WARMUP, TRAIN_STEPS = 2, 20
+# train_reference: a small config on the card and on the CPU.
+TRAIN_REF = dict(TRAIN, image_size=64, feature_size=8, encoder_width=16,
+                 gaussians_per_patch=4, max_per_tile=256, batch_size=2)
+TRAIN_REF_STEPS = 3
+# Small packs: M = 32 (render_tiled at N <= 32) and M = 96 (N = 70, the
+# m_cap rounding to a multiple of 32).
+SMALL_M = ((20, 32), (70, 96))
 # One (tile, Gaussian) entry of K3, one Gaussian read by K4 and one hit it
 # keeps: four integer compares and one count.
 OPS_PER_TEST = 5
@@ -288,8 +354,8 @@ def smooth_image(size, seed):
     return np.clip(img, 0, 1).astype(np.float32)
 
 
-def profile_ms(torch, fn, n):
-    """torch.profiler over fn(): wall ms, device ms, kernels and the top
+def profile_ms(torch, fn, n, top=8):
+    """torch.profiler over fn(): wall ms, device ms, kernels and the `top`
     kernels by device time, each per unit of n."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -308,11 +374,13 @@ def profile_ms(torch, fn, n):
     for e in kernels:
         by_name[e.key[:80]] = (by_name.get(e.key[:80], 0.0)
                                + e.self_device_time_total / 1e3 / n)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return dict(wall_ms=wall_ms / n, device_ms=device_ms / n,
+                indexing_backward_ms=sum(v for k, v in ranked
+                                         if "indexing_backward" in k),
                 device_busy_share=device_ms / wall_ms if device_ms else None,
                 kernels=sum(e.count for e in kernels) / n,
-                top_kernels_ms=dict(top))
+                top_kernels_ms=dict(ranked[:top]))
 
 
 def reset_counts(raster, binning, stream_binning):
@@ -334,20 +402,22 @@ def max_abs_diff(torch, a, b, rows=64):
     return worst
 
 
-def pack_stats(torch, raster, pack, counts, ntx):
+def pack_stats(torch, raster, pack, counts, ntx, tiles_per_image=None):
     """A pack's count distribution, the (tile, segment) units K1 and K2 run
     for it (the segment length L they choose, the units, the blocks
     launched, the tiles that need a fold, the heaviest unit's slots, the
     scratch bytes) and the pixel-slot pairs inside the slots' boxes (the
     rest K1 skips, and K2 where a whole warp is outside)."""
     T, M = pack.shape[:2]
+    ti = T if tiles_per_image is None else tiles_per_image
     resident = raster.resident_blocks(pack.device.index)
     L = raster.segment_length(counts, M, resident)
     c = counts.long()
     pix = torch.arange(raster.PIX, device=pack.device)
     pairs_in = warps_in = 0
     for t0 in range(0, T, 64):
-        t = torch.arange(t0, min(T, t0 + 64), device=pack.device)[:, None]
+        t = torch.arange(t0, min(T, t0 + 64),
+                         device=pack.device)[:, None] % ti
         g = pack[t0:t0 + 64]
         r = g[..., 5, None]
         px = (t % ntx * 16 + pix % 16).float()[:, None, :]
@@ -979,6 +1049,338 @@ def render_phases(torch, dev, k1, k2, path_launches):
     return k3, k4
 
 
+def kernel_small_m(torch, dev):
+    """K1 and K2 against their plain versions on the packs `render_tiled`
+    makes at M = 32 and M = 96 (N = 20 and 70 at 64^2): K1 within 1e-5,
+    K2 per field within 1e-4 of the field's largest plain value, K2 bit
+    for bit run to run."""
+    from fresnel_tpu_torch.core.gaussians import GaussianCloud
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.render import raster, tile
+
+    out = []
+    for n, want_m in SMALL_M:
+        cloud = GaussianCloud.test_cloud(n, seed=n, spread=0.5, z_offset=-2.0,
+                                         scale=0.06).to(dev)
+        with torch.no_grad():
+            tp = tile.pack_tiles(*fields(cloud), Camera.default_training(64),
+                                 tile.TileRendererConfig(max_per_tile=128))
+            pack, counts, ntx = tp.pack, tp.counts, tp.n_tiles_x
+            fwd = raster.composite_tiles_packed(pack, counts, ntx)
+            ref = raster.composite_tiles_plain(pack, counts, ntx)
+            ferr = max((g - r).abs().max().item() for g, r in zip(fwd, ref))
+            crng = np.random.default_rng(n)
+            cots = [torch.from_numpy(crng.normal(size=tuple(o.shape)).astype(
+                np.float32)).to(dev) for o in fwd]
+            got = raster.composite_tiles_bwd(pack, counts, ntx, *fwd, *cots)
+            again = raster.composite_tiles_bwd(pack, counts, ntx, *fwd, *cots)
+            bref = raster.composite_tiles_bwd_plain(pack, counts, ntx, *fwd,
+                                                    *cots)
+        berr, _, rel = bwd_errors(got, bref)
+        row = dict(n=n, M=int(pack.shape[1]), T=int(pack.shape[0]),
+                   counts_max=int(counts.max().item()), k1_max_abs_err=ferr,
+                   k2_max_abs_err=max(berr.values()),
+                   k2_rel_err=max(rel.values()),
+                   k2_repeat_bitwise_equal=bool(torch.equal(got, again)))
+        out.append(row)
+        if row["M"] != want_m:
+            fail(f"N = {n} gave M = {row['M']}, not {want_m}")
+        if not (ferr <= KERNEL_TOL and row["k2_rel_err"] <= KERNEL_BWD_TOL
+                and row["k2_repeat_bitwise_equal"]):
+            fail(f"K1 / K2 disagree with their plain versions at M = "
+                 f"{row['M']}: {row}")
+    log("kernel_small_m", packs=out, k1_tol=KERNEL_TOL,
+        k2_tol=KERNEL_BWD_TOL)
+    return max(r["k1_max_abs_err"] for r in out), max(
+        r["k2_max_abs_err"] for r in out)
+
+
+def train_setup(torch, dev, cfg_kw, tmp, dropout=None):
+    """A Trainer of config `cfg_kw` on `dev` (decoder dropout 0 when
+    `dropout` is 0) and its init state with depth_offset_init applied."""
+    from fresnel_tpu_torch.train import config as tconfig
+    from fresnel_tpu_torch.train.harness import Trainer, build_decoder
+
+    cfg = tconfig.TrainingConfig(output_dir=tmp, **cfg_kw)
+    trainer = Trainer(cfg, tconfig.PhysicsConfig(),
+                      tconfig.HFGSConfig(**TRAIN_HFGS), tconfig.HFTSConfig(),
+                      device=dev)
+    if dropout is not None:
+        trainer.model = build_decoder(cfg, trainer.physics_config,
+                                      dropout=dropout)
+    state = trainer.init_state()
+    state["params"]["model.depth_offset"] = torch.tensor(
+        cfg.depth_offset_init, device=trainer.device)
+    return trainer, state
+
+
+def train_batches(dataset, batch_size, n, seed=0):
+    """n batches (numpy) in the order `fit` draws them, epoch after epoch."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        out.extend(dataset.batches(batch_size, rng))
+    return out[:n]
+
+
+def train_phases(torch, dev, path_launches):
+    """Phases 21-24: decoder training at the flagship config.  Returns the
+    numbers of K1 and K2 at the training pack (T = 8 * 256, M = 1024)."""
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+
+    counters = (raster, binning, stream_binning)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    data_dir = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    synthetic_corpus.generate_corpus(data_dir, n_images=TRAIN_SCENES,
+                                     image_size=TRAIN["image_size"], seed=0)
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dataset = ImageDataset(data_dir, image_size=TRAIN["image_size"],
+                           feature_dim=TRAIN["feature_dim"],
+                           use_augmentation=False, device=dev)
+    caches_s = time.perf_counter() - t0
+    B = TRAIN["batch_size"]
+
+    # 21. train_reference: a small config, card against CPU, same init.
+    ref_batches = train_batches(dataset, TRAIN_REF["batch_size"],
+                                TRAIN_REF_STEPS)
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        trainer, state = train_setup(torch, d, TRAIN_REF,
+                                     os.path.join(tmp, f"ref_{name}"),
+                                     dropout=0.0)
+        trainer._make_optimizer(TRAIN_REF_STEPS)
+        gen = torch.Generator(device=d).manual_seed(1)
+        losses = []
+        for batch in ref_batches:
+            state, ld = trainer.train_step(
+                state, trainer.device_batch(batch),
+                TRAIN_REF["gaussians_per_patch"], None, gen)
+            losses.append(float(ld["total"]))
+        runs[name] = (losses, {k: v.cpu() for k, v in
+                               state["params"].items()})
+    (lg, pg), (lc, pc) = runs["card"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    diffs = {k: (pg[k] - pc[k]).abs() for k in pc}
+    mean_abs = {k: d.mean().item() for k, d in diffs.items()}
+    zero_grad = {k for k in mean_abs if re.search(REF_ZERO_GRAD, k)}
+    held = {k: v for k, v in mean_abs.items() if k not in zero_grad}
+    worst = sorted(held.items(), key=lambda kv: -kv[1])[:5]
+    log("train_reference", config={k: TRAIN_REF[k] for k in (
+        "image_size", "feature_size", "encoder_width", "gaussians_per_patch",
+        "max_per_tile", "batch_size")}, steps=TRAIN_REF_STEPS, dropout=0.0,
+        losses_card=lg, losses_cpu=lc, loss_rel_max=loss_rel,
+        loss_rtol=REF_LOSS_RTOL,
+        param_mean_abs_worst=dict(worst),
+        param_mean_abs_tol=REF_PARAM_MEAN_TOL,
+        param_mean_abs_zero_grad={k: mean_abs[k] for k in sorted(zero_grad)},
+        param_max_abs=max(d.max().item() for d in diffs.values()))
+    if not (loss_rel <= REF_LOSS_RTOL
+            and max(held.values()) <= REF_PARAM_MEAN_TOL):
+        fail("the card's training steps disagree with the CPU's")
+
+    # 22. train_path: the flagship config at full width.
+    trainer, state = train_setup(torch, dev, TRAIN, os.path.join(tmp, "run"))
+    steps_per_epoch = max(1, len(dataset) // B)
+    trainer._make_optimizer(TRAIN["epochs"] * steps_per_epoch)
+    batches = [trainer.device_batch(b) for b in train_batches(
+        dataset, B, TRAIN_WARMUP + TRAIN_STEPS)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    K = TRAIN["gaussians_per_patch"]
+    for batch in batches[:TRAIN_WARMUP]:
+        state, _ = trainer.train_step(state, batch, K, None, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*counters)
+    events, lds = [], []
+    t0 = time.perf_counter()
+    for batch in batches[TRAIN_WARMUP:]:
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        state, ld = trainer.train_step(state, batch, K, None, gen)
+        end.record()
+        events.append((start, end))
+        lds.append(ld)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    path_launches["train"] = read_counts(*counters)
+    ms = [s.elapsed_time(e) for s, e in events]
+    keys = list(lds[0])
+    table = torch.stack([torch.stack([ld[k] for k in keys])
+                         for ld in lds]).cpu().numpy()      # one host read
+    loss = {k: table[:, i].tolist() for i, k in enumerate(keys)}
+    total = np.asarray(loss["total"])
+    first5, last5 = float(total[:5].mean()), float(total[-5:].mean())
+    log("train_path", config=TRAIN, hfgs=TRAIN_HFGS, scenes=len(dataset),
+        corpus_seconds=corpus_s, caches_seconds=caches_s,
+        warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
+        launches=path_launches["train"], ms_per_step_median=statistics.median(
+            ms), ms_per_step=ms, host_ms_per_step=host_ms,
+        images_per_s=B / (host_ms / 1e3),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        loss_first5_mean=first5, loss_last5_mean=last5,
+        losses=loss["total"],
+        overflow={k: float(np.mean(loss[k])) for k in keys
+                  if k.startswith("overflow")},
+        final_loss_terms={k: loss[k][-1] for k in keys})
+    if path_launches["train"] != dict(k1=TRAIN_STEPS, k2=TRAIN_STEPS, k3=0,
+                                      k4=0):
+        fail(f"training launched {path_launches['train']} in "
+             f"{TRAIN_STEPS} steps")
+    if not np.all(np.isfinite(table)):
+        fail("a training loss is not finite")
+    if not last5 < first5:
+        fail(f"the training loss did not fall: {first5} -> {last5}")
+
+    # K1 and K2 at the training pack (one batch: T = 8 * 256, M = 1024).
+    batch = batches[-1]
+    with torch.no_grad():
+        params = state["params"]
+        feats = trainer._features(params, batch["image"])
+        from torch.func import functional_call
+        out = functional_call(
+            trainer.model, {k[6:]: v for k, v in params.items()
+                            if k.startswith("model.")},
+            (feats, batch["depth"]), dict(num_gaussians=K))
+        cloud = [out[k].detach() for k in FIELDS]
+        bp = tile.pack_tiles_batched(*cloud, trainer.camera,
+                                     trainer.renderer.config)
+    pack, counts, ntx, ti = (bp.pack, bp.counts, bp.n_tiles_x,
+                             bp.tiles_per_image)
+    T, M = pack.shape[:2]
+    with torch.no_grad():
+        fwd = raster.composite_tiles_packed(pack, counts, ntx,
+                                            tiles_per_image=ti)
+        fwd_ref = raster.composite_tiles_plain(pack, counts, ntx,
+                                               tiles_per_image=ti)
+        ferr = {n: (g - r).abs().max().item() for n, g, r in zip(
+            ("color", "depth", "transmittance"), fwd, fwd_ref)}
+        crng = np.random.default_rng(2)
+        cots = [torch.from_numpy(crng.normal(size=tuple(o.shape)).astype(
+            np.float32)).to(dev) for o in fwd]
+        prefix = raster._launch_fwd(pack, counts, ntx, keep_prefix=True,
+                                    tiles_per_image=ti)[3]
+        got = raster._launch_bwd(pack, counts, ntx, *fwd, *cots,
+                                 prefix=prefix, tiles_per_image=ti)
+        again = raster._launch_bwd(pack, counts, ntx, *fwd, *cots,
+                                   prefix=prefix, tiles_per_image=ti)
+        alone = raster.composite_tiles_bwd(pack, counts, ntx, *fwd, *cots,
+                                           tiles_per_image=ti)
+        bref = raster.composite_tiles_bwd_plain(pack, counts, ntx, *fwd,
+                                                *cots, tiles_per_image=ti)
+        berr, _, rel = bwd_errors(got, bref)
+        k1_t = kernel_times(torch, lambda: raster._launch_fwd(
+            pack, counts, ntx, keep_prefix=True, tiles_per_image=ti), n=20)
+        k2_t = kernel_times(torch, lambda: raster._launch_bwd(
+            pack, counts, ntx, *fwd, *cots, prefix=prefix,
+            tiles_per_image=ti), n=20)
+        k1_plain = cuda_median_ms(torch, lambda: raster.composite_tiles_plain(
+            pack, counts, ntx, tiles_per_image=ti), n=3, warmup=1)
+        k2_plain = cuda_median_ms(
+            torch, lambda: raster.composite_tiles_bwd_plain(
+                pack, counts, ntx, *fwd, *cots, tiles_per_image=ti),
+            n=3, warmup=1)
+    occupied = int(counts.sum().item())
+    stats = pack_stats(torch, raster, pack, counts, ntx, tiles_per_image=ti)
+    bnds = compositing_bounds(stats, T, M, occupied)
+
+    # The same batch's render and backward: one batched pack against B
+    # separate render_tiled calls (CUDA events, median of 3).
+    cots_img = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(B, 3, TRAIN["image_size"], TRAIN["image_size"])).astype(
+            np.float32)).to(dev)
+
+    def batched():
+        leaves = [c.clone().requires_grad_() for c in cloud]
+        img, dep, _ = trainer.renderer.batch(*leaves, trainer.camera)
+        torch.autograd.backward([img], [cots_img])
+
+    def separate():
+        leaves = [c.clone().requires_grad_() for c in cloud]
+        for b in range(B):
+            img = tile.render_tiled(*[x[b] for x in leaves], trainer.camera,
+                                    config=trainer.renderer.config)
+            torch.autograd.backward([img], [cots_img[b]])
+
+    render_ms = dict(batched=cuda_median_ms(torch, batched, n=3, warmup=1),
+                     separate=cuda_median_ms(torch, separate, n=3, warmup=1))
+    log("train_kernels", T=T, M=M, tiles_per_image=ti,
+        n_gaussians=int(cloud[0].shape[1]), occupied_slots=occupied,
+        k1_max_abs_err=ferr, k1_tol=KERNEL_TOL, k2_rel_err=rel,
+        k2_tol=KERNEL_BWD_TOL, k2_repeat_bitwise_equal=bool(
+            torch.equal(got, again)),
+        k2_routes_bitwise_equal=bool(torch.equal(got, alone)),
+        k1=dict(**k1_t, plain_ms=k1_plain, **bnds["k1"]),
+        k2=dict(**k2_t, plain_ms=k2_plain, **bnds["k2"]), **stats,
+        render_and_backward_ms=render_ms)
+    if not (max(ferr.values()) <= KERNEL_TOL
+            and max(rel.values()) <= KERNEL_BWD_TOL
+            and torch.equal(got, again) and torch.equal(got, alone)):
+        fail("K1 / K2 disagree with their plain versions at the training "
+             "pack, or do not repeat")
+
+    # 23. train_profile
+    n_prof = 4
+    prof_batches = batches[:n_prof]
+
+    def steps():
+        nonlocal state
+        for b in prof_batches:
+            state, _ = trainer.train_step(state, b, K, None, gen)
+
+    prof = profile_ms(torch, steps, n_prof, top=10)
+    log("train_profile", steps=n_prof, wall_ms_per_step=prof["wall_ms"],
+        device_ms_per_step=prof["device_ms"],
+        device_busy_share=prof["device_busy_share"],
+        kernels_per_step=prof["kernels"],
+        indexing_backward_ms_per_step=prof["indexing_backward_ms"],
+        top_kernels_ms_per_step=prof["top_kernels_ms"])
+
+    # 24. train_cli: the training CLI on the corpus, one epoch.
+    out_dir = os.path.join(tmp, "cli")
+    argv = ["--data_dir", data_dir, "--output_dir", out_dir, "--epochs",
+            "1", "--batch_size", str(B), "--lr", str(TRAIN["lr"]),
+            "--gaussians_per_patch", "8", "--surface_init",
+            "--depth_offset_init", str(TRAIN["depth_offset_init"]),
+            "--train_encoder", "--max_per_tile", "1024", "--lpips_weight",
+            "0", "--no_augmentation", "--device", "cuda"]
+    t0 = time.perf_counter()
+    cli_trainer, cli_state = tcli.main(argv)
+    cli_s = time.perf_counter() - t0
+    ckpt = os.path.join(out_dir, "final_model.pt")
+    written = sorted(os.listdir(out_dir))
+    back, epoch = cli_trainer.load_checkpoint(ckpt)
+    same = (torch.equal(back["step"], cli_state["step"])
+            and all(torch.equal(back["params"][k], v)
+                    for k, v in cli_state["params"].items())
+            and torch.equal(back["opt_state"]["count"],
+                            cli_state["opt_state"]["count"])
+            and all(torch.equal(back["opt_state"][m][k], v)
+                    for m in ("mu", "nu")
+                    for k, v in cli_state["opt_state"][m].items()))
+    feats = cli_trainer.encode(back["params"], batches[0]["image"])
+    with open(ckpt + ".json") as f:
+        meta = json.load(f)
+    log("train_cli", argv=argv, seconds=cli_s, files=written,
+        sidecar_keys=sorted(meta), history=cli_trainer.history.get("total"),
+        round_trip_bitwise_equal=same, encode_shape=list(feats.shape),
+        encode_finite=bool(torch.isfinite(feats).all()))
+    if not ("final_model.pt.json" in written and same
+            and tuple(feats.shape) == (B, 37, 37, 384)
+            and torch.isfinite(feats).all()):
+        fail("the training CLI's checkpoint, round trip or encode failed")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return (dict(max_abs_err=max(ferr.values()), ms=k1_t["ms"],
+                 plain_ms=k1_plain, bound_ms=bnds["k1"]["bound_ms"]),
+            dict(max_abs_err=max(berr.values()), ms=k2_t["ms"],
+                 plain_ms=k2_plain, bound_ms=bnds["k2"]["bound_ms"]))
+
+
 def main():
     import torch
 
@@ -1207,8 +1609,11 @@ def main():
              f"{rel}")
     if not repeat_equal:
         fail("K2 does not repeat bit for bit")
-    k1["max_abs_err"] = max(k1["max_abs_err"], max(fwd_errs.values()))
-    k2 = dict(max_abs_err=max(ferr.values()), ms=routes["handed"]["ms"],
+    k1_small, k2_small = kernel_small_m(torch, dev)
+    k1["max_abs_err"] = max(k1["max_abs_err"], max(fwd_errs.values()),
+                            k1_small)
+    k2 = dict(max_abs_err=max(max(ferr.values()), k2_small),
+              ms=routes["handed"]["ms"],
               plain_ms=bwd_plain_ms, bound_ms=bounds_r["k2"]["bound_ms"],
               bound_by=bounds_r["k2"]["bound_by"])
 
@@ -1323,10 +1728,17 @@ def main():
         device_ms_per_step=prof["device_ms"],
         device_busy_share=prof["device_busy_share"],
         kernels_per_step=prof["kernels"],
+        indexing_backward_ms_per_step=prof["indexing_backward_ms"],
         top_kernels_ms_per_step=prof["top_kernels_ms"])
 
     # 14-20. the large-cloud render path (K3, K4, K1)
     k3, k4 = render_phases(torch, dev, k1, k2, path_launches)
+
+    # 21-24. decoder training at the flagship config (K1, K2)
+    k1_train, k2_train = train_phases(torch, dev, path_launches)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_train["max_abs_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_train["max_abs_err"])
+    k1["at_train_pack"], k2["at_train_pack"] = k1_train, k2_train
 
     print(smi, flush=True)
 
@@ -1365,6 +1777,7 @@ def ab_measure(root):
     from fresnel_tpu_torch import _build, pipeline
     from fresnel_tpu_torch.core.camera import Camera
     from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
+    from fresnel_tpu_torch.train import fit_teacher
 
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -1378,7 +1791,7 @@ def ab_measure(root):
     models = pipeline.build_models(seed=0, device=dev)
     packs = dict(image=decoded_pack(torch, models, image)[0])
     del models
-    packs["refine"] = refine_init(torch, dev)[-1]
+    scene, depth, *_, packs["refine"] = refine_init(torch, dev)
     cam = Camera.default_training(RENDER["res"])
     cfg = tile.TileRendererConfig(max_per_tile=RENDER["max_per_tile"])
     with torch.no_grad():
@@ -1445,6 +1858,27 @@ def ab_measure(root):
                 **kernel_times(torch, fn, n=20 if kernel == "k4" else 50),
                 n_gaussians=RENDER["n"], n2=n2,
                 device_ms_by_kernel=prof["top_kernels_ms"])
+    # The refine step at full width: fit_scene's ms per step (CUDA events
+    # around one call of 20 steps, after a warmup call) and its device ms
+    # per step (torch.profiler over 5 steps).
+    del packs, sp, iv, bounds, sorted_in
+    fit_kw = dict(REFINE, device=dev)
+    fit_teacher.fit_scene(scene, depth, steps=3, **fit_kw)
+    n_steps = 20
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    fit_teacher.fit_scene(scene, depth, steps=n_steps, **fit_kw)
+    end.record()
+    torch.cuda.synchronize()
+    prof = profile_ms(torch, lambda: fit_teacher.fit_scene(
+        scene, depth, steps=5, **fit_kw), 5)
+    result["refine_step"] = dict(
+        e2e_ms_per_step=start.elapsed_time(end) / n_steps,
+        device_ms_per_step=prof["device_ms"],
+        wall_ms_per_step=prof["wall_ms"], kernels_per_step=prof["kernels"],
+        indexing_backward_ms_per_step=prof["indexing_backward_ms"],
+        top_kernels_ms_per_step=prof["top_kernels_ms"])
     return result
 
 

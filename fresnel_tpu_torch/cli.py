@@ -1,8 +1,9 @@
-"""Command-line interface of the port: `refine`, `render` and `orbit`.
+"""Command-line interface of the port: `refine`, `render`, `orbit`, `train`.
 
     python -m fresnel_tpu_torch.cli refine IMG OUT.ply [--device cpu]
     python -m fresnel_tpu_torch.cli render CLOUD OUT.png [--device cpu]
     python -m fresnel_tpu_torch.cli orbit CLOUD DIR [--device cpu]
+    python -m fresnel_tpu_torch.cli train [training flags] [--device cpu]
 
 Counterparts of fresnel_tpu/cli.py's subcommands of the same names, with
 the same flags and defaults.  `refine`: image -> per-scene fitted 3D
@@ -12,8 +13,10 @@ from the procedural gradient estimator unless Depth-Anything weights are
 found (which raises: they are not ported).  `render`: a `.ply` / `.bin`
 cloud from an orbit pose to a PNG; `orbit`: `--views` PNGs around it.
 Clouds of 98 304 Gaussians or more go through the rank-table search
-binning.  Everything runs on the card unless `--device cpu` is given.  The
-other subcommands of the JAX CLI are not ported.
+binning.  `train`: decoder training, the flags of
+`train.train_gaussian_decoder` (the JAX package's `fresnel train`).
+Everything runs on the card unless `--device cpu` is given.  The other
+subcommands of the JAX CLI are not ported.
 """
 
 from __future__ import annotations
@@ -229,10 +232,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--size", type=int, default=256)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+
+    sub.add_parser("train", add_help=False,
+                   help="train a Gaussian decoder (the flags of "
+                        "fresnel_tpu_torch.train.train_gaussian_decoder)")
     return ap
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["train"]:
+        from fresnel_tpu_torch.train import train_gaussian_decoder
+        train_gaussian_decoder.main(argv[1:])
+        return 0
     args = build_parser().parse_args(argv)
     return {"refine": cmd_refine, "render": cmd_render,
             "orbit": cmd_orbit}[args.cmd](args)

@@ -127,7 +127,7 @@ raster_bwd_segments(const float* __restrict__ pack,
                     const float* __restrict__ part,
                     float* __restrict__ grad,
                     int n_tiles, int max_per_tile, int n_tiles_x,
-                    int resident) {
+                    int tiles_per_image, int resident) {
   __shared__ float sh[SEG * PACK];
   __shared__ float sums[NWARP][SEG][NGRAD];
   __shared__ BlockUnits bu;
@@ -147,7 +147,7 @@ raster_bwd_segments(const float* __restrict__ pack,
     float* row = grad + static_cast<size_t>(tile) * max_per_tile * PACK;
 
     float px, py;
-    pixel_coords(tile, p, n_tiles_x, &px, &py);
+    pixel_coords(tile, p, n_tiles_x, tiles_per_image, &px, &py);
     const size_t o = static_cast<size_t>(tile) * PIX + p;
     const float gR = g_color[o * 3 + 0];
     const float gG = g_color[o * 3 + 1];
@@ -251,18 +251,19 @@ extern "C" int raster_bwd(const float* pack, const int* counts,
                           const float* g_depth, const float* g_trans,
                           float* part, int* tickets, float* grad,
                           int n_tiles, int max_per_tile, int n_tiles_x,
-                          int resident, int prefix_ready, void* stream) {
+                          int tiles_per_image, int resident, int prefix_ready,
+                          void* stream) {
   if (n_tiles <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   if (!prefix_ready) {
     const cudaError_t err = raster::launch_composite(
         pack, counts, nullptr, nullptr, nullptr, part, tickets, n_tiles,
-        max_per_tile, n_tiles_x, resident, 1, s);
+        max_per_tile, n_tiles_x, tiles_per_image, resident, 1, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   raster_bwd_segments<<<raster::grid_size(n_tiles, max_per_tile, resident),
                         raster::PIX, 0, s>>>(
       pack, counts, color, depth, trans, g_color, g_depth, g_trans, part,
-      grad, n_tiles, max_per_tile, n_tiles_x, resident);
+      grad, n_tiles, max_per_tile, n_tiles_x, tiles_per_image, resident);
   return static_cast<int>(cudaGetLastError());
 }

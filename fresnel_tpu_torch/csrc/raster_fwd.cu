@@ -20,7 +20,9 @@
 //                 same.
 // Output: color (T, 256, 3), depth (T, 256), trans (T, 256), float32, pixel
 //         p = ly * 16 + lx of tile t = ty * n_tiles_x + tx at integer pixel
-//         coordinates (tx * 16 + lx, ty * 16 + ly).
+//         coordinates (tx * 16 + lx, ty * 16 + ly), t counted within its
+//         image: a pack of B images holds each one's tiles_per_image
+//         tiles in turn (one launch for a batch).
 //
 // What bounds it on this card: the function reads count * 48 bytes per tile
 // and writes 256 * 20, and evaluates every pixel inside each slot's box
@@ -60,11 +62,11 @@
 extern "C" int raster_fwd(const float* pack, const int* counts, float* color,
                           float* depth, float* trans, float* part,
                           int* tickets, int n_tiles, int max_per_tile,
-                          int n_tiles_x, int resident, int keep_prefix,
-                          void* stream) {
+                          int n_tiles_x, int tiles_per_image, int resident,
+                          int keep_prefix, void* stream) {
   if (n_tiles <= 0) return 0;
   return static_cast<int>(raster::launch_composite(
       pack, counts, color, depth, trans, part, tickets, n_tiles,
-      max_per_tile, n_tiles_x, resident, keep_prefix,
+      max_per_tile, n_tiles_x, tiles_per_image, resident, keep_prefix,
       static_cast<cudaStream_t>(stream)));
 }

@@ -46,19 +46,26 @@ launches_bwd = 0    # K2 launches
 
 
 def _tile_grid(T: int, M: int, counts: torch.Tensor, n_tiles_x: int,
-               device, dtype):
-    """Pixel coordinates (T, P) and slot validity (T, M) of a pack."""
+               device, dtype, tiles_per_image=None):
+    """Pixel coordinates (T, P) and slot validity (T, M) of a pack; tile
+    t lies at t % tiles_per_image of its image (default T: one image)."""
     from fresnel_tpu_torch.render.tile import tile_pixel_coords
 
-    n_tiles_y = -(-T // n_tiles_x)
+    ti = T if tiles_per_image is None else tiles_per_image
+    n_tiles_y = -(-ti // n_tiles_x)
     px, py = tile_pixel_coords(n_tiles_x, n_tiles_y, TS, device)
     valid = (torch.arange(M, device=device)[None, :]
              < counts.to(device)[:, None])
-    return px[:T].to(dtype), py[:T].to(dtype), valid
+    px, py = px[:ti].to(dtype), py[:ti].to(dtype)
+    if ti != T:
+        local = torch.arange(T, device=device) % ti
+        px, py = px[local], py[local]
+    return px, py, valid
 
 
 def composite_tiles_plain(pack: torch.Tensor, counts: torch.Tensor,
-                          n_tiles_x: int, chunk: int = 32
+                          n_tiles_x: int, chunk: int = 32,
+                          tiles_per_image=None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1, on any device and float dtype.
 
@@ -69,7 +76,7 @@ def composite_tiles_plain(pack: torch.Tensor, counts: torch.Tensor,
 
     T, M, _ = pack.shape
     px, py, valid = _tile_grid(T, M, counts, n_tiles_x, pack.device,
-                               pack.dtype)
+                               pack.dtype, tiles_per_image)
     return _composite_tiles(
         px, py, pack[..., 0:2], pack[..., 2:5], pack[..., 6:9],
         pack[..., 9], pack[..., 10], pack[..., 5], valid,
@@ -78,7 +85,8 @@ def composite_tiles_plain(pack: torch.Tensor, counts: torch.Tensor,
 
 def composite_tiles_bwd_plain(pack, counts, n_tiles_x: int, color, depth,
                               trans, g_color, g_depth, g_trans,
-                              chunk: int = 32) -> torch.Tensor:
+                              chunk: int = 32, tiles_per_image=None
+                              ) -> torch.Tensor:
     """Plain PyTorch version of K2, on any device and float dtype.
 
     The formulas of pallas_raster.py's _bwd_chunk_body over (T, C, P)
@@ -91,7 +99,7 @@ def composite_tiles_bwd_plain(pack, counts, n_tiles_x: int, color, depth,
     if M % chunk:
         raise ValueError(f"M={M} is not a multiple of chunk={chunk}")
     px, py, valid = _tile_grid(T, M, counts, n_tiles_x, pack.device,
-                               pack.dtype)
+                               pack.dtype, tiles_per_image)
     g4 = torch.cat([g_color, g_depth[..., None]], -1)           # (T, P, 4)
     S = torch.cat([color, depth[..., None]], -1)                # (T, P, 4)
     gT_fin = (g_trans * trans)[:, None, :]                      # (T, 1, P)
@@ -212,13 +220,22 @@ def _tile_tickets(T: int, device) -> torch.Tensor:
     return buf
 
 
+def _per_image(T: int, tiles_per_image) -> int:
+    ti = T if tiles_per_image is None else int(tiles_per_image)
+    if T and (ti < 1 or T % ti):
+        raise ValueError(f"{T} tiles are not whole images of {ti}")
+    return max(ti, 1)
+
+
 def _launch_fwd(pack: torch.Tensor, counts: torch.Tensor, n_tiles_x: int,
-                keep_prefix: bool = False) -> Tuple[torch.Tensor, ...]:
+                keep_prefix: bool = False, tiles_per_image=None
+                ) -> Tuple[torch.Tensor, ...]:
     """K1 on CUDA tensors: (color, depth, trans, prefix), prefix the
     segment prefixes for K2 when `keep_prefix`, else None."""
     global launches
     _check_inputs(pack, counts)
     T, M, _ = pack.shape
+    ti = _per_image(T, tiles_per_image)
     part = torch.empty(scratch_shape(T, M), dtype=torch.float32,
                        device=pack.device)
     color = torch.empty((T, PIX, 3), dtype=torch.float32, device=pack.device)
@@ -231,14 +248,16 @@ def _launch_fwd(pack: torch.Tensor, counts: torch.Tensor, n_tiles_x: int,
                   (pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
                    depth.data_ptr(), trans.data_ptr(), part.data_ptr(),
                    _tile_tickets(T, pack.device).data_ptr()),
-                  (T, M, n_tiles_x, resident_blocks(pack.device.index or 0),
+                  (T, M, n_tiles_x, ti,
+                   resident_blocks(pack.device.index or 0),
                    int(keep_prefix)))
     launches += 1
     return color, depth, trans, prefix
 
 
 def _launch_bwd(pack, counts, n_tiles_x: int, color, depth, trans, g_color,
-                g_depth, g_trans, prefix=None) -> torch.Tensor:
+                g_depth, g_trans, prefix=None, tiles_per_image=None
+                ) -> torch.Tensor:
     """K2 on CUDA tensors.  `prefix` is K1's for the same pack and counts;
     without it K2 recomputes it first."""
     global launches_bwd
@@ -246,6 +265,7 @@ def _launch_bwd(pack, counts, n_tiles_x: int, color, depth, trans, g_color,
     _check_pixels(pack, color=color, depth=depth, trans=trans,
                   g_color=g_color, g_depth=g_depth, g_trans=g_trans)
     T, M, _ = pack.shape
+    ti = _per_image(T, tiles_per_image)
     if prefix is None:
         part = torch.empty(scratch_shape(T, M), dtype=torch.float32,
                            device=pack.device)
@@ -263,7 +283,8 @@ def _launch_bwd(pack, counts, n_tiles_x: int, color, depth, trans, g_color,
                    depth.data_ptr(), trans.data_ptr(), g_color.data_ptr(),
                    g_depth.data_ptr(), g_trans.data_ptr(), part.data_ptr(),
                    _tile_tickets(T, pack.device).data_ptr(), grad.data_ptr()),
-                  (T, M, n_tiles_x, resident_blocks(pack.device.index or 0),
+                  (T, M, n_tiles_x, ti,
+                   resident_blocks(pack.device.index or 0),
                    int(prefix is not None)))
     launches_bwd += 1
     return grad
@@ -276,17 +297,19 @@ def _device_of(pack: torch.Tensor) -> str:
 
 
 def composite_tiles_bwd(pack, counts, n_tiles_x: int, color, depth, trans,
-                        g_color, g_depth, g_trans, chunk: int = 32
-                        ) -> torch.Tensor:
+                        g_color, g_depth, g_trans, chunk: int = 32,
+                        tiles_per_image=None) -> torch.Tensor:
     """Gradient of the pack (T, M, 12) from the forward's outputs (color,
     depth before the background, final transmittance) and their
     cotangents: K2 for CUDA tensors, the plain version for CPU tensors.
     `chunk` is the plain version's step and does not change the kernel."""
     if _device_of(pack) == "cuda":
         return _launch_bwd(pack, counts, n_tiles_x, color, depth, trans,
-                           g_color, g_depth, g_trans)
+                           g_color, g_depth, g_trans,
+                           tiles_per_image=tiles_per_image)
     return composite_tiles_bwd_plain(pack, counts, n_tiles_x, color, depth,
-                                     trans, g_color, g_depth, g_trans, chunk)
+                                     trans, g_color, g_depth, g_trans, chunk,
+                                     tiles_per_image)
 
 
 class _Composite(torch.autograd.Function):
@@ -296,15 +319,19 @@ class _Composite(torch.autograd.Function):
     derivative raises on both devices."""
 
     @staticmethod
-    def forward(ctx, pack, counts, n_tiles_x: int, chunk: int):
+    def forward(ctx, pack, counts, n_tiles_x: int, chunk: int,
+                tiles_per_image):
         if _device_of(pack) == "cuda":
             *out, prefix = _launch_fwd(pack, counts, n_tiles_x,
-                                       keep_prefix=ctx.needs_input_grad[0])
+                                       keep_prefix=ctx.needs_input_grad[0],
+                                       tiles_per_image=tiles_per_image)
         else:
-            out = composite_tiles_plain(pack, counts, n_tiles_x, chunk)
+            out = composite_tiles_plain(pack, counts, n_tiles_x, chunk,
+                                        tiles_per_image)
             prefix = None
         ctx.save_for_backward(pack, counts, *out, prefix)
         ctx.n_tiles_x, ctx.chunk = n_tiles_x, chunk
+        ctx.tiles_per_image = tiles_per_image
         return tuple(out)
 
     @staticmethod
@@ -317,16 +344,18 @@ class _Composite(torch.autograd.Function):
                 g_trans.contiguous())
         if _device_of(pack) == "cuda":
             grad = _launch_bwd(pack, counts, ctx.n_tiles_x, color, depth,
-                               trans, *cots, prefix=prefix)
+                               trans, *cots, prefix=prefix,
+                               tiles_per_image=ctx.tiles_per_image)
         else:
             grad = composite_tiles_bwd_plain(
                 pack, counts, ctx.n_tiles_x, color, depth, trans, *cots,
-                chunk=ctx.chunk)
-        return grad, None, None, None
+                chunk=ctx.chunk, tiles_per_image=ctx.tiles_per_image)
+        return grad, None, None, None, None
 
 
 def composite_tiles_packed(pack: torch.Tensor, counts: torch.Tensor,
-                           n_tiles_x: int, chunk: int = 32
+                           n_tiles_x: int, chunk: int = 32,
+                           tiles_per_image=None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Composite binned, depth-ordered tiles, differentiably in the pack.
 
@@ -336,5 +365,7 @@ def composite_tiles_packed(pack: torch.Tensor, counts: torch.Tensor,
     transmittance (T, 256)), the contract of the JAX package's
     composite_tiles_pallas_packed.  CUDA tensors launch K1 (and K2 on
     backward), CPU tensors run the plain versions.  `chunk` is the plain
-    versions' step and does not change the kernels."""
-    return _Composite.apply(pack, counts, n_tiles_x, chunk)
+    versions' step and does not change the kernels.  A pack of B images
+    holds each one's `tiles_per_image` tiles in turn (default T: one
+    image), so a batch takes one launch of each kernel."""
+    return _Composite.apply(pack, counts, n_tiles_x, chunk, tiles_per_image)

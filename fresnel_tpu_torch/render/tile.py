@@ -21,8 +21,9 @@ Counterpart of fresnel_tpu/render/tile.py:
                   opt-in;
        "chunked"  `_bin_gaussians_chunked`: chunk totals + in-chunk ranks
                   on demand, no table; opt-in;
-  4. one packed gather of a per-Gaussian (N + 1, 12) table through a
-     sentinel row (opacity 0, radius -1) into (T, M, 12);
+  4. one packed gather of the occupied slots' per-Gaussian rows into
+     (T, M, 12), empty slots holding a sentinel row (opacity 0, radius
+     -1);
   5. front-to-back compositing of each tile, through
      `render.raster.composite_tiles_packed`: the hand-written CUDA kernels
      for CUDA tensors (K1 forward, K2 backward), their plain versions for
@@ -618,23 +619,72 @@ def project_sorted(positions, scales, rotations, colors, opacities,
         opacities=torch.where(visible, opacities[order], 0.0))
 
 
-def gather_pack(sp: SortedProjection, tile_idx: torch.Tensor,
-                tile_valid: torch.Tensor):
-    """One gather from a per-Gaussian packed table into (pack (T, M, 12),
-    counts (T,) int32); invalid slots index the sentinel row N (opacity 0,
-    radius -1).  The radius only gates the inside-box test, so it carries
-    no gradient."""
-    n = sp.means2d.shape[0]
-    fields = torch.cat(
+def _pack_fields(sp: SortedProjection) -> torch.Tensor:
+    """The per-Gaussian packed rows (N, 12).  The radius only gates the
+    inside-box test, so it carries no gradient."""
+    return torch.cat(
         [sp.means2d, sp.conic, sp.radii.detach()[:, None], sp.colors,
          sp.opacities[:, None], sp.depths[:, None],
-         torch.zeros_like(sp.opacities)[:, None]], dim=-1)       # (N, 12)
-    sentinel = torch.zeros((1, PACK), dtype=fields.dtype, device=fields.device)
-    sentinel[0, 5] = SENTINEL_RADIUS
-    fields = torch.cat([fields, sentinel], dim=0)                # (N+1, 12)
-    idx_safe = torch.where(tile_valid, tile_idx, n).long()
-    pack = fields[idx_safe].contiguous()                         # (T, M, 12)
+         torch.zeros_like(sp.opacities)[:, None]], dim=-1)
+
+
+def _gather_rows(fields: torch.Tensor, tile_idx: torch.Tensor,
+                 tile_valid: torch.Tensor) -> torch.Tensor:
+    """(T, M, 12) pack of `fields` rows: occupied slots hold their
+    Gaussian's row, the rest the sentinel row (opacity 0, radius -1).
+
+    Only the occupied slots are gathered, so the backward scatters into
+    `fields` from those alone (at most the tile window's 25 slots per
+    Gaussian), where gathering every slot through a sentinel row summed
+    every empty slot's zero into that one row, serially.  The scatter is
+    the index backward with accumulate=True, which sums in slot order
+    (bit-repeatable; a plain index_add_ sums with atomics on the card)."""
+    pack = torch.zeros(tuple(tile_idx.shape) + (PACK,), dtype=fields.dtype,
+                       device=fields.device)
+    pack[..., 5] = SENTINEL_RADIUS
+    pack[tile_valid] = fields[tile_idx[tile_valid].long()]
+    return pack
+
+
+def gather_pack(sp: SortedProjection, tile_idx: torch.Tensor,
+                tile_valid: torch.Tensor):
+    """(pack (T, M, 12), counts (T,) int32): one gather of the occupied
+    slots' per-Gaussian rows; empty slots hold the sentinel row (opacity 0,
+    radius -1)."""
+    pack = _gather_rows(_pack_fields(sp), tile_idx, tile_valid)
     return pack, tile_valid.sum(dim=1, dtype=torch.int32)
+
+
+def _layout(cfg: TileRendererConfig, camera: Camera, n: int):
+    """(n_tiles_x, n_tiles_y, m_cap) of N Gaussians under `camera`.  The
+    per-tile capacity is a multiple of the chunk, at most one rounding
+    above N itself."""
+    ts = cfg.tile_size
+    m_cap = min(cfg.max_per_tile, n)
+    m_cap = -(-m_cap // cfg.chunk) * cfg.chunk
+    return -(-camera.width // ts), -(-camera.height // ts), m_cap
+
+
+def _project_and_bin(positions, scales, rotations, colors, opacities,
+                     camera: Camera, cfg: TileRendererConfig, n_tiles_x: int,
+                     n_tiles_y: int, m_cap: int):
+    """(SortedProjection, tile_idx (T, M), tile_valid (T, M)) of one
+    cloud."""
+    sp = project_sorted(positions, scales, rotations, colors, opacities,
+                        camera, cfg)
+    tile_idx, tile_valid = bin_tiles(sp.means2d, sp.radii, sp.visible,
+                                     n_tiles_x, n_tiles_y, m_cap, cfg)
+    return sp, tile_idx, tile_valid
+
+
+def _untile(x: torch.Tensor, n_tiles_x: int, n_tiles_y: int, tile_size: int,
+            height: int, width: int) -> torch.Tensor:
+    """(B * T, ts * ts[, C]) tile-major pixels -> (B, H, W[, C])."""
+    tail = tuple(x.shape[2:])
+    ts = tile_size
+    x = x.reshape((-1, n_tiles_y, n_tiles_x, ts, ts) + tail).transpose(2, 3)
+    x = x.reshape((x.shape[0], n_tiles_y * ts, n_tiles_x * ts) + tail)
+    return x[:, :height, :width]
 
 
 def pack_tiles(positions, scales, rotations, colors, opacities,
@@ -643,23 +693,15 @@ def pack_tiles(positions, scales, rotations, colors, opacities,
     """Projection, depth sort, binning and the packed gather: everything
     of `render_tiled` before compositing."""
     cfg = config
-    n = positions.shape[0]
     _check_supported(cfg, phases)
-    ts = cfg.tile_size
-    n_tiles_x = -(-camera.width // ts)
-    n_tiles_y = -(-camera.height // ts)
-    sp = project_sorted(positions, scales, rotations, colors, opacities,
-                        camera, cfg)
-    # Per-tile capacity: a multiple of the chunk, at most one rounding
-    # above N itself.
-    m_cap = min(cfg.max_per_tile, n)
-    m_cap = -(-m_cap // cfg.chunk) * cfg.chunk
-    tile_idx, tile_valid = bin_tiles(sp.means2d, sp.radii, sp.visible,
-                                     n_tiles_x, n_tiles_y, m_cap, cfg)
+    ntx, nty, m_cap = _layout(cfg, camera, positions.shape[0])
+    sp, tile_idx, tile_valid = _project_and_bin(
+        positions, scales, rotations, colors, opacities, camera, cfg, ntx,
+        nty, m_cap)
     pack, counts = gather_pack(sp, tile_idx, tile_valid)
     return TilePack(pack=pack, counts=counts, means2d=sp.means2d,
                     radii=sp.radii, visible=sp.visible, m_cap=m_cap,
-                    n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y)
+                    n_tiles_x=ntx, n_tiles_y=nty)
 
 
 def render_tiled(positions: torch.Tensor, scales: torch.Tensor,
@@ -692,25 +734,105 @@ def render_tiled(positions: torch.Tensor, scales: torch.Tensor,
     bg = torch.tensor(background, dtype=torch.float32, device=acc_c.device)
     acc_c = acc_c + Tr[..., None] * bg
 
-    img = acc_c.reshape(nty, ntx, ts, ts, 3).permute(0, 2, 1, 3, 4)
-    img = img.reshape(nty * ts, ntx * ts, 3)
-    img = torch.clamp(img[:H, :W], 0.0, 1.0).permute(2, 0, 1)
+    def untile(x):
+        return _untile(x, ntx, nty, ts, H, W)[0]
 
-    def _untile(x):
-        x = x.reshape(nty, ntx, ts, ts).permute(0, 2, 1, 3)
-        return x.reshape(nty * ts, ntx * ts)[:H, :W]
-
+    img = torch.clamp(untile(acc_c), 0.0, 1.0).permute(2, 0, 1)
     out = (img,)
     if return_depth:
-        out += (_untile(acc_d),)
+        out += (untile(acc_d),)
     if return_transmittance:
-        out += (_untile(Tr),)
+        out += (untile(Tr),)
     if return_overflow:
-        totals = _tile_totals(tp.means2d, tp.radii, tp.visible, ntx, nty, ts)
-        m_cap = tp.m_cap
-        out += (torch.stack([
-            torch.clamp(totals - m_cap, min=0).sum(dtype=torch.int32),
-            totals.sum(dtype=torch.int32),
-            (totals > m_cap).sum(dtype=torch.int32),
-            totals.max()]),)
+        out += (_overflow(tp.means2d, tp.radii, tp.visible, ntx, nty, ts,
+                          tp.m_cap),)
     return out if len(out) > 1 else img
+
+
+def _overflow(means2d, radii, visible, n_tiles_x, n_tiles_y, tile_size,
+              m_cap) -> torch.Tensor:
+    """(4,) int32 [dropped_pairs, total_pairs, overflow_tiles,
+    max_tile_hits] of one image."""
+    totals = _tile_totals(means2d, radii, visible, n_tiles_x, n_tiles_y,
+                          tile_size)
+    return torch.stack([
+        torch.clamp(totals - m_cap, min=0).sum(dtype=torch.int32),
+        totals.sum(dtype=torch.int32),
+        (totals > m_cap).sum(dtype=torch.int32),
+        totals.max()])
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPack:
+    """B images' binned tiles in one (B * T, M, 12) pack, image b's T
+    tiles at rows [b * T, (b + 1) * T)."""
+
+    pack: torch.Tensor        # (B * T, M, 12) float32
+    counts: torch.Tensor      # (B * T,) int32
+    overflow: torch.Tensor    # (B, 4) int32
+    tiles_per_image: int
+    n_tiles_x: int
+    n_tiles_y: int
+
+
+def pack_tiles_batched(positions, scales, rotations, colors, opacities,
+                       cameras, config: TileRendererConfig = TileRendererConfig()
+                       ) -> BatchPack:
+    """Projection, sort and binning of each of B clouds (B, N, ...) under
+    its camera (one Camera for all or a sequence of B), then one gather of
+    every image's occupied slots into one pack."""
+    cfg = config
+    B, n = positions.shape[:2]
+    _check_supported(cfg, None)
+    cams = (list(cameras) if isinstance(cameras, (list, tuple))
+            else [cameras] * B)
+    if len(cams) != B:
+        raise ValueError(f"{len(cams)} cameras for {B} clouds")
+    if any((c.height, c.width) != (cams[0].height, cams[0].width)
+           for c in cams):
+        raise ValueError("every camera of a batch must have one size")
+    ntx, nty, m_cap = _layout(cfg, cams[0], n)
+    fields, idx, valid, ovf = [], [], [], []
+    for b in range(B):
+        sp, tile_idx, tile_valid = _project_and_bin(
+            positions[b], scales[b], rotations[b], colors[b], opacities[b],
+            cams[b], cfg, ntx, nty, m_cap)
+        fields.append(_pack_fields(sp))
+        idx.append(tile_idx.long() + b * n)
+        valid.append(tile_valid)
+        ovf.append(_overflow(sp.means2d, sp.radii, sp.visible, ntx, nty,
+                             cfg.tile_size, m_cap))
+    valid = torch.cat(valid)
+    pack = _gather_rows(torch.cat(fields), torch.cat(idx), valid)
+    return BatchPack(pack=pack, counts=valid.sum(dim=1, dtype=torch.int32),
+                     overflow=torch.stack(ovf), tiles_per_image=ntx * nty,
+                     n_tiles_x=ntx, n_tiles_y=nty)
+
+
+def render_tiled_batched(positions: torch.Tensor, scales: torch.Tensor,
+                         rotations: torch.Tensor, colors: torch.Tensor,
+                         opacities: torch.Tensor, cameras,
+                         config: TileRendererConfig = TileRendererConfig()):
+    """Render B clouds (B, N, ...) to (images (B, 3, H, W), depth (B, H, W),
+    overflow (B, 4) int32), what `jax.vmap` of `render_tiled(...,
+    return_depth=True, return_overflow=True)` returns.
+
+    `cameras` is one Camera for every image or a sequence of B.  Each
+    image is projected, sorted and binned alone; the B packs are one
+    (B * T, M, 12) pack from a single gather, composited by one launch of
+    K1 (and K2 on backward) for CUDA tensors.  On the CPU every image
+    equals its own `render_tiled` bit for bit."""
+    cfg = config
+    cam = cameras[0] if isinstance(cameras, (list, tuple)) else cameras
+    bp = pack_tiles_batched(positions, scales, rotations, colors, opacities,
+                            cameras, cfg)
+    ntx, nty = bp.n_tiles_x, bp.n_tiles_y
+    acc_c, acc_d, _ = raster.composite_tiles_packed(
+        bp.pack, bp.counts, ntx, chunk=cfg.chunk,
+        tiles_per_image=bp.tiles_per_image)
+
+    def untile(x):
+        return _untile(x, ntx, nty, cfg.tile_size, cam.height, cam.width)
+
+    img = torch.clamp(untile(acc_c), 0.0, 1.0).permute(0, 3, 1, 2)
+    return img, untile(acc_d), bp.overflow

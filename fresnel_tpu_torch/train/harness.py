@@ -1,0 +1,460 @@
+"""Decoder training harness: the train step, HFTS scheduling, checkpoints.
+
+Counterpart of fresnel_tpu/train/harness.py::Trainer.  One step: the
+image encoder (`train_encoder`) or the cached features -> the decoder
+(dropout on) -> optional stochastic-K subsample -> one batched render of
+the B clouds (one (B * T, M, 12) pack: one K1 launch forward and one K2
+launch backward on the card) -> `compute_losses` -> overflow telemetry ->
+optional tensegrity term -> clip + AdamW + cosine schedule, with the NaN
+guard on the device (train/optim.py).  `fit` runs HFTS progressive K,
+reads the losses from the device once per epoch, and writes periodic,
+best and final checkpoints and `loss_history.json`.
+
+Parameters live in the state as a flat {name: tensor} dict ("model.<key>",
+"encoder.<key>", "wavelengths_raw", "boundary_emphasis"); the modules are
+templates run with `torch.func.functional_call`.  A checkpoint is
+`torch.save` of {params, opt_state, step} (`.pt`) with the JAX package's
+JSON sidecar keys beside it.
+
+Not ported (each raises NotImplementedError, queued in ROADMAP.md):
+experiments 1, 3, 4 and 5, the physics decoder, LPIPS in the step,
+view-aware training (`view_weight`), distillation (`distill_weight`),
+`use_amp`, more than one device, and reading Flax msgpack checkpoints.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from fresnel_tpu_torch.core.camera import Camera
+from fresnel_tpu_torch.device import resolve_device
+from fresnel_tpu_torch.losses.aggregate import compute_losses
+from fresnel_tpu_torch.losses.physics import init_learnable_wavelengths
+from fresnel_tpu_torch.models.blocks import tensegrity_loss
+from fresnel_tpu_torch.models.decoders import DirectPatchDecoder
+from fresnel_tpu_torch.models.encoders import resize_linear
+from fresnel_tpu_torch.models.image_encoder import ImageEncoder
+from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones
+from fresnel_tpu_torch.render.factory import select_training_renderer
+from fresnel_tpu_torch.train.config import (
+    HFGSConfig, HFTSConfig, PhysicsConfig, TrainingConfig)
+from fresnel_tpu_torch.train.optim import AdamWClip
+from fresnel_tpu_torch.weights import init_flax_like_
+
+
+def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
+                  dropout: float = 0.1) -> DirectPatchDecoder:
+    """Experiment 2's DirectPatchDecoder (the other experiments and the
+    physics decoder raise).  Its unported options raise in its
+    constructor."""
+    if config.experiment != 2:
+        raise NotImplementedError(
+            f"experiment {config.experiment} is not ported (ROADMAP Queue 1, "
+            "items 4 and 7); only experiment 2")
+    if physics_config.use_wave_rendering and not config.use_phase_output:
+        raise NotImplementedError(
+            "PhysicsDirectPatchDecoder is not ported (ROADMAP Queue 1, "
+            "item 3)")
+    return DirectPatchDecoder(
+        feature_dim=config.feature_dim,
+        gaussians_per_patch=config.gaussians_per_patch,
+        scale_bias=config.scale_bias, opacity_bias=config.opacity_bias,
+        depth_z_scale=config.depth_z_scale, dropout=dropout,
+        use_fresnel_zones=config.use_fresnel_zones,
+        use_edge_aware=config.use_edge_aware,
+        use_phase_output=config.use_phase_output,
+        use_pose_encoding=config.use_pose_encoding,
+        use_depth_fusion=config.use_depth_fusion,
+        feature_upsample=config.feature_upsample,
+        z_offset_scale=config.z_offset_scale)
+
+
+def save_loss_plots(history: Dict[str, list], path) -> bool:
+    """4-panel loss plots; no-op without matplotlib."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return False
+    keys = [k for k in ("total", "rgb", "ssim", "depth") if k in history]
+    if not keys:
+        return False
+    fig, axes = plt.subplots(2, 2, figsize=(10, 7))
+    for ax, k in zip(axes.ravel(), keys):
+        ax.plot(history[k])
+        ax.set_title(k)
+        ax.set_xlabel("epoch")
+        ax.grid(alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(path, dpi=90)
+    plt.close(fig)
+    return True
+
+
+def gumbel_topk_indices(generator: torch.Generator, weights: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """k indices without replacement, probability proportional to
+    `weights` (Gumbel top-k), the noise drawn from `generator`."""
+    logp = torch.log(torch.clamp(weights, min=1e-12))
+    u = torch.rand(weights.shape, generator=generator,
+                   device=weights.device) * (1.0 - 1e-9) + 1e-9
+    return torch.topk(logp - torch.log(-torch.log(u)), k).indices
+
+
+def _split(params: Dict[str, torch.Tensor], prefix: str
+           ) -> Dict[str, torch.Tensor]:
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@dataclasses.dataclass
+class Trainer:
+    config: TrainingConfig
+    physics_config: PhysicsConfig = dataclasses.field(
+        default_factory=PhysicsConfig)
+    hfgs_config: HFGSConfig = dataclasses.field(default_factory=HFGSConfig)
+    hfts_config: HFTSConfig = dataclasses.field(default_factory=HFTSConfig)
+    lpips: Optional[Any] = None
+    device: Any = None
+
+    def __post_init__(self):
+        cfg = self.config
+        unported = {
+            "lpips (ROADMAP Queue 1, item 6)": self.lpips is not None,
+            "view_weight > 0 (ROADMAP Queue 1, item 2)": cfg.view_weight > 0,
+            "distill_weight > 0 (ROADMAP Queue 1, item 1)":
+                cfg.distill_weight > 0,
+            "use_amp (ROADMAP Queue 1, item 1)": cfg.use_amp,
+            "num_devices > 1 (ROADMAP Queue 1, item 12)":
+                (cfg.num_devices or 1) > 1,
+        }
+        on = [k for k, v in unported.items() if v]
+        if on:
+            raise NotImplementedError(f"not ported: {on}")
+        self.device = resolve_device(self.device)
+        self.model = build_decoder(cfg, self.physics_config)
+        self.encoder = None
+        if cfg.train_encoder:
+            self.encoder = ImageEncoder(
+                feature_dim=cfg.feature_dim, grid=cfg.feature_size,
+                width=cfg.encoder_width, attn_pool=cfg.encoder_attn_pool)
+        self.renderer = select_training_renderer(
+            cfg, self.physics_config, self.hfgs_config)
+        self.train_res = self.hfts_config.get_effective_train_resolution(
+            cfg.image_size)
+        self.camera = Camera.default_training(self.train_res).to(self.device)
+        self.fresnel_zones = (FresnelZones(num_zones=cfg.num_fresnel_zones)
+                              if cfg.boundary_weight > 0 else None)
+        self.history: Dict[str, list] = {}
+        self._make_optimizer(max(cfg.epochs, 1) * 100)
+
+    def _make_optimizer(self, total_steps: int):
+        cfg = self.config
+        self.optimizer = AdamWClip(cfg.lr, total_steps, cfg.weight_decay,
+                                   schedule=cfg.lr_schedule)
+
+    # ------------------------------------------------------------------
+    def init_state(self, sample_batch: Optional[Dict] = None
+                   ) -> Dict[str, Any]:
+        """Flax-like init of every parameter from a CPU generator seeded
+        with config.seed, so the card and the CPU start from the same bits;
+        then moved to the trainer's device.  `sample_batch` is accepted for
+        the JAX trainer's signature; no shape depends on it here."""
+        g = torch.Generator().manual_seed(self.config.seed)
+        params: Dict[str, torch.Tensor] = {}
+        for prefix, module in (("model", self.model),
+                               ("encoder", self.encoder)):
+            if module is None:
+                continue
+            module.to("cpu")
+            init_flax_like_(module, g)
+            module.to(self.device)
+            for k, v in module.named_parameters():
+                params[f"{prefix}.{k}"] = v.detach().clone()
+        if self.hfgs_config.learnable_wavelengths:
+            params["wavelengths_raw"] = init_learnable_wavelengths(self.device)
+        if (self.fresnel_zones is not None
+                and self.config.learnable_boundary_emphasis):
+            params["boundary_emphasis"] = torch.ones(
+                self.config.num_fresnel_zones + 1, device=self.device)
+        return {"params": params, "opt_state": self.optimizer.init(params),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=self.device)}
+
+    # ------------------------------------------------------------------
+    def _features(self, params, image: torch.Tensor) -> torch.Tensor:
+        return functional_call(self.encoder, _split(params, "encoder"),
+                               (image,))
+
+    def loss(self, params: Dict[str, torch.Tensor], batch: Dict,
+             K: int, stochastic_k: Optional[int] = None,
+             generator: Optional[torch.Generator] = None,
+             poses: Optional[Tuple[np.ndarray, np.ndarray]] = None):
+        """(total, loss dict) of one batch of device tensors.  `poses` are
+        the multi-pose (elevation, azimuth) draws in radians, (B,) each."""
+        cfg = self.config
+        res = self.train_res
+        depth, target = batch["depth"], batch["image"]
+        feats = (self._features(params, target) if self.encoder is not None
+                 else batch["features"])
+        B = feats.shape[0]
+        if target.shape[-1] != res:
+            target = resize_linear(target, res, res)
+        target_depth = resize_linear(depth, res, res)
+
+        kwargs: Dict[str, Any] = dict(num_gaussians=K, deterministic=False,
+                                      generator=generator)
+        if poses is not None:
+            el, az = (torch.as_tensor(a, dtype=torch.float32,
+                                      device=feats.device) for a in poses)
+            kwargs.update(elevation=el, azimuth=az)
+        out = functional_call(self.model, _split(params, "model"),
+                              (feats, depth), kwargs)
+        pos, sc, rot = out["positions"], out["scales"], out["rotations"]
+        col, op = out["colors"], out["opacities"]
+
+        if stochastic_k is not None and stochastic_k < pos.shape[1]:
+            importance = op.detach().mean(dim=0) + 1e-6
+            idx = gumbel_topk_indices(generator, importance / importance.sum(),
+                                      stochastic_k)
+            pos, sc, rot = pos[:, idx], sc[:, idx], rot[:, idx]
+            col, op = col[:, idx], op[:, idx]
+
+        cams = self.camera
+        if poses is not None:
+            cams = [Camera.from_pose(float(e), float(a), res).to(pos.device)
+                    for e, a in zip(*poses)]
+        imgs, rdepth, ovf = self.renderer.batch(pos, sc, rot, col, op, cams)
+
+        total, ld = compute_losses(
+            imgs, target, rendered_depth=rdepth, target_depth=target_depth,
+            residuals=out.get("residuals"), config=cfg,
+            vlm_density=batch.get("vlm_density"),
+            physics_config=self.physics_config, hfgs_config=self.hfgs_config,
+            learnable_wavelengths_raw=params.get("wavelengths_raw"),
+            fresnel_zones=self.fresnel_zones,
+            boundary_emphasis=params.get("boundary_emphasis"))
+
+        # (B, 4) [dropped, total_pairs, overflow_tiles, max] per image.
+        n_tiles = (-(-res // 16)) ** 2
+        ovf_sum = ovf.sum(dim=0).to(torch.float32)
+        ld["overflow_dropped_frac"] = ovf_sum[0] / torch.clamp(ovf_sum[1],
+                                                               min=1.0)
+        ld["overflow_tiles_frac"] = ovf_sum[2] / (B * n_tiles)
+        ld["overflow_max_tile_hits"] = ovf[:, 3].max().to(torch.float32)
+
+        if cfg.use_tensegrity_loss:
+            # Bound the O(N^2) kNN to a fixed 512-point subsample.
+            n = pos.shape[1]
+            t_l = tensegrity_loss(pos[:, ::max(1, n // 512)][:, :512])
+            ld["tensegrity"] = t_l
+            total = total + cfg.tensegrity_weight * t_l
+            ld["total"] = total
+        return total, ld
+
+    def train_step(self, state: Dict, batch: Dict, K: int,
+                   stochastic_k: Optional[int] = None,
+                   generator: Optional[torch.Generator] = None,
+                   poses=None) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+        """One optimizer step; returns (new state, loss dict on the
+        device).  A non-finite loss or gradient leaves params, moments and
+        the schedule's count as they were (the step counter still
+        advances, as in the JAX trainer)."""
+        names = list(state["params"])
+        params = {k: v.detach().requires_grad_()
+                  for k, v in state["params"].items()}
+        with torch.enable_grad():
+            total, ld = self.loss(params, batch, K, stochastic_k, generator,
+                                  poses)
+            grads = torch.autograd.grad(total, [params[k] for k in names],
+                                        allow_unused=True)
+        new_params, new_opt = self.optimizer.update(
+            state["params"], dict(zip(names, grads)), state["opt_state"],
+            loss=total.detach())
+        return ({"params": new_params, "opt_state": new_opt,
+                 "step": state["step"] + 1},
+                {k: v.detach() for k, v in ld.items()})
+
+    # ------------------------------------------------------------------
+    def device_batch(self, batch: Dict[str, np.ndarray]
+                     ) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v), device=self.device)
+                for k, v in batch.items()
+                if k not in ("views", "view_azimuths_deg")}
+
+    def draw_poses(self, rng: np.random.Generator, B: int):
+        """Multi-pose (elevation, azimuth) in radians, frontal with
+        probability frontal_prob; None without multi-pose augmentation."""
+        cfg = self.config
+        if not cfg.multi_pose_augmentation:
+            return None
+        el_lo, el_hi = np.radians(cfg.pose_range_elevation)
+        az_lo, az_hi = np.radians(cfg.pose_range_azimuth)
+        el = rng.uniform(el_lo, el_hi, B)
+        az = rng.uniform(az_lo, az_hi, B)
+        frontal = rng.uniform(size=B) < cfg.frontal_prob
+        return (np.where(frontal, 0.0, el).astype(np.float32),
+                np.where(frontal, 0.0, az).astype(np.float32))
+
+    def fit(self, dataset, epochs: Optional[int] = None,
+            state: Optional[Dict] = None, log_fn: Callable = print,
+            start_epoch: int = 0, stop_epoch: Optional[int] = None) -> Dict:
+        """Train over `dataset`.  start_epoch / stop_epoch run a segment of
+        the full schedule (progressive K, the cosine span and checkpoint
+        numbering follow the full `epochs`)."""
+        cfg = self.config
+        epochs = cfg.epochs if epochs is None else epochs
+        nprng = np.random.default_rng(cfg.seed)
+        pose_rng = np.random.default_rng(cfg.seed + 2)
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+
+        steps_per_epoch = max(1, len(dataset) // cfg.batch_size)
+        self._make_optimizer(epochs * steps_per_epoch)
+
+        first = next(iter(dataset.batches(cfg.batch_size, nprng)))
+        self._depth_side = int(first["depth"].shape[-1])
+        if state is None:
+            state = self.init_state(first)
+            if cfg.depth_offset_init is not None:
+                state["params"]["model.depth_offset"] = torch.tensor(
+                    float(cfg.depth_offset_init), device=self.device)
+                log_fn(f"depth_offset initialized at "
+                       f"{cfg.depth_offset_init:.3f}")
+
+        out_dir = Path(cfg.output_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        best_loss = float("inf")
+
+        last_epoch = epochs if stop_epoch is None else min(stop_epoch, epochs)
+        for epoch in range(start_epoch, last_epoch):
+            K = self.hfts_config.get_gaussians_per_patch(
+                epoch, epochs, cfg.gaussians_per_patch)
+            n_total = self._total_gaussians(K)
+            sk = self.hfts_config.get_stochastic_k(n_total)
+            sk = None if sk >= n_total else sk
+
+            t0 = time.perf_counter()
+            epoch_losses: Dict[str, list] = {}
+            for batch in dataset.batches(cfg.batch_size, nprng):
+                jb = self.device_batch(batch)
+                poses = self.draw_poses(pose_rng, cfg.batch_size)
+                state, ld = self.train_step(state, jb, K, sk, gen, poses)
+                for k, v in ld.items():
+                    epoch_losses.setdefault(k, []).append(v)
+
+            # One host read per epoch.
+            keys = list(epoch_losses)
+            vals = torch.stack([torch.stack(epoch_losses[k]).mean()
+                                for k in keys]).cpu().tolist()
+            means = dict(zip(keys, vals))
+            dt = time.perf_counter() - t0
+            for k, v in means.items():
+                self.history.setdefault(k, []).append(v)
+            ovf_str = ""
+            if "overflow_dropped_frac" in means:
+                ovf_str = (f" ovf={means['overflow_dropped_frac']:.3f}"
+                           f"/{means['overflow_tiles_frac']:.3f}"
+                           f" max={means['overflow_max_tile_hits']:.0f}")
+            log_fn(f"epoch {epoch + 1}/{epochs} K={K} sk={sk} "
+                   f"loss={means.get('total', float('nan')):.4f} "
+                   f"({dt:.1f}s, {steps_per_epoch / max(dt, 1e-9):.2f} it/s)"
+                   + ovf_str)
+
+            if (epoch + 1) % cfg.save_interval == 0:
+                self.save_checkpoint(
+                    out_dir / f"checkpoint_epoch{epoch + 1}.pt", state, epoch)
+            if means.get("total", float("inf")) < best_loss:
+                best_loss = means["total"]
+                self.save_checkpoint(out_dir / "best_model.pt", state, epoch)
+
+        if last_epoch >= epochs:
+            self.save_checkpoint(out_dir / "final_model.pt", state,
+                                 epochs - 1)
+        else:   # segment boundary: guarantee a resume point
+            self.save_checkpoint(out_dir / f"checkpoint_epoch{last_epoch}.pt",
+                                 state, last_epoch - 1)
+        with open(out_dir / "loss_history.json", "w") as f:
+            json.dump(self.history, f, indent=2)
+        save_loss_plots(self.history, out_dir / "loss_plots.png")
+        return state
+
+    def _total_gaussians(self, K: int) -> int:
+        return self.config.feature_size ** 2 * K
+
+    # ------------------------------------------------------------------
+    def encode(self, params: Dict[str, torch.Tensor], images) -> torch.Tensor:
+        """The jointly trained encoder on (B, 3, H, W) images in [0, 1] ->
+        (B, grid, grid, C) features."""
+        if self.encoder is None:
+            raise ValueError("this Trainer/checkpoint has no trained "
+                             "encoder (config.train_encoder is False)")
+        images = torch.as_tensor(images, dtype=torch.float32,
+                                 device=self.device)
+        with torch.no_grad():
+            return self._features(params, images)
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path, state: Dict, epoch: int) -> None:
+        torch.save({"params": _to_cpu(state["params"]),
+                    "opt_state": _to_cpu(state["opt_state"]),
+                    "step": _to_cpu(state["step"])}, str(path))
+        meta = {
+            "epoch": epoch,
+            "config": dataclasses.asdict(self.config),
+            "physics_config": dataclasses.asdict(self.physics_config),
+            "hfgs_config": dataclasses.asdict(self.hfgs_config),
+            "hfts_config": dataclasses.asdict(self.hfts_config),
+        }
+        Path(str(path) + ".json").write_text(json.dumps(meta, indent=2))
+
+    def load_checkpoint(self, path, sample_batch=None) -> Tuple[Dict, int]:
+        """(state, epoch) from a checkpoint written by `save_checkpoint`;
+        its parameter names and shapes must be this trainer's."""
+        meta_path = Path(str(path) + ".json")
+        meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
+        if meta.get("thin") or str(path).endswith(".msgpack"):
+            raise NotImplementedError(
+                "Flax msgpack checkpoints are not read yet (ROADMAP Queue 1, "
+                "item 2)")
+        template = self.init_state(sample_batch)
+        payload = torch.load(str(path), map_location=self.device,
+                             weights_only=True)
+        for k, v in template["params"].items():
+            got = payload["params"].get(k)
+            if got is None or got.shape != v.shape:
+                raise ValueError(f"checkpoint {path} does not match this "
+                                 f"trainer at {k}")
+        if not meta_path.exists():
+            if not os.environ.get("FRESNEL_ALLOW_MISSING_SIDECAR"):
+                raise FileNotFoundError(
+                    f"no config sidecar at {meta_path} - resuming without it "
+                    f"restarts the LR schedule at epoch 0 with converged "
+                    f"weights; set FRESNEL_ALLOW_MISSING_SIDECAR=1 to resume "
+                    f"at epoch 0 anyway.")
+            print(f"WARNING: no config sidecar at {meta_path}; resuming at "
+                  f"epoch 0 (LR schedule restarts)", flush=True)
+        state = {"params": payload["params"],
+                 "opt_state": payload["opt_state"], "step": payload["step"]}
+        return _to_device(state, self.device), meta.get("epoch", 0)

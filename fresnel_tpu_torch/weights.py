@@ -7,9 +7,14 @@ They import nothing of the JAX package: the layouts are rules on arrays.
   * Dense `kernel` (in, out)            -> Linear.weight (out, in)
   * Conv `kernel` (kh, kw, in, out)     -> Conv2d.weight (out, in, kh, kw)
   * PatchUpsample `kernel` (k, k, C, O) -> ConvTranspose2d layout (C, O, k, k)
-  * LayerNorm `scale`                   -> weight
+  * LayerNorm / GroupNorm `scale`       -> weight
+  * attention DenseGeneral kernels (C, heads, head_dim) and (heads,
+    head_dim, C), biases (heads, head_dim) -> Linear(C, C)
   * biases, LayerScale `gamma`, cls / pos tokens and the decoder's scalar
     `depth_offset` carry over as they are.
+`trainer_params` carries a whole JAX `Trainer`'s params (decoder, image
+encoder, `wavelengths_raw`, `boundary_emphasis`) into the port's
+`train.harness.Trainer` params.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch import nn
 
 from fresnel_tpu_torch.models.blocks import Conv2d, LayerNorm, Linear
 from fresnel_tpu_torch.models.decoders import DirectPatchDecoder
+from fresnel_tpu_torch.models.image_encoder import GroupNorm, ImageEncoder
 from fresnel_tpu_torch.models.vit import (
     DINOv2,
     LayerScale,
@@ -79,6 +85,73 @@ def decoder_state_dict(flat: Mapping[str, np.ndarray]
     return _convert(flat, renames=((r"^MLP_0\.Dense_(\d+)\.", r"mlp.layers.\1."),))
 
 
+_ENCODER_RENAMES = (
+    (r"^Conv_(\d)\.", lambda m: f"conv{int(m.group(1)) + 1}."),
+    (r"^_ResBlock_(\d)\.", r"res.\1."),
+    (r"^_AttnBlock_(\d)\.", r"blocks.\1."),
+    (r"^Dense_0\.", "proj."),
+    (r"(^|\.)GroupNorm_(\d)\.", lambda m: f"{m.group(1)}norm{int(m.group(2)) + 1}."),
+    (r"(res\.\d\.)Conv_(\d)\.", lambda m: f"{m.group(1)}conv{int(m.group(2)) + 1}."),
+    (r"(blocks\.\d\.)LayerNorm_(\d)\.", lambda m: f"{m.group(1)}norm{int(m.group(2)) + 1}."),
+    (r"(blocks\.\d\.)MultiHeadDotProductAttention_0\.(query|key|value|out)\.",
+     lambda m: f"{m.group(1)}attn.{dict(query='q', key='k', value='v', out='out')[m.group(2)]}."),
+    (r"(blocks\.\d\.)Dense_(\d)\.", lambda m: f"{m.group(1)}fc{int(m.group(2)) + 1}."),
+)
+
+
+def image_encoder_state_dict(flat: Mapping[str, np.ndarray],
+                             attn_pool: int = 1) -> Dict[str, torch.Tensor]:
+    """Flat ImageEncoder params -> state dict of
+    models.image_encoder.ImageEncoder."""
+    flat2 = {}
+    for path, val in flat.items():
+        arr = np.asarray(val, dtype=np.float32)
+        if "MultiHeadDotProductAttention" in path:
+            leaf = path.split("/")[-1]
+            if path.split("/")[-2] == "out":
+                if leaf == "kernel":                      # (h, d, C)
+                    arr = arr.reshape(-1, arr.shape[-1])
+            elif leaf == "kernel":                        # (C, h, d)
+                arr = arr.reshape(arr.shape[0], -1)
+            else:                                         # bias (h, d)
+                arr = arr.reshape(-1)
+        flat2[path] = arr
+    # The top-level LayerNorms: the final one, and with attn_pool > 1 the
+    # pooled tokens' one before it.
+    tops = ["norm"] if attn_pool == 1 else ["pool_norm", "norm"]
+    renames = _ENCODER_RENAMES + tuple(
+        (rf"^LayerNorm_{i}\.", f"{name}.") for i, name in enumerate(tops))
+    out = {}
+    for key, t in _convert(flat2).items():
+        for pattern, repl in renames:
+            key = re.sub(pattern, repl, key)
+        out[key] = t
+    return out
+
+
+def trainer_params(flat: Mapping[str, np.ndarray], attn_pool: int = 1
+                   ) -> Dict[str, torch.Tensor]:
+    """A JAX Trainer's params, flattened with "/" ("model/params/...",
+    "encoder/params/...", "wavelengths_raw", "boundary_emphasis") ->
+    the port Trainer's {name: tensor} ("model.<key>", "encoder.<key>",
+    "wavelengths_raw", "boundary_emphasis")."""
+    groups: Dict[str, Dict[str, np.ndarray]] = {"model": {}, "encoder": {}}
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in flat.items():
+        head, _, rest = path.partition("/")
+        if head in groups:
+            groups[head][rest.split("/", 1)[1]] = val       # drop "params/"
+        else:
+            out[path] = torch.from_numpy(np.array(val, dtype=np.float32))
+    for k, v in decoder_state_dict(groups["model"]).items():
+        out[f"model.{k}"] = v
+    if groups["encoder"]:
+        for k, v in image_encoder_state_dict(groups["encoder"],
+                                             attn_pool).items():
+            out[f"encoder.{k}"] = v
+    return out
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
     # Flax's lecun_normal: variance 1 / fan_in, normal truncated at 2 sigma
     # (the 0.8796 factor restores the variance the truncation removes).
@@ -89,17 +162,20 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
 @torch.no_grad()
 def init_flax_like_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise `model` in place as the Flax modules initialise: Dense
-    and Conv kernels lecun-normal, biases zero, LayerNorm scale one,
-    LayerScale 1e-5, cls / pos tokens and PatchUpsample kernels normal(0.02),
+    and Conv kernels lecun-normal, biases zero, LayerNorm and GroupNorm
+    scale one, LayerScale 1e-5, cls / pos tokens and PatchUpsample kernels
+    normal(0.02),
     `depth_offset` -2.  Draws from `generator`, so it is reproducible."""
     for m in model.modules():
         if isinstance(m, (Linear, Conv2d)):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, LayerNorm):
+        elif isinstance(m, (LayerNorm, GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, ImageEncoder):
+            m.pos_embed.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, LayerScale):
             m.gamma.fill_(1e-5)
         elif isinstance(m, PatchUpsample):

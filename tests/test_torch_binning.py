@@ -39,6 +39,8 @@ from fresnel_tpu_torch.core.gaussians import GaussianCloud as TCloud
 from fresnel_tpu_torch.render import binning as tbin
 from fresnel_tpu_torch.render import stream_binning as tstream
 from fresnel_tpu_torch.render import tile as tt
+from test_torch_threads import _few_threads  # noqa: F401
+
 
 STREAM_KW = dict(interpret=True, chunk=128, cpc=2, tile_block=8, win=16)
 

@@ -16,6 +16,8 @@ from fresnel_tpu.core.gaussians import GaussianCloud as JCloud
 
 from fresnel_tpu_torch.core import camera as tc
 from fresnel_tpu_torch.core.gaussians import GaussianCloud as TCloud
+from test_torch_threads import _few_threads  # noqa: F401
+
 
 TOL = 1e-6
 

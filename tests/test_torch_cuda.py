@@ -86,10 +86,16 @@ def _counts(pattern, T, M, seed):
 
 
 PATTERNS = ["cap", "around_seg", "empty", "one_slot", "heavy_among_empty"]
+# Packs of M = 32 (render_tiled at N <= 32) and M = 96 (N = 70, the m_cap
+# rounding to a multiple of the chunk): one segment, and a segment of 64
+# with a partial one of 32 after it.
+SMALL_M_CASES = [(16, 32, 4, "random"), (16, 32, 4, "cap"),
+                 (64, 96, 8, "random"), (64, 96, 8, "cap"),
+                 (64, 96, 8, "around_seg")]
 FWD_CASES = ([(6, 64, 3, "random"), (64, 256, 8, "random"),
               (1024, 256, 32, "random"), (1024, 256, 32, "cap"),
               (256, 1024, 16, "random"), (256, 1024, 16, "cap")]
-             + [(64, 256, 8, p) for p in PATTERNS])
+             + [(64, 256, 8, p) for p in PATTERNS] + SMALL_M_CASES)
 
 
 @pytest.mark.parametrize("T,M,ntx,pattern", FWD_CASES)
@@ -144,7 +150,8 @@ def test_wrapper_rejects_bad_inputs(cuda):
         raster.composite_tiles_packed(pack, cnt.long(), 2)
 
 
-@pytest.mark.parametrize("n,res", [(300, 64), (5000, 256)])
+@pytest.mark.parametrize("n,res", [(300, 64), (5000, 256), (20, 32),
+                                   (70, 48)])
 def test_render_on_card_matches_cpu(cuda, n, res):
     rng = np.random.default_rng(n)
     pos = rng.normal(size=(n, 3)).astype(np.float32) * 0.5
@@ -182,7 +189,7 @@ def _assert_fields_close(got, ref):
 BWD_CASES = ([(6, 64, 3, "random"), (64, 256, 8, "random"),
               (1024, 256, 32, "random"), (1024, 256, 32, "cap"),
               (256, 1024, 16, "random"), (256, 1024, 16, "cap")]
-             + [(64, 256, 8, p) for p in PATTERNS])
+             + [(64, 256, 8, p) for p in PATTERNS] + SMALL_M_CASES)
 
 
 @pytest.mark.parametrize("T,M,ntx,pattern", BWD_CASES)
@@ -210,6 +217,37 @@ def test_bwd_kernel_matches_plain(cuda, T, M, ntx, pattern):
     assert torch.equal(alone, handed)
     _assert_fields_close(alone, raster.composite_tiles_bwd_plain(
         pack, cnt, ntx, *fwd[:3], *cots))
+
+
+# Packs of several images, as the training step's (B * T, M, 12) pack:
+# (T, M, n_tiles_x, tiles_per_image, pattern).  A tile's pixel coordinates
+# restart with each image.
+BATCHED_CASES = [(512, 1024, 16, 256, "random"), (128, 256, 8, 32, "random"),
+                 (64, 96, 4, 16, "cap")]
+
+
+@pytest.mark.parametrize("T,M,ntx,ti,pattern", BATCHED_CASES)
+def test_batched_kernels_match_plain(cuda, T, M, ntx, ti, pattern):
+    """K1 and K2 over T // ti images, one launch each, against their plain
+    versions with the same tiles_per_image: K1 within 1e-5, K2 within 1e-4
+    of each field's largest plain value."""
+    pack, cnt = _pack(T, M, _counts(pattern, T, M, T + 2), T + 2, ntx * 16)
+    pack, cnt = pack.to(cuda), cnt.to(cuda)
+    f0, b0 = raster.launches, raster.launches_bwd
+    got = raster.composite_tiles_packed(pack, cnt, ntx, tiles_per_image=ti)
+    ref = raster.composite_tiles_plain(pack, cnt, ntx, tiles_per_image=ti)
+    # The images after the first are placed apart from one image's grid.
+    one = raster.composite_tiles_plain(pack, cnt, ntx)
+    assert not torch.equal(ref[0], one[0])
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+    cots = _cots(T, M, cuda)
+    grad = raster.composite_tiles_bwd(pack, cnt, ntx, *ref, *cots,
+                                      tiles_per_image=ti)
+    torch.cuda.synchronize()
+    assert (raster.launches - f0, raster.launches_bwd - b0) == (1, 1)
+    _assert_fields_close(grad, raster.composite_tiles_bwd_plain(
+        pack, cnt, ntx, *ref, *cots, tiles_per_image=ti))
 
 
 @pytest.mark.parametrize("pattern", ["random", "cap"])
@@ -539,7 +577,29 @@ def test_entry_point_launch_error_raises(cuda):
         _build.launch("raster_fwd", pack.device,
                       (pack.data_ptr(), cnt.data_ptr(),
                        *(t.data_ptr() for t in out + [part, tickets])),
-                      (4, 256, 2, 0, 0))
+                      (4, 256, 2, 4, 0, 0))
+
+
+def test_entry_points_refuse_bad_image_tiling(cuda):
+    """tiles_per_image < 1 is refused by K1's and K2's C entry points, and
+    a pack that is not whole images by the wrappers."""
+    pack, cnt = _pack(4, 256, [256, 65, 0, 3], 0, 32)
+    pack, cnt = pack.to(cuda), cnt.to(cuda)
+    part = torch.empty(raster.scratch_shape(4, 256), device=cuda)
+    tickets = torch.zeros(4, dtype=torch.int32, device=cuda)
+    out = [torch.empty((4, 256, 3), device=cuda)] + [
+        torch.empty((4, 256), device=cuda) for _ in range(2)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("raster_fwd", pack.device,
+                      (pack.data_ptr(), cnt.data_ptr(),
+                       *(t.data_ptr() for t in out + [part, tickets])),
+                      (4, 256, 2, 0, raster.resident_blocks(0), 0))
+    with pytest.raises(ValueError, match="whole images"):
+        raster.composite_tiles_packed(pack, cnt, 2, tiles_per_image=3)
+    outs = raster.composite_tiles_packed(pack, cnt, 2, tiles_per_image=2)
+    with pytest.raises(ValueError, match="whole images"):
+        raster.composite_tiles_bwd(pack, cnt, 2, *outs, *_cots(4, 1, cuda),
+                                   tiles_per_image=3)
 
 
 @pytest.mark.parametrize("binning_name,counter", [
@@ -564,3 +624,54 @@ def test_large_cloud_render_takes_binning_kernel(cuda, binning_name, counter):
     assert after[0] - before[0] == (1 if counter == "search" else 0)
     assert after[1] - before[1] == (1 if counter == "stream" else 0)
     assert torch.equal(img, ref) and img.max() > 0.1
+
+
+def _batch_inputs(B, n, seed):
+    clouds = [GaussianCloud.test_cloud(n, seed=seed + b, spread=0.5,
+                                       z_offset=-2.0, scale=0.06)
+              for b in range(B)]
+    return [torch.stack([getattr(c, k) for c in clouds]) for k in (
+        "positions", "scales", "rotations", "colors", "opacities")]
+
+
+def test_gather_backward_repeats_bitwise_on_card(cuda):
+    """The packed gather's backward (only the occupied slots, the index
+    backward with accumulate=True) gives the same bits run to run."""
+    args = [a.to(cuda) for a in _batch_inputs(1, 3000, 21)]
+    cam = Camera.default_training(128)
+    cfg = tile.TileRendererConfig(max_per_tile=256)
+    cot = torch.from_numpy(np.random.default_rng(22).normal(
+        size=(3, 128, 128)).astype(np.float32)).to(cuda)
+    grads = []
+    for _ in range(2):
+        inputs = [a[0].clone().requires_grad_() for a in args]
+        img = tile.render_tiled(*inputs, cam, config=cfg)
+        grads.append(torch.autograd.grad((img * cot).sum(), inputs))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,n,res,mpt", [(4, 2000, 64, 256), (2, 70, 48, 128)])
+def test_batched_render_on_card_matches_cpu(cuda, B, n, res, mpt):
+    """One (B * T, M, 12) pack: one K1 launch forward and one K2 launch
+    backward for the batch, images within the single render's bound of
+    the CPU's, and the batch's images equal to their own renders on the
+    card within K1's 1e-5."""
+    args = _batch_inputs(B, n, 30)
+    cam = Camera.default_training(res)
+    cfg = tile.TileRendererConfig(max_per_tile=mpt)
+    gpu = [a.to(cuda).requires_grad_() for a in args]
+    f0, b0 = raster.launches, raster.launches_bwd
+    img, dep, ovf = tile.render_tiled_batched(*gpu, cam, config=cfg)
+    (img.sum() + dep.sum()).backward()
+    torch.cuda.synchronize()
+    assert (raster.launches - f0, raster.launches_bwd - b0) == (1, 1)
+    img_cpu, _, _ = tile.render_tiled_batched(*args, cam, config=cfg)
+    assert (img.detach().cpu() - img_cpu).abs().mean().item() <= 1e-5
+    with torch.no_grad():
+        for b in range(B):
+            one, _, o1 = tile.render_tiled(*[a[b] for a in gpu], cam,
+                                           return_depth=True,
+                                           return_overflow=True, config=cfg)
+            torch.testing.assert_close(img[b], one, atol=1e-5, rtol=0)
+            assert torch.equal(ovf[b], o1)

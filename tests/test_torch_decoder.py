@@ -16,6 +16,8 @@ from fresnel_tpu.models import decoders as jd
 
 from fresnel_tpu_torch import weights
 from fresnel_tpu_torch.models import decoders as td
+from test_torch_threads import _few_threads  # noqa: F401
+
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 KEYS = ("positions", "scales", "rotations", "colors", "opacities")

@@ -14,6 +14,7 @@ import torch
 from fresnel_tpu.models import encoders as je
 
 from fresnel_tpu_torch.models import encoders as te
+from test_torch_threads import _few_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("hw,out", [((96, 80), (64, 64)), ((40, 40), (64, 64)),

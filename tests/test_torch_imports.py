@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, Flax or fresnel_tpu import, and entry
-points refuse to run without CUDA unless the caller asks for the CPU."""
+"""The port stands alone: no JAX, Flax, optax or fresnel_tpu import, and
+entry points refuse to run without CUDA unless the caller asks for the
+CPU."""
 
 import ast
 import subprocess
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "fresnel_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fresnel_tpu"}
 PORT_FILES = sorted((ROOT / "fresnel_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -38,7 +39,7 @@ def test_importing_the_port_loads_no_jax():
         "                                'fresnel_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'fresnel_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'fresnel_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -81,6 +82,15 @@ class TestDevice:
         from fresnel_tpu_torch.cli import refine
         with pytest.raises(RuntimeError, match="CUDA"):
             refine(np.zeros((16, 16, 3), np.float32), steps=1)
+
+    def test_trainer_and_datasets_raise_without_cuda(self):
+        from fresnel_tpu_torch.data.dataset import SyntheticGaussianDataset
+        from fresnel_tpu_torch.train.config import TrainingConfig
+        from fresnel_tpu_torch.train.harness import Trainer
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(TrainingConfig())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SyntheticGaussianDataset(n_samples=1, image_size=16)
 
     def test_render_and_orbit_raise_without_cuda(self):
         from fresnel_tpu_torch.cli import orbit, render

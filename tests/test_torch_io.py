@@ -17,6 +17,7 @@ from fresnel_tpu.core.gaussians import GaussianCloud as JCloud
 
 from fresnel_tpu_torch.core import io as tio
 from fresnel_tpu_torch.core.gaussians import GaussianCloud
+from test_torch_threads import _few_threads  # noqa: F401
 
 
 def _flat(n, seed):

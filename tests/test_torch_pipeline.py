@@ -36,6 +36,8 @@ from fresnel_tpu_torch.models.vit import DINOv2 as TDINOv2
 from fresnel_tpu_torch.models.vit import DepthAnything as TDepth
 from fresnel_tpu_torch.pipeline import Models, build_models, image_to_3dgs
 from fresnel_tpu_torch.render.tile import render_tiled as t_render
+from test_torch_threads import _few_threads  # noqa: F401
+
 
 IMG = 112
 RENDER = 64

@@ -27,6 +27,8 @@ from fresnel_tpu.render import projection as jp
 from fresnel_tpu_torch.core import gaussians as tg
 from fresnel_tpu_torch.core.camera import Camera as TCamera
 from fresnel_tpu_torch.render import projection as tp
+from test_torch_threads import _few_threads  # noqa: F401
+
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

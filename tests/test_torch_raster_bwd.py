@@ -25,6 +25,7 @@ import torch
 from fresnel_tpu.render.pallas_raster import composite_tiles_pallas_packed
 
 from fresnel_tpu_torch.render import raster
+from test_torch_threads import _few_threads  # noqa: F401
 
 
 def _pack(T, M, ntx, counts, seed, op_hi=1.0, r_lo=2.0, r_hi=20.0):

@@ -44,6 +44,8 @@ from fresnel_tpu.train import fit_teacher as jfit
 from fresnel_tpu_torch.core.camera import Camera
 from fresnel_tpu_torch.render.tile import TileRendererConfig
 from fresnel_tpu_torch.train import fit_teacher as tfit
+from test_torch_threads import _few_threads  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 RES, GRID, K, MPT, STEPS, DO0 = 64, 8, 4, 256, 5, -0.13

@@ -22,6 +22,8 @@ from fresnel_tpu_torch import cli as tcli
 from fresnel_tpu_torch.core import io as tio
 from fresnel_tpu_torch.core.gaussians import GaussianCloud as TCloud
 from fresnel_tpu_torch.evaluation import novel_view_eval as tnv
+from test_torch_threads import _few_threads  # noqa: F401
+
 
 FIELDS = ("positions", "scales", "rotations", "colors", "opacities")
 N, SIZE = 400, 64

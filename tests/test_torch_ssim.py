@@ -18,6 +18,8 @@ import torch
 from fresnel_tpu.physics.fresnel_zones import sobel_gradients as jsobel
 
 from fresnel_tpu_torch.physics.fresnel_zones import sobel_gradients
+from test_torch_threads import _few_threads  # noqa: F401
+
 
 # The packages' __init__ export the function `ssim` under the module's name.
 jssim_mod = importlib.import_module("fresnel_tpu.losses.ssim")

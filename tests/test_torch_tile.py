@@ -22,6 +22,8 @@ from fresnel_tpu.render import tile as jt
 from fresnel_tpu_torch.core.camera import Camera as TCamera
 from fresnel_tpu_torch.render import raster
 from fresnel_tpu_torch.render import tile as tt
+from test_torch_threads import _few_threads  # noqa: F401
+
 
 PALLAS_CFG = jt.TileRendererConfig(max_per_tile=128, backend="pallas",
                                    pallas_interpret=True)

@@ -23,6 +23,8 @@ from fresnel_tpu.models import vit as jv
 
 from fresnel_tpu_torch import weights
 from fresnel_tpu_torch.models import vit as tv
+from test_torch_threads import _few_threads  # noqa: F401
+
 
 KW = dict(width=64, depth=4, heads=2)
 DA_KW = dict(out_size=32, image_size=56, out_indices=(1, 2, 3, 4),
