@@ -4,13 +4,15 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab ROOT [ROOT ...]
 
-Four main paths run through the entry points a user calls:
+Five main paths run through the entry points a user calls:
 `pipeline.image_to_3dgs` (image -> 3DGS, bench.py's path),
 `train.fit_teacher.fit_scene` (`fresnel refine`: per-scene Adam fit through
 the rasterizer), `render.tile.render_tiled` / `cli.render` / `cli.orbit`
-on a cloud of a million Gaussians (`fresnel render` and `orbit`), and
+on a cloud of a million Gaussians (`fresnel render` and `orbit`),
 decoder training, `train.harness.Trainer` and its CLI
-(`fresnel-torch train`), at the flagship trained model's config.  Phases,
+(`fresnel-torch train`), at the flagship trained model's config, and the
+committed trained checkpoints (`results/*.msgpack`) through `cli infer`,
+`cli eval` and `cli train --resume`, view-aware for v2combo.  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
@@ -141,7 +143,62 @@ non-zero:
   23. train_profile  torch.profiler over 4 training steps;
   24. train_cli   train_gaussian_decoder.main at the flagship flags on the
                   corpus, one epoch: checkpoint and sidecar written,
-                  load_checkpoint bit for bit, encode (8, 37, 37, 384).
+                  load_checkpoint bit for bit, encode (8, 37, 37, 384);
+  25. ckpt_read   all seven committed Flax msgpack files decoded (leaves,
+                  bytes, seconds); exp2, exp2_k8, v2combo and exp2_e74
+                  loaded into Trainers on the card; exp2_g74zi
+                  (feature_upsample) and exp4 / exp4_budget (experiment 4)
+                  raise NotImplementedError naming what is missing;
+  26. infer_path  cli infer on one 512^2 image with exp2_k8 and exp2 (host
+                  ms per call after a warmup, Gaussians kept), the card's
+                  PLY against the CPU's: the same kept count, positions,
+                  colours and opacities within 1e-5 of each field's
+                  largest value;
+  27. eval_path   cli eval of exp2_k8 and exp2 over corpus_v1_eval (24
+                  synthetic_corpus scenes, seed 1, 256^2) with the grid,
+                  launch counts reset just before and read just after (8
+                  K1 per scene and 8 for the grid); every metric and its
+                  difference to results/eval_<name>_eval.json; the card
+                  against the CPU on the first 2 scenes: frontal and
+                  per-view SSIM within 1e-4, PSNR within 1e-3 dB, coverage
+                  within 2 / S^2 per view;
+  28. eval_v2     v2combo over corpus_v2_eval (24 scenes, seed 21,
+                  raytraced by up to 8 parallel processes) with their GT
+                  views: per-view, side-view and novel-view SSIM beside
+                  results/eval_v2combo_eval.json; card against CPU as in
+                  27;
+      (K1 at the eval pack: exp2_k8's first scene from azimuth 90, T 256,
+                  M 1024, against its plain version)
+  29. resume_path cli train --resume results/exp2_model.msgpack (full:
+                  moments and count 6 000) at its sidecar's flags on a
+                  16-scene synthetic_corpus, epochs 301-303 (6 steps):
+                  K1 and K2 once per step; the first batch's loss at the
+                  resumed params below a random init's;
+      resume_reference  the loaded full state stepped at a positive
+                  learning rate (the Trainer's own 30 000-step cosine, at
+                  count 6 000; the CLI's run above, past its 608-step
+                  schedule, reads lr 0): exp2's sidecar config at 64^2,
+                  batch 2, dropout 0, card against CPU, 3 steps: losses
+                  within 1e-4 relative, each params leaf's mean absolute
+                  difference within 1e-5, each mu and nu leaf's within
+                  1e-2 of the leaf's mean absolute value, the count 6 003
+                  on both, and the params moved;
+  30. view_train  cli train --resume results/v2combo_model.msgpack (thin)
+                  with view_weight 0.5 on the first 4 corpus_v2 scenes at
+                  batch 4, 5 steps: K1 and K2 twice per step (the frontal pack
+                  and the GT-view pack); then 5 steps timed by CUDA
+                  events; every loss finite with a view term;
+      kernel_eval_packs  K1 at the eval pack and K1 + K2 at the view pack
+                  (4 clouds, each under its GT view's camera) against
+                  their plain versions (1e-5; 1e-4 of each field's largest
+                  value), with times and bounds;
+  31. view_reference  a small view-aware config (64^2, grid 8, encoder
+                  width 16, K 4, batch 2, view_weight 0.5, z_offset_scale
+                  0.2) on a 2-scene corpus_v2, card against CPU from one
+                  init, dropout 0, 3 steps: losses within 1e-4 relative,
+                  each held leaf's mean within 1e-5.
+      checkpoint_phases  the seconds of each of 25-31 and their total,
+                  beside the 90 s they are meant to keep to.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -1381,6 +1438,572 @@ def train_phases(torch, dev, path_launches):
                  plain_ms=k2_plain, bound_ms=bnds["k2"]["bound_ms"]))
 
 
+# The committed trained checkpoints (results/*.msgpack): all seven are
+# read; four load into the port's Trainer; three need what the port does
+# not have yet and raise NotImplementedError naming it.
+CKPTS = ("exp2", "exp2_k8", "v2combo", "exp2_e74", "exp2_g74zi", "exp4",
+         "exp4_budget")
+CKPT_LOADS = ("exp2", "exp2_k8", "v2combo", "exp2_e74")
+CKPT_RAISES = {"exp2_g74zi": "feature_upsample", "exp4": "experiment 4",
+               "exp4_budget": "experiment 4"}
+INFER_TIMED = 3
+INFER_RTOL = 1e-5
+# corpus_v1_eval and corpus_v2_eval as cloud/make_corpus.sh makes them
+# (24 scenes each, seeds 1 and 21); view-aware training takes the first 4
+# corpus_v2 scenes.
+EVAL_SCENES, EVAL_SEED, EVAL_SIZE = 24, 1, 256
+EVAL_V2_SCENES, EVAL_V2_SEED, VIEW_SCENES = 24, 21, 4
+# Card against the port's CPU on the first scenes of each eval.
+EVAL_REF_SCENES = 2
+EVAL_SSIM_TOL, EVAL_PSNR_TOL = 1e-4, 1e-3
+# exp2's sidecar says epoch 300 of 300 and a resume starts at epoch + 1:
+# epochs 301-303 of 16 scenes at batch 8 are 6 steps.
+RESUME_EPOCHS = 304
+# v2combo (epoch 224 of 225) resumed on 4 corpus_v2 scenes at batch 4
+# (cut from 8): epochs 225-229, one step each.
+VIEW_EPOCHS, VIEW_BATCH, VIEW_TIMED = 230, 4, 5
+VIEW_REF = dict(TRAIN_REF, view_weight=0.5, z_offset_scale=0.2,
+                depth_z_scale=2.0, depth_offset_init=-1.0)
+# resume_reference: exp2's sidecar config cut to 64^2 and batch 2 (the
+# CLI turns LPIPS off without its weights).  Per leaf, card against CPU:
+# the params' mean absolute difference within REF_PARAM_MEAN_TOL; mu's
+# and nu's within RESUME_MOMENT_RTOL of the leaf's mean absolute value.
+# The moments carry the checkpoint's 6 000 steps, so a moment lost or
+# mapped to the wrong leaf is off by 0.3 or more of that; rounding is not
+# (the scalar depth_offset's gradient sums every pixel, and the card's
+# summation order moves its mu by 6e-4 of its size).
+RESUME_REF = dict(image_size=64, batch_size=2, lpips_weight=0.0)
+RESUME_MOMENT_RTOL = 1e-2
+# The new phases' time on the card, which they are meant to keep to.
+CKPT_PHASES_CAP_S = 90.0
+
+
+def ckpt_path(name):
+    return os.path.join(HERE, "results", f"{name}_model.msgpack")
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|, for each field of two clouds."""
+    return {k: ((getattr(got, k) - getattr(want, k)).abs().max()
+                / getattr(want, k).abs().max().clamp(min=1e-30)).item()
+            for k in ("positions", "colors", "opacities")}
+
+
+def eval_gate(card, cpu, size):
+    """The card's metrics against the CPU's on the same scenes: frontal
+    SSIM / PSNR, per-view SSIM where there are GT views, and coverage
+    within 2 pixels of S^2 per view."""
+    cov = max(abs(card["per_view_coverage"][k] - v)
+              for k, v in cpu["per_view_coverage"].items())
+    ssim_d = [abs(card["frontal_ssim"] - cpu["frontal_ssim"])] + [
+        abs(card["per_view_ssim"][k] - v)
+        for k, v in cpu.get("per_view_ssim", {}).items()]
+    psnr_d = abs(card["frontal_psnr"] - cpu["frontal_psnr"])
+    out = dict(ssim_max_abs=max(ssim_d), psnr_abs=psnr_d,
+               coverage_max_abs=cov, ssim_tol=EVAL_SSIM_TOL,
+               psnr_tol=EVAL_PSNR_TOL, coverage_tol=2 / size ** 2)
+    out["ok"] = (out["ssim_max_abs"] <= EVAL_SSIM_TOL
+                 and psnr_d <= EVAL_PSNR_TOL and cov <= 2 / size ** 2)
+    return out
+
+
+def eval_checkpoint(torch, name, data_dir, counters, grid=None):
+    """`cli eval` of one checkpoint over a corpus on the card (and its
+    qualitative grid to the path `grid`), the launches it made, and the
+    card against the CPU on the first EVAL_REF_SCENES scenes."""
+    from fresnel_tpu_torch import cli
+    from fresnel_tpu_torch.evaluation.novel_view_eval import (
+        evaluate_novel_views)
+
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    res, samples, mpt = cli.evaluate(ckpt_path(name), data_dir=data_dir,
+                                     size=EVAL_SIZE, device="cuda")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = read_counts(*counters)
+    if grid:
+        cli.save_grid(samples, grid, EVAL_SIZE, mpt)
+        torch.cuda.synchronize()
+        launches = read_counts(*counters)
+    card = evaluate_novel_views(samples[:EVAL_REF_SCENES],
+                                render_size=EVAL_SIZE, max_per_tile=mpt)
+    t0 = time.perf_counter()
+    cpu, _, _ = cli.evaluate(ckpt_path(name), data_dir=data_dir,
+                             max_images=EVAL_REF_SCENES, size=EVAL_SIZE,
+                             device="cpu")
+    cpu_s = time.perf_counter() - t0
+    return dict(results=res, samples=samples, max_per_tile=mpt,
+                seconds=eval_s, seconds_per_scene=eval_s / len(samples),
+                launches=launches, gate=eval_gate(card, cpu, EVAL_SIZE),
+                cpu_seconds=cpu_s)
+
+
+def committed_deltas(name, res):
+    """The run's metrics less the committed TPU evaluation's
+    (results/eval_<name>_eval.json), key by key."""
+    with open(os.path.join(HERE, "results", f"eval_{name}_eval.json")) as f:
+        ref = json.load(f)
+    out = {}
+    for k, v in ref.items():
+        if isinstance(v, dict) and k in res:
+            out[k] = {kk: res[k][kk] - vv for kk, vv in v.items()
+                      if isinstance(vv, (int, float)) and kk in res[k]}
+        elif isinstance(v, (int, float)) and k in res:
+            out[k] = res[k] - v
+    return ref, out
+
+
+def sidecar_trainer(name, dev, **over):
+    """The Trainer of a checkpoint's sidecar config with `over` applied,
+    on `dev`, its decoder's dropout 0."""
+    from fresnel_tpu_torch.train import config as tconfig
+    from fresnel_tpu_torch.train.harness import Trainer, build_decoder
+
+    with open(ckpt_path(name) + ".json") as f:
+        meta = json.load(f)
+    cfg = tconfig.TrainingConfig(**dict(meta["config"], **over))
+    trainer = Trainer(cfg, tconfig.PhysicsConfig(**meta["physics_config"]),
+                      tconfig.HFGSConfig(**meta["hfgs_config"]),
+                      tconfig.HFTSConfig(**meta["hfts_config"]), device=dev)
+    trainer.model = build_decoder(cfg, trainer.physics_config, dropout=0.0)
+    return trainer
+
+
+def view_batches(trainer, dataset, n):
+    """n device batches of a view-aware run, each GT view drawn from the
+    generator the batches are shuffled with, epoch after epoch."""
+    rng = np.random.default_rng(0)
+    out = []
+    while len(out) < n:
+        for b in dataset.batches(trainer.config.batch_size, rng):
+            out.append(trainer.device_batch(b, rng))
+    return out[:n]
+
+
+def checkpoint_phases(torch, dev, path_launches):
+    """Phases 25-31: the committed trained checkpoints on the card.
+    Returns K1's and K2's numbers at the eval and view packs."""
+    from PIL import Image
+
+    from fresnel_tpu_torch import cli
+    from fresnel_tpu_torch.core import io as gio
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+    from fresnel_tpu_torch.train.flax_msgpack import read_flat
+    from fresnel_tpu_torch.train.harness import trainer_from_checkpoint
+
+    counters = (raster, binning, stream_binning)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap, added to phase `name`'s."""
+        now = time.perf_counter()
+        dt, mark[0] = now - mark[0], now
+        phase_s[name] = phase_s.get(name, 0.0) + dt
+        return dt
+
+    # 25. ckpt_read: every committed checkpoint decoded, four loaded into
+    # Trainers on the card, three refused by name.
+    files = {}
+    for name in CKPTS:
+        t0 = time.perf_counter()
+        flat = read_flat(ckpt_path(name))
+        files[name] = dict(leaves=len(flat),
+                           bytes=os.path.getsize(ckpt_path(name)),
+                           seconds=time.perf_counter() - t0)
+    loads = {}
+    for name in CKPT_LOADS:
+        t0 = time.perf_counter()
+        tr = trainer_from_checkpoint(ckpt_path(name), dev)
+        state, epoch = tr.load_checkpoint(ckpt_path(name))
+        torch.cuda.synchronize()
+        loads[name] = dict(
+            seconds=time.perf_counter() - t0, epoch=epoch,
+            step=int(state["step"]), count=int(state["opt_state"]["count"]),
+            leaves=len(state["params"]),
+            on_card=all(v.is_cuda for v in state["params"].values()))
+    raises = {}
+    for name in CKPT_RAISES:
+        try:
+            trainer_from_checkpoint(ckpt_path(name), dev)
+            raises[name] = None
+        except NotImplementedError as e:
+            raises[name] = str(e)
+    log("ckpt_read", files=files, loads=loads, raises=raises,
+        phase_seconds=lap("ckpt_read"))
+    if not (all(v["on_card"] for v in loads.values())
+            and all(raises[n] and what in raises[n]
+                    for n, what in CKPT_RAISES.items())):
+        fail("a committed checkpoint did not load, or an unported one did "
+             "not raise")
+
+    # 26. infer_path: `fresnel-torch infer` with a checkpoint, on the card
+    # and on the CPU.
+    img_path = os.path.join(tmp, "scene.png")
+    Image.fromarray((smooth_image(512, 7).transpose(1, 2, 0) * 255).astype(
+        np.uint8)).save(img_path)
+    infer = {}
+    for name in ("exp2_k8", "exp2"):
+        card_ply = os.path.join(tmp, f"{name}_card.ply")
+        cpu_ply = os.path.join(tmp, f"{name}_cpu.ply")
+        argv = ["infer", img_path, card_ply, "--checkpoint", ckpt_path(name)]
+        cli.main(argv)                                         # warmup
+        ms = []
+        for _ in range(INFER_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        cli.main(argv[:2] + [cpu_ply] + argv[3:] + ["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        a, b = gio.load_ply(card_ply), gio.load_ply(cpu_ply)
+        same_n = a.num_gaussians == b.num_gaussians
+        infer[name] = dict(host_ms=ms, host_ms_median=statistics.median(ms),
+                           kept_card=a.num_gaussians,
+                           kept_cpu=b.num_gaussians, cpu_seconds=cpu_s,
+                           rel_err=rel_err(a, b) if same_n else None)
+    log("infer_path", image=512, rtol=INFER_RTOL, **infer,
+        phase_seconds=lap("infer_path"))
+    if not all(v["rel_err"] is not None
+               and max(v["rel_err"].values()) <= INFER_RTOL
+               for v in infer.values()):
+        fail("the card's infer disagrees with the CPU's")
+
+    # 27. eval_path: `fresnel-torch eval` of exp2_k8 and exp2 over
+    # corpus_v1_eval (24 scenes at 256^2), with the grid.
+    v1 = os.path.join(tmp, "corpus_v1_eval")
+    t0 = time.perf_counter()
+    synthetic_corpus.generate_corpus(v1, n_images=EVAL_SCENES,
+                                     image_size=EVAL_SIZE, seed=EVAL_SEED)
+    corpus_s = time.perf_counter() - t0
+    evals = {}
+    for name in ("exp2_k8", "exp2"):
+        ev = eval_checkpoint(torch, name, v1, counters,
+                             grid=os.path.join(tmp, f"{name}_grid.png"))
+        if name == "exp2_k8":
+            path_launches["eval"] = ev["launches"]
+        ref, deltas = committed_deltas(name, ev["results"])
+        evals[name] = ev
+        log("eval_path", checkpoint=name, scenes=len(ev["samples"]),
+            size=EVAL_SIZE, max_per_tile=ev["max_per_tile"],
+            corpus_seconds=corpus_s, seconds=ev["seconds"],
+            seconds_per_scene=ev["seconds_per_scene"],
+            launches=ev["launches"], results=ev["results"],
+            committed=ref, minus_committed=deltas, card_vs_cpu=ev["gate"],
+            cpu_seconds=ev["cpu_seconds"], phase_seconds=lap("eval_path"))
+        want = dict(k1=8 * EVAL_SCENES + 8, k2=0, k3=0, k4=0)
+        if ev["launches"] != want or len(ev["samples"]) != EVAL_SCENES:
+            fail(f"eval of {name} launched {ev['launches']} over "
+                 f"{len(ev['samples'])} scenes, not {want}")
+        if not ev["gate"]["ok"]:
+            fail(f"the card's eval of {name} disagrees with the CPU's")
+
+    # 28. eval_v2: v2combo on corpus_v2_eval's first scenes, with their GT
+    # orbit views, the raytracer in parallel processes.
+    v2 = os.path.join(tmp, "corpus_v2_eval")
+    n_proc = max(1, min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "fresnel_tpu_torch.data.raytrace_corpus", v2,
+         "--n_images", str(EVAL_V2_SCENES), "--seed", str(EVAL_V2_SEED),
+         "--start", str(s), "--stride", str(n_proc)], cwd=HERE)
+        for s in range(n_proc)]
+    codes = [p.wait() for p in procs]
+    v2_s = time.perf_counter() - t0
+    if any(codes):
+        fail(f"the corpus_v2 processes exited with {codes}")
+    ev = eval_checkpoint(torch, "v2combo", v2, counters)
+    ref, deltas = committed_deltas("v2combo", ev["results"])
+    log("eval_v2", checkpoint="v2combo", scenes=len(ev["samples"]),
+        processes=n_proc, corpus_seconds=v2_s, seconds=ev["seconds"],
+        seconds_per_scene=ev["seconds_per_scene"], launches=ev["launches"],
+        results=ev["results"], committed=ref, minus_committed=deltas,
+        card_vs_cpu=ev["gate"], cpu_seconds=ev["cpu_seconds"],
+        phase_seconds=lap("eval_v2"))
+    if "per_view_ssim" not in ev["results"] or not ev["gate"]["ok"] \
+            or len(ev["samples"]) != EVAL_V2_SCENES:
+        fail("the v2combo eval has no per-view SSIM, or the card's "
+             "disagrees with the CPU's")
+
+    # K1 at the eval pack: exp2_k8's first scene from azimuth 90.
+    g = evals["exp2_k8"]["samples"][0]["gaussians"]
+    with torch.no_grad():
+        tp = tile.pack_tiles(
+            *[g[k] for k in FIELDS],
+            Camera.from_pose(0.0, np.radians(90.0), EVAL_SIZE),
+            tile.TileRendererConfig(max_per_tile=evals["exp2_k8"][
+                "max_per_tile"]))
+    k1_eval = pack_kernels(torch, raster, tp.pack, tp.counts, tp.n_tiles_x,
+                           None, backward=False)
+    lap("kernel_eval_packs")
+
+    # 29. resume_path: `cli train --resume` from exp2's full checkpoint.
+    corpus = os.path.join(tmp, "corpus_v1")
+    synthetic_corpus.generate_corpus(corpus, n_images=TRAIN_SCENES,
+                                     image_size=TRAIN["image_size"], seed=0)
+    argv = ["--data_dir", corpus, "--output_dir", os.path.join(tmp, "resume"),
+            "--epochs", str(RESUME_EPOCHS), "--batch_size", "8", "--lr",
+            "2e-4", "--gaussians_per_patch", "4", "--surface_init",
+            "--depth_offset_init", "-0.128", "--max_per_tile", "1024",
+            "--no_augmentation", "--resume", ckpt_path("exp2"), "--device",
+            "cuda"]
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    trainer, state = tcli.main(argv)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    path_launches["resume"] = read_counts(*counters)
+    steps = int(state["step"]) - 6000
+    # The first batch's loss at the resumed params against a random init
+    # of the same config (dropout masks from one seed).
+    dataset = ImageDataset(corpus, image_size=TRAIN["image_size"],
+                           use_augmentation=False, device=dev)
+    batch = trainer.device_batch(next(iter(dataset.batches(
+        8, np.random.default_rng(0)))))
+    back, _ = trainer.load_checkpoint(ckpt_path("exp2"))
+    init = trainer.init_state()["params"]
+    init["model.depth_offset"] = torch.tensor(-0.128, device=dev)
+    with torch.no_grad():
+        first = {k: float(trainer.loss(p, batch, 4, None, torch.Generator(
+            device=dev).manual_seed(1))[0]) for k, p in (
+                ("resumed", back["params"]), ("random_init", init))}
+    log("resume_path", argv=argv, seconds=resume_s, steps=steps,
+        launches=path_launches["resume"], epoch_losses=trainer.history,
+        first_batch_loss=first, step=int(state["step"]),
+        count=int(state["opt_state"]["count"]),
+        phase_seconds=lap("resume_path"))
+    if path_launches["resume"] != dict(k1=steps, k2=steps, k3=0, k4=0) \
+            or steps != (RESUME_EPOCHS - 301) * (TRAIN_SCENES // 8):
+        fail(f"the resume made {steps} steps and launched "
+             f"{path_launches['resume']}")
+    if not first["resumed"] < first["random_init"]:
+        fail(f"the resumed model's loss is not below a random init's: "
+             f"{first}")
+
+    # The loaded full state stepped where the learning rate is positive,
+    # card against CPU: a wrong mu, nu or count on the card shows here.
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        tr = sidecar_trainer("exp2", d, **RESUME_REF)
+        st, _ = tr.load_checkpoint(ckpt_path("exp2"))
+        loaded = {k: v.cpu() for k, v in st["params"].items()}
+        lr = float(tr.optimizer.learning_rate(st["opt_state"]["count"]))
+        ds = ImageDataset(corpus, image_size=RESUME_REF["image_size"],
+                          use_augmentation=False, device=d)
+        g_ = torch.Generator(device=d).manual_seed(1)
+        losses = []
+        for bb in view_batches(tr, ds, TRAIN_REF_STEPS):
+            st, ld = tr.train_step(st, bb, 4, None, g_)
+            losses.append(float(ld["total"]))
+        leaves = {part: {k: v.cpu() for k, v in tree.items()}
+                  for part, tree in (("params", st["params"]),
+                                     ("mu", st["opt_state"]["mu"]),
+                                     ("nu", st["opt_state"]["nu"]))}
+        moved = max((leaves["params"][k] - v).abs().max().item()
+                    for k, v in loaded.items())
+        runs[name] = dict(losses=losses, leaves=leaves, lr=lr, moved=moved,
+                          count=int(st["opt_state"]["count"]))
+    card, cpu = runs["card"], runs["cpu"]
+    loss_rel = max(abs(a - b_) / max(abs(b_), 1e-6)
+                   for a, b_ in zip(card["losses"], cpu["losses"]))
+    worst, worst_rel = {}, {}
+    for part, tree in cpu["leaves"].items():
+        diffs = {k: (card["leaves"][part][k] - v).abs().mean().item()
+                 for k, v in tree.items()}
+        worst[part] = max((d, k) for k, d in diffs.items())
+        worst_rel[part] = max((d / max(tree[k].abs().mean().item(), 1e-30),
+                               k) for k, d in diffs.items())
+    log("resume_reference", steps=TRAIN_REF_STEPS, dropout=0.0,
+        config=RESUME_REF, lr_at_resume=card["lr"], count=card["count"],
+        params_moved_max=card["moved"], losses_card=card["losses"],
+        losses_cpu=cpu["losses"], loss_rel_max=loss_rel,
+        loss_rtol=REF_LOSS_RTOL, mean_abs_worst=worst,
+        mean_abs_rel_worst=worst_rel, params_tol=REF_PARAM_MEAN_TOL,
+        moments_rtol=RESUME_MOMENT_RTOL, phase_seconds=lap("resume_path"))
+    if not (card["lr"] > 0 and card["moved"] > 0
+            and card["count"] == cpu["count"] == 6000 + TRAIN_REF_STEPS
+            and loss_rel <= REF_LOSS_RTOL
+            and worst["params"][0] <= REF_PARAM_MEAN_TOL
+            and worst_rel["mu"][0] <= RESUME_MOMENT_RTOL
+            and worst_rel["nu"][0] <= RESUME_MOMENT_RTOL):
+        fail("the resumed state's steps on the card disagree with the CPU's")
+
+    # 30. view_train: `cli train --resume` from v2combo's thin params with
+    # view_weight 0.5 on the first corpus_v2 scenes; then timed steps.
+    argv = ["--data_dir", v2, "--max_images", str(VIEW_SCENES),
+            "--output_dir", os.path.join(tmp, "view"),
+            "--epochs", str(VIEW_EPOCHS), "--batch_size", str(VIEW_BATCH),
+            "--lr", "2e-4", "--gaussians_per_patch", "8", "--train_encoder",
+            "--surface_init", "--depth_offset_init", "-1.0",
+            "--depth_z_scale", "2.0", "--z_offset_scale", "0.2",
+            "--view_weight", "0.5", "--lpips_weight", "0",
+            "--max_per_tile", "1024", "--no_augmentation", "--resume",
+            ckpt_path("v2combo"), "--device", "cuda"]
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    trainer, state = tcli.main(argv)
+    torch.cuda.synchronize()
+    view_s = time.perf_counter() - t0
+    path_launches["view_train"] = read_counts(*counters)
+    steps = VIEW_EPOCHS - 225
+    dataset = ImageDataset(v2, image_size=EVAL_SIZE, use_augmentation=False,
+                           max_images=VIEW_SCENES, device=dev)
+    batches = view_batches(trainer, dataset, VIEW_TIMED + 1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state, _ = trainer.train_step(state, batches[0], 8, None, gen)
+    events, lds = [], []
+    for b in batches[1:]:
+        ev_ = (torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+        ev_[0].record()
+        state, ld = trainer.train_step(state, b, 8, None, gen)
+        ev_[1].record()
+        events.append(ev_)
+        lds.append(ld)
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in events]
+    view_terms = [{k: float(v) for k, v in ld.items()} for ld in lds]
+    log("view_train", argv=argv, seconds=view_s, steps=steps,
+        launches=path_launches["view_train"], epoch_losses=trainer.history,
+        timed_steps=VIEW_TIMED, ms_per_step=ms,
+        ms_per_step_median=statistics.median(ms), loss_terms=view_terms,
+        phase_seconds=lap("view_train"))
+    if path_launches["view_train"] != dict(k1=2 * steps, k2=2 * steps, k3=0,
+                                           k4=0):
+        fail(f"view-aware training launched {path_launches['view_train']} "
+             f"in {steps} steps")
+    if not all(np.isfinite(t["total"]) and t["view"] > 0
+               for t in view_terms):
+        fail("a view-aware loss is not finite or has no view term")
+
+    # K1 and K2 at the view pack: the last batch's clouds, each under its
+    # GT view's camera (one image per camera).
+    b = batches[-1]
+    with torch.no_grad():
+        out = trainer.decode(state["params"], trainer.encode(
+            state["params"], b["image"]), b["depth"])
+        cams = [Camera.from_pose(0.0, a, EVAL_SIZE) for a in b["view_az_rad"]]
+        bp = tile.pack_tiles_batched(*[out[k] for k in FIELDS], cams,
+                                     trainer.renderer.config)
+    k12_view = pack_kernels(torch, raster, bp.pack, bp.counts, bp.n_tiles_x,
+                            bp.tiles_per_image, backward=True)
+    log("kernel_eval_packs", eval_pack=k1_eval, view_pack=k12_view,
+        k1_tol=KERNEL_TOL, k2_tol=KERNEL_BWD_TOL,
+        phase_seconds=lap("kernel_eval_packs"))
+    if not (k1_eval["k1_max_abs_err"] <= KERNEL_TOL
+            and k12_view["k1_max_abs_err"] <= KERNEL_TOL
+            and k12_view["k2_rel_err"] <= KERNEL_BWD_TOL):
+        fail("K1 / K2 disagree with their plain versions at the eval or "
+             "view pack")
+
+    # 31. view_reference: a small view-aware config on the card and on the
+    # CPU from one init, dropout 0, 3 steps.
+    from fresnel_tpu_torch.data import raytrace_corpus
+    small = os.path.join(tmp, "corpus_v2_small")
+    raytrace_corpus.generate_corpus(small, n_images=2,
+                                    image_size=VIEW_REF["image_size"],
+                                    seed=EVAL_V2_SEED)
+    ds = ImageDataset(small, image_size=VIEW_REF["image_size"],
+                      use_augmentation=False, device=dev)
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        tr, st = train_setup(torch, d, VIEW_REF,
+                             os.path.join(tmp, f"vref_{name}"), dropout=0.0)
+        tr._make_optimizer(TRAIN_REF_STEPS)
+        g_ = torch.Generator(device=d).manual_seed(1)
+        losses = []
+        for bb in view_batches(tr, ds, TRAIN_REF_STEPS):
+            st, ld = tr.train_step(st, bb, VIEW_REF["gaussians_per_patch"],
+                                   None, g_)
+            losses.append({k: float(v) for k, v in ld.items()})
+        runs[name] = (losses, {k: v.cpu() for k, v in st["params"].items()})
+    (lg, pg), (lc, pc) = runs["card"], runs["cpu"]
+    loss_rel = max(abs(a[k] - b_[k]) / max(abs(b_[k]), 1e-6)
+                   for a, b_ in zip(lg, lc) for k in ("total", "view"))
+    mean_abs = {k: (pg[k] - pc[k]).abs().mean().item() for k in pc}
+    held = {k: v for k, v in mean_abs.items()
+            if not re.search(REF_ZERO_GRAD, k)}
+    log("view_reference", steps=TRAIN_REF_STEPS, dropout=0.0,
+        config={k: VIEW_REF[k] for k in (
+            "image_size", "feature_size", "encoder_width",
+            "gaussians_per_patch", "batch_size", "view_weight",
+            "z_offset_scale", "depth_z_scale")},
+        losses_card=[x["total"] for x in lg],
+        losses_cpu=[x["total"] for x in lc],
+        view_card=[x["view"] for x in lg], view_cpu=[x["view"] for x in lc],
+        loss_rel_max=loss_rel, loss_rtol=REF_LOSS_RTOL,
+        param_mean_abs_worst=dict(sorted(held.items(),
+                                         key=lambda kv: -kv[1])[:5]),
+        param_mean_abs_tol=REF_PARAM_MEAN_TOL,
+        phase_seconds=lap("view_reference"))
+    if not (loss_rel <= REF_LOSS_RTOL
+            and max(held.values()) <= REF_PARAM_MEAN_TOL):
+        fail("the card's view-aware steps disagree with the CPU's")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("checkpoint_phases", seconds=phase_s,
+        total_seconds=sum(phase_s.values()), cap_seconds=CKPT_PHASES_CAP_S)
+    return k1_eval, k12_view
+
+
+def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
+    """K1 (and with `backward` K2, cotangents from a seed) against their
+    plain versions on one pack: errors, times and bounds."""
+    with torch.no_grad():
+        fwd = raster.composite_tiles_packed(pack, counts, ntx,
+                                            tiles_per_image=ti)
+        ref = raster.composite_tiles_plain(pack, counts, ntx,
+                                           tiles_per_image=ti)
+        ferr = max((g - r).abs().max().item() for g, r in zip(fwd, ref))
+        k1_t = kernel_times(torch, lambda: raster._launch_fwd(
+            pack, counts, ntx, keep_prefix=backward, tiles_per_image=ti))
+        k1_plain = cuda_median_ms(torch, lambda: raster.composite_tiles_plain(
+            pack, counts, ntx, tiles_per_image=ti), n=5, warmup=1)
+        T, M = pack.shape[:2]
+        occupied = int(counts.sum().item())
+        stats = pack_stats(torch, raster, pack, counts, ntx,
+                           tiles_per_image=ti)
+        bnds = compositing_bounds(stats, T, M, occupied)
+        out = dict(T=T, M=M, tiles_per_image=ti or T,
+                   occupied_slots=occupied, k1_max_abs_err=ferr,
+                   k1=dict(**k1_t, plain_ms=k1_plain, **bnds["k1"]),
+                   counts_max=stats["counts_max"],
+                   counts_median=stats["counts_median"],
+                   tiles_at_cap=stats["tiles_at_cap"],
+                   box_pixel_share=stats["box_pixel_share"])
+        if not backward:
+            return out
+        crng = np.random.default_rng(4)
+        cots = [torch.from_numpy(crng.normal(size=tuple(o.shape)).astype(
+            np.float32)).to(pack.device) for o in fwd]
+        prefix = raster._launch_fwd(pack, counts, ntx, keep_prefix=True,
+                                    tiles_per_image=ti)[3]
+        got = raster._launch_bwd(pack, counts, ntx, *fwd, *cots,
+                                 prefix=prefix, tiles_per_image=ti)
+        bref = raster.composite_tiles_bwd_plain(pack, counts, ntx, *fwd,
+                                                *cots, tiles_per_image=ti)
+        berr, _, rel = bwd_errors(got, bref)
+        k2_t = kernel_times(torch, lambda: raster._launch_bwd(
+            pack, counts, ntx, *fwd, *cots, prefix=prefix,
+            tiles_per_image=ti))
+        k2_plain = cuda_median_ms(
+            torch, lambda: raster.composite_tiles_bwd_plain(
+                pack, counts, ntx, *fwd, *cots, tiles_per_image=ti),
+            n=3, warmup=1)
+    out.update(k2_max_abs_err=max(berr.values()), k2_rel_err=max(rel.values()),
+               k2=dict(**k2_t, plain_ms=k2_plain, **bnds["k2"]))
+    return out
+
+
 def main():
     import torch
 
@@ -1739,6 +2362,18 @@ def main():
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_train["max_abs_err"])
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_train["max_abs_err"])
     k1["at_train_pack"], k2["at_train_pack"] = k1_train, k2_train
+
+    # 25-31. the committed trained checkpoints (K1 in eval, K1 + K2 in
+    # resumed and view-aware training)
+    k1_eval, k12_view = checkpoint_phases(torch, dev, path_launches)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_eval["k1_max_abs_err"],
+                            k12_view["k1_max_abs_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], k12_view["k2_max_abs_err"])
+    k1["at_eval_pack"] = dict(k1_eval["k1"], T=k1_eval["T"], M=k1_eval["M"])
+    k1["at_view_pack"] = dict(k12_view["k1"], T=k12_view["T"],
+                              M=k12_view["M"])
+    k2["at_view_pack"] = dict(k12_view["k2"], T=k12_view["T"],
+                              M=k12_view["M"])
 
     print(smi, flush=True)
 

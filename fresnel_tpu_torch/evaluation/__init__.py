@@ -1,1 +1,1 @@
-"""Evaluation helpers of the port: orbit views so far."""
+"""Evaluation of the port: orbit views, novel-view and visual metrics."""

@@ -3,46 +3,88 @@
 Counterpart of fresnel_tpu/models/decoders.py at the configuration the
 image->3DGS path runs: K Gaussians per patch x 16 outputs, base grid in
 [-1, 1], XY offsets scaled 0.25, Z locked to depth (depth_offset + depth *
-depth_z_scale), scales softplus(raw + 1) * 0.15 clamped, 6D rotations,
+depth_z_scale, plus tanh(raw z) * z_offset_scale when that is not 0),
+scales softplus(raw + 1) * 0.15 clamped, 6D rotations,
 sigmoid colors and opacities, dropout 0.1 in the MLP in training (called
 with deterministic=False), and the grid rotated to face a given (elevation,
 azimuth) pose as the multi-pose trainer asks.  The Fresnel-zone,
-edge-aware, phase-output, pose-encoding, depth-fusion, feature-upsample and
-z-offset options raise NotImplementedError.
+edge-aware, phase-output, pose-encoding, depth-fusion and feature-upsample
+options raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import functools
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from fresnel_tpu_torch.core.gaussians import rotation_6d_to_quaternion
 from fresnel_tpu_torch.models.blocks import MLP, rotate_positions_for_pose
+from fresnel_tpu_torch.models.encoders import _resize_weights
 
 OUTPUTS_PER_GAUSSIAN = 16
 
 
+@functools.lru_cache(maxsize=None)
+def _taps(n_in: int, n_out: int, device: torch.device
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two taps of each output sample of a linear resize without
+    antialiasing (jax.image.resize's weights): indices and weights, each
+    (2, n_out), in ascending index order; a missing tap has weight 0."""
+    wm = _resize_weights(n_in, n_out, antialias=False)
+    idx = np.argsort(wm == 0, axis=0, kind="stable")[:2]
+    wt = np.take_along_axis(wm, idx, axis=0)
+    return (torch.from_numpy(idx).to(device),
+            torch.from_numpy(wt).to(device))
+
+
+def _fma(x: torch.Tensor, w: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """x * w + acc in float32 with one rounding, as a fused multiply-add
+    gives it: computed in float64, where the product is exact."""
+    return (x.double() * w.double() + acc.double()).float()
+
+
 def _resize_depth_to_grid(depth: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(B, H, W[, 1]) -> (B, h, w) bilinear without antialiasing, as the
-    JAX package's resize with antialias=False."""
+    """(B, H, W[, 1]) -> (B, h, w) bilinear without antialiasing, rounded
+    as the JAX package's jax.image.resize(antialias=False) is on XLA:CPU
+    (jax 0.9): rows first, each output the fused multiply-add of its two
+    taps in index order; then columns, the sum of the two rounded
+    products.  That is bit for bit at every batch size at 74^2 and above
+    a batch of one at 37^2; for one image at 37^2 XLA's dot kernel fuses
+    the column step as well, and a few hundred of the 1 369 values differ
+    by 1 ulp (tests/test_torch_decoder.py holds both).
+    The depth-locked Gaussians of a patch, and of patches of equal depth,
+    share one z: these last bits decide which of them tie, so the
+    compositing order, so the image (F.interpolate's samples moved
+    renders of the trained exp2 model by up to 1.6e-3)."""
     if depth.dim() == 4:
         depth = depth[..., 0]
-    return F.interpolate(depth[:, None], size=(h, w), mode="bilinear",
-                         align_corners=False, antialias=False)[:, 0]
+    H, W = depth.shape[-2:]
+    if H != h:
+        i, a = _taps(H, h, depth.device)
+        depth = _fma(depth[:, i[1]], a[1][:, None],
+                     depth[:, i[0]] * a[0][:, None])
+    if W != w:
+        i, a = _taps(W, w, depth.device)
+        depth = depth[..., i[0]] * a[0] + depth[..., i[1]] * a[1]
+    return depth
 
 
 def head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
                    depth_offset: torch.Tensor, *, scale_bias: float = 0.0,
                    opacity_bias: float = 0.0, depth_z_scale: float = -2.0,
+                   z_offset_scale: float = 0.0,
                    elevation: Optional[torch.Tensor] = None,
                    azimuth: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
     """Raw per-patch head outputs (B, H, W, K, 16) -> Gaussian parameters;
     with a (B,) elevation and azimuth the positions are rotated to face
-    that pose."""
+    that pose.  A z_offset_scale other than 0 adds tanh(raw z) times it to
+    the depth-locked z, a bounded per-Gaussian residual."""
     B, H, W, K = raw.shape[:4]
     raw_pos = raw[..., 0:3]
     raw_scale = raw[..., 3:6]
@@ -62,10 +104,12 @@ def head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
         base_z = base_z.expand(B, H, W, K)
     else:
         base_z = depth_offset.expand(B, H, W, K)
+    z_term = (base_z + torch.tanh(raw_pos[..., 2]) * z_offset_scale
+              if z_offset_scale else base_z)
 
     positions = torch.stack([base_x + raw_pos[..., 0] * 0.25,
                              base_y + raw_pos[..., 1] * 0.25,
-                             base_z], dim=-1)
+                             z_term], dim=-1)
     if elevation is not None and azimuth is not None:
         positions = rotate_positions_for_pose(positions, elevation, azimuth)
     scales = F.softplus(torch.clamp(raw_scale, -10.0, 20.0) + 1.0
@@ -105,8 +149,7 @@ class DirectPatchDecoder(nn.Module):
                         use_phase_output=use_phase_output,
                         use_pose_encoding=use_pose_encoding,
                         use_depth_fusion=use_depth_fusion,
-                        feature_upsample=feature_upsample != 1,
-                        z_offset_scale=z_offset_scale != 0.0)
+                        feature_upsample=feature_upsample != 1)
         on = [k for k, v in unported.items() if v]
         if on:
             raise NotImplementedError(
@@ -115,6 +158,7 @@ class DirectPatchDecoder(nn.Module):
         self.scale_bias = scale_bias
         self.opacity_bias = opacity_bias
         self.depth_z_scale = depth_z_scale
+        self.z_offset_scale = z_offset_scale
         self.mlp = MLP(feature_dim, hidden_dims,
                        gaussians_per_patch * OUTPUTS_PER_GAUSSIAN, dropout)
         self.depth_offset = nn.Parameter(torch.tensor(-2.0))
@@ -140,4 +184,5 @@ class DirectPatchDecoder(nn.Module):
                               scale_bias=self.scale_bias,
                               opacity_bias=self.opacity_bias,
                               depth_z_scale=self.depth_z_scale,
+                              z_offset_scale=self.z_offset_scale,
                               elevation=elevation, azimuth=azimuth)

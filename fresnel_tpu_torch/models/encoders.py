@@ -31,13 +31,14 @@ _DEPTH_CANDIDATES = ("depth_anything_v2_small.pth",
 _LUMA = (0.299, 0.587, 0.114)
 
 
-def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+def _resize_weights(n_in: int, n_out: int, antialias: bool = True
+                    ) -> np.ndarray:
     """(n_in, n_out) float32 weights of a linear resize along one axis,
-    antialiased when downsampling, computed in float32 in the order of
-    jax.image.scale_and_translate's weight matrix."""
+    antialiased when downsampling (if `antialias`), computed in float32 in
+    the order of jax.image.scale_and_translate's weight matrix."""
     f = np.float32
     inv = f(1.0 / (n_out / n_in))
-    kscale = max(inv, f(1.0))
+    kscale = max(inv, f(1.0)) if antialias else f(1.0)
     sample = (np.arange(n_out, dtype=f) + f(0.5)) * inv - f(0.0) * inv - f(0.5)
     x = np.abs(sample[None, :] - np.arange(n_in, dtype=f)[:, None]) / kscale
     w = np.maximum(f(0.0), f(1.0) - np.abs(x))
@@ -148,7 +149,7 @@ def create_depth_estimator(kind: str = "auto") -> FallbackDepthEstimator:
         if path is not None:
             raise NotImplementedError(
                 f"Depth-Anything weights found at {path}, but loading them "
-                "is not ported (ROADMAP Queue 1, item 12); pass "
+                "is not ported (ROADMAP Queue 1, item 2); pass "
                 "depth_estimator='gradient' to use the procedural estimator")
         if kind == "depth_anything":
             raise FileNotFoundError(

@@ -5,7 +5,10 @@ image encoder (`train_encoder`) or the cached features -> the decoder
 (dropout on) -> optional stochastic-K subsample -> one batched render of
 the B clouds (one (B * T, M, 12) pack: one K1 launch forward and one K2
 launch backward on the card) -> `compute_losses` -> overflow telemetry ->
-optional tensegrity term -> clip + AdamW + cosine schedule, with the NaN
+with `view_weight` > 0 and GT orbit views in the batch (corpus_v2), the
+same B clouds rendered from one non-frontal GT azimuth each (a second
+pack, one more K1 and K2 launch) and scored L1 + ssim_weight * (1 - SSIM)
+-> optional tensegrity term -> clip + AdamW + cosine schedule, with the NaN
 guard on the device (train/optim.py).  `fit` runs HFTS progressive K,
 reads the losses from the device once per epoch, and writes periodic,
 best and final checkpoints and `loss_history.json`.
@@ -14,12 +17,14 @@ Parameters live in the state as a flat {name: tensor} dict ("model.<key>",
 "encoder.<key>", "wavelengths_raw", "boundary_emphasis"); the modules are
 templates run with `torch.func.functional_call`.  A checkpoint is
 `torch.save` of {params, opt_state, step} (`.pt`) with the JAX package's
-JSON sidecar keys beside it.
+JSON sidecar keys beside it.  `load_checkpoint` also reads the JAX
+package's Flax msgpack checkpoints, full (params, Adam moments, count and
+step) and thin (bf16 params; a fresh optimizer state), through
+`train.flax_msgpack`, which needs neither msgpack nor ml_dtypes.
 
 Not ported (each raises NotImplementedError, queued in ROADMAP.md):
 experiments 1, 3, 4 and 5, the physics decoder, LPIPS in the step,
-view-aware training (`view_weight`), distillation (`distill_weight`),
-`use_amp`, more than one device, and reading Flax msgpack checkpoints.
+distillation (`distill_weight`), `use_amp` and more than one device.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from fresnel_tpu_torch.core.camera import Camera
 from fresnel_tpu_torch.device import resolve_device
 from fresnel_tpu_torch.losses.aggregate import compute_losses
 from fresnel_tpu_torch.losses.physics import init_learnable_wavelengths
+from fresnel_tpu_torch.losses.ssim import ssim
 from fresnel_tpu_torch.models.blocks import tensegrity_loss
 from fresnel_tpu_torch.models.decoders import DirectPatchDecoder
 from fresnel_tpu_torch.models.encoders import resize_linear
@@ -47,8 +53,11 @@ from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones
 from fresnel_tpu_torch.render.factory import select_training_renderer
 from fresnel_tpu_torch.train.config import (
     HFGSConfig, HFTSConfig, PhysicsConfig, TrainingConfig)
+from fresnel_tpu_torch.train.flax_msgpack import read_flat
 from fresnel_tpu_torch.train.optim import AdamWClip
-from fresnel_tpu_torch.weights import init_flax_like_
+from fresnel_tpu_torch.train.thin_ckpt import (
+    cast_like, load_thin_params, params_of)
+from fresnel_tpu_torch.weights import init_flax_like_, trainer_opt_state
 
 
 def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
@@ -143,7 +152,6 @@ class Trainer:
         cfg = self.config
         unported = {
             "lpips (ROADMAP Queue 1, item 6)": self.lpips is not None,
-            "view_weight > 0 (ROADMAP Queue 1, item 2)": cfg.view_weight > 0,
             "distill_weight > 0 (ROADMAP Queue 1, item 1)":
                 cfg.distill_weight > 0,
             "use_amp (ROADMAP Queue 1, item 1)": cfg.use_amp,
@@ -265,6 +273,28 @@ class Trainer:
         ld["overflow_tiles_frac"] = ovf_sum[2] / (B * n_tiles)
         ld["overflow_max_tile_hits"] = ovf[:, 3].max().to(torch.float32)
 
+        if cfg.view_weight > 0 and "view_gt" in batch:
+            # One non-frontal GT orbit view per sample (drawn on the host
+            # by device_batch): the same clouds from that azimuth against
+            # the raytraced ground truth.
+            gt = batch["view_gt"]                             # (B, 3, S, S)
+            if gt.shape[-1] != res:
+                gt = resize_linear(gt, res, res)
+            cams_v = [Camera.from_pose(0.0, a, res).to(pos.device)
+                      for a in batch["view_az_rad"]]
+            imgs_v, _, ovf_v = self.renderer.batch(pos, sc, rot, col, op,
+                                                   cams_v)
+            v_l1 = torch.mean(torch.abs(imgs_v - gt))
+            v_ssim = 1.0 - ssim(torch.clamp(imgs_v, 0.0, 1.0), gt,
+                                data_range=1.0)
+            v_loss = v_l1 + cfg.ssim_weight * v_ssim
+            ld["view"] = v_loss
+            total = total + cfg.view_weight * v_loss
+            ld["total"] = total
+            ovf_v_sum = ovf_v.sum(dim=0).to(torch.float32)
+            ld["view_overflow_dropped_frac"] = (
+                ovf_v_sum[0] / torch.clamp(ovf_v_sum[1], min=1.0))
+
         if cfg.use_tensegrity_loss:
             # Bound the O(N^2) kNN to a fixed 512-point subsample.
             n = pos.shape[1]
@@ -298,11 +328,31 @@ class Trainer:
                 {k: v.detach() for k, v in ld.items()})
 
     # ------------------------------------------------------------------
-    def device_batch(self, batch: Dict[str, np.ndarray]
-                     ) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v), device=self.device)
-                for k, v in batch.items()
-                if k not in ("views", "view_azimuths_deg")}
+    def device_batch(self, batch: Dict[str, np.ndarray],
+                     nprng: Optional[np.random.Generator] = None
+                     ) -> Dict:
+        """A host batch on the device.  The GT orbit views stay on the
+        host: with `view_weight` > 0, one non-frontal view per sample is
+        drawn from `nprng` (the generator `batches` shuffles with, right
+        after the batch is drawn, as the JAX trainer does) and only that
+        view goes to the device as "view_gt", its azimuth as "view_az_rad"
+        (float32 radians, on the host)."""
+        out: Dict = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                     for k, v in batch.items()
+                     if k not in ("views", "view_azimuths_deg")}
+        if self.config.view_weight > 0 and "views" in batch:
+            if nprng is None:
+                raise ValueError("view-aware training draws its GT view "
+                                 "from the batches' generator: pass nprng")
+            v = batch["views"]                          # (B, V, 3, S, S)
+            B, V = v.shape[:2]
+            vidx = nprng.integers(1, V, size=B)         # skip frontal (0)
+            out["view_gt"] = torch.as_tensor(
+                np.ascontiguousarray(v[np.arange(B), vidx]),
+                device=self.device)
+            az = np.asarray(batch["view_azimuths_deg"], np.float32)[vidx]
+            out["view_az_rad"] = az * np.float32(np.pi / 180)
+        return out
 
     def draw_poses(self, rng: np.random.Generator, B: int):
         """Multi-pose (elevation, azimuth) in radians, frontal with
@@ -358,7 +408,7 @@ class Trainer:
             t0 = time.perf_counter()
             epoch_losses: Dict[str, list] = {}
             for batch in dataset.batches(cfg.batch_size, nprng):
-                jb = self.device_batch(batch)
+                jb = self.device_batch(batch, nprng)
                 poses = self.draw_poses(pose_rng, cfg.batch_size)
                 state, ld = self.train_step(state, jb, K, sk, gen, poses)
                 for k, v in ld.items():
@@ -415,6 +465,18 @@ class Trainer:
         with torch.no_grad():
             return self._features(params, images)
 
+    def decode(self, params: Dict[str, torch.Tensor], features,
+               depth) -> Dict[str, torch.Tensor]:
+        """The decoder in inference mode (no dropout) on (B, g, g, C)
+        features and (B, H, W) depth -> the B clouds' Gaussian fields."""
+        features = torch.as_tensor(features, dtype=torch.float32,
+                                   device=self.device)
+        depth = torch.as_tensor(depth, dtype=torch.float32,
+                                device=self.device)
+        with torch.no_grad():
+            return functional_call(self.model, _split(params, "model"),
+                                   (features, depth))
+
     # ------------------------------------------------------------------
     def save_checkpoint(self, path, state: Dict, epoch: int) -> None:
         torch.save({"params": _to_cpu(state["params"]),
@@ -430,22 +492,45 @@ class Trainer:
         Path(str(path) + ".json").write_text(json.dumps(meta, indent=2))
 
     def load_checkpoint(self, path, sample_batch=None) -> Tuple[Dict, int]:
-        """(state, epoch) from a checkpoint written by `save_checkpoint`;
-        its parameter names and shapes must be this trainer's."""
+        """(state, epoch) from a checkpoint: a `.pt` of `save_checkpoint`,
+        or the JAX package's Flax msgpack, full (params, Adam moments,
+        count and step carried over exactly) or thin (`"thin": true` in
+        the sidecar: bf16 params cast to float32, a fresh optimizer state
+        whose count is 0, so the cosine schedule restarts at its peak as
+        in the JAX trainer, and `step` from the sidecar).  Its parameter
+        names and shapes must be this trainer's."""
         meta_path = Path(str(path) + ".json")
         meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
-        if meta.get("thin") or str(path).endswith(".msgpack"):
-            raise NotImplementedError(
-                "Flax msgpack checkpoints are not read yet (ROADMAP Queue 1, "
-                "item 2)")
         template = self.init_state(sample_batch)
-        payload = torch.load(str(path), map_location=self.device,
-                             weights_only=True)
-        for k, v in template["params"].items():
-            got = payload["params"].get(k)
-            if got is None or got.shape != v.shape:
-                raise ValueError(f"checkpoint {path} does not match this "
-                                 f"trainer at {k}")
+        attn_pool = self.config.encoder_attn_pool
+        if meta.get("thin"):
+            params = load_thin_params(path, template["params"], attn_pool)
+            state = {"params": params, "opt_state": template["opt_state"],
+                     "step": torch.tensor(meta.get("step", 0),
+                                          dtype=torch.int32,
+                                          device=self.device)}
+            print(f"thin resume from {path}: params restored, optimizer "
+                  f"state freshly initialized", flush=True)
+            return state, meta.get("epoch", 0)
+        if str(path).endswith(".msgpack"):
+            flat = read_flat(path)
+            opt = trainer_opt_state(
+                {k[len("opt_state/"):]: v for k, v in flat.items()
+                 if k.startswith("opt_state/")}, attn_pool)
+            tp = template["params"]
+            payload = {
+                "params": cast_like(params_of(flat, attn_pool), tp, path),
+                "opt_state": {
+                    "count": opt["count"],
+                    "mu": cast_like(opt["mu"], tp, path),
+                    "nu": cast_like(opt["nu"], tp, path)},
+                "step": torch.tensor(int(np.asarray(flat["step"])),
+                                     dtype=torch.int32)}
+        else:
+            payload = torch.load(str(path), map_location=self.device,
+                                 weights_only=True)
+            payload["params"] = cast_like(payload["params"],
+                                          template["params"], path)
         if not meta_path.exists():
             if not os.environ.get("FRESNEL_ALLOW_MISSING_SIDECAR"):
                 raise FileNotFoundError(
@@ -458,3 +543,18 @@ class Trainer:
         state = {"params": payload["params"],
                  "opt_state": payload["opt_state"], "step": payload["step"]}
         return _to_device(state, self.device), meta.get("epoch", 0)
+
+
+def trainer_from_checkpoint(path, device=None) -> Trainer:
+    """The Trainer a checkpoint was trained with, from its `.json` sidecar
+    (the four configs).  A config that needs an option the port does not
+    have raises NotImplementedError naming it."""
+    meta_path = Path(str(path) + ".json")
+    if not meta_path.exists():
+        raise FileNotFoundError(f"no config sidecar at {meta_path}: the "
+                                "model cannot be rebuilt")
+    meta = json.loads(meta_path.read_text())
+    return Trainer(TrainingConfig(**meta["config"]),
+                   PhysicsConfig(**meta["physics_config"]),
+                   HFGSConfig(**meta["hfgs_config"]),
+                   HFTSConfig(**meta["hfts_config"]), device=device)

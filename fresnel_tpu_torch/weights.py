@@ -14,7 +14,9 @@ They import nothing of the JAX package: the layouts are rules on arrays.
     `depth_offset` carry over as they are.
 `trainer_params` carries a whole JAX `Trainer`'s params (decoder, image
 encoder, `wavelengths_raw`, `boundary_emphasis`) into the port's
-`train.harness.Trainer` params.
+`train.harness.Trainer` params, and `trainer_opt_state` its optax state
+(`clip_by_global_norm` then `adamw` with a schedule) into the port's
+`train.optim.AdamWClip` state.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ def _convert(flat: Mapping[str, np.ndarray], renames=()) -> Dict[str, torch.Tens
         key = ".".join(parts)
         for pattern, repl in renames:
             key = re.sub(pattern, repl, key)
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        out[key] = torch.from_numpy(np.array(arr, order="C"))   # keeps 0-d
     return out
 
 
@@ -150,6 +152,34 @@ def trainer_params(flat: Mapping[str, np.ndarray], attn_pool: int = 1
                                              attn_pool).items():
             out[f"encoder.{k}"] = v
     return out
+
+
+def trainer_opt_state(flat: Mapping[str, np.ndarray], attn_pool: int = 1
+                      ) -> Dict:
+    """A JAX Trainer's optax state, flattened with "/" as in its checkpoint
+    ("0" the clip's empty state; "1/0" Adam's count, mu and nu; "1/1" the
+    weight decay's empty state; "1/2" the schedule's count) -> the port's
+    AdamWClip state {"count", "mu", "nu"}, the moments renamed and
+    reshaped as `trainer_params` renames the params.  optax keeps two
+    counts, Adam's and the schedule's; the port keeps one, so they must be
+    equal."""
+    adam = "1/0/"
+    counts = {k: int(np.asarray(flat[k])) for k in (adam + "count",
+                                                     "1/2/count")
+              if k in flat}
+    if adam + "count" not in counts:
+        raise ValueError("no Adam count at opt_state/1/0/count")
+    if len(set(counts.values())) != 1:
+        raise ValueError(f"optax's counts differ: {counts}; the port's "
+                         "optimizer keeps one count")
+    moments = {}
+    for m in ("mu", "nu"):
+        pre = f"{adam}{m}/"
+        moments[m] = trainer_params(
+            {k[len(pre):]: v for k, v in flat.items() if k.startswith(pre)},
+            attn_pool)
+    return {"count": torch.tensor(counts[adam + "count"], dtype=torch.int32),
+            **moments}
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:

@@ -675,3 +675,99 @@ def test_batched_render_on_card_matches_cpu(cuda, B, n, res, mpt):
                                            return_overflow=True, config=cfg)
             torch.testing.assert_close(img[b], one, atol=1e-5, rtol=0)
             assert torch.equal(ovf[b], o1)
+
+
+RESULTS = __import__("pathlib").Path(__file__).resolve().parents[1] / "results"
+
+
+def test_checkpoints_on_card_equal_cpu(cuda):
+    """The committed Flax checkpoints read into Trainers on the card give
+    the CPU's params (and a full file's moments and count) bit for bit."""
+    from fresnel_tpu_torch.train.harness import trainer_from_checkpoint
+    for name in ("exp2", "exp2_k8", "v2combo"):
+        path = str(RESULTS / f"{name}_model.msgpack")
+        got, _ = trainer_from_checkpoint(path, cuda).load_checkpoint(path)
+        want, _ = trainer_from_checkpoint(path, "cpu").load_checkpoint(path)
+        assert got["params"]["model.depth_offset"].is_cuda
+        for k, v in want["params"].items():
+            assert torch.equal(got["params"][k].cpu(), v), (name, k)
+        for m in ("mu", "nu"):
+            for k, v in want["opt_state"][m].items():
+                assert torch.equal(got["opt_state"][m][k].cpu(), v)
+        assert int(got["opt_state"]["count"]) == int(
+            want["opt_state"]["count"])
+        assert int(got["step"]) == int(want["step"])
+
+
+def _exp2_cloud(device):
+    from fresnel_tpu_torch.models.encoders import create_feature_extractor
+    from fresnel_tpu_torch.train.harness import trainer_from_checkpoint
+    path = str(RESULTS / "exp2_model.msgpack")
+    t = trainer_from_checkpoint(path, "cpu")
+    state, _ = t.load_checkpoint(path)
+    rng = np.random.default_rng(40)
+    img = rng.uniform(size=(256, 256, 3)).astype(np.float32)
+    feats = create_feature_extractor("patch")(torch.from_numpy(img))[None]
+    depth = rng.uniform(0.3, 0.7, (1, 256, 256)).astype(np.float32)
+    out = t.decode(state["params"], feats, depth)
+    return ({k: out[k][0].to(device) for k in (
+        "positions", "scales", "rotations", "colors", "opacities")},
+        img.transpose(2, 0, 1).copy())
+
+
+@pytest.mark.parametrize("size", [64, 256])
+def test_eval_views_on_card_match_cpu(cuda, size):
+    """evaluate_novel_views of exp2's decoded cloud on the card against the
+    CPU: 8 K1 launches; frontal SSIM within 1e-4, PSNR within 1e-3 dB,
+    coverage within 2 / S^2 per view (chip_smoke.py's eval bounds)."""
+    from fresnel_tpu_torch.evaluation.novel_view_eval import (
+        evaluate_novel_views)
+    g, target = _exp2_cloud(cuda)
+    views = np.stack([target] * 8)
+    f0 = raster.launches
+    got = evaluate_novel_views([{"gaussians": g, "target": target,
+                                 "views": views}], render_size=size,
+                               max_per_tile=1024)
+    assert raster.launches - f0 == 8
+    want = evaluate_novel_views(
+        [{"gaussians": {k: v.cpu() for k, v in g.items()},
+          "target": target, "views": views}], render_size=size,
+        max_per_tile=1024)
+    assert list(got) == list(want)
+    assert abs(got["frontal_ssim"] - want["frontal_ssim"]) <= 1e-4
+    assert abs(got["frontal_psnr"] - want["frontal_psnr"]) <= 1e-3
+    for k, w in want["per_view_coverage"].items():
+        assert abs(got["per_view_coverage"][k] - w) <= 2 / size ** 2
+    for k, w in want["per_view_ssim"].items():
+        assert abs(got["per_view_ssim"][k] - w) <= 1e-4
+
+
+def test_view_pack_kernels_match_plain(cuda):
+    """K1 and K2 at a view pack, B clouds each under its own orbit camera
+    (one image per camera, tiles_per_image = T), against their plain
+    versions at K1's 1e-5 and K2's BWD_TOL."""
+    B = 4
+    args = [a.to(cuda) for a in _batch_inputs(B, 3000, 50)]
+    cams = [Camera.from_pose(0.0, np.float32(np.radians(az)), 64)
+            for az in (45, 90, 225, 315)]
+    bp = tile.pack_tiles_batched(*args, cams,
+                                 tile.TileRendererConfig(max_per_tile=1024))
+    pack, counts, ntx, ti = (bp.pack, bp.counts, bp.n_tiles_x,
+                             bp.tiles_per_image)
+    assert pack.shape[0] == B * ti and int(counts.max()) > 0
+    with torch.no_grad():
+        fwd = raster.composite_tiles_packed(pack, counts, ntx,
+                                            tiles_per_image=ti)
+        ref = raster.composite_tiles_plain(pack, counts, ntx,
+                                           tiles_per_image=ti)
+        for g, r in zip(fwd, ref):
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+        rng = np.random.default_rng(51)
+        cots = [torch.from_numpy(rng.normal(size=tuple(o.shape)).astype(
+            np.float32)).to(cuda) for o in fwd]
+        got = raster.composite_tiles_bwd(pack, counts, ntx, *fwd, *cots,
+                                         tiles_per_image=ti)
+        want = raster.composite_tiles_bwd_plain(pack, counts, ntx, *fwd,
+                                                *cots, tiles_per_image=ti)
+    scale = want.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+    assert ((got - want).abs().amax(dim=(0, 1)) / scale).max() <= BWD_TOL

@@ -105,11 +105,23 @@ def test_resize_depth_to_grid_no_antialias():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
 
 
+@pytest.mark.parametrize("batch,grid", [(2, 37), (4, 37), (1, 74), (2, 74)])
+def test_resize_depth_to_grid_bits(batch, grid):
+    """One rounding for every batch size: bit for bit with XLA:CPU except
+    for a single image at 37^2, where its dot kernel fuses the column
+    step too (the test above bounds that case)."""
+    depth = np.random.default_rng(5).uniform(
+        size=(batch, 256, 256)).astype(np.float32)
+    ref = np.asarray(jd._resize_depth_to_grid(jnp.asarray(depth), grid, grid))
+    out = td._resize_depth_to_grid(torch.from_numpy(depth), grid, grid)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
 @pytest.mark.parametrize("flag", [
     dict(use_fresnel_zones=True), dict(use_edge_aware=True),
     dict(use_phase_output=True), dict(use_pose_encoding=True),
     dict(use_depth_fusion=True), dict(feature_upsample=2),
-    dict(z_offset_scale=0.1)])
+    dict(feature_upsample=3)])
 def test_unported_options_raise(flag):
     with pytest.raises(NotImplementedError):
         td.DirectPatchDecoder(gaussians_per_patch=4, **flag)

@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX, Flax, optax or fresnel_tpu import, and
-entry points refuse to run without CUDA unless the caller asks for the
-CPU."""
+"""The port stands alone: no JAX, Flax, optax or fresnel_tpu import, nor
+msgpack or ml_dtypes (Flax's dependencies, which the card's machine may
+lack), and entry points refuse to run without CUDA unless the caller asks
+for the CPU."""
 
 import ast
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fresnel_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fresnel_tpu", "msgpack",
+             "ml_dtypes"}
 PORT_FILES = sorted((ROOT / "fresnel_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -39,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
         "                                'fresnel_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'optax', 'fresnel_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'fresnel_tpu',\n"
+        "        'msgpack', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -83,7 +86,9 @@ class TestDevice:
         with pytest.raises(RuntimeError, match="CUDA"):
             refine(np.zeros((16, 16, 3), np.float32), steps=1)
 
-    def test_trainer_and_datasets_raise_without_cuda(self):
+    def test_trainer_and_datasets_raise_without_cuda(self, tmp_path):
+        from PIL import Image
+        from fresnel_tpu_torch import cli
         from fresnel_tpu_torch.data.dataset import SyntheticGaussianDataset
         from fresnel_tpu_torch.train.config import TrainingConfig
         from fresnel_tpu_torch.train.harness import Trainer
@@ -91,6 +96,15 @@ class TestDevice:
             Trainer(TrainingConfig())
         with pytest.raises(RuntimeError, match="CUDA"):
             SyntheticGaussianDataset(n_samples=1, image_size=16)
+        img = tmp_path / "img.png"
+        Image.new("RGB", (16, 16)).save(img)
+        ckpt = str(ROOT / "results" / "exp2_model.msgpack")
+        for argv in (["infer", str(img), str(tmp_path / "o.ply")],
+                     ["infer", str(img), str(tmp_path / "o.ply"),
+                      "--checkpoint", ckpt],
+                     ["eval", ckpt, "--synthetic", "--max_images", "1"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cli.main(argv)
 
     def test_render_and_orbit_raise_without_cuda(self):
         from fresnel_tpu_torch.cli import orbit, render

@@ -100,7 +100,7 @@ def test_cli_train_subcommand(tmp_path):
 
 @pytest.mark.parametrize("extra", [["--streaming"], ["--use_amp"],
                                    ["--distill_weight", "0.5"],
-                                   ["--view_weight", "0.5"],
+                                   ["--num_devices", "2"],
                                    ["--experiment", "4"],
                                    ["--use_wave_rendering"],
                                    ["--use_fourier_renderer"],
