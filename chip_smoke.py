@@ -12,7 +12,10 @@ on a cloud of a million Gaussians (`fresnel render` and `orbit`),
 decoder training, `train.harness.Trainer` and its CLI
 (`fresnel-torch train`), at the flagship trained model's config, and the
 committed trained checkpoints (`results/*.msgpack`) through `cli infer`,
-`cli eval` and `cli train --resume`, view-aware for v2combo.  Phases,
+`cli eval` and `cli train --resume`, view-aware for v2combo, and
+experiment 4 (the Fibonacci spiral decoder: its teacher fits through
+`train.fit_teacher.main` and distilled training through `cli train`) with
+the 74^2 decoders.  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
@@ -199,6 +202,42 @@ non-zero:
                   each held leaf's mean within 1e-5.
       checkpoint_phases  the seconds of each of 25-31 and their total,
                   beside the 90 s they are meant to keep to.
+  32. exp4_ckpt   cli infer of exp4 and exp4_budget (377 and 5 476
+                  Gaussians decoded), the card's PLY against the CPU's as
+                  in 26; cli eval of each over corpus_v1_eval (24 scenes,
+                  256^2, M 1024; 8 K1 per scene), frontal SSIM within
+                  1e-3 and PSNR within 0.05 dB of the committed
+                  results/eval_<name>_eval.json, card against CPU on the
+                  first 2 scenes as in 27;
+  33. upsample_ckpt  the same for exp2_g74zi (feature_upsample 2: 74^2 x
+                  K 2, 10 952 Gaussians), and cli eval of exp2_e74 (a
+                  74^2 encoder grid);
+  34. teacher_fit4  fit_teacher.main --experiment 4 --grid 5476 over the
+                  first 8 scenes of the 16-scene training corpus (256^2,
+                  M 1024, 50 Adam steps of 800), launch counts reset just
+                  before and read just after (51 K1 and 50 K2 per scene):
+                  SSIM / PSNR per scene, the depth offsets' spread, ms per
+                  step; one scene's 2 steps on the card against the CPU:
+                  losses within 1e-4 relative, raw within a mean absolute
+                  difference of 1e-4;
+  35. distill_train4  cli train --experiment 4 --n_spiral_points 5476
+                  --distill_weight 1.0 --distill_decay_epochs 2 at
+                  exp4_budget's sidecar config on those 8 scenes with
+                  their sidecars (batch 8, 4 epochs: 4 steps, one K1 and
+                  one K2 each), the distill term per epoch; 3 more steps
+                  timed by CUDA events;
+      distill_reference  that config at 64^2, batch 2, dropout 0, 2
+                  steps, card against CPU: losses (the distill term
+                  included) within 1e-4 relative, each parameter leaf's
+                  mean absolute difference within 1e-6;
+  36. kernel_exp4_packs  K1 and K2 against their plain versions at the
+                  M 384 pack (exp4's first eval scene under the training
+                  camera, T 256) and at exp4_budget's training pack (8
+                  clouds of 5 476, T 2 048, M 1 024), times and bounds;
+  37. exp4_resume_reference  exp4's full state (count 3 000) stepped 2
+                  times as in resume_reference, card against CPU.
+      exp4_phases  the seconds of each of 32-37 and their total, beside
+                  the 60 s they are meant to keep to.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -1439,13 +1478,9 @@ def train_phases(torch, dev, path_launches):
 
 
 # The committed trained checkpoints (results/*.msgpack): all seven are
-# read; four load into the port's Trainer; three need what the port does
-# not have yet and raise NotImplementedError naming it.
+# read and load into the port's Trainer.
 CKPTS = ("exp2", "exp2_k8", "v2combo", "exp2_e74", "exp2_g74zi", "exp4",
          "exp4_budget")
-CKPT_LOADS = ("exp2", "exp2_k8", "v2combo", "exp2_e74")
-CKPT_RAISES = {"exp2_g74zi": "feature_upsample", "exp4": "experiment 4",
-               "exp4_budget": "experiment 4"}
 INFER_TIMED = 3
 INFER_RTOL = 1e-5
 # corpus_v1_eval and corpus_v2_eval as cloud/make_corpus.sh makes them
@@ -1476,6 +1511,33 @@ RESUME_REF = dict(image_size=64, batch_size=2, lpips_weight=0.0)
 RESUME_MOMENT_RTOL = 1e-2
 # The new phases' time on the card, which they are meant to keep to.
 CKPT_PHASES_CAP_S = 90.0
+
+
+# Experiment 4, distillation and the 74^2 upsampled decoder (phases 32-37).
+# The evals of the four checkpoints against their committed TPU JSONs:
+# frontal SSIM within 1e-3 and PSNR within 0.05 dB.
+EXP4_EVALS = ("exp4", "exp4_budget", "exp2_g74zi", "exp2_e74")
+INFER_N = {"exp4": 377, "exp4_budget": 5476, "exp2_g74zi": 74 * 74 * 2}
+COMMITTED_SSIM_TOL, COMMITTED_PSNR_TOL = 1e-3, 0.05
+# teacher_fit4: exp4_budget's spiral on the first 8 of the 16 training
+# scenes, 256^2, M 1024; cut from 800 Adam steps to 50.
+TEACHER = dict(scenes=8, grid=5476, steps=50, res=256)
+TEACHER_REF_STEPS = 2
+# distill_train4: exp4_budget's sidecar config with distillation on those
+# 8 scenes at batch 8 (cut from 150 epochs of 160 scenes to 4 epochs, one
+# step each), then DISTILL_TIMED steps timed by CUDA events.
+DISTILL_EPOCHS, DISTILL_TIMED = 4, 3
+# distill_reference: that config cut to 64^2, batch 2, dropout 0.
+DISTILL_REF = dict(image_size=64, batch_size=2, lpips_weight=0.0,
+                   distill_weight=1.0, distill_decay_epochs=2,
+                   depth_offset_init=None)
+DISTILL_REF_STEPS = 2
+DISTILL_PARAM_MEAN_TOL = 1e-6
+# exp4_resume_reference: 2 steps.  At a third the card and the CPU part
+# (loss 2.7e-4 relative; ROADMAP Queue 3).
+EXP4_RESUME_STEPS = 2
+# The new phases' time on the card, which they are meant to keep to.
+EXP4_PHASES_CAP_S = 60.0
 
 
 def ckpt_path(name):
@@ -1582,13 +1644,127 @@ def view_batches(trainer, dataset, n):
     return out[:n]
 
 
-def checkpoint_phases(torch, dev, path_launches):
-    """Phases 25-31: the committed trained checkpoints on the card.
-    Returns K1's and K2's numbers at the eval and view packs."""
+def lap_timer():
+    """(seconds by phase, lap): lap(name) adds the seconds since the last
+    lap to phase `name`'s and returns them."""
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        dt, mark[0] = now - mark[0], now
+        phase_s[name] = phase_s.get(name, 0.0) + dt
+        return dt
+    return phase_s, lap
+
+
+def resume_reference(torch, dev, name, corpus, phase, seconds,
+                     steps=TRAIN_REF_STEPS):
+    """A full checkpoint's loaded state (params, moments, count) stepped
+    `steps` times at its sidecar config cut by RESUME_REF, under
+    the Trainer's own schedule (lr > 0 at the loaded count), on the card
+    and on the CPU from the same batches of `corpus`, dropout 0: losses
+    within REF_LOSS_RTOL relative, each params leaf's mean absolute
+    difference within REF_PARAM_MEAN_TOL, each mu and nu leaf's within
+    RESUME_MOMENT_RTOL of the leaf's mean absolute value, the count
+    advanced on both, the params moved.  Logs `phase` (its seconds from
+    `seconds()`)."""
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+
+    runs = {}
+    for which, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        tr = sidecar_trainer(name, d, **RESUME_REF)
+        st, _ = tr.load_checkpoint(ckpt_path(name))
+        count0 = int(st["opt_state"]["count"])
+        loaded = {k: v.cpu() for k, v in st["params"].items()}
+        lr = float(tr.optimizer.learning_rate(st["opt_state"]["count"]))
+        ds = ImageDataset(corpus, image_size=RESUME_REF["image_size"],
+                          use_augmentation=False, device=d)
+        g_ = torch.Generator(device=d).manual_seed(1)
+        losses = []
+        for bb in view_batches(tr, ds, steps):
+            st, ld = tr.train_step(st, bb, tr.config.gaussians_per_patch,
+                                   None, g_)
+            losses.append(float(ld["total"]))
+        leaves = {part: {k: v.cpu() for k, v in tree.items()}
+                  for part, tree in (("params", st["params"]),
+                                     ("mu", st["opt_state"]["mu"]),
+                                     ("nu", st["opt_state"]["nu"]))}
+        moved = max((leaves["params"][k] - v).abs().max().item()
+                    for k, v in loaded.items())
+        runs[which] = dict(losses=losses, leaves=leaves, lr=lr, moved=moved,
+                           count0=count0,
+                           count=int(st["opt_state"]["count"]))
+    card, cpu = runs["card"], runs["cpu"]
+    loss_rel = max(abs(a - b_) / max(abs(b_), 1e-6)
+                   for a, b_ in zip(card["losses"], cpu["losses"]))
+    worst, worst_rel = {}, {}
+    for part, tree in cpu["leaves"].items():
+        diffs = {k: (card["leaves"][part][k] - v).abs().mean().item()
+                 for k, v in tree.items()}
+        worst[part] = max((d, k) for k, d in diffs.items())
+        worst_rel[part] = max((d / max(tree[k].abs().mean().item(), 1e-30),
+                               k) for k, d in diffs.items())
+    log(phase, checkpoint=name, steps=steps, dropout=0.0,
+        config=RESUME_REF, lr_at_resume=card["lr"], count=card["count"],
+        params_moved_max=card["moved"], losses_card=card["losses"],
+        losses_cpu=cpu["losses"], loss_rel_max=loss_rel,
+        loss_rtol=REF_LOSS_RTOL, mean_abs_worst=worst,
+        mean_abs_rel_worst=worst_rel, params_tol=REF_PARAM_MEAN_TOL,
+        moments_rtol=RESUME_MOMENT_RTOL, phase_seconds=seconds())
+    if not (card["lr"] > 0 and card["moved"] > 0
+            and card["count"] == cpu["count"] == card["count0"] + steps
+            and loss_rel <= REF_LOSS_RTOL
+            and worst["params"][0] <= REF_PARAM_MEAN_TOL
+            and worst_rel["mu"][0] <= RESUME_MOMENT_RTOL
+            and worst_rel["nu"][0] <= RESUME_MOMENT_RTOL):
+        fail(f"{name}'s resumed state's steps on the card disagree with the "
+             "CPU's")
+
+
+def infer_image(tmp):
+    """The 512^2 PNG `cli infer` reads, made once under `tmp`."""
     from PIL import Image
 
+    path = os.path.join(tmp, "scene.png")
+    if not os.path.exists(path):
+        Image.fromarray((smooth_image(512, 7).transpose(1, 2, 0)
+                         * 255).astype(np.uint8)).save(path)
+    return path
+
+
+def infer_run(torch, name, img_path, tmp):
+    """`cli infer` of checkpoint `name` on the card (host ms per call after
+    a warmup, INFER_TIMED calls) and on the CPU: the Gaussians kept, and
+    the card's PLY against the CPU's (rel_err, None if the counts
+    differ)."""
     from fresnel_tpu_torch import cli
     from fresnel_tpu_torch.core import io as gio
+
+    card_ply = os.path.join(tmp, f"{name}_card.ply")
+    cpu_ply = os.path.join(tmp, f"{name}_cpu.ply")
+    argv = ["infer", img_path, card_ply, "--checkpoint", ckpt_path(name)]
+    cli.main(argv)                                             # warmup
+    ms = []
+    for _ in range(INFER_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    cli.main(argv[:2] + [cpu_ply] + argv[3:] + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    a, b = gio.load_ply(card_ply), gio.load_ply(cpu_ply)
+    same_n = a.num_gaussians == b.num_gaussians
+    return dict(host_ms=ms, host_ms_median=statistics.median(ms),
+                kept_card=a.num_gaussians, kept_cpu=b.num_gaussians,
+                cpu_seconds=cpu_s, rel_err=rel_err(a, b) if same_n else None)
+
+
+def checkpoint_phases(torch, dev, path_launches, tmp):
+    """Phases 25-31: the committed trained checkpoints on the card, their
+    corpora made under `tmp`.  Returns K1's and K2's numbers at the eval
+    and view packs."""
     from fresnel_tpu_torch.core.camera import Camera
     from fresnel_tpu_torch.data import synthetic_corpus
     from fresnel_tpu_torch.data.dataset import ImageDataset
@@ -1598,18 +1774,10 @@ def checkpoint_phases(torch, dev, path_launches):
     from fresnel_tpu_torch.train.harness import trainer_from_checkpoint
 
     counters = (raster, binning, stream_binning)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    phase_s, mark = {}, [time.perf_counter()]
+    phase_s, lap = lap_timer()
 
-    def lap(name):
-        """Seconds since the last lap, added to phase `name`'s."""
-        now = time.perf_counter()
-        dt, mark[0] = now - mark[0], now
-        phase_s[name] = phase_s.get(name, 0.0) + dt
-        return dt
-
-    # 25. ckpt_read: every committed checkpoint decoded, four loaded into
-    # Trainers on the card, three refused by name.
+    # 25. ckpt_read: every committed checkpoint decoded and loaded into a
+    # Trainer on the card.
     files = {}
     for name in CKPTS:
         t0 = time.perf_counter()
@@ -1618,7 +1786,7 @@ def checkpoint_phases(torch, dev, path_launches):
                            bytes=os.path.getsize(ckpt_path(name)),
                            seconds=time.perf_counter() - t0)
     loads = {}
-    for name in CKPT_LOADS:
+    for name in CKPTS:
         t0 = time.perf_counter()
         tr = trainer_from_checkpoint(ckpt_path(name), dev)
         state, epoch = tr.load_checkpoint(ckpt_path(name))
@@ -1628,48 +1796,16 @@ def checkpoint_phases(torch, dev, path_launches):
             step=int(state["step"]), count=int(state["opt_state"]["count"]),
             leaves=len(state["params"]),
             on_card=all(v.is_cuda for v in state["params"].values()))
-    raises = {}
-    for name in CKPT_RAISES:
-        try:
-            trainer_from_checkpoint(ckpt_path(name), dev)
-            raises[name] = None
-        except NotImplementedError as e:
-            raises[name] = str(e)
-    log("ckpt_read", files=files, loads=loads, raises=raises,
+    log("ckpt_read", files=files, loads=loads,
         phase_seconds=lap("ckpt_read"))
-    if not (all(v["on_card"] for v in loads.values())
-            and all(raises[n] and what in raises[n]
-                    for n, what in CKPT_RAISES.items())):
-        fail("a committed checkpoint did not load, or an unported one did "
-             "not raise")
+    if not all(v["on_card"] for v in loads.values()):
+        fail("a committed checkpoint did not load onto the card")
 
     # 26. infer_path: `fresnel-torch infer` with a checkpoint, on the card
     # and on the CPU.
-    img_path = os.path.join(tmp, "scene.png")
-    Image.fromarray((smooth_image(512, 7).transpose(1, 2, 0) * 255).astype(
-        np.uint8)).save(img_path)
-    infer = {}
-    for name in ("exp2_k8", "exp2"):
-        card_ply = os.path.join(tmp, f"{name}_card.ply")
-        cpu_ply = os.path.join(tmp, f"{name}_cpu.ply")
-        argv = ["infer", img_path, card_ply, "--checkpoint", ckpt_path(name)]
-        cli.main(argv)                                         # warmup
-        ms = []
-        for _ in range(INFER_TIMED):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            cli.main(argv)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
-        cli.main(argv[:2] + [cpu_ply] + argv[3:] + ["--device", "cpu"])
-        cpu_s = time.perf_counter() - t0
-        a, b = gio.load_ply(card_ply), gio.load_ply(cpu_ply)
-        same_n = a.num_gaussians == b.num_gaussians
-        infer[name] = dict(host_ms=ms, host_ms_median=statistics.median(ms),
-                           kept_card=a.num_gaussians,
-                           kept_cpu=b.num_gaussians, cpu_seconds=cpu_s,
-                           rel_err=rel_err(a, b) if same_n else None)
+    img_path = infer_image(tmp)
+    infer = {name: infer_run(torch, name, img_path, tmp)
+             for name in ("exp2_k8", "exp2")}
     log("infer_path", image=512, rtol=INFER_RTOL, **infer,
         phase_seconds=lap("infer_path"))
     if not all(v["rel_err"] is not None
@@ -1791,51 +1927,8 @@ def checkpoint_phases(torch, dev, path_launches):
 
     # The loaded full state stepped where the learning rate is positive,
     # card against CPU: a wrong mu, nu or count on the card shows here.
-    runs = {}
-    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        tr = sidecar_trainer("exp2", d, **RESUME_REF)
-        st, _ = tr.load_checkpoint(ckpt_path("exp2"))
-        loaded = {k: v.cpu() for k, v in st["params"].items()}
-        lr = float(tr.optimizer.learning_rate(st["opt_state"]["count"]))
-        ds = ImageDataset(corpus, image_size=RESUME_REF["image_size"],
-                          use_augmentation=False, device=d)
-        g_ = torch.Generator(device=d).manual_seed(1)
-        losses = []
-        for bb in view_batches(tr, ds, TRAIN_REF_STEPS):
-            st, ld = tr.train_step(st, bb, 4, None, g_)
-            losses.append(float(ld["total"]))
-        leaves = {part: {k: v.cpu() for k, v in tree.items()}
-                  for part, tree in (("params", st["params"]),
-                                     ("mu", st["opt_state"]["mu"]),
-                                     ("nu", st["opt_state"]["nu"]))}
-        moved = max((leaves["params"][k] - v).abs().max().item()
-                    for k, v in loaded.items())
-        runs[name] = dict(losses=losses, leaves=leaves, lr=lr, moved=moved,
-                          count=int(st["opt_state"]["count"]))
-    card, cpu = runs["card"], runs["cpu"]
-    loss_rel = max(abs(a - b_) / max(abs(b_), 1e-6)
-                   for a, b_ in zip(card["losses"], cpu["losses"]))
-    worst, worst_rel = {}, {}
-    for part, tree in cpu["leaves"].items():
-        diffs = {k: (card["leaves"][part][k] - v).abs().mean().item()
-                 for k, v in tree.items()}
-        worst[part] = max((d, k) for k, d in diffs.items())
-        worst_rel[part] = max((d / max(tree[k].abs().mean().item(), 1e-30),
-                               k) for k, d in diffs.items())
-    log("resume_reference", steps=TRAIN_REF_STEPS, dropout=0.0,
-        config=RESUME_REF, lr_at_resume=card["lr"], count=card["count"],
-        params_moved_max=card["moved"], losses_card=card["losses"],
-        losses_cpu=cpu["losses"], loss_rel_max=loss_rel,
-        loss_rtol=REF_LOSS_RTOL, mean_abs_worst=worst,
-        mean_abs_rel_worst=worst_rel, params_tol=REF_PARAM_MEAN_TOL,
-        moments_rtol=RESUME_MOMENT_RTOL, phase_seconds=lap("resume_path"))
-    if not (card["lr"] > 0 and card["moved"] > 0
-            and card["count"] == cpu["count"] == 6000 + TRAIN_REF_STEPS
-            and loss_rel <= REF_LOSS_RTOL
-            and worst["params"][0] <= REF_PARAM_MEAN_TOL
-            and worst_rel["mu"][0] <= RESUME_MOMENT_RTOL
-            and worst_rel["nu"][0] <= RESUME_MOMENT_RTOL):
-        fail("the resumed state's steps on the card disagree with the CPU's")
+    resume_reference(torch, dev, "exp2", corpus, "resume_reference",
+                     lambda: lap("resume_path"))
 
     # 30. view_train: `cli train --resume` from v2combo's thin params with
     # view_weight 0.5 on the first corpus_v2 scenes; then timed steps.
@@ -1949,10 +2042,251 @@ def checkpoint_phases(torch, dev, path_launches):
     if not (loss_rel <= REF_LOSS_RTOL
             and max(held.values()) <= REF_PARAM_MEAN_TOL):
         fail("the card's view-aware steps disagree with the CPU's")
-    shutil.rmtree(tmp, ignore_errors=True)
     log("checkpoint_phases", seconds=phase_s,
         total_seconds=sum(phase_s.values()), cap_seconds=CKPT_PHASES_CAP_S)
     return k1_eval, k12_view
+
+
+def exp4_phases(torch, dev, path_launches, tmp):
+    """Phases 32-37: experiment 4 (the Fibonacci spiral decoder), its
+    teacher fits and distilled training, and the 74^2 decoders, on the
+    card, the corpora under `tmp` (made by checkpoint_phases, or here when
+    run alone).  Returns K1's and K2's numbers at the M 384 pack and at
+    exp4_budget's training pack."""
+    from fresnel_tpu_torch import cli
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
+    from fresnel_tpu_torch.train import fit_teacher
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+    v1 = os.path.join(tmp, "corpus_v1_eval")
+    corpus = os.path.join(tmp, "corpus_v1")
+    synthetic_corpus.generate_corpus(v1, n_images=EVAL_SCENES,
+                                     image_size=EVAL_SIZE, seed=EVAL_SEED)
+    synthetic_corpus.generate_corpus(corpus, n_images=TRAIN_SCENES,
+                                     image_size=TRAIN["image_size"], seed=0)
+
+    # 32-33. exp4_ckpt and upsample_ckpt: `cli infer` of exp4, exp4_budget
+    # and exp2_g74zi, card against CPU; `cli eval` of those and exp2_e74
+    # over corpus_v1_eval beside the committed TPU evaluations.
+    img_path = infer_image(tmp)
+    image = cli._load_image(img_path)
+    evals = {}
+    for name in EXP4_EVALS:
+        phase = "exp4_ckpt" if name.startswith("exp4") else "upsample_ckpt"
+        inf = None
+        if name in INFER_N:
+            decoded = cli.infer(image, ckpt_path(name),
+                                device=dev).num_gaussians
+            inf = dict(infer_run(torch, name, img_path, tmp),
+                       decoded=decoded)
+        ev = eval_checkpoint(torch, name, v1, counters)
+        path_launches[f"eval_{name}"] = ev["launches"]
+        ref, deltas = committed_deltas(name, ev["results"])
+        evals[name] = ev
+        log(phase, checkpoint=name, infer=inf, infer_rtol=INFER_RTOL,
+            scenes=len(ev["samples"]), size=EVAL_SIZE,
+            max_per_tile=ev["max_per_tile"], seconds=ev["seconds"],
+            seconds_per_scene=ev["seconds_per_scene"],
+            launches=ev["launches"], results=ev["results"], committed=ref,
+            minus_committed=deltas,
+            committed_tol=dict(frontal_ssim=COMMITTED_SSIM_TOL,
+                               frontal_psnr=COMMITTED_PSNR_TOL),
+            card_vs_cpu=ev["gate"], cpu_seconds=ev["cpu_seconds"],
+            phase_seconds=lap(phase))
+        if inf is not None and not (
+                inf["decoded"] == INFER_N[name] and inf["rel_err"]
+                and max(inf["rel_err"].values()) <= INFER_RTOL):
+            fail(f"the card's infer of {name} disagrees with the CPU's, or "
+                 f"decoded {inf['decoded']} Gaussians")
+        want = dict(k1=8 * EVAL_SCENES, k2=0, k3=0, k4=0)
+        if ev["launches"] != want or len(ev["samples"]) != EVAL_SCENES:
+            fail(f"eval of {name} launched {ev['launches']} over "
+                 f"{len(ev['samples'])} scenes, not {want}")
+        if not ev["gate"]["ok"]:
+            fail(f"the card's eval of {name} disagrees with the CPU's")
+        if not (abs(deltas["frontal_ssim"]) <= COMMITTED_SSIM_TOL
+                and abs(deltas["frontal_psnr"]) <= COMMITTED_PSNR_TOL):
+            fail(f"the eval of {name} is off its committed evaluation: "
+                 f"{deltas['frontal_ssim']}, {deltas['frontal_psnr']} dB")
+
+    # 34. teacher_fit4: `fit_teacher.main --experiment 4` over the first
+    # training scenes, then one scene's fit on the card against the CPU.
+    argv = ["--data_dir", corpus, "--scenes", str(TEACHER["scenes"]),
+            "--experiment", "4", "--grid", str(TEACHER["grid"]),
+            "--steps", str(TEACHER["steps"]), "--res", str(TEACHER["res"]),
+            "--overwrite", "--device", "cuda"]
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    records = fit_teacher.main(argv)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    path_launches["teacher_fit4"] = read_counts(*counters)
+    sample = ImageDataset(corpus, image_size=TEACHER["res"],
+                          use_augmentation=False, max_images=1,
+                          device=dev)._samples[0]
+    kw = dict(steps=TEACHER_REF_STEPS, grid=TEACHER["grid"], K=1,
+              res=TEACHER["res"], experiment=4)
+    scene = np.ascontiguousarray(sample.image.transpose(2, 0, 1))
+    tg, mg = fit_teacher.fit_scene(scene, sample.depth, device=dev, **kw)
+    tc, mc = fit_teacher.fit_scene(scene, sample.depth, device=cpu, **kw)
+    raw_d = np.abs(tg["raw"] - tc["raw"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mg["losses"],
+                                                       mc["losses"]))
+    dos = [r["depth_offset"] for r in records]
+    ms_step = [r["seconds"] / r["steps"] * 1e3 for r in records]
+    n, steps = TEACHER["scenes"], TEACHER["steps"]
+    log("teacher_fit4", argv=argv, seconds=fit_s,
+        launches=path_launches["teacher_fit4"], per_scene=records,
+        ssim_mean=float(np.mean([r["ssim"] for r in records])),
+        psnr_mean=float(np.mean([r["psnr"] for r in records])),
+        depth_offset_mean=float(np.mean(dos)),
+        depth_offset_sd=float(np.std(dos)),
+        ms_per_step=ms_step, ms_per_step_median=statistics.median(ms_step),
+        reference=dict(steps=TEACHER_REF_STEPS, losses_card=mg["losses"],
+                       losses_cpu=mc["losses"], loss_rel_max=loss_rel,
+                       loss_rtol=REF_LOSS_RTOL,
+                       raw_mean_abs=float(raw_d.mean()),
+                       raw_max_abs=float(raw_d.max()),
+                       raw_mean_tol=REF_RAW_MEAN_TOL),
+        phase_seconds=lap("teacher_fit4"))
+    if path_launches["teacher_fit4"] != dict(k1=(steps + 1) * n,
+                                             k2=steps * n, k3=0, k4=0):
+        fail(f"the teacher fits launched {path_launches['teacher_fit4']}")
+    if len(records) != n or not all(np.isfinite(r["ssim"])
+                                    for r in records):
+        fail("a teacher fit did not finish with a finite SSIM")
+    if not (loss_rel <= REF_LOSS_RTOL and raw_d.mean() <= REF_RAW_MEAN_TOL):
+        fail("the card's experiment-4 teacher fit disagrees with the CPU's")
+
+    # 35. distill_train4: `cli train --experiment 4` with distillation from
+    # those sidecars at exp4_budget's width, then timed steps.
+    argv = ["--data_dir", corpus, "--max_images", str(TEACHER["scenes"]),
+            "--output_dir", os.path.join(tmp, "distill4"), "--experiment",
+            "4", "--n_spiral_points", str(TEACHER["grid"]), "--epochs",
+            str(DISTILL_EPOCHS), "--batch_size", "8", "--lr", "2e-4",
+            "--surface_init", "--max_per_tile", "1024", "--distill_weight",
+            "1.0", "--distill_decay_epochs", "2", "--no_augmentation",
+            "--lpips_weight", "0", "--device", "cuda"]
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    trainer, state = tcli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    path_launches["distill_train4"] = read_counts(*counters)
+    dataset = ImageDataset(corpus, image_size=EVAL_SIZE,
+                           use_augmentation=False,
+                           max_images=TEACHER["scenes"], teacher_experiment=4,
+                           device=dev)
+    batches = [trainer.device_batch(b) for b in train_batches(
+        dataset, 8, DISTILL_TIMED + 1)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state, _ = trainer.train_step(state, batches[0], 4, None, gen)
+    events, lds = [], []
+    for b in batches[1:]:
+        ev_ = (torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+        ev_[0].record()
+        state, ld = trainer.train_step(state, b, 4, None, gen)
+        ev_[1].record()
+        events.append(ev_)
+        lds.append(ld)
+    torch.cuda.synchronize()
+    ms = [s_.elapsed_time(e) for s_, e in events]
+    hist = trainer.history
+    log("distill_train4", argv=argv, seconds=train_s,
+        launches=path_launches["distill_train4"],
+        distill_per_epoch=hist.get("distill"), total_per_epoch=hist["total"],
+        distill_scale_per_epoch=[max(0.0, 1.0 - e / 2)
+                                 for e in range(DISTILL_EPOCHS)],
+        timed_steps=DISTILL_TIMED, ms_per_step=ms,
+        ms_per_step_median=statistics.median(ms),
+        loss_terms=[{k: float(v) for k, v in ld.items()} for ld in lds],
+        phase_seconds=lap("distill_train4"))
+    if path_launches["distill_train4"] != dict(k1=DISTILL_EPOCHS,
+                                               k2=DISTILL_EPOCHS, k3=0, k4=0):
+        fail(f"distilled training launched {path_launches['distill_train4']}"
+             f" in {DISTILL_EPOCHS} steps")
+    if not (len(hist.get("distill", [])) == DISTILL_EPOCHS
+            and np.all(np.isfinite(hist["total"]))
+            and all(np.isfinite(float(ld["distill"])) for ld in lds)):
+        fail("a distilled step has no finite distill term")
+
+    # The same config at 64^2, batch 2, dropout 0, card against CPU.
+    runs = {}
+    for which, d in (("card", dev), ("cpu", cpu)):
+        tr = sidecar_trainer("exp4_budget", d,
+                             n_spiral_points=TEACHER["grid"], **DISTILL_REF)
+        ds = ImageDataset(corpus, image_size=DISTILL_REF["image_size"],
+                          use_augmentation=False,
+                          max_images=TEACHER["scenes"], teacher_experiment=4,
+                          device=d)
+        bbs = view_batches(tr, ds, DISTILL_REF_STEPS)
+        st = tr.init_state()
+        st["params"]["model.depth_offset"] = bbs[0]["teacher_do"].mean()
+        g_ = torch.Generator(device=d).manual_seed(1)
+        losses = []
+        for i, bb in enumerate(bbs):
+            bb["distill_scale"] = 1.0 - i / 2
+            st, ld = tr.train_step(st, bb, 4, None, g_)
+            losses.append({k: float(v) for k, v in ld.items()})
+        runs[which] = (losses, {k: v.cpu() for k, v in st["params"].items()})
+    (lg, pg), (lc, pc) = runs["card"], runs["cpu"]
+    loss_rel = max(abs(a[k] - b_[k]) / max(abs(b_[k]), 1e-6)
+                   for a, b_ in zip(lg, lc) for k in ("total", "distill"))
+    mean_abs = {k: (pg[k] - pc[k]).abs().mean().item() for k in pc}
+    log("distill_reference", steps=DISTILL_REF_STEPS, dropout=0.0,
+        config=DISTILL_REF, losses_card=lg, losses_cpu=lc,
+        loss_rel_max=loss_rel, loss_rtol=REF_LOSS_RTOL,
+        param_mean_abs_worst=dict(sorted(mean_abs.items(),
+                                         key=lambda kv: -kv[1])[:5]),
+        param_mean_abs_tol=DISTILL_PARAM_MEAN_TOL,
+        phase_seconds=lap("distill_train4"))
+    if not (loss_rel <= REF_LOSS_RTOL
+            and max(mean_abs.values()) <= DISTILL_PARAM_MEAN_TOL):
+        fail("the card's distilled steps disagree with the CPU's")
+
+    # 36. kernel_exp4_packs: K1 and K2 at the M 384 pack (exp4's first eval
+    # scene under the training camera, as its teacher fit renders it) and
+    # at exp4_budget's training pack (the last timed batch's 8 clouds).
+    g = evals["exp4"]["samples"][0]["gaussians"]
+    with torch.no_grad():
+        tp = tile.pack_tiles(*[g[k] for k in FIELDS],
+                             Camera.default_training(EVAL_SIZE),
+                             tile.TileRendererConfig(max_per_tile=1024))
+        b = batches[-1]
+        out = trainer.decode(state["params"], b["features"], b["depth"])
+        bp = tile.pack_tiles_batched(*[out[k] for k in FIELDS],
+                                     trainer.camera, trainer.renderer.config)
+    k_m384 = pack_kernels(torch, raster, tp.pack, tp.counts, tp.n_tiles_x,
+                          None, backward=True)
+    k_train = pack_kernels(torch, raster, bp.pack, bp.counts, bp.n_tiles_x,
+                           bp.tiles_per_image, backward=True)
+    log("kernel_exp4_packs", m384_pack=k_m384, train_pack=k_train,
+        k1_tol=KERNEL_TOL, k2_tol=KERNEL_BWD_TOL,
+        phase_seconds=lap("kernel_exp4_packs"))
+    if (k_m384["M"], k_train["T"], k_train["M"]) != (384, 8 * 256, 1024):
+        fail(f"the exp-4 packs are not M 384 and (2048, 1024): "
+             f"{k_m384['M']}, {k_train['T']}, {k_train['M']}")
+    if not all(k["k1_max_abs_err"] <= KERNEL_TOL
+               and k["k2_rel_err"] <= KERNEL_BWD_TOL
+               for k in (k_m384, k_train)):
+        fail("K1 / K2 disagree with their plain versions at an exp-4 pack")
+
+    # 37. exp4_resume_reference: exp4's full state stepped on the card and
+    # on the CPU.
+    resume_reference(torch, dev, "exp4", corpus, "exp4_resume_reference",
+                     lambda: lap("exp4_resume_reference"), EXP4_RESUME_STEPS)
+    log("exp4_phases", seconds=phase_s, total_seconds=sum(phase_s.values()),
+        cap_seconds=EXP4_PHASES_CAP_S)
+    return k_m384, k_train
 
 
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
@@ -2365,7 +2699,8 @@ def main():
 
     # 25-31. the committed trained checkpoints (K1 in eval, K1 + K2 in
     # resumed and view-aware training)
-    k1_eval, k12_view = checkpoint_phases(torch, dev, path_launches)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    k1_eval, k12_view = checkpoint_phases(torch, dev, path_launches, tmp)
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_eval["k1_max_abs_err"],
                             k12_view["k1_max_abs_err"])
     k2["max_abs_err"] = max(k2["max_abs_err"], k12_view["k2_max_abs_err"])
@@ -2374,6 +2709,17 @@ def main():
                               M=k12_view["M"])
     k2["at_view_pack"] = dict(k12_view["k2"], T=k12_view["T"],
                               M=k12_view["M"])
+
+    # 32-37. experiment 4, distillation, the 74^2 decoders (K1 in eval,
+    # K1 + K2 in the teacher fits and distilled training)
+    k_m384, k_train4 = exp4_phases(torch, dev, path_launches, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    for key, pack in (("at_m384_pack", k_m384), ("at_exp4_train_pack",
+                                                  k_train4)):
+        k1["max_abs_err"] = max(k1["max_abs_err"], pack["k1_max_abs_err"])
+        k2["max_abs_err"] = max(k2["max_abs_err"], pack["k2_max_abs_err"])
+        k1[key] = dict(pack["k1"], T=pack["T"], M=pack["M"])
+        k2[key] = dict(pack["k2"], T=pack["T"], M=pack["M"])
 
     print(smi, flush=True)
 

@@ -1,15 +1,21 @@
 """Shared model building blocks.
 
 Counterpart of fresnel_tpu/models/blocks.py (`MLP` with dropout,
-`rotate_positions_for_pose`, `tensegrity_loss`), plus the layers every
+`rotate_positions_for_pose`, `tensegrity_loss`,
+`fibonacci_spiral_positions`), plus the layers every
 model of the port uses to run in a compute dtype with float32 parameters,
 as the Flax modules do with `dtype=bfloat16`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import ctypes
+import ctypes.util
+import functools
+import math
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -93,6 +99,61 @@ def rotate_positions_for_pose(positions: torch.Tensor,
     y_rot = y * cos_el - z_rot * sin_el
     z_fin = y * sin_el + z_rot * cos_el
     return torch.stack([x_rot, y_rot, z_fin], dim=-1)
+
+
+def _fma_host(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """float32 a * b + c with one rounding: the product is exact in
+    float64, the float64 sum is rounded to odd (its lost bits kept as a
+    sticky last bit), so rounding it to float32 rounds once."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    p_big = np.abs(p) >= np.abs(c)
+    big, small = np.where(p_big, p, c), np.where(p_big, c, p)
+    err = small - (s - big)                           # Fast2Sum: exact
+    odd = s.view(np.int64) & 1
+    s = np.where((err != 0) & (odd == 0),
+                 np.nextafter(s, s + np.sign(err)), s)
+    return s.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _spiral_host(n_points: int) -> np.ndarray:
+    """(4, n) float32 on the host: the spiral's x and y, and x + 1 and
+    y + 1, rounded as the JAX package's jitted code is on XLA:CPU (jax
+    0.9).  XLA turns idx / n into idx * (1 / n); its float32 cos and sin
+    are the C library's cosf / sinf (glibc's, within 0.56 ulp), from
+    which numpy's and torch's differ by 1 ulp at up to ~750 of 5 476
+    points, where theta reaches 13 140 rad; and where a sampler adds 1 to
+    the spiral in the same fusion, r * cos + 1 is one fused multiply-add.
+    """
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for fn in (libm.cosf, libm.sinf):
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    idx = np.arange(n_points, dtype=np.float32)
+    r = np.sqrt(idx * np.float32(1.0 / n_points))
+    theta = idx * np.float32(math.pi * (3.0 - math.sqrt(5.0)))
+    cos = np.array([libm.cosf(float(t)) for t in theta], np.float32)
+    sin = np.array([libm.sinf(float(t)) for t in theta], np.float32)
+    one = np.ones_like(r)
+    return np.stack([r * cos, r * sin, _fma_host(r, cos, one),
+                     _fma_host(r, sin, one)])
+
+
+@functools.lru_cache(maxsize=None)
+def spiral_table(n_points: int, device: torch.device) -> torch.Tensor:
+    """`_spiral_host(n_points)` on `device`, moved there once."""
+    return torch.from_numpy(_spiral_host(n_points)).to(device)
+
+
+def fibonacci_spiral_positions(n_points: int, device=None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vogel golden-angle spiral: n points in [-1, 1]^2 with sqrt radial
+    density (equal area per point), as (x, y) float32 tensors on `device`.
+    Computed once on the host, so the card and the CPU get the same
+    bits."""
+    xy = spiral_table(n_points, torch.device(device or "cpu"))
+    return xy[0], xy[1]
 
 
 GOLDEN_RATIO = 1.618033988749895

@@ -6,10 +6,12 @@ image->3DGS path runs: K Gaussians per patch x 16 outputs, base grid in
 depth_z_scale, plus tanh(raw z) * z_offset_scale when that is not 0),
 scales softplus(raw + 1) * 0.15 clamped, 6D rotations,
 sigmoid colors and opacities, dropout 0.1 in the MLP in training (called
-with deterministic=False), and the grid rotated to face a given (elevation,
-azimuth) pose as the multi-pose trainer asks.  The Fresnel-zone,
-edge-aware, phase-output, pose-encoding, depth-fusion and feature-upsample
-options raise NotImplementedError.
+with deterministic=False), the grid rotated to face a given (elevation,
+azimuth) pose as the multi-pose trainer asks, and with feature_upsample f
+the features decoded on an f-times finer lattice (bilinear upsample, then
+a 3x3 conv, GELU and a zero-initialised 3x3 conv added as a residual).
+The Fresnel-zone, edge-aware, phase-output, pose-encoding and
+depth-fusion options raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from fresnel_tpu_torch.core.gaussians import rotation_6d_to_quaternion
-from fresnel_tpu_torch.models.blocks import MLP, rotate_positions_for_pose
-from fresnel_tpu_torch.models.encoders import _resize_weights
+from fresnel_tpu_torch.models.blocks import (
+    MLP, Conv2d, rotate_positions_for_pose)
+from fresnel_tpu_torch.models.encoders import _resize_weights, resize_linear
 
 OUTPUTS_PER_GAUSSIAN = 16
 
@@ -129,8 +132,14 @@ def head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
     }
 
 
+class ZeroInitConv2d(Conv2d):
+    """A Conv2d that `weights.init_flax_like_` initialises to zero (Flax's
+    `kernel_init=zeros`)."""
+
+
 class DirectPatchDecoder(nn.Module):
-    """features (B, H, W, C) [+ depth (B, Hd, Wd)] -> H * W * K Gaussians."""
+    """features (B, H, W, C) [+ depth (B, Hd, Wd)] -> H * W * K Gaussians
+    (f^2 times as many with feature_upsample f)."""
 
     def __init__(self, feature_dim: int = 384, gaussians_per_patch: int = 8,
                  hidden_dims: Sequence[int] = (512, 512, 256, 128),
@@ -148,8 +157,7 @@ class DirectPatchDecoder(nn.Module):
                         use_edge_aware=use_edge_aware,
                         use_phase_output=use_phase_output,
                         use_pose_encoding=use_pose_encoding,
-                        use_depth_fusion=use_depth_fusion,
-                        feature_upsample=feature_upsample != 1)
+                        use_depth_fusion=use_depth_fusion)
         on = [k for k, v in unported.items() if v]
         if on:
             raise NotImplementedError(
@@ -159,6 +167,13 @@ class DirectPatchDecoder(nn.Module):
         self.opacity_bias = opacity_bias
         self.depth_z_scale = depth_z_scale
         self.z_offset_scale = z_offset_scale
+        self.feature_upsample = feature_upsample
+        if feature_upsample > 1:
+            # Flax's names; 3x3 SAME, NHWC there, NCHW here.
+            self.upsample_conv = Conv2d(feature_dim, feature_dim, 3,
+                                        padding=1)
+            self.upsample_refine = ZeroInitConv2d(feature_dim, feature_dim,
+                                                  3, padding=1)
         self.mlp = MLP(feature_dim, hidden_dims,
                        gaussians_per_patch * OUTPUTS_PER_GAUSSIAN, dropout)
         self.depth_offset = nn.Parameter(torch.tensor(-2.0))
@@ -169,20 +184,32 @@ class DirectPatchDecoder(nn.Module):
                 elevation: Optional[torch.Tensor] = None,
                 azimuth: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                return_raw: bool = False) -> Dict[str, torch.Tensor]:
         """Dropout is active only with deterministic=False (the masks
         drawn from `generator`); a (B,) elevation and azimuth rotate the
-        grid to face that pose."""
+        grid to face that pose; with `return_raw` the result also holds
+        "raw", the (B, H, W, K, 16) head outputs."""
         B, H, W, C = features.shape
+        if self.feature_upsample > 1:
+            f = self.feature_upsample
+            H, W = H * f, W * f
+            up = resize_linear(features.permute(0, 3, 1, 2), H, W)
+            # Flax's nn.gelu is the tanh form.
+            up = up + self.upsample_refine(F.gelu(self.upsample_conv(up),
+                                                  approximate="tanh"))
+            features = up.permute(0, 2, 3, 1)
         full_K = self.gaussians_per_patch
         K = min(num_gaussians, full_K) if num_gaussians is not None else full_K
         out = self.mlp(features.reshape(B * H * W, C), deterministic,
                        generator)
         out = out.reshape(B, H, W, full_K, OUTPUTS_PER_GAUSSIAN)[:, :, :, :K]
-        return head_transform(out, depth, self.depth_offset,
-                              scale_bias=self.scale_bias,
-                              opacity_bias=self.opacity_bias,
-                              depth_z_scale=self.depth_z_scale,
-                              z_offset_scale=self.z_offset_scale,
-                              elevation=elevation, azimuth=azimuth)
+        result = head_transform(out, depth, self.depth_offset,
+                                scale_bias=self.scale_bias,
+                                opacity_bias=self.opacity_bias,
+                                depth_z_scale=self.depth_z_scale,
+                                z_offset_scale=self.z_offset_scale,
+                                elevation=elevation, azimuth=azimuth)
+        if return_raw:
+            result["raw"] = out
+        return result

@@ -8,7 +8,9 @@ launch backward on the card) -> `compute_losses` -> overflow telemetry ->
 with `view_weight` > 0 and GT orbit views in the batch (corpus_v2), the
 same B clouds rendered from one non-frontal GT azimuth each (a second
 pack, one more K1 and K2 launch) and scored L1 + ssim_weight * (1 - SSIM)
--> optional tensegrity term -> clip + AdamW + cosine schedule, with the NaN
+-> optional tensegrity term -> with `distill_weight` > 0, the raw-head
+distillation term against the batch's teacher sidecars
+(`train/fit_teacher.py`) -> clip + AdamW + cosine schedule, with the NaN
 guard on the device (train/optim.py).  `fit` runs HFTS progressive K,
 reads the losses from the device once per epoch, and writes periodic,
 best and final checkpoints and `loss_history.json`.
@@ -22,9 +24,10 @@ package's Flax msgpack checkpoints, full (params, Adam moments, count and
 step) and thin (bf16 params; a fresh optimizer state), through
 `train.flax_msgpack`, which needs neither msgpack nor ml_dtypes.
 
-Not ported (each raises NotImplementedError, queued in ROADMAP.md):
-experiments 1, 3, 4 and 5, the physics decoder, LPIPS in the step,
-distillation (`distill_weight`), `use_amp` and more than one device.
+Experiments 2 (DirectPatchDecoder) and 4 (FibonacciPatchDecoder).  Not
+ported (each raises NotImplementedError, queued in ROADMAP.md):
+experiments 1, 3 and 5, the physics decoder, LPIPS in the step, `use_amp`
+and more than one device.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from fresnel_tpu_torch.losses.physics import init_learnable_wavelengths
 from fresnel_tpu_torch.losses.ssim import ssim
 from fresnel_tpu_torch.models.blocks import tensegrity_loss
 from fresnel_tpu_torch.models.decoders import DirectPatchDecoder
+from fresnel_tpu_torch.models.fibonacci import FibonacciPatchDecoder
 from fresnel_tpu_torch.models.encoders import resize_linear
 from fresnel_tpu_torch.models.image_encoder import ImageEncoder
 from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones
@@ -61,14 +65,24 @@ from fresnel_tpu_torch.weights import init_flax_like_, trainer_opt_state
 
 
 def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
-                  dropout: float = 0.1) -> DirectPatchDecoder:
-    """Experiment 2's DirectPatchDecoder (the other experiments and the
-    physics decoder raise).  Its unported options raise in its
-    constructor."""
+                  dropout: float = 0.1):
+    """Experiment 2's DirectPatchDecoder or experiment 4's
+    FibonacciPatchDecoder (the other experiments and the physics decoder
+    raise).  Their unported options raise in their constructors."""
+    if config.experiment == 4:
+        # As in the JAX package, the sidecar's gaussians_per_patch is not
+        # passed: one Gaussian per spiral point.
+        return FibonacciPatchDecoder(
+            feature_dim=config.feature_dim,
+            n_points=config.n_spiral_points, dropout=dropout,
+            use_fresnel_zones=config.use_fresnel_zones,
+            use_phase_output=config.use_phase_output,
+            use_pose_encoding=config.use_pose_encoding,
+            scale_bias=config.scale_bias, opacity_bias=config.opacity_bias)
     if config.experiment != 2:
         raise NotImplementedError(
             f"experiment {config.experiment} is not ported (ROADMAP Queue 1, "
-            "items 4 and 7); only experiment 2")
+            "items 4 and 7); only experiments 2 and 4")
     if physics_config.use_wave_rendering and not config.use_phase_output:
         raise NotImplementedError(
             "PhysicsDirectPatchDecoder is not ported (ROADMAP Queue 1, "
@@ -120,6 +134,31 @@ def gumbel_topk_indices(generator: torch.Generator, weights: torch.Tensor,
     return torch.topk(logp - torch.log(-torch.log(u)), k).indices
 
 
+# Raw channel groups of the distillation loss: XY offsets (and the unused
+# z), scales, the 6D rotation, colour logits, the opacity logit.
+DISTILL_WEIGHTS = (1.0,) * 3 + (0.5,) * 3 + (0.3,) * 6 + (0.25,) * 3 + (0.5,)
+
+
+def distill_loss(raw: torch.Tensor, teacher_raw: torch.Tensor,
+                 teacher_do: torch.Tensor, depth_offset: torch.Tensor,
+                 K: int, config: TrainingConfig) -> torch.Tensor:
+    """The raw-head distillation term: the Huber loss (delta 1) of the
+    decoder's raw outputs, first 16 channels, against the teachers' first
+    K Gaussians (axis -2 covers both layouts, (B, g, g, Kt, 16) and
+    (B, N, Kt, 16)), shifted by the head biases the teachers were fit
+    without, weighted by channel group; plus the squared error of the
+    depth offset against each teacher's."""
+    adj = torch.zeros(16, dtype=raw.dtype, device=raw.device)
+    adj[3:6] = -config.scale_bias
+    adj[15] = -config.opacity_bias
+    diff = raw[..., :16] - (teacher_raw[..., :K, :] + adj)
+    a = torch.abs(diff)
+    huber = torch.where(a < 1.0, 0.5 * diff * diff, a - 0.5)
+    gw = torch.tensor(DISTILL_WEIGHTS, dtype=raw.dtype, device=raw.device)
+    return (torch.mean(huber * gw)
+            + torch.mean((depth_offset - teacher_do) ** 2))
+
+
 def _split(params: Dict[str, torch.Tensor], prefix: str
            ) -> Dict[str, torch.Tensor]:
     n = len(prefix) + 1
@@ -152,8 +191,6 @@ class Trainer:
         cfg = self.config
         unported = {
             "lpips (ROADMAP Queue 1, item 6)": self.lpips is not None,
-            "distill_weight > 0 (ROADMAP Queue 1, item 1)":
-                cfg.distill_weight > 0,
             "use_amp (ROADMAP Queue 1, item 1)": cfg.use_amp,
             "num_devices > 1 (ROADMAP Queue 1, item 12)":
                 (cfg.num_devices or 1) > 1,
@@ -232,8 +269,10 @@ class Trainer:
             target = resize_linear(target, res, res)
         target_depth = resize_linear(depth, res, res)
 
+        distill = cfg.distill_weight > 0 and "teacher_raw" in batch
         kwargs: Dict[str, Any] = dict(num_gaussians=K, deterministic=False,
-                                      generator=generator)
+                                      generator=generator,
+                                      return_raw=distill)
         if poses is not None:
             el, az = (torch.as_tensor(a, dtype=torch.float32,
                                       device=feats.device) for a in poses)
@@ -294,6 +333,15 @@ class Trainer:
             ovf_v_sum = ovf_v.sum(dim=0).to(torch.float32)
             ld["view_overflow_dropped_frac"] = (
                 ovf_v_sum[0] / torch.clamp(ovf_v_sum[1], min=1.0))
+
+        if distill:
+            d_total = distill_loss(out["raw"], batch["teacher_raw"],
+                                   batch["teacher_do"],
+                                   params["model.depth_offset"], K, cfg)
+            ld["distill"] = d_total
+            scale = batch.get("distill_scale", 1.0)
+            total = total + cfg.distill_weight * scale * d_total
+            ld["total"] = total
 
         if cfg.use_tensegrity_loss:
             # Bound the O(N^2) kNN to a fixed 512-point subsample.
@@ -384,6 +432,11 @@ class Trainer:
         self._make_optimizer(epochs * steps_per_epoch)
 
         first = next(iter(dataset.batches(cfg.batch_size, nprng)))
+        if cfg.distill_weight > 0 and "teacher_raw" not in first:
+            raise ValueError(
+                "distill_weight > 0 but the dataset has no teacher "
+                "sidecars - generate them first: python -m "
+                "fresnel_tpu_torch.train.fit_teacher --data_dir <data_dir>")
         self._depth_side = int(first["depth"].shape[-1])
         if state is None:
             state = self.init_state(first)
@@ -392,6 +445,14 @@ class Trainer:
                     float(cfg.depth_offset_init), device=self.device)
                 log_fn(f"depth_offset initialized at "
                        f"{cfg.depth_offset_init:.3f}")
+            elif cfg.distill_weight > 0:
+                # Adam moves a lone scalar ~lr per step: start the depth
+                # offset at the teachers' mean, the regression target.
+                do0 = float(np.mean(first["teacher_do"]))
+                state["params"]["model.depth_offset"] = torch.tensor(
+                    do0, device=self.device)
+                log_fn(f"distill: depth_offset initialized at teacher "
+                       f"mean {do0:.3f}")
 
         out_dir = Path(cfg.output_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -409,6 +470,10 @@ class Trainer:
             epoch_losses: Dict[str, list] = {}
             for batch in dataset.batches(cfg.batch_size, nprng):
                 jb = self.device_batch(batch, nprng)
+                if cfg.distill_weight > 0:
+                    dec = cfg.distill_decay_epochs
+                    jb["distill_scale"] = (1.0 if dec <= 0 else
+                                           max(0.0, 1.0 - epoch / dec))
                 poses = self.draw_poses(pose_rng, cfg.batch_size)
                 state, ld = self.train_step(state, jb, K, sk, gen, poses)
                 for k, v in ld.items():
@@ -451,6 +516,8 @@ class Trainer:
         return state
 
     def _total_gaussians(self, K: int) -> int:
+        if self.config.experiment == 4:
+            return self.config.n_spiral_points
         return self.config.feature_size ** 2 * K
 
     # ------------------------------------------------------------------

@@ -3,15 +3,22 @@
 Counterpart of fresnel_tpu/train/train_gaussian_decoder.py: the same
 flags, defaults, choices and umbrella expansions (--use_qsr,
 --surface_init, --fast_mode), so launch scripts port unchanged, plus
---device (the card by default, `cpu` on request).  Flags whose features
-are not ported (--streaming, --lpips_weights or found LPIPS weights,
---use_amp, --distill_weight > 0, --view_weight > 0, --num_devices > 1,
-experiments other than 2) raise NotImplementedError.  Checkpoints are
-`.pt` files with the JAX package's JSON sidecars.
+--device (the card by default, `cpu` on request).  Experiments 2 and 4
+(`--n_spiral_points`), with distillation from `fit_teacher` sidecars
+(`--distill_weight`, `--distill_decay_epochs`; the dataset reads the
+sidecars of the experiment trained).  Flags whose features are not ported
+(--streaming, --lpips_weights or found LPIPS weights, --use_amp,
+--num_devices > 1, experiments 1, 3 and 5) raise NotImplementedError.
+Checkpoints are `.pt` files with the JAX package's JSON sidecars.
 
 Run:  python -m fresnel_tpu_torch.train.train_gaussian_decoder --synthetic \
           --epochs 1 --image_size 32 --feature_size 5 --feature_dim 384 \
           --device cpu --output_dir /tmp/ckpt
+      python -m fresnel_tpu_torch.train.fit_teacher --data_dir DIR \
+          --experiment 4 --grid 377 --device cpu
+      python -m fresnel_tpu_torch.train.train_gaussian_decoder \
+          --data_dir DIR --experiment 4 --distill_weight 1.0 \
+          --distill_decay_epochs 2 --no_augmentation --device cpu
 """
 
 from __future__ import annotations
@@ -164,8 +171,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distill_weight", type=float, default=0.0,
                    help="Weight on raw-head regression against per-scene "
                         "fit_teacher.py sidecars (analogue of the "
-                        "reference's v2 distillation); experiment 2 only; "
-                        "not ported")
+                        "reference's v2 distillation); experiments 2 and 4")
     p.add_argument("--distill_decay_epochs", type=int, default=0,
                    help="Linearly decay the distill term to 0 over this "
                         "many epochs (0 = constant)")

@@ -30,7 +30,9 @@ import torch
 from torch import nn
 
 from fresnel_tpu_torch.models.blocks import Conv2d, LayerNorm, Linear
-from fresnel_tpu_torch.models.decoders import DirectPatchDecoder
+from fresnel_tpu_torch.models.decoders import (
+    DirectPatchDecoder, ZeroInitConv2d)
+from fresnel_tpu_torch.models.fibonacci import FibonacciPatchDecoder
 from fresnel_tpu_torch.models.image_encoder import GroupNorm, ImageEncoder
 from fresnel_tpu_torch.models.vit import (
     DINOv2,
@@ -82,8 +84,10 @@ def depth_anything_state_dict(flat: Mapping[str, np.ndarray]
 
 def decoder_state_dict(flat: Mapping[str, np.ndarray]
                        ) -> Dict[str, torch.Tensor]:
-    """Flat DirectPatchDecoder params -> state dict of
-    models.decoders.DirectPatchDecoder."""
+    """Flat DirectPatchDecoder params (with feature_upsample, its
+    `upsample_conv` and `upsample_refine` kernels HWIO -> OIHW) or
+    FibonacciPatchDecoder params -> state dict of the port's module of the
+    same name (`MLP_0` -> `mlp`, `depth_offset` as it is)."""
     return _convert(flat, renames=((r"^MLP_0\.Dense_(\d+)\.", r"mlp.layers.\1."),))
 
 
@@ -194,10 +198,13 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise `model` in place as the Flax modules initialise: Dense
     and Conv kernels lecun-normal, biases zero, LayerNorm and GroupNorm
     scale one, LayerScale 1e-5, cls / pos tokens and PatchUpsample kernels
-    normal(0.02),
-    `depth_offset` -2.  Draws from `generator`, so it is reproducible."""
+    normal(0.02), the decoders' `depth_offset` -2 and the zero-initialised
+    `upsample_refine` conv 0.  Draws from `generator`, so it is reproducible."""
     for m in model.modules():
-        if isinstance(m, (Linear, Conv2d)):
+        if isinstance(m, ZeroInitConv2d):
+            m.weight.zero_()
+            m.bias.zero_()
+        elif isinstance(m, (Linear, Conv2d)):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 m.bias.zero_()
@@ -214,6 +221,6 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, DINOv2):
             m.cls_token.normal_(0.0, 0.02, generator=generator)
             m.pos_embed.normal_(0.0, 0.02, generator=generator)
-        elif isinstance(m, DirectPatchDecoder):
+        elif isinstance(m, (DirectPatchDecoder, FibonacciPatchDecoder)):
             m.depth_offset.fill_(-2.0)
     return model

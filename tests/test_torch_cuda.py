@@ -92,10 +92,15 @@ PATTERNS = ["cap", "around_seg", "empty", "one_slot", "heavy_among_empty"]
 SMALL_M_CASES = [(16, 32, 4, "random"), (16, 32, 4, "cap"),
                  (64, 96, 8, "random"), (64, 96, 8, "cap"),
                  (64, 96, 8, "around_seg")]
+# The pack of an experiment-4 cloud of 377 Gaussians at 256^2: M 384 (the
+# m_cap rounding), six segments of 64.
+EXP4_CASES = [(256, 384, 16, "random"), (256, 384, 16, "cap"),
+              (256, 384, 16, "around_seg")]
 FWD_CASES = ([(6, 64, 3, "random"), (64, 256, 8, "random"),
               (1024, 256, 32, "random"), (1024, 256, 32, "cap"),
               (256, 1024, 16, "random"), (256, 1024, 16, "cap")]
-             + [(64, 256, 8, p) for p in PATTERNS] + SMALL_M_CASES)
+             + [(64, 256, 8, p) for p in PATTERNS] + SMALL_M_CASES
+             + EXP4_CASES)
 
 
 @pytest.mark.parametrize("T,M,ntx,pattern", FWD_CASES)
@@ -189,7 +194,8 @@ def _assert_fields_close(got, ref):
 BWD_CASES = ([(6, 64, 3, "random"), (64, 256, 8, "random"),
               (1024, 256, 32, "random"), (1024, 256, 32, "cap"),
               (256, 1024, 16, "random"), (256, 1024, 16, "cap")]
-             + [(64, 256, 8, p) for p in PATTERNS] + SMALL_M_CASES)
+             + [(64, 256, 8, p) for p in PATTERNS] + SMALL_M_CASES
+             + EXP4_CASES)
 
 
 @pytest.mark.parametrize("T,M,ntx,pattern", BWD_CASES)
@@ -771,3 +777,40 @@ def test_view_pack_kernels_match_plain(cuda):
                                                 *cots, tiles_per_image=ti)
     scale = want.abs().amax(dim=(0, 1)).clamp(min=1e-30)
     assert ((got - want).abs().amax(dim=(0, 1)) / scale).max() <= BWD_TOL
+
+
+@pytest.mark.parametrize("name", ["exp4", "exp4_budget"])
+def test_exp4_render_on_card_matches_cpu(cuda, name):
+    """An experiment-4 checkpoint's cloud (377 or 5 476 Gaussians on the
+    spiral) decoded and rendered at 256^2 under the training cap on the
+    card and on the CPU: the spiral and its sampled depths in the same
+    bits, the fields within 1e-5 of each field's largest value, one K1
+    launch, the image within a mean absolute error of 1e-5 (as
+    test_render_on_card_matches_cpu)."""
+    from fresnel_tpu_torch.models.encoders import create_feature_extractor
+    from fresnel_tpu_torch.train.harness import trainer_from_checkpoint
+    path = str(RESULTS / f"{name}_model.msgpack")
+    rng = np.random.default_rng(41)
+    img = rng.uniform(size=(256, 256, 3)).astype(np.float32)
+    feats = create_feature_extractor("patch")(torch.from_numpy(img))[None]
+    depth = rng.uniform(0.3, 0.7, (1, 256, 256)).astype(np.float32)
+    clouds, images = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        t = trainer_from_checkpoint(path, dev)
+        state, _ = t.load_checkpoint(path)
+        out = t.decode(state["params"], feats, depth)
+        g = [out[k][0] for k in ("positions", "scales", "rotations",
+                                 "colors", "opacities")]
+        before = raster.launches
+        images[dev.type] = tile.render_tiled(
+            *g, Camera.default_training(256),
+            config=tile.TileRendererConfig(max_per_tile=1024)).cpu()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert raster.launches == before + 1
+        clouds[dev.type] = [v.cpu() for v in g]
+    for a, b in zip(clouds["cuda"], clouds["cpu"]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    assert torch.equal(clouds["cuda"][0][:, 2], clouds["cpu"][0][:, 2])
+    err = (images["cuda"] - images["cpu"]).abs()
+    assert err.mean().item() <= 1e-5, err.mean().item()

@@ -2,7 +2,11 @@
 
 JAX params carried over with fresnel_tpu_torch.weights; the same numpy
 features and depth go through both, at atol = rtol = 1e-5 (float32 on
-both sides; the MLP's sums are taken in another order).
+both sides; the MLP's sums are taken in another order).  With
+feature_upsample (2 and 3: the bilinear upsample, the 3x3 `upsample_conv`,
+tanh GELU and the `upsample_refine` residual, whose zero init is replaced
+by random kernels so the branch counts) the fields and the raw head
+outputs are held at the same tolerance.
 """
 
 import numpy as np
@@ -117,11 +121,59 @@ def test_resize_depth_to_grid_bits(batch, grid):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("f", [2, 3])
+def test_feature_upsample_matches_jax(f):
+    C, hidden = 16, (32,)
+    feats, depth = _inputs(6, C=C)
+    jm = jd.DirectPatchDecoder(feature_dim=C, gaussians_per_patch=2,
+                               hidden_dims=hidden, feature_upsample=f,
+                               scale_bias=-2.6, opacity_bias=1.5)
+    params = jm.init(jax.random.PRNGKey(4), jnp.asarray(feats),
+                     jnp.asarray(depth))
+    flat = {k: np.asarray(v)
+            for k, v in flatten_dict(params["params"], sep="/").items()}
+    assert not flat["upsample_refine/kernel"].any()       # zero init
+    flat["upsample_refine/kernel"] = np.random.default_rng(7).normal(
+        size=(3, 3, C, C)).astype(np.float32) * 0.1
+    jparams = {"params": dict(params["params"], upsample_refine=dict(
+        params["params"]["upsample_refine"],
+        kernel=jnp.asarray(flat["upsample_refine/kernel"])))}
+    want = jax.jit(lambda p, x, d: jm.apply(p, x, d, return_raw=True))(
+        jparams, jnp.asarray(feats), jnp.asarray(depth))
+    tm = td.DirectPatchDecoder(feature_dim=C, gaussians_per_patch=2,
+                               hidden_dims=hidden, feature_upsample=f,
+                               scale_bias=-2.6, opacity_bias=1.5)
+    tm.load_state_dict(weights.decoder_state_dict(flat), strict=True)
+    with torch.no_grad():
+        out = tm.eval()(torch.from_numpy(feats), torch.from_numpy(depth),
+                        return_raw=True)
+    g = 6 * f
+    assert out["positions"].shape == (2, g * g * 2, 3)
+    assert out["raw"].shape == (2, g, g, 2, 16)
+    for k in KEYS + ("raw",):
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(want[k]),
+                                   err_msg=k, **TOL)
+
+
+def test_feature_upsample_init_is_flax_like():
+    tm = td.DirectPatchDecoder(feature_dim=8, gaussians_per_patch=1,
+                               hidden_dims=(8,), feature_upsample=2)
+    weights.init_flax_like_(tm, torch.Generator().manual_seed(0))
+    assert not tm.upsample_refine.weight.any()
+    assert not tm.upsample_refine.bias.any()
+    w = tm.upsample_conv.weight
+    assert w.shape == (8, 8, 3, 3) and 0.05 < w.std().item() < 0.2
+    feats = torch.randn(1, 3, 3, 8)
+    with torch.no_grad():
+        assert tm(feats)["positions"].shape == (1, 36, 3)
+
+
 @pytest.mark.parametrize("flag", [
     dict(use_fresnel_zones=True), dict(use_edge_aware=True),
     dict(use_phase_output=True), dict(use_pose_encoding=True),
-    dict(use_depth_fusion=True), dict(feature_upsample=2),
-    dict(feature_upsample=3)])
+    dict(use_depth_fusion=True),
+    dict(feature_upsample=2, use_edge_aware=True),
+    dict(feature_upsample=3, use_depth_fusion=True)])
 def test_unported_options_raise(flag):
     with pytest.raises(NotImplementedError):
         td.DirectPatchDecoder(gaussians_per_patch=4, **flag)

@@ -173,8 +173,10 @@ def test_fixed_depth_offset_and_unported_experiment(scene):
                           max_per_tile=64, fixed_depth_offset=-0.2,
                           device="cpu")
     assert t["depth_offset"] == np.float32(-0.2) and len(m["losses"]) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfit.fit_scene(image, depth, experiment=4, device="cpu")
+    # Experiments 2 and 4 have head spaces (experiment 4's is held in
+    # tests/test_torch_distill.py); no other experiment does.
+    with pytest.raises(ValueError, match="experiment 5"):
+        tfit.fit_scene(image, depth, experiment=5, device="cpu")
     assert tfit.teacher_path(Path("a/s.png")) == Path("a/s_teacher.npz")
     assert tfit.teacher_path(Path("s.png"), 4) == Path("s_teacher4.npz")
 

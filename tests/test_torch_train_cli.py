@@ -11,6 +11,9 @@ width 8, 2 epochs of 2 steps.
 * `encode` gives (B, grid, grid, feature_dim) features.
 * Flags of unported features raise NotImplementedError, and the CLI
   refuses to run without CUDA unless --device cpu is given.
+* `--experiment 4` trains the spiral decoder (one Gaussian per point);
+  `--distill_weight` without teacher sidecars (the synthetic dataset has
+  none) raises ValueError naming `fit_teacher`.
 """
 
 import dataclasses
@@ -99,9 +102,9 @@ def test_cli_train_subcommand(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--streaming"], ["--use_amp"],
-                                   ["--distill_weight", "0.5"],
+                                   ["--experiment", "5"],
                                    ["--num_devices", "2"],
-                                   ["--experiment", "4"],
+                                   ["--experiment", "3"],
                                    ["--use_wave_rendering"],
                                    ["--use_fourier_renderer"],
                                    ["--lpips_weights", "lpips.pth"]])
@@ -109,6 +112,24 @@ def test_unported_flags_raise(extra, tmp_path):
     argv = FLAGS + ["--output_dir", str(tmp_path), "--device", "cpu",
                     "--synthetic_samples", "2"] + extra
     with pytest.raises(NotImplementedError):
+        tcli.main(argv)
+
+
+def test_experiment4_trains(tmp_path):
+    argv = FLAGS + ["--output_dir", str(tmp_path), "--device", "cpu",
+                    "--experiment", "4", "--n_spiral_points", "60"]
+    argv[argv.index("--epochs") + 1] = "1"
+    trainer, state = tcli.main(argv)
+    assert type(trainer.model).__name__ == "FibonacciPatchDecoder"
+    assert trainer._total_gaussians(2) == 60
+    assert np.isfinite(trainer.history["total"][0])
+    assert "model.mlp.layers.3.weight" in state["params"]   # 512/256/128
+
+
+def test_distill_needs_teacher_sidecars(tmp_path):
+    argv = FLAGS + ["--output_dir", str(tmp_path), "--device", "cpu",
+                    "--distill_weight", "0.5"]
+    with pytest.raises(ValueError, match="fit_teacher"):
         tcli.main(argv)
 
 
