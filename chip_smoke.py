@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab ROOT [ROOT ...]
 
-Five main paths run through the entry points a user calls:
+Six main paths run through the entry points a user calls:
 `pipeline.image_to_3dgs` (image -> 3DGS, bench.py's path),
 `train.fit_teacher.fit_scene` (`fresnel refine`: per-scene Adam fit through
 the rasterizer), `render.tile.render_tiled` / `cli.render` / `cli.orbit`
@@ -15,7 +15,10 @@ committed trained checkpoints (`results/*.msgpack`) through `cli infer`,
 `cli eval` and `cli train --resume`, view-aware for v2combo, and
 experiment 4 (the Fibonacci spiral decoder: its teacher fits through
 `train.fit_teacher.main` and distilled training through `cli train`) with
-the 74^2 decoders.  Phases,
+the 74^2 decoders, and the CVS consistency view synthesizer (its three
+datasets, training through `train.train_cvs.main` at the campaign's full
+width in bf16, resume, generation and `inference.cvs_multiview.main` with
+its 3DGS fit).  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
@@ -238,6 +241,53 @@ non-zero:
                   times as in resume_reference, card against CPU.
       exp4_phases  the seconds of each of 32-37 and their total, beside
                   the 60 s they are meant to keep to.
+  38. cvs_data    the experiment-2 teachers of the 256^2 training corpus's
+                  first 4 scenes (fit_teacher.main, 50 Adam steps of 800:
+                  51 K1 and 50 K2 each), then the three CVS datasets at
+                  256^2, 4 scenes each: bootstrap clouds (16 K1 at M 256),
+                  the teacher clouds' orbit renders (16 K1 at M 1 024) and
+                  corpus_v2_eval's raytraced views (no render); seconds
+                  and K1 launches; against the same dataset built on the
+                  CPU: each view's and target depth's mean absolute
+                  difference within 1e-5 (the largest and the count
+                  beyond 1e-5 logged: near-equal depths of the teacher
+                  surfaces flip compositing order at a few pixels), poses
+                  within 1e-6, features within 1e-4 of their largest
+                  value;
+  39. cvs_reference  the JAX trainer's defaults (64^2, base 64: attention at
+                  16 and 8), fp32, quality-aware, concat_input_view, batch
+                  2, card against CPU from one init, 3 steps with the same
+                  draws: losses within 1e-4 relative, each params and EMA
+                  leaf's mean absolute difference within 1e-6 (the
+                  attention key bias, whose gradient is zero in exact
+                  arithmetic, only logged), mu and nu within 1e-2 of each
+                  leaf's mean absolute value; generate with 1 and 4 steps
+                  within 1e-4 of the output's largest value;
+  40. cvs_train   the campaign's config (256^2, base 128, batch 4,
+                  --use_amp, --concat_input_view) on the teacher pairs: 2
+                  warmup and 12 timed steps (CUDA events), peak memory,
+                  torch.profiler over 3 steps (device ms, busy share,
+                  kernels per step), every loss finite; then fp32, 3 timed
+                  steps;
+  41. cvs_resume  train_cvs.main at that config with --stop_epoch 1, then
+                  --resume from its cvs.pt: epochs 2-3 follow with the
+                  ramp's weights 0.2 and 0.3;
+  42. cvs_generate  one- and 4-step generation at 256^2, batch 1, bf16 and
+                  fp32, from the resumed state (median ms of 10); the
+                  one-step SSIM / PSNR against the 12 teacher pairs'
+                  targets (a sanity number, not a quality claim);
+  43. cvs_multiview  cvs_multiview.main with the resumed state: 8 orbit
+                  views, then the 3DGS fit of 2 000 Gaussians (50 of 300
+                  steps; all 8 views in one pack: one K1 and one K2 per
+                  step); the PLY read back (2 000 finite rows); the fit's
+                  ms per step (host clock over the fit and the PLY write);
+                  card against CPU over 2 steps: losses within 1e-4
+                  relative;
+      kernel_cvs_packs  K1 at the teacher render pack (T 256, M 1 024) and
+                  K1 + K2 at the 3DGS fit's pack (8 x 256 tiles, M 256)
+                  against their plain versions, with times and bounds.
+      cvs_phases  the seconds of each of 38-43 and their total, beside the
+                  90 s they are meant to keep to.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -2289,6 +2339,428 @@ def exp4_phases(torch, dev, path_launches, tmp):
     return k_m384, k_train
 
 
+# The CVS consistency view synthesizer (phases 38-43).  The campaign's
+# config (cloud/train_cvs_fullwidth.sh, round5_queue1.sh): 256^2, base 128,
+# batch 4, --use_amp, --concat_input_view.  The datasets: 4 scenes each
+# (cut from the campaign's 120-160); the experiment-2 teachers of 4 scenes
+# of the 256^2 training corpus, fitted for 50 Adam steps of 800.
+CVS_SIZE = 256
+CVS_FULL = dict(image_size=CVS_SIZE, base_channels=128, batch_size=4,
+                use_amp=True, concat_input_view=True, epochs=3,
+                save_interval=100)
+CVS_SCENES, CVS_TEACHER_STEPS = 4, 50
+CVS_WARMUP, CVS_TIMED, CVS_F32_TIMED, CVS_PROFILED = 2, 12, 3, 3
+# cvs_reference: the JAX trainer's defaults (64^2, base 64: attention at
+# the 16 and 8 levels), fp32, batch 2, 3 steps with the same draws.
+CVS_REF = dict(image_size=64, base_channels=64, batch_size=2,
+               use_quality_aware=True, concat_input_view=True)
+CVS_REF_STEPS = 3
+CVS_PARAM_MEAN_TOL = 1e-6
+CVS_GEN_TOL = 1e-4
+# The attention key bias has no gradient in exact arithmetic (the softmax
+# removes a per-query constant): Adam steps it on rounding noise.
+CVS_ZERO_GRAD = r"key\.bias$"
+# Each view's and target depth's mean absolute card-CPU difference.  The
+# teacher clouds are depth-locked surfaces: under an orbit pose their
+# near-equal depths sort apart on the card and the CPU by a rounding, and
+# the compositing order flips at a few pixels (up to 1.4e-2 there on an
+# H100), as in the render slice's box-edge flips; the number of values
+# beyond the tolerance is logged.
+CVS_VIEW_TOL = 1e-5
+CVS_GEN_TIMED = 10
+# cvs_multiview: 8 orbit views, the 3DGS fit of 2 000 Gaussians cut from
+# 300 Adam steps to 50; card against CPU over 2 steps.
+CVS_VIEWS, CVS_FIT_STEPS, CVS_FIT_REF_STEPS = 8, 50, 2
+# The new phases' time on the card, which they are meant to keep to.
+CVS_PHASES_CAP_S = 90.0
+
+
+def cvs_corpora(tmp):
+    """The 256^2 training corpus's first CVS_SCENES scenes (copied to their
+    own directory, for their experiment-2 teachers) and corpus_v2_eval's,
+    made under `tmp` where checkpoint_phases has not made them."""
+    from fresnel_tpu_torch.data import synthetic_corpus
+
+    corpus = os.path.join(tmp, "corpus_v1")
+    synthetic_corpus.generate_corpus(corpus, n_images=CVS_SCENES,
+                                     image_size=CVS_SIZE, seed=0)
+    teach = os.path.join(tmp, "cvs_teacher")
+    os.makedirs(teach, exist_ok=True)
+    for i in range(CVS_SCENES):
+        for suffix in (".png", "_depth.bin"):
+            shutil.copy(os.path.join(corpus, f"scene_{i:04d}{suffix}"), teach)
+    v2 = os.path.join(tmp, "corpus_v2_eval")
+    if all(os.path.exists(os.path.join(v2, f"scene_{i:04d}_views.npz"))
+           for i in range(CVS_SCENES)):
+        return teach, v2
+    n_proc = max(1, min(CVS_SCENES, os.cpu_count() or 1))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "from fresnel_tpu_torch.data import raytrace_corpus as r;"
+         f" r.generate_corpus({v2!r}, {CVS_SCENES}, {CVS_SIZE}, "
+         f"{EVAL_V2_SEED}, start={i}, stride={n_proc})"], cwd=HERE)
+        for i in range(n_proc)]
+    if any(p.wait() for p in procs):
+        fail("the corpus_v2 processes failed")
+    return teach, v2
+
+
+def cvs_phases(torch, dev, path_launches, tmp):
+    """Phases 38-43: the CVS family on the card (its three datasets,
+    training at full width in bf16, resume, generation, multi-view
+    generation and its 3DGS fit), the corpora under `tmp`.  Returns K1's
+    numbers at the teacher render pack and K1's and K2's at the
+    optimize_3dgs pack."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from fresnel_tpu_torch.core import io as gio
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.inference import cvs_multiview
+    from fresnel_tpu_torch.losses.ssim import ssim
+    from fresnel_tpu_torch.models.decoders import head_transform
+    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
+    from fresnel_tpu_torch.train import fit_teacher, train_cvs
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+    teach, v2 = cvs_corpora(tmp)
+    lap("cvs_corpora")
+
+    # 38. cvs_data: the three datasets on the card, each against the same
+    # dataset built on the CPU.
+    reset_counts(*counters)
+    fit_teacher.main(["--data_dir", teach, "--steps", str(CVS_TEACHER_STEPS),
+                      "--res", str(CVS_SIZE), "--experiment", "2",
+                      "--device", str(dev)])
+    path_launches["cvs_teacher_fit"] = read_counts(*counters)
+    teacher_s = lap("cvs_data")
+    builds = dict(
+        bootstrap=lambda d: train_cvs.GaussianBootstrapDataset(
+            n_scenes=CVS_SCENES, image_size=CVS_SIZE, device=d),
+        teacher=lambda d: train_cvs.TeacherMultiviewDataset(
+            teach, image_size=CVS_SIZE, device=d),
+        gt=lambda d: train_cvs.GTMultiviewDataset(
+            v2, image_size=CVS_SIZE, max_scenes=CVS_SCENES, device=d))
+    data, stats = {}, {}
+    for name, build in builds.items():
+        reset_counts(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data[name] = build(dev)
+        seconds = time.perf_counter() - t0
+        path_launches[f"cvs_data_{name}"] = read_counts(*counters)
+        ref = build(cpu)
+        pairs = list(zip(data[name]._samples, ref._samples))
+        errs = {k: max(float(np.abs(a[k] - b[k]).max()) for a, b in pairs)
+                for k in ("input_image", "target_image", "target_depth",
+                          "features", "R_rel", "t_rel")}
+        views_mean = {k: max(float(np.abs(a[k] - b[k]).mean())
+                             for a, b in pairs)
+                      for k in ("input_image", "target_image",
+                                "target_depth")}
+        views_over = {k: int(sum((np.abs(a[k] - b[k]) > CVS_VIEW_TOL).sum()
+                                 for a, b in pairs))
+                      for k in ("input_image", "target_image",
+                                "target_depth")}
+        fscale = max(float(np.abs(s["features"]).max())
+                     for s in ref._samples)
+        stats[name] = dict(pairs=len(data[name]), seconds=seconds,
+                           k1=path_launches[f"cvs_data_{name}"]["k1"],
+                           max_abs_vs_cpu=errs, mean_abs_vs_cpu=views_mean,
+                           values_over_tol=views_over, features_scale=fscale)
+        if not (len(data[name]) == len(ref)
+                and max(views_mean.values()) <= CVS_VIEW_TOL
+                and errs["features"] <= 1e-4 * fscale
+                and max(errs["R_rel"], errs["t_rel"]) <= 1e-6):
+            fail(f"the {name} dataset on the card disagrees with the CPU's: "
+                 f"{errs}, {views_mean}")
+    log("cvs_data", teacher_fits=dict(
+        scenes=CVS_SCENES, steps=CVS_TEACHER_STEPS, seconds=teacher_s,
+        launches=path_launches["cvs_teacher_fit"]), datasets=stats,
+        view_tol=CVS_VIEW_TOL, phase_seconds=lap("cvs_data"))
+    if (stats["bootstrap"]["k1"], stats["teacher"]["k1"],
+            stats["gt"]["k1"]) != (4 * CVS_SCENES, 4 * CVS_SCENES, 0):
+        fail(f"the datasets launched K1 {[s['k1'] for s in stats.values()]} "
+             "times")
+
+    # 39. cvs_reference: the JAX trainer's defaults, fp32, card against
+    # CPU from one init with the same draws.
+    ref_ds = train_cvs.GaussianBootstrapDataset(
+        n_scenes=1, views_per_scene=3, image_size=CVS_REF["image_size"],
+        device=cpu)
+    batch = next(iter(ref_ds.batches(CVS_REF["batch_size"],
+                                     np.random.default_rng(0))))
+    drng = np.random.default_rng(11)
+    draws = [(torch.from_numpy(drng.integers(0, 1000, CVS_REF["batch_size"])),
+              torch.from_numpy(drng.normal(size=batch["target_image"].shape)
+                               .astype(np.float32)))
+             for _ in range(CVS_REF_STEPS)]
+    gnoise = torch.from_numpy(drng.normal(size=(
+        CVS_REF["batch_size"], 3, CVS_REF["image_size"],
+        CVS_REF["image_size"])).astype(np.float32))
+    runs = {}
+    for which, d in (("card", dev), ("cpu", cpu)):
+        t = train_cvs.CVSTrainer(train_cvs.CVSTrainConfig(**CVS_REF),
+                                 device=d)
+        st, b = t.init_state(), t.device_batch(batch)
+        losses = []
+        for ts, noise in draws:
+            st, ld = t.train_step(st, b, 0.5, ts.to(d), noise.to(d))
+            losses.append({k: float(v) for k, v in ld.items()})
+        gens = {n: t.generate(st, b["features"], b["R_rel"], b["t_rel"],
+                              gnoise, n, input_image=b["input_image"]).cpu()
+                for n in (1, 4)}
+        runs[which] = (losses, {g: {k: v.cpu() for k, v in tree.items()}
+                                for g, tree in (
+                                    ("params", st["params"]),
+                                    ("ema_params", st["ema_params"]),
+                                    ("mu", st["opt_state"]["mu"]),
+                                    ("nu", st["opt_state"]["nu"]))}, gens)
+    (lg, tg, gg), (lc, tc, gc) = runs["card"], runs["cpu"]
+    loss_rel = max(abs(a[k] - b_[k]) / max(abs(b_[k]), 1e-6)
+                   for a, b_ in zip(lg, lc) for k in b_)
+    worst = {}
+    for part, tree in tc.items():
+        held = {k: v for k, v in tree.items()
+                if not re.search(CVS_ZERO_GRAD, k)}
+        if part in ("params", "ema_params"):
+            worst[part] = max(((tg[part][k] - v).abs().mean().item(), k)
+                              for k, v in held.items())
+        else:
+            worst[part] = max(((tg[part][k] - v).abs().mean().item()
+                               / max(v.abs().mean().item(), 1e-30), k)
+                              for k, v in held.items())
+    gen_err = {n: ((gg[n] - gc[n]).abs().max()
+                   / gc[n].abs().max()).item() for n in gc}
+    log("cvs_reference", config=CVS_REF, steps=CVS_REF_STEPS,
+        losses_card=lg, losses_cpu=lc, loss_rel_max=loss_rel,
+        loss_rtol=REF_LOSS_RTOL, params_mean_abs_worst=worst["params"],
+        ema_mean_abs_worst=worst["ema_params"],
+        mu_mean_abs_rel_worst=worst["mu"], nu_mean_abs_rel_worst=worst["nu"],
+        params_tol=CVS_PARAM_MEAN_TOL, moments_rtol=RESUME_MOMENT_RTOL,
+        generate_rel_err=gen_err, generate_tol=CVS_GEN_TOL,
+        phase_seconds=lap("cvs_reference"))
+    if not (loss_rel <= REF_LOSS_RTOL
+            and worst["params"][0] <= CVS_PARAM_MEAN_TOL
+            and worst["ema_params"][0] <= CVS_PARAM_MEAN_TOL
+            and worst["mu"][0] <= RESUME_MOMENT_RTOL
+            and worst["nu"][0] <= RESUME_MOMENT_RTOL
+            and max(gen_err.values()) <= CVS_GEN_TOL):
+        fail("the card's CVS steps or generation disagree with the CPU's")
+
+    # 40. cvs_train: the campaign's config at full width on the teacher
+    # pairs, bf16, then float32.
+    out_dir = os.path.join(tmp, "cvs_train")
+    train_res = {}
+    for amp in (True, False):
+        cfg = train_cvs.CVSTrainConfig(**dict(CVS_FULL, use_amp=amp,
+                                              output_dir=out_dir))
+        t = train_cvs.CVSTrainer(cfg, device=dev)
+        n_timed = CVS_TIMED if amp else CVS_F32_TIMED
+        bs = [t.device_batch(b) for b in train_batches(
+            data["teacher"], cfg.batch_size, CVS_WARMUP + n_timed)]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        st = t.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i, b in enumerate(bs):
+            ts, noise = t.draw(b, gen)
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            st, ld = t.train_step(st, b, 0.1, ts, noise)
+            end.record()
+            losses.append(ld["total"])
+            if i >= CVS_WARMUP:
+                ms.append((start, end))
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in ms]
+        losses = torch.stack(losses).cpu().tolist()
+        res = dict(steps=len(ms), ms_per_step=statistics.median(ms),
+                   ms=ms, images_per_s=cfg.batch_size * 1e3
+                   / statistics.median(ms),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   losses=losses)
+        if amp:
+            def steps():
+                nonlocal st
+                for b in bs[:CVS_PROFILED]:
+                    ts, noise = t.draw(b, gen)
+                    st, _ = t.train_step(st, b, 0.1, ts, noise)
+            prof = profile_ms(torch, steps, CVS_PROFILED)
+            res.update(device_ms_per_step=prof["device_ms"],
+                       wall_ms_per_step=prof["wall_ms"],
+                       device_busy_share=prof["device_busy_share"],
+                       kernels_per_step=prof["kernels"],
+                       top_kernels_ms_per_step=prof["top_kernels_ms"])
+        train_res["bf16" if amp else "fp32"] = res
+        if not np.all(np.isfinite(losses)):
+            fail(f"a full-width CVS loss is not finite: {losses}")
+        del t, st, bs
+    log("cvs_train", config=CVS_FULL, dataset="teacher",
+        pairs=len(data["teacher"]), **train_res,
+        phase_seconds=lap("cvs_train"))
+
+    # 41. cvs_resume: train_cvs.main with --stop_epoch, then --resume from
+    # its .pt; the epoch and the ramp continue.
+    res_dir = os.path.join(tmp, "cvs_resume")
+    argv = ["--data_dir", teach, "--dataset_cache",
+            os.path.join(tmp, "cvs_cache.npz"), "--image_size",
+            str(CVS_FULL["image_size"]), "--base_channels",
+            str(CVS_FULL["base_channels"]), "--batch_size", "4", "--use_amp",
+            "--concat_input_view", "--epochs", "3", "--output_dir", res_dir,
+            "--device", str(dev)]
+    logs = []
+    for extra in (["--stop_epoch", "1"],
+                  ["--resume", os.path.join(res_dir, "cvs.pt")]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train_cvs.main(argv + extra)
+        logs.append(buf.getvalue())
+    epochs = [re.findall(r"epoch (\d+)/3 cw=([\d.]+) total=([\d.naninf]+)",
+                         s) for s in logs]
+    final = os.path.join(res_dir, "cvs_final.pt")
+    meta = json.loads(open(final + ".json").read())
+    log("cvs_resume", segments=[[list(e) for e in seg] for seg in epochs],
+        continued="continuing at 1" in logs[1], final_epoch=meta["epoch"],
+        phase_seconds=lap("cvs_resume"))
+    if not ([e[:2] for e in epochs[0]] == [("1", "0.10")]
+            and [e[:2] for e in epochs[1]] == [("2", "0.20"), ("3", "0.30")]
+            and "continuing at 1" in logs[1] and meta["epoch"] == 2):
+        fail(f"the resumed CVS run did not continue: {epochs}")
+
+    # 42. cvs_generate: one-step and 4-step generation at 256^2, batch 1,
+    # bf16 and fp32, from the resumed state; one-step SSIM / PSNR against
+    # the teacher pairs' targets.
+    gen_res = {}
+    for amp in (True, False):
+        t = train_cvs.CVSTrainer(train_cvs.CVSTrainConfig(
+            **dict(CVS_FULL, use_amp=amp)), device=dev)
+        st, _ = t.load_checkpoint(final)
+        b = t.device_batch(next(iter(data["teacher"].batches(
+            1, np.random.default_rng(2)))))
+        noise = torch.randn((1, 3, CVS_SIZE, CVS_SIZE), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(3))
+        key = "bf16" if amp else "fp32"
+        for n in (1, 4):
+            gen_res[f"{key}_{n}step_ms"] = cuda_median_ms(
+                torch, lambda: t.generate(st, b["features"], b["R_rel"],
+                                          b["t_rel"], noise, n,
+                                          input_image=b["input_image"]),
+                n=CVS_GEN_TIMED, warmup=2)
+        if amp:
+            pairs = t.device_batch(next(iter(data["teacher"].batches(
+                len(data["teacher"]), np.random.default_rng(0),
+                shuffle=False))))
+            g = torch.Generator(device=dev).manual_seed(4)
+            z = torch.randn(tuple(pairs["target_image"].shape), device=dev,
+                            generator=g)
+            out = t.generate(st, pairs["features"], pairs["R_rel"],
+                             pairs["t_rel"], z, 1,
+                             input_image=pairs["input_image"]).clamp(0, 1)
+            tgt = pairs["target_image"]
+            mse = ((out - tgt) ** 2).mean(dim=(1, 2, 3))
+            gen_res["one_step_ssim"] = float(ssim(out, tgt))
+            gen_res["one_step_psnr"] = float((-10 * torch.log10(
+                mse.clamp(min=1e-10))).mean())
+            gen_res["pairs"] = int(tgt.shape[0])
+        del t, st
+    log("cvs_generate", size=CVS_SIZE, batch=1, timed=CVS_GEN_TIMED, **gen_res,
+        note="SSIM / PSNR: a sanity number of 3 epochs on 12 pairs",
+        phase_seconds=lap("cvs_generate"))
+
+    # 43. cvs_multiview: cvs_multiview.main with the resumed state, 8 orbit
+    # views, then the 3DGS fit (K1 + K2 once per step, all 8 views in one
+    # pack); the fit timed; the card against the CPU over 2 steps.
+    img = os.path.join(teach, "scene_0000.png")
+    ply = os.path.join(tmp, "cvs_fit.ply")
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    mv = cvs_multiview.main([img, "--checkpoint", final, "--views",
+                             str(CVS_VIEWS), "--output_dir",
+                             os.path.join(tmp, "cvs_views"),
+                             "--optimize_3dgs", ply, "--fit_steps",
+                             str(CVS_FIT_STEPS), "--device", str(dev)])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    path_launches["cvs_multiview"] = read_counts(*counters)
+    back = gio.load_ply(ply)
+    views, poses = mv["views"], mv["poses"]
+    fit_ms = mv["fit_seconds"] * 1e3 / CVS_FIT_STEPS
+    ref_l = {}
+    for which, d in (("card", dev), ("cpu", cpu)):
+        got = []
+        cvs_multiview.optimize_3dgs(views, poses, CVS_SIZE,
+                                    steps=CVS_FIT_REF_STEPS, device=d,
+                                    losses=got)
+        ref_l[which] = [float(x) for x in got]
+    fit_rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(ref_l["card"],
+                                                         ref_l["cpu"]))
+    fit_losses = torch.stack(mv["fit_losses"]).cpu().tolist()
+    log("cvs_multiview", views=CVS_VIEWS, fit_steps=CVS_FIT_STEPS,
+        main_seconds=main_s, launches=path_launches["cvs_multiview"],
+        fit_ms_per_step=fit_ms, fit_loss_first=fit_losses[0],
+        fit_loss_last=fit_losses[-1], ply_rows=back.num_gaussians,
+        ply_finite=bool(torch.isfinite(back.to_flat()).all()),
+        views_finite=bool(np.isfinite(views).all()),
+        ref_losses_card=ref_l["card"], ref_losses_cpu=ref_l["cpu"],
+        ref_loss_rel_max=fit_rel, ref_loss_rtol=REF_LOSS_RTOL,
+        phase_seconds=lap("cvs_multiview"))
+    if path_launches["cvs_multiview"] != dict(k1=CVS_FIT_STEPS,
+                                              k2=CVS_FIT_STEPS, k3=0, k4=0):
+        fail(f"cvs_multiview launched {path_launches['cvs_multiview']}")
+    if not (back.num_gaussians == 2000 and torch.isfinite(back.to_flat())
+            .all() and np.isfinite(views).all() and fit_rel <= REF_LOSS_RTOL
+            and np.all(np.isfinite(fit_losses))):
+        fail("cvs_multiview's views, PLY or fit are wrong")
+
+    # K1 at the teacher render pack (the first teacher cloud under its
+    # frontal camera at 256^2, M 1 024) and K1 + K2 at the optimize_3dgs
+    # pack (2 000 Gaussians of the fit's init under the 8 orbit cameras).
+    with torch.no_grad():
+        with np.load(fit_teacher.teacher_path(Path(img))) as z:
+            raw, do = z["raw"], float(z["depth_offset"])
+        depth = np.fromfile(os.path.join(teach, "scene_0000_depth.bin"),
+                            np.float32)
+        depth = depth.reshape(2 * (int(round(len(depth) ** 0.5)),))
+        out = head_transform(torch.from_numpy(raw).to(dev)[None],
+                             torch.from_numpy(depth).to(dev)[None],
+                             torch.tensor(do, device=dev))
+        tp = tile.pack_tiles(*[out[k][0] for k in FIELDS],
+                             Camera.from_pose(0.0, 0.0, CVS_SIZE).to(dev),
+                             tile.TileRendererConfig(max_per_tile=1024))
+        p = {k: v.to(dev) for k, v in cvs_multiview.fit_init(2000, 0).items()}
+        cams = [Camera.from_pose(el, az, CVS_SIZE).to(dev)
+                for el, az in poses]
+        bp = tile.pack_tiles_batched(
+            *[x[None].expand(len(cams), *x.shape) for x in (
+                p["positions"], torch.exp(p["log_scales"]), p["rotations"],
+                torch.sigmoid(p["color_logits"]),
+                torch.sigmoid(p["opacity_logits"]))],
+            cams, tile.TileRendererConfig(max_per_tile=256))
+    k_teacher = pack_kernels(torch, raster, tp.pack, tp.counts,
+                             tp.n_tiles_x, None, backward=False)
+    k_fit = pack_kernels(torch, raster, bp.pack, bp.counts, bp.n_tiles_x,
+                         bp.tiles_per_image, backward=True)
+    log("kernel_cvs_packs", teacher_pack=k_teacher, fit_pack=k_fit,
+        k1_tol=KERNEL_TOL, k2_tol=KERNEL_BWD_TOL,
+        phase_seconds=lap("kernel_cvs_packs"))
+    if (k_teacher["M"], k_fit["T"], k_fit["M"]) != (1024, 8 * 256, 256):
+        fail(f"the CVS packs are not M 1024 and (2048, 256): "
+             f"{k_teacher['M']}, {k_fit['T']}, {k_fit['M']}")
+    if not (k_teacher["k1_max_abs_err"] <= KERNEL_TOL
+            and k_fit["k1_max_abs_err"] <= KERNEL_TOL
+            and k_fit["k2_rel_err"] <= KERNEL_BWD_TOL):
+        fail("K1 / K2 disagree with their plain versions at a CVS pack")
+    log("cvs_phases", seconds=phase_s, total_seconds=sum(phase_s.values()),
+        cap_seconds=CVS_PHASES_CAP_S)
+    return k_teacher, k_fit
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
     """K1 (and with `backward` K2, cotangents from a seed) against their
     plain versions on one pack: errors, times and bounds."""
@@ -2713,13 +3185,19 @@ def main():
     # 32-37. experiment 4, distillation, the 74^2 decoders (K1 in eval,
     # K1 + K2 in the teacher fits and distilled training)
     k_m384, k_train4 = exp4_phases(torch, dev, path_launches, tmp)
+    # 38-43. the CVS family (K1 in its datasets, K1 + K2 in the 3DGS fit)
+    k_teacher, k_fit = cvs_phases(torch, dev, path_launches, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
     for key, pack in (("at_m384_pack", k_m384), ("at_exp4_train_pack",
-                                                  k_train4)):
+                                                  k_train4),
+                      ("at_cvs_teacher_pack", k_teacher),
+                      ("at_cvs_fit_pack", k_fit)):
         k1["max_abs_err"] = max(k1["max_abs_err"], pack["k1_max_abs_err"])
-        k2["max_abs_err"] = max(k2["max_abs_err"], pack["k2_max_abs_err"])
         k1[key] = dict(pack["k1"], T=pack["T"], M=pack["M"])
-        k2[key] = dict(pack["k2"], T=pack["T"], M=pack["M"])
+        if "k2" in pack:
+            k2["max_abs_err"] = max(k2["max_abs_err"],
+                                    pack["k2_max_abs_err"])
+            k2[key] = dict(pack["k2"], T=pack["T"], M=pack["M"])
 
     print(smi, flush=True)
 

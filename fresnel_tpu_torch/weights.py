@@ -16,7 +16,11 @@ They import nothing of the JAX package: the layouts are rules on arrays.
 encoder, `wavelengths_raw`, `boundary_emphasis`) into the port's
 `train.harness.Trainer` params, and `trainer_opt_state` its optax state
 (`clip_by_global_norm` then `adamw` with a schedule) into the port's
-`train.optim.AdamWClip` state.
+`train.optim.AdamWClip` state.  `cvs_params` carries a
+ConsistencyViewSynthesizer's (or the CVS trainer's perceptual stack's)
+params, whose port modules carry the Flax names, and `cvs_state` a whole
+JAX `CVSTrainer` checkpoint (params, EMA params, the perceptual stack,
+`clip_by_global_norm` + constant-rate `adamw` moments and count, step).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import torch
 from torch import nn
 
 from fresnel_tpu_torch.models.blocks import Conv2d, LayerNorm, Linear
+from fresnel_tpu_torch.models.cvs import (
+    FresnelWaveAttention, ImageFeatureAdapter, PluckerPoseEncoder)
 from fresnel_tpu_torch.models.decoders import (
     DirectPatchDecoder, ZeroInitConv2d)
 from fresnel_tpu_torch.models.fibonacci import FibonacciPatchDecoder
@@ -186,6 +192,69 @@ def trainer_opt_state(flat: Mapping[str, np.ndarray], attn_pool: int = 1
             **moments}
 
 
+def _mha_reshape(path: str, arr: np.ndarray) -> np.ndarray:
+    """A Flax MultiHeadDotProductAttention leaf in Dense layout: query /
+    key / value kernels (C, heads, head_dim) -> (C, heads * head_dim), the
+    out kernel (heads, head_dim, C) -> (heads * head_dim, C), biases
+    (heads, head_dim) -> (heads * head_dim,)."""
+    if "MultiHeadDotProductAttention" not in path:
+        return arr
+    leaf = path.split("/")[-1]
+    if path.split("/")[-2] == "out":
+        return arr.reshape(-1, arr.shape[-1]) if leaf == "kernel" else arr
+    if leaf == "kernel":
+        return arr.reshape(arr.shape[0], -1)
+    return arr.reshape(-1)
+
+
+def cvs_params(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat params of the JAX ConsistencyViewSynthesizer ("unet/Conv_0/
+    kernel", ...; a leading "params/" is dropped), or of the CVS trainer's
+    perceptual stack -> the state dict of the port's module of the same
+    name (models.cvs, train.train_cvs.PerceptualNet): the paths with ".",
+    the kernels and the attention's DenseGeneral leaves in torch layout."""
+    flat2 = {}
+    for path, val in flat.items():
+        path = path[len("params/"):] if path.startswith("params/") else path
+        flat2[path] = _mha_reshape(path, np.asarray(val, dtype=np.float32))
+    return _convert(flat2)
+
+
+CVS_GROUPS = ("params", "ema_params", "perc_params")
+
+
+def cvs_state(flat: Mapping[str, np.ndarray]) -> Dict:
+    """A JAX CVSTrainer checkpoint flat with "/" (`train.flax_msgpack.
+    read_flat`: "params/params/unet/...", "ema_params/params/...",
+    "perc_params/params/...", "opt_state/1/0/{count,mu,nu}/params/...",
+    "step") -> the port's CVS state {"params", "ema_params",
+    "perc_params", "opt_state": {"count", "mu", "nu"}, "step"}.  optax's
+    chain is (clip: empty, (Adam's count, mu, nu; the weight decay: empty;
+    the constant rate: empty)): one count."""
+    out: Dict = {}
+    for g in CVS_GROUPS:
+        pre = f"{g}/"
+        out[g] = cvs_params({k[len(pre):]: v for k, v in flat.items()
+                             if k.startswith(pre)})
+    adam = "opt_state/1/0/"
+    if adam + "count" not in flat:
+        raise ValueError(f"no Adam count at {adam}count")
+    counts = [k for k in flat if k.startswith("opt_state/")
+              and k.endswith("/count")]
+    if counts != [adam + "count"]:
+        raise ValueError(f"optax counts {counts}: the port's CVS optimizer "
+                         "keeps Adam's alone")
+    out["opt_state"] = {"count": torch.tensor(
+        int(np.asarray(flat[adam + "count"])), dtype=torch.int32)}
+    for m in ("mu", "nu"):
+        pre = f"{adam}{m}/"
+        out["opt_state"][m] = cvs_params(
+            {k[len(pre):]: v for k, v in flat.items() if k.startswith(pre)})
+    out["step"] = torch.tensor(int(np.asarray(flat["step"])),
+                               dtype=torch.int32)
+    return out
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
     # Flax's lecun_normal: variance 1 / fan_in, normal truncated at 2 sigma
     # (the 0.8796 factor restores the variance the truncation removes).
@@ -199,7 +268,10 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     and Conv kernels lecun-normal, biases zero, LayerNorm and GroupNorm
     scale one, LayerScale 1e-5, cls / pos tokens and PatchUpsample kernels
     normal(0.02), the decoders' `depth_offset` -2 and the zero-initialised
-    `upsample_refine` conv 0.  Draws from `generator`, so it is reproducible."""
+    `upsample_refine` conv 0; in CVS the adapter's `pos_embed` and
+    `compress_queries` and the pose encoder's `pose_queries` normal(0.02),
+    each `wavelength` 0.1.  Draws from `generator`, so it is
+    reproducible."""
     for m in model.modules():
         if isinstance(m, ZeroInitConv2d):
             m.weight.zero_()
@@ -223,4 +295,11 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.pos_embed.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, (DirectPatchDecoder, FibonacciPatchDecoder)):
             m.depth_offset.fill_(-2.0)
+        elif isinstance(m, ImageFeatureAdapter):
+            m.pos_embed.normal_(0.0, 0.02, generator=generator)
+            m.compress_queries.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, PluckerPoseEncoder):
+            m.pose_queries.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, FresnelWaveAttention):
+            m.wavelength.fill_(0.1)
     return model

@@ -814,3 +814,129 @@ def test_exp4_render_on_card_matches_cpu(cuda, name):
     assert torch.equal(clouds["cuda"][0][:, 2], clouds["cpu"][0][:, 2])
     err = (images["cuda"] - images["cpu"]).abs()
     assert err.mean().item() <= 1e-5, err.mean().item()
+
+
+def _cvs_pair(cuda, image_size=32, base_channels=32, **cfg):
+    """A CVS trainer on the card and one on the CPU from the same init, and
+    a bootstrap batch of 2 pairs built on the CPU."""
+    from fresnel_tpu_torch.train import train_cvs
+    kw = dict(image_size=image_size, base_channels=base_channels, **cfg)
+    ds = train_cvs.GaussianBootstrapDataset(
+        n_scenes=1, views_per_scene=3, image_size=image_size,
+        n_gaussians=40, device="cpu")
+    batch = next(iter(ds.batches(2, np.random.default_rng(0))))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        t = train_cvs.CVSTrainer(train_cvs.CVSTrainConfig(**kw), device=dev)
+        out[dev.type] = (t, t.init_state(), t.device_batch(batch))
+    return out
+
+
+@pytest.mark.parametrize("civ", [False, True])
+def test_cvs_step_on_card_matches_cpu(cuda, civ):
+    """One CVS training step (quality-aware, fp32) at chip_smoke.py's
+    cvs_reference config (64^2, base 64) on the card and on the CPU with
+    the same draws, every leaf but the attention key bias (zero gradient
+    in exact arithmetic): losses within 1e-4 relative; Adam's first
+    moment (a tenth of the clipped gradient) within a mean absolute
+    difference of 1e-2 of the leaf's mean absolute value (chip_smoke.py's
+    moment bound); the params within 2 * lr of each other and within a
+    mean of 1e-5.  Adam's first step moves every entry by +-lr with its
+    gradient's sign, so one sign the devices round apart in a leaf of 64
+    moves that leaf's mean by 3.1e-6 (measured 2.1e-6 in
+    unet.ResBlock_2.GroupNorm_0.bias); 1e-5 allows 5 % of a leaf's
+    entries to part that way.  Each scalar `wavelength` sums its gradient
+    over every (query, key) pair's interference bias, B x 8 heads x
+    (H W)^2 terms of both signs (1.05e6 at 16^2), so the summation order
+    moves its moment by up to 1.03e-2 (measured): those leaves are held
+    at 5e-2 (a moment mapped to the wrong leaf is off by 1 or more)."""
+    pair = _cvs_pair(cuda, 64, 64, use_quality_aware=True,
+                     concat_input_view=civ)
+    rng = np.random.default_rng(3)
+    ts = torch.from_numpy(rng.integers(0, 1000, 2))
+    noise = torch.from_numpy(rng.normal(size=(2, 3, 64, 64)).astype(
+        np.float32))
+    res = {}
+    for dev, (t, st, b) in pair.items():
+        st, ld = t.train_step(st, b, 0.5, ts.to(t.device),
+                              noise.to(t.device))
+        res[dev] = ({k: float(v) for k, v in ld.items()},
+                    {k: v.cpu() for k, v in st["params"].items()},
+                    {k: v.cpu() for k, v in st["opt_state"]["mu"].items()})
+    (lg, pg, mg), (lc, pc, mc) = res["cuda"], res["cpu"]
+    for k, v in lc.items():
+        assert abs(lg[k] - v) <= 1e-4 * abs(v), k
+    lr = pair["cpu"][0].cfg.lr
+    for k in pc:
+        if k.endswith("key.bias"):
+            continue
+        d = (pg[k] - pc[k]).abs()
+        assert d.max().item() <= 2 * lr + 1e-7, k
+        assert d.mean().item() <= 1e-5, k
+        dm = (mg[k] - mc[k]).abs().mean().item()
+        rtol = 5e-2 if k.endswith("wavelength") else 1e-2
+        assert dm <= rtol * mc[k].abs().mean().item(), (k, dm)
+
+
+@pytest.mark.parametrize("num_steps", [1, 4])
+def test_cvs_generate_on_card_matches_cpu(cuda, num_steps):
+    """generate() of the EMA params on the card and the CPU, fp32: within
+    1e-4 of the output's largest value."""
+    pair = _cvs_pair(cuda)
+    noise = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 3, 32, 32)).astype(np.float32))
+    outs = {}
+    for dev, (t, st, b) in pair.items():
+        outs[dev] = t.generate(st, b["features"], b["R_rel"], b["t_rel"],
+                               noise, num_steps).cpu()
+    scale = outs["cpu"].abs().max()
+    assert (outs["cuda"] - outs["cpu"]).abs().max() <= 1e-4 * scale
+
+
+def test_optimize_3dgs_pack_kernels_match_plain(cuda):
+    """K1 and K2 at the pack optimize_3dgs makes: 2 000 Gaussians of its
+    init under 8 orbit cameras at 256^2, one (8 x 256, 256, 12) pack;
+    against their plain versions at 1e-5 and BWD_TOL; one step's loss on
+    the card within 1e-4 relative of the CPU's, one K1 and one K2."""
+    from fresnel_tpu_torch.inference import cvs_multiview as mv
+    poses = mv.camera_path("orbit", 8)
+    cams = [Camera.from_pose(el, az, 256) for el, az in poses]
+    p = {k: v.to(cuda) for k, v in mv.fit_init(2000, 0).items()}
+    bp = tile.pack_tiles_batched(
+        *[x[None].expand(8, *x.shape) for x in (
+            p["positions"], torch.exp(p["log_scales"]), p["rotations"],
+            torch.sigmoid(p["color_logits"]),
+            torch.sigmoid(p["opacity_logits"]))],
+        cams, tile.TileRendererConfig(max_per_tile=256))
+    pack, counts, ntx, ti = (bp.pack, bp.counts, bp.n_tiles_x,
+                             bp.tiles_per_image)
+    assert tuple(pack.shape[:2]) == (8 * 256, 256)
+    with torch.no_grad():
+        fwd = raster.composite_tiles_packed(pack, counts, ntx,
+                                            tiles_per_image=ti)
+        ref = raster.composite_tiles_plain(pack, counts, ntx,
+                                           tiles_per_image=ti)
+        for g, r in zip(fwd, ref):
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+        rng = np.random.default_rng(52)
+        cots = [torch.from_numpy(rng.normal(size=tuple(o.shape)).astype(
+            np.float32)).to(cuda) for o in fwd]
+        got = raster.composite_tiles_bwd(pack, counts, ntx, *fwd, *cots,
+                                         tiles_per_image=ti)
+        want = raster.composite_tiles_bwd_plain(pack, counts, ntx, *fwd,
+                                                *cots, tiles_per_image=ti)
+    scale = want.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+    assert ((got - want).abs().amax(dim=(0, 1)) / scale).max() <= BWD_TOL
+    views = np.random.default_rng(5).uniform(size=(8, 3, 256, 256)).astype(
+        np.float32)
+    losses = {}
+    for dev in (cuda, torch.device("cpu")):
+        f0, b0 = raster.launches, raster.launches_bwd
+        got = []
+        mv.optimize_3dgs(views, poses, 256, steps=1, device=dev,
+                         losses=got)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (raster.launches - f0, raster.launches_bwd - b0) == (1, 1)
+        losses[dev.type] = float(got[0])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * losses["cpu"]

@@ -106,6 +106,32 @@ class TestDevice:
             with pytest.raises(RuntimeError, match="CUDA"):
                 cli.main(argv)
 
+    def test_cvs_raises_without_cuda(self, tmp_path):
+        import numpy as np
+        from fresnel_tpu_torch.inference import cvs_multiview
+        from fresnel_tpu_torch.train import train_cvs
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_cvs.CVSTrainer(train_cvs.CVSTrainConfig())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_cvs.GaussianBootstrapDataset(n_scenes=1, image_size=16)
+        for cls in (train_cvs.TeacherMultiviewDataset,
+                    train_cvs.GTMultiviewDataset):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cls(str(tmp_path), image_size=16)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_cvs.main(["--synthetic", "--epochs", "1"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cvs_multiview.optimize_3dgs(np.zeros((1, 3, 16, 16), np.float32),
+                                        [(0.0, 0.0)], 16, steps=1)
+        trainer = train_cvs.CVSTrainer(
+            train_cvs.CVSTrainConfig(image_size=16, base_channels=32),
+            device="cpu")
+        ckpt = tmp_path / "cvs.pt"
+        trainer.save_checkpoint(ckpt, trainer.init_state(), 0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cvs_multiview.main([str(tmp_path / "x.png"), "--checkpoint",
+                                str(ckpt)])
+
     def test_render_and_orbit_raise_without_cuda(self):
         from fresnel_tpu_torch.cli import orbit, render
         from fresnel_tpu_torch.core.gaussians import GaussianCloud
