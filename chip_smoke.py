@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab ROOT [ROOT ...]
 
-Six main paths run through the entry points a user calls:
+The main paths run through the entry points a user calls:
 `pipeline.image_to_3dgs` (image -> 3DGS, bench.py's path),
 `train.fit_teacher.fit_scene` (`fresnel refine`: per-scene Adam fit through
 the rasterizer), `render.tile.render_tiled` / `cli.render` / `cli.orbit`
@@ -18,7 +18,10 @@ experiment 4 (the Fibonacci spiral decoder: its teacher fits through
 the 74^2 decoders, and the CVS consistency view synthesizer (its three
 datasets, training through `train.train_cvs.main` at the campaign's full
 width in bf16, resume, generation and `inference.cvs_multiview.main` with
-its 3DGS fit).  Phases,
+its 3DGS fit), the geometric SAAG path (`cli infer --saag` / `--no_model` /
+`--html`), the live viewer server (`viewer.serve`: reprocess, /render,
+/export.ply) and decoder experiments 1, 3 and 5 (`cli train
+--experiment`).  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
@@ -288,6 +291,45 @@ non-zero:
                   against their plain versions, with times and bounds.
       cvs_phases  the seconds of each of 38-43 and their total, beside the
                   90 s they are meant to keep to.
+  44. saag_reference  to_surface_gaussians at 256^2 (65 536 points x 12
+                  static blocks) from the gradient depth of a seeded 512^2
+                  image, on the card and on the CPU from the same depth
+                  and colour: the point clouds bit for bit; the masks
+                  (opacity > 0) compared, each entry active on one side
+                  only within 4 ulp of a threshold it is tested against;
+                  rotations within 2e-4, every other field within 1e-6;
+  45. saag_infer  cli infer --saag --html at the CLI defaults on that PNG:
+                  host ms (median of 3 after a warmup), the static
+                  (786 432) and live counts, the PLY read back (rows = the
+                  live count, all finite), the page's embedded count equal
+                  to pack_cloud's, and --no_model (no checkpoint) writing
+                  the same PLY bytes;
+  46. viewer_serve  viewer.serve's session on the card at its defaults
+                  (grid 256, subsample 2) behind make_server on port 0 in a
+                  thread: GET / (200, the reprocess panel), POST
+                  /reprocess at subsample 1 and 2 (status 200, no
+                  "error", the expected counts), GET /render at 1 024^2
+                  (200, a PNG not all background; its K3 and K1 launches,
+                  host ms median of 3, and render_tiled alone by CUDA
+                  events), GET /export.ply read back;
+  47. exp135_train  for experiments 1, 3 and 5: cli train at the
+                  TrainingConfig defaults (256^2, batch 4, 37^2 x 384
+                  patch features, K 4, M 256; 377 points and 16 NCA steps)
+                  on an 8-scene synthetic corpus for one epoch (2 steps),
+                  then 5 steps timed by CUDA events after 2 warmup steps
+                  and 3 under torch.profiler (device ms, busy share,
+                  kernels per step): one K1 and one K2 per step, every
+                  loss finite; the card
+                  against the CPU over 2 steps at 64^2, batch 2, dropout 0
+                  (the NCA's masks drawn once on the host): losses within
+                  1e-4 relative;
+  48. kernel_saag_packs  K1 at the /render pack (T 4 096, M 512) within
+                  1e-5 of each field's largest plain value, K3 bit for bit
+                  over that cloud's search groups, and K1 / K2 at each
+                  experiment's training pack (4 clouds, T 1 024, M 256),
+                  with times and bounds.
+      saag_phases  the seconds of each of 44-48 and their total, beside
+                  the 60 s they are meant to keep to.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -2761,6 +2803,459 @@ def cvs_phases(torch, dev, path_launches, tmp):
     return k_teacher, k_fit
 
 
+# The geometric SAAG path, the viewer server and experiments 1, 3 and 5
+# (phases 44-48).  SAAG at the CLI defaults: grid 256, 65 536 points x 12
+# static blocks; the server's session at its defaults (grid 256, subsample
+# 2: 16 384 points x 12 = 196 608 Gaussians), /render at 1 024^2 with
+# max_per_tile 512 (search binning: K3 + K1).  Training at the
+# TrainingConfig defaults (256^2, batch 4, 37^2 x 384 patch features, K 4,
+# M 256; 377 spiral points and 16 NCA steps) on an 8-scene synthetic
+# corpus; the card against the CPU at 64^2, batch 2.
+SAAG_GRID = 256
+SAAG_STATIC = SAAG_GRID * SAAG_GRID * 12
+SAAG_TIMED = 3
+# saag_reference: the CPU tests hold everything but rotations bit for bit
+# against the JAX package and rotations within 1e-6; on the card the
+# norms and arccos round apart by an ulp, which moves a rotation by about
+# ulp / sin(angle) near a flat normal (7.9e-5 was seen between the two
+# packages' full infer paths, whose depths differ by ~1e-6): rotations are
+# held at 2e-4, every other field at 1e-6.
+SAAG_FIELD_TOL, SAAG_ROT_TOL = 1e-6, 2e-4
+SAAG_ULPS = 4            # how near its threshold a parting entry must be
+SERVE_RENDER = 1024
+SERVE_TIMED = 3
+EXP135 = (1, 3, 5)
+EXP135_SCENES, EXP135_WARMUP, EXP135_TIMED, EXP135_PROFILED = 8, 2, 5, 3
+EXP135_REF = dict(image_size=64, batch_size=2)
+EXP135_REF_STEPS = 2
+SAAG_PHASES_CAP_S = 60.0
+
+
+def saag_margins(torch, pc, depth, sp, wp, shp, dp, depth_scale):
+    """Per point, the smallest distance in float32 ulps from a value a
+    SAAG mask tests to that test's threshold: z against 0.01 *
+    depth_scale, confidence against min_confidence, the normalised
+    gradient against the edge, shell, wrap and density thresholds, the
+    gradient direction's length against 0.1."""
+    from fresnel_tpu_torch.geometry import surface_info
+
+    px, py = pc.pixel_xy[:, 0].long(), pc.pixel_xy[:, 1].long()
+    info = surface_info(depth, sp.gradient_scale)
+    gm, gd = info["gradient_mag"][py, px], info["gradient_dir"][py, px]
+    ng = (gm / torch.clamp(torch.where(pc.valid, gm, 0.0).max(),
+                           min=1e-6)).cpu().numpy()
+    conf = pc.confidence.cpu().numpy()
+
+    def ulps(a, b):
+        b = np.float32(b)
+        return np.abs(a.astype(np.float64) - b) / np.spacing(abs(b))
+
+    m = [ulps((1.0 - conf) * np.float32(depth_scale), 0.01 * depth_scale),
+         ulps(conf, sp.min_confidence),
+         ulps(torch.linalg.norm(gd, dim=-1).cpu().numpy(), 0.1)]
+    m += [ulps(ng, t) for t in (sp.edge_threshold, shp.edge_threshold,
+                                wp.edge_threshold, dp.gradient_threshold)]
+    return np.min(m, axis=0)
+
+
+def k3_at(torch, binning, tile, cloud_fields, camera, cfg):
+    """K3 against its plain version on what render_tiled hands it for a
+    cloud under `camera` (every search group): bit for bit; its device
+    time over all groups, the plain version's, and the bound (the table
+    and totals written, the intervals read once; one test per (tile,
+    Gaussian) pair)."""
+    ts = cfg.tile_size
+    gx, gy = -(-camera.width // ts), -(-camera.height // ts)
+    sp = tile.project_sorted(*cloud_fields, camera, cfg)
+    xlo, xhi, ylo, yhi, vis, n2 = tile._padded_intervals(
+        sp.means2d, sp.radii, sp.visible, ts)
+    b = (xlo, torch.where(vis, xhi, -1), ylo, torch.where(vis, yhi, -1))
+    groups = tile.search_groups(cloud_fields[0].shape[0], gx, gy)
+    gy_g = -(-gy // groups)
+    equal = True
+    for g in range(groups):
+        got = binning.build_rank_table(*b, gx, gy_g, n2, y_offset=g * gy_g)
+        ref = binning.build_rank_table_plain(*b, gx, gy_g, n2,
+                                             y_offset=g * gy_g)
+        equal &= bool(torch.equal(got[0], ref[0])
+                      and torch.equal(got[1], ref[1]))
+        del got, ref
+
+    def all_groups(fn):
+        return lambda: [fn(*b, gx, gy_g, n2, y_offset=g * gy_g)
+                        for g in range(groups)]
+
+    t = kernel_times(torch, all_groups(binning.build_rank_table), n=10)
+    plain_ms = cuda_median_ms(
+        torch, all_groups(binning.build_rank_table_plain), n=3, warmup=1)
+    T = gx * gy_g * groups
+    ms, by, work = bound(T * n2 * 2 + T * (n2 // 256) * 4 + 4 * n2 * 4,
+                         T * n2 * OPS_PER_TEST)
+    return dict(bitwise_equal=equal, n2=n2, groups=groups, T=T, **t,
+                plain_ms=plain_ms, bound_ms=ms, bound_by=by, **work)
+
+
+def html_count(path):
+    """The Gaussian count a viewer page embeds (loadCloud's second
+    argument)."""
+    with open(path) as f:
+        m = re.search(r'loadCloud\("[^"]*", (\d+)\);', f.read())
+    return int(m.group(1))
+
+
+def saag_phases(torch, dev, path_launches, tmp):
+    """Phases 44-48: the SAAG path (cli infer --saag / --no_model /
+    --html), the live viewer server, decoder experiments 1, 3 and 5, and
+    K1 / K3 at the SAAG render pack and K1 / K2 at the three training
+    packs.  Returns (K1 and K3 at the render pack, {experiment: K1 and K2
+    at its training pack})."""
+    import threading
+    import urllib.request
+    from io import BytesIO
+
+    from PIL import Image
+
+    from fresnel_tpu_torch import cli
+    from fresnel_tpu_torch.core import io as gio
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+    from fresnel_tpu_torch.geometry import (
+        AdaptiveDensityParams, SilhouetteWrapParams, SurfaceGaussianParams,
+        VolumetricShellParams, pointcloud_from_depth, to_surface_gaussians)
+    from fresnel_tpu_torch.models.encoders import (
+        create_depth_estimator, resize_linear)
+    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+    from fresnel_tpu_torch.train.harness import Trainer, build_decoder
+    from fresnel_tpu_torch.viewer import serve
+    from fresnel_tpu_torch.viewer.html_viewer import pack_cloud
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+    img_path = infer_image(tmp)
+    image = np.asarray(Image.open(img_path).convert("RGB"),
+                       np.float32) / 255.0
+
+    # 44. saag_reference: to_surface_gaussians at 256^2 on the card and on
+    # the CPU from the same depth and colour.
+    t_img = torch.from_numpy(image)
+    with torch.no_grad():
+        depth = create_depth_estimator("gradient")(t_img, SAAG_GRID)
+        color = resize_linear(t_img.permute(2, 0, 1), SAAG_GRID,
+                              SAAG_GRID).permute(1, 2, 0)
+    params = (SurfaceGaussianParams(), SilhouetteWrapParams(),
+              VolumetricShellParams(), AdaptiveDensityParams())
+    clouds, pcs = {}, {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        with torch.no_grad():
+            pc = pointcloud_from_depth(depth.to(d), color=color.to(d),
+                                       depth_scale=2.0).normalize(3.0)
+            clouds[name] = to_surface_gaussians(pc, depth.to(d), *params)
+            pcs[name] = pc
+    card, ref = clouds["card"].to(cpu), clouds["cpu"]
+    margins = saag_margins(torch, pcs["cpu"], depth, *params, 2.0)
+    m_card = (card.opacities > 0).numpy()
+    m_cpu = (ref.opacities > 0).numpy()
+    parted = np.nonzero(m_card != m_cpu)[0]
+    near = bool((margins[parted % (SAAG_GRID ** 2)] <= SAAG_ULPS).all())
+    keep = torch.from_numpy(m_card == m_cpu)
+    errs = {k: (getattr(card, k)[keep] - getattr(ref, k)[keep]).abs().max()
+            .item() for k in FIELDS}
+    pc_equal = all(torch.equal(getattr(pcs["card"], k).cpu(),
+                               getattr(pcs["cpu"], k))
+                   for k in ("positions", "colors", "confidence", "valid"))
+    rot_over = int(((card.rotations - ref.rotations).abs()
+                    > 1e-6).sum().item())
+    log("saag_reference", n_static=card.num_gaussians,
+        active=int(m_cpu.sum()), masks_parted=len(parted),
+        parted_within_ulps=near, ulps=SAAG_ULPS,
+        pointcloud_bitwise_equal=pc_equal, max_abs_err=errs,
+        rotations_over_1e6=rot_over, field_tol=SAAG_FIELD_TOL,
+        rotation_tol=SAAG_ROT_TOL, phase_seconds=lap("saag_reference"))
+    if not (card.num_gaussians == SAAG_STATIC and near and pc_equal
+            and errs["rotations"] <= SAAG_ROT_TOL
+            and all(v <= SAAG_FIELD_TOL for k, v in errs.items()
+                    if k != "rotations")):
+        fail("the SAAG cloud on the card disagrees with the CPU's")
+    del clouds, pcs, card, ref
+
+    # 45. saag_infer: cli infer --saag --html at the CLI defaults.
+    ply, html = os.path.join(tmp, "saag.ply"), os.path.join(tmp, "saag.html")
+    argv = ["infer", img_path, ply, "--saag", "--html", html]
+    cli.main(argv)                                             # warmup
+    ms = []
+    for _ in range(SAAG_TIMED):
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    path_launches["saag_infer"] = read_counts(*counters)
+    back = gio.load_ply(ply)
+    static, cats = cli.saag_infer(image, device=dev)
+    live, live_cats = cli.compact(static, cats)
+    packed_n = pack_cloud(live, live_cats)[1]
+    nm_ply = os.path.join(tmp, "no_model.ply")
+    cli.main(["infer", img_path, nm_ply, "--no_model"])
+    with open(ply, "rb") as a, open(nm_ply, "rb") as b:
+        no_model_same = a.read() == b.read()
+    log("saag_infer", host_ms=ms, host_ms_median=statistics.median(ms),
+        n_static=static.num_gaussians, n_live=live.num_gaussians,
+        ply_rows=back.num_gaussians,
+        ply_finite=bool(torch.isfinite(back.to_flat()).all()),
+        html_count=html_count(html), pack_cloud_count=packed_n,
+        html_bytes=os.path.getsize(html),
+        no_model_same_bytes=no_model_same,
+        launches=path_launches["saag_infer"],
+        phase_seconds=lap("saag_infer"))
+    if not (static.num_gaussians == SAAG_STATIC
+            and back.num_gaussians == live.num_gaussians > 0
+            and torch.isfinite(back.to_flat()).all()
+            and html_count(html) == packed_n and no_model_same):
+        fail("cli infer --saag / --no_model / --html gave a bad cloud")
+    del static, live, back
+
+    # 46. viewer_serve: the reprocess server on port 0, its session on the
+    # card at its defaults.
+    session = serve.load_session(img_path, grid=SAAG_GRID, device=dev)
+    httpd = serve.make_server(session, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=300) as r:
+            return r.status, r.read()
+
+    def post(obj):
+        req = urllib.request.Request(
+            base + "/reprocess", data=json.dumps(obj).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+
+    try:
+        status, page = get("/")
+        page_ok = (status == 200 and b'id="rp_normal_strength"' in page
+                   and b"/reprocess" in page)
+        reprocess = {}
+        for sub in (1, 2):
+            t0 = time.perf_counter()
+            st, body = post({"subsample": sub})
+            ms_rp = (time.perf_counter() - t0) * 1e3
+            with session.lock:
+                n_static = session.cloud.num_gaussians
+                want = min(int((session.cloud.opacities > 1e-3).sum()), 100000)
+            reprocess[sub] = dict(status=st, error=body.get("error"),
+                                  n=body.get("n"), n_expected=want,
+                                  n_static=n_static, host_ms=ms_rp,
+                                  server_ms=body.get("ms"))
+        render_ms, launches = [], None
+        for i in range(SERVE_TIMED + 1):
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            t0 = time.perf_counter()
+            st_r, png = get(f"/render?az=0.3&el=0.1&dist=2.0"
+                            f"&size={SERVE_RENDER}")
+            if i:
+                render_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = read_counts(*counters)
+        path_launches["viewer_render"] = launches
+        arr = np.asarray(Image.open(BytesIO(png)))
+        st_p, ply_bytes = get("/export.ply")
+        exp_path = os.path.join(tmp, "export.ply")
+        with open(exp_path, "wb") as f:
+            f.write(ply_bytes)
+        exported = gio.load_ply(exp_path)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    log("viewer_serve", page_ok=page_ok, reprocess=reprocess,
+        render_status=st_r, render_shape=list(arr.shape),
+        render_max=int(arr.max()), render_mean=float(arr.mean()),
+        render_host_ms=render_ms,
+        render_host_ms_median=statistics.median(render_ms),
+        render_launches=launches, export_status=st_p,
+        export_rows=exported.num_gaussians,
+        phase_seconds=lap("viewer_serve"))
+    if not (page_ok and st_r == 200 and st_p == 200
+            and all(r["status"] == 200 and r["error"] is None
+                    and r["n"] == r["n_expected"] > 0
+                    for r in reprocess.values())
+            and reprocess[1]["n_static"] == SAAG_STATIC
+            and reprocess[2]["n_static"] == SAAG_STATIC // 4
+            and arr.shape == (SERVE_RENDER, SERVE_RENDER, 3)
+            and arr.max() > 0
+            and exported.num_gaussians == SAAG_STATIC // 4
+            and torch.isfinite(exported.to_flat()).all()
+            and launches == dict(k1=1, k2=0, k3=launches["k3"], k4=0)
+            and launches["k3"] >= 1):
+        fail("the viewer server's answers are wrong")
+
+    # 48 (first half). kernel_saag_packs: K1 and K3 at the /render pack.
+    with torch.no_grad():
+        cl = session.cloud
+        cam = Camera.from_pose(0.1, 0.3, SERVE_RENDER, distance=2.0).to(dev)
+        cfg = tile.TileRendererConfig(max_per_tile=512)
+        fields_ = tuple(getattr(cl, k) for k in FIELDS)
+        k3 = k3_at(torch, binning, tile, fields_, cam, cfg)
+        # The render alone (no PNG, no HTTP), CUDA events.
+        render_ms = cuda_median_ms(
+            torch, lambda: tile.render_tiled(*fields_, cam, config=cfg),
+            n=5, warmup=1)
+        tp = tile.pack_tiles(*fields_, cam, cfg)
+        fwd = raster.composite_tiles_packed(tp.pack, tp.counts, tp.n_tiles_x)
+        plain = raster.composite_tiles_plain(tp.pack, tp.counts,
+                                             tp.n_tiles_x)
+        k1_rel = max(((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                     .item() for g, r in zip(fwd, plain))
+    k1_render = pack_kernels(torch, raster, tp.pack, tp.counts,
+                             tp.n_tiles_x, None, backward=False)
+    k1_render["k1_rel_err"] = k1_rel
+    k1_render["render_tiled_ms"] = render_ms
+    del session, cl, tp, fwd, plain
+    lap("kernel_saag_render_pack")
+
+    # 47. exp135_train: cli train --experiment 1 / 3 / 5 on the corpus,
+    # then timed steps, then the card against the CPU.
+    data_dir = os.path.join(tmp, "corpus_exp135")
+    synthetic_corpus.generate_corpus(data_dir, n_images=EXP135_SCENES,
+                                     image_size=256, seed=0)
+    ds = ImageDataset(data_dir, image_size=256, feature_dim=384,
+                      use_augmentation=False, device=dev)
+    ref_ds = ImageDataset(data_dir, image_size=EXP135_REF["image_size"],
+                          feature_dim=384, use_augmentation=False,
+                          device=dev)
+    train_runs, train_packs = {}, {}
+    for exp in EXP135:
+        out_dir = os.path.join(tmp, f"exp{exp}")
+        argv = ["--data_dir", data_dir, "--output_dir", out_dir, "--epochs",
+                "1", "--experiment", str(exp), "--device", "cuda"]
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        cli.main(["train"] + argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        path_launches[f"exp{exp}_train"] = cli_launch = read_counts(*counters)
+        with open(os.path.join(out_dir, "loss_history.json")) as f:
+            hist = json.load(f)
+        steps = EXP135_SCENES // 4
+
+        # The configs the CLI built, LPIPS off as it turns it off without
+        # weights.
+        cfg, phys, hfgs, hfts = tcli.configs_from_args(
+            tcli.build_parser().parse_args(argv))
+        cfg.lpips_weight = 0.0
+        tr = Trainer(cfg, phys, hfgs, hfts, device=dev)
+        state = tr.init_state()
+        batches = [tr.device_batch(b) for b in train_batches(
+            ds, cfg.batch_size, EXP135_WARMUP + EXP135_TIMED)]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        K = cfg.gaussians_per_patch
+        for b in batches[:EXP135_WARMUP]:
+            state, _ = tr.train_step(state, b, K, None, gen)
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        start.record()
+        lds = []
+        for b in batches[EXP135_WARMUP:]:
+            state, ld = tr.train_step(state, b, K, None, gen)
+            lds.append(ld["total"])
+        end.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        timed_launch = read_counts(*counters)
+        losses = [float(v) for v in lds]
+
+        def profiled():
+            st_ = state
+            for b in batches[-EXP135_PROFILED:]:
+                st_, _ = tr.train_step(st_, b, K, None, gen)
+        prof = profile_ms(torch, profiled, EXP135_PROFILED, top=5)
+
+        # The pack of the last step's clouds under the training camera.
+        with torch.no_grad():
+            last = batches[-1]
+            out = tr.gaussians(state["params"], last["features"],
+                               last["depth"], K, gen)
+            bp = tile.pack_tiles_batched(
+                *[out[k] for k in FIELDS], tr.camera,
+                tile.TileRendererConfig(max_per_tile=cfg.max_per_tile))
+        train_packs[exp] = pack_kernels(torch, raster, bp.pack, bp.counts,
+                                        bp.n_tiles_x, bp.tiles_per_image,
+                                        backward=True)
+
+        # Card against CPU: 64^2, batch 2, dropout 0, the NCA's masks
+        # drawn once on the host.
+        ref_runs = {}
+        ref_batches = train_batches(ref_ds, EXP135_REF["batch_size"],
+                                    EXP135_REF_STEPS)
+        masks = (torch.rand((cfg.nca_steps, 2, cfg.n_spiral_points, 1),
+                            generator=torch.Generator().manual_seed(3))
+                 < 0.5).float() if exp == 5 else None
+        for name, d in (("card", dev), ("cpu", cpu)):
+            rcfg = dataclasses.replace(cfg, **EXP135_REF)
+            rt = Trainer(rcfg, phys, hfgs, hfts, device=d)
+            rt.model = build_decoder(rcfg, rt.physics_config, dropout=0.0)
+            st = rt.init_state()
+            g_ = torch.Generator(device=d).manual_seed(1)
+            ls = []
+            for b in ref_batches:
+                st, ld = rt.train_step(
+                    st, rt.device_batch(b), K, None, g_,
+                    nca_masks=None if masks is None else masks.to(d))
+                ls.append(float(ld["total"]))
+            ref_runs[name] = ls
+        rel = max(abs(a - b) / max(abs(b), 1e-6)
+                  for a, b in zip(ref_runs["card"], ref_runs["cpu"]))
+        train_runs[exp] = dict(
+            cli_seconds=cli_s, cli_launches=cli_launch, cli_steps=steps,
+            cli_history=hist.get("total"),
+            ms_per_step=start.elapsed_time(end) / EXP135_TIMED,
+            host_ms_per_step=host_s * 1e3 / EXP135_TIMED,
+            timed_launches=timed_launch, losses=losses, profile=prof,
+            ref_losses_card=ref_runs["card"], ref_losses_cpu=ref_runs["cpu"],
+            ref_loss_rel_max=rel,
+            pack=dict(T=train_packs[exp]["T"], M=train_packs[exp]["M"]))
+        log("exp135_train", experiment=exp, **train_runs[exp],
+            loss_rtol=REF_LOSS_RTOL, phase_seconds=lap(f"exp{exp}_train"))
+        one_each = dict(k1=1, k2=1, k3=0, k4=0)
+        if not (cli_launch == {k: v * steps for k, v in one_each.items()}
+                and timed_launch == {k: v * EXP135_TIMED
+                                     for k, v in one_each.items()}
+                and np.all(np.isfinite(losses))
+                and np.all(np.isfinite(hist.get("total", [np.nan])))
+                and rel <= REF_LOSS_RTOL):
+            fail(f"experiment {exp}'s training on the card failed its "
+                 "checks")
+        del tr, state, batches
+
+    # 48. kernel_saag_packs: the checks of K1 / K3 at the render pack and
+    # K1 / K2 at the training packs.
+    log("kernel_saag_packs", render_pack=dict(k1=k1_render, k3=k3),
+        train_packs=train_packs, k1_tol=KERNEL_TOL, k2_tol=KERNEL_BWD_TOL,
+        phase_seconds=lap("kernel_saag_packs"))
+    if not (k3["bitwise_equal"] and k1_rel <= KERNEL_TOL
+            and k1_render["T"] == (SERVE_RENDER // 16) ** 2
+            and k1_render["M"] == 512
+            and all(p["k1_max_abs_err"] <= KERNEL_TOL
+                    and p["k2_rel_err"] <= KERNEL_BWD_TOL
+                    for p in train_packs.values())):
+        fail("K1 / K2 / K3 disagree with their plain versions at a SAAG or "
+             "experiment 1 / 3 / 5 pack")
+    log("saag_phases", seconds=phase_s, total_seconds=sum(phase_s.values()),
+        cap_seconds=SAAG_PHASES_CAP_S)
+    return dict(k1=k1_render, k3=k3), train_packs
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
     """K1 (and with `backward` K2, cotangents from a seed) against their
     plain versions on one pack: errors, times and bounds."""
@@ -3187,7 +3682,23 @@ def main():
     k_m384, k_train4 = exp4_phases(torch, dev, path_launches, tmp)
     # 38-43. the CVS family (K1 in its datasets, K1 + K2 in the 3DGS fit)
     k_teacher, k_fit = cvs_phases(torch, dev, path_launches, tmp)
+    # 44-48. the SAAG path, the viewer server (K3 + K1 at /render) and
+    # experiments 1, 3 and 5 (K1 + K2 in training)
+    k_saag, k_exp135 = saag_phases(torch, dev, path_launches, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            k_saag["k1"]["k1_max_abs_err"])
+    k1["at_saag_render_pack"] = dict(k_saag["k1"]["k1"], T=k_saag["k1"]["T"],
+                                     M=k_saag["k1"]["M"])
+    k3["at_saag_render_pack"] = {k: k_saag["k3"][k] for k in (
+        "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "n2", "T",
+        "groups")}
+    for exp, pack in k_exp135.items():
+        for kk, name in (("k1", k1), ("k2", k2)):
+            name["max_abs_err"] = max(name["max_abs_err"],
+                                      pack[f"{kk}_max_abs_err"])
+            name[f"at_exp{exp}_train_pack"] = dict(pack[kk], T=pack["T"],
+                                                   M=pack["M"])
     for key, pack in (("at_m384_pack", k_m384), ("at_exp4_train_pack",
                                                   k_train4),
                       ("at_cvs_teacher_pack", k_teacher),

@@ -1,32 +1,43 @@
 """Command-line interface of the port: `infer`, `refine`, `render`, `orbit`,
-`train`, `eval`.
+`view`, `train`, `eval`.
 
     python -m fresnel_tpu_torch.cli infer IMG OUT.ply [--checkpoint CKPT]
+    python -m fresnel_tpu_torch.cli infer IMG OUT.ply --saag [--html V.html]
     python -m fresnel_tpu_torch.cli refine IMG OUT.ply [--device cpu]
     python -m fresnel_tpu_torch.cli render CLOUD OUT.png [--device cpu]
     python -m fresnel_tpu_torch.cli orbit CLOUD DIR [--device cpu]
+    python -m fresnel_tpu_torch.cli view CLOUD OUT.html
+    python -m fresnel_tpu_torch.cli view --serve IMG [--port 8008]
     python -m fresnel_tpu_torch.cli train [training flags] [--device cpu]
     python -m fresnel_tpu_torch.cli eval CKPT [--data_dir DIR] [--device cpu]
 
 Counterparts of fresnel_tpu/cli.py's subcommands of the same names, with
-the same flags and defaults.  `infer`: image -> 3D Gaussian cloud through
-a trained checkpoint (its `.json` sidecar rebuilds the model; Flax msgpack
-or `.pt`) or, without one, a decoder initialised from seed 0; features
-from the checkpoint's own encoder or the patch extractor, depth from the
-gradient estimator, Gaussians of opacity <= 1e-4 dropped before the file
-is written.  `refine`: image -> per-scene fitted 3D
-Gaussian cloud; `--steps` Adam steps through the tiled rasterizer fit
-decoder-space Gaussians (grid 37, K per patch) to the image, with depth
-from the procedural gradient estimator unless Depth-Anything weights are
-found (which raises: they are not ported).  `render`: a `.ply` / `.bin`
-cloud from an orbit pose to a PNG; `orbit`: `--views` PNGs around it.
-Clouds of 98 304 Gaussians or more go through the rank-table search
-binning.  `train`: decoder training, the flags of
-`train.train_gaussian_decoder` (the JAX package's `fresnel train`).
-`eval`: novel-view evaluation of a checkpoint over a corpus (8 orbit
-views per scene, `evaluation.novel_view_eval`).  Everything runs on the
-card unless `--device cpu` is given.  `infer --saag / --no_model / --html
-/ --fused_encoder` and the `smoke` and `view` subcommands are not ported.
+the same flags and defaults.  `infer`: image -> 3D Gaussian cloud.  With
+`--saag` (or `--no_model` and no checkpoint) the geometric pipeline: the
+depth at 256^2 (its `--depth_exponent` curve), a point cloud over the
+256^2 image scaled by `--depth_scale` and normalised, and
+`geometry.to_surface_gaussians` with the `--saag_*`, wrap, shell and
+density flags (65 536 points x 12 static blocks at the defaults);
+otherwise through a trained checkpoint (its `.json` sidecar rebuilds the
+model; Flax msgpack or `.pt`) or, without one, a decoder initialised from
+seed 0, with features from the checkpoint's own encoder or the patch
+extractor.  Depth comes from the gradient estimator; Gaussians of opacity
+<= 1e-4 are dropped before the file is written; `--html` also writes the
+interactive viewer (with the SAAG categories on the SAAG path).
+`refine`: image -> per-scene fitted 3D Gaussian cloud; `--steps` Adam
+steps through the tiled rasterizer fit decoder-space Gaussians (grid 37,
+K per patch) to the image, with depth from the procedural gradient
+estimator unless Depth-Anything weights are found (which raises: they are
+not ported).  `render`: a `.ply` / `.bin` cloud from an orbit pose to a
+PNG; `orbit`: `--views` PNGs around it.  Clouds of 98 304 Gaussians or
+more go through the rank-table search binning.  `view`: a cloud file to
+the self-contained HTML viewer, or with `--serve` the live reprocess
+server over an image (viewer.serve).  `train`: decoder training, the
+flags of `train.train_gaussian_decoder` (the JAX package's `fresnel
+train`).  `eval`: novel-view evaluation of a checkpoint over a corpus (8
+orbit views per scene, `evaluation.novel_view_eval`).  Everything runs on
+the card unless `--device cpu` is given.  `infer --fused_encoder` and the
+`smoke` subcommand are not ported.
 """
 
 from __future__ import annotations
@@ -48,13 +59,19 @@ from fresnel_tpu_torch.device import resolve_device
 from fresnel_tpu_torch.evaluation.novel_view_eval import (
     evaluate_novel_views, render_views)
 from fresnel_tpu_torch.evaluation.visual_eval import VisualEvaluator, resize_to
+from fresnel_tpu_torch.geometry import (
+    AdaptiveDensityParams, SilhouetteWrapParams, SurfaceGaussianParams,
+    VolumetricShellParams, pointcloud_from_depth, to_surface_gaussians)
 from fresnel_tpu_torch.models.decoders import DirectPatchDecoder, head_transform
 from fresnel_tpu_torch.models.encoders import (
     create_depth_estimator, create_feature_extractor, resize_linear)
 from fresnel_tpu_torch.render.tile import TileRendererConfig, render_tiled
 from fresnel_tpu_torch.train.fit_teacher import fit_scene
 from fresnel_tpu_torch.train.harness import trainer_from_checkpoint
+from fresnel_tpu_torch.viewer.html_viewer import export_html, saag_categories
 from fresnel_tpu_torch.weights import init_flax_like_
+
+SAAG_GRID = 256     # the SAAG path's depth and image side
 
 
 def _load_image(path: str, size: int = 512) -> np.ndarray:
@@ -84,6 +101,118 @@ def _fields(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The first sample's Gaussian fields of a decoder's batched output."""
     return {k: out[k][0] for k in ("positions", "scales", "rotations",
                                    "colors", "opacities")}
+
+
+def _add_saag_quality_flags(p) -> None:
+    """The reference viewer's quality panel as flags, grouped by the SAAG
+    parameter structs; defaults are the dataclasses' (geometry/saag.py)."""
+    g = p.add_argument_group("SAAG quality (with --saag)")
+    g.add_argument("--depth_exponent", type=float, default=1.0,
+                   help="depth**exponent preprocessing")
+    g.add_argument("--saag_base_size", type=float, default=0.008)
+    g.add_argument("--saag_aspect_ratio", type=float, default=5.0)
+    g.add_argument("--saag_edge_threshold", type=float, default=0.15)
+    g.add_argument("--saag_edge_shrink", type=float, default=0.3)
+    g.add_argument("--saag_min_confidence", type=float, default=0.1)
+    g.add_argument("--saag_gradient_scale", type=float, default=50.0)
+    g.add_argument("--saag_normal_strength", type=float, default=1.0)
+    g.add_argument("--no_wrap", action="store_true",
+                   help="disable silhouette wrap Gaussians")
+    g.add_argument("--wrap_layers", type=int, default=3)
+    g.add_argument("--wrap_layer_spacing", type=float, default=0.5)
+    g.add_argument("--wrap_opacity_falloff", type=float, default=0.7)
+    g.add_argument("--wrap_max_angle", type=float, default=75.0)
+    g.add_argument("--wrap_aspect", type=float, default=2.0)
+    g.add_argument("--wrap_edge_threshold", type=float, default=0.15)
+    g.add_argument("--no_shell", action="store_true",
+                   help="disable the volumetric back shell")
+    g.add_argument("--shell_thickness", type=float, default=0.3)
+    g.add_argument("--shell_back_opacity", type=float, default=0.6)
+    g.add_argument("--shell_back_darken", type=float, default=0.8)
+    g.add_argument("--no_shell_walls", action="store_true")
+    g.add_argument("--shell_wall_segments", type=int, default=3)
+    g.add_argument("--shell_wall_opacity", type=float, default=0.5)
+    g.add_argument("--shell_edge_threshold", type=float, default=0.1)
+    g.add_argument("--no_density", action="store_true",
+                   help="disable adaptive edge densification")
+    g.add_argument("--density_gradient_threshold", type=float, default=0.08)
+    g.add_argument("--density_extra_count", type=int, default=4)
+    g.add_argument("--density_position_jitter", type=float, default=0.6)
+    g.add_argument("--density_size_variance", type=float, default=0.3)
+    g.add_argument("--density_opacity_scale", type=float, default=0.7)
+
+
+def _saag_params_from_args(args):
+    """(surface, wrap, shell, density) parameters from the flags."""
+    return (
+        SurfaceGaussianParams(
+            base_size=args.saag_base_size,
+            aspect_ratio=args.saag_aspect_ratio,
+            edge_threshold=args.saag_edge_threshold,
+            edge_shrink=args.saag_edge_shrink,
+            min_confidence=args.saag_min_confidence,
+            gradient_scale=args.saag_gradient_scale,
+            normal_strength=args.saag_normal_strength),
+        SilhouetteWrapParams(
+            enabled=not args.no_wrap,
+            edge_threshold=args.wrap_edge_threshold,
+            wrap_layers=args.wrap_layers,
+            layer_spacing=args.wrap_layer_spacing,
+            opacity_falloff=args.wrap_opacity_falloff,
+            max_wrap_angle=args.wrap_max_angle,
+            wrap_aspect=args.wrap_aspect),
+        VolumetricShellParams(
+            enabled=not args.no_shell,
+            thickness=args.shell_thickness,
+            back_opacity=args.shell_back_opacity,
+            back_darken=args.shell_back_darken,
+            connect_walls=not args.no_shell_walls,
+            wall_segments=args.shell_wall_segments,
+            wall_opacity=args.shell_wall_opacity,
+            edge_threshold=args.shell_edge_threshold),
+        AdaptiveDensityParams(
+            enabled=not args.no_density,
+            gradient_threshold=args.density_gradient_threshold,
+            extra_count=args.density_extra_count,
+            position_jitter=args.density_position_jitter,
+            size_variance=args.density_size_variance,
+            opacity_scale=args.density_opacity_scale),
+    )
+
+
+def saag_infer(image: Union[np.ndarray, torch.Tensor], *,
+               params=None, depth_estimator: str = "auto",
+               depth_exponent: float = 1.0, depth_scale: float = 2.0,
+               opacity: float = 0.8,
+               device: Optional[Union[str, torch.device]] = None
+               ) -> Tuple[GaussianCloud, np.ndarray]:
+    """(H, W, 3) image in [0, 1] -> (the static-shape SAAG cloud on
+    `device`, before compaction; its uint8 category per Gaussian).  The
+    depth at 256^2 with the depth**exponent curve, the image resized to
+    256^2 (antialiased), the point cloud scaled by `depth_scale` and
+    normalised to extent 3; `params` the (surface, wrap, shell, density)
+    parameters (their defaults when None).  CUDA by default."""
+    dev = resolve_device(device)
+    sp, wp, shp, dp = params or (
+        SurfaceGaussianParams(), SilhouetteWrapParams(),
+        VolumetricShellParams(), AdaptiveDensityParams())
+    image = torch.as_tensor(np.asarray(image, np.float32)).to(dev)
+    estimator = create_depth_estimator(depth_estimator)
+    print(f"depth estimator: {estimator.kind} (procedural fallback - no "
+          "weights found)")
+    with torch.no_grad():
+        depth = estimator(image, SAAG_GRID)
+        if depth_exponent != 1.0:
+            depth = torch.pow(torch.clamp(depth, 0.0, 1.0), depth_exponent)
+        color = resize_linear(image.permute(2, 0, 1), SAAG_GRID,
+                              SAAG_GRID).permute(1, 2, 0)
+        pc = pointcloud_from_depth(
+            resize_linear(depth, SAAG_GRID, SAAG_GRID), color=color,
+            depth_scale=depth_scale).normalize(3.0)
+        cloud = to_surface_gaussians(
+            pc, depth, params=sp, wrap_params=wp, shell_params=shp,
+            density_params=dp, opacity=opacity)
+    return cloud, saag_categories(SAAG_GRID * SAAG_GRID, wp, shp, dp)
 
 
 def infer(image: Union[np.ndarray, torch.Tensor],
@@ -128,39 +257,48 @@ def infer(image: Union[np.ndarray, torch.Tensor],
     return GaussianCloud(**_fields(out))
 
 
-def compact(cloud: GaussianCloud) -> GaussianCloud:
+def compact(cloud: GaussianCloud,
+            categories: Optional[np.ndarray] = None):
     """Drop the Gaussians of opacity <= 1e-4, on the host (the
-    static-shape decoder emits them masked)."""
+    static-shape pipelines emit them masked) -> (cloud, categories), the
+    categories compacted with the cloud (None stays None)."""
     live = (cloud.opacities > 1e-4).cpu().numpy()
     if live.all():
-        return cloud
+        return cloud, categories
     idx = torch.from_numpy(np.flatnonzero(live)).to(cloud.positions.device)
-    return GaussianCloud(
+    cloud = GaussianCloud(
         positions=cloud.positions[idx], scales=cloud.scales[idx],
         rotations=cloud.rotations[idx], colors=cloud.colors[idx],
         opacities=cloud.opacities[idx])
+    return cloud, None if categories is None else categories[live]
 
 
 def cmd_infer(args) -> int:
-    unported = {"--saag, --no_model (ROADMAP Queue 1, item 4)":
-                args.saag or args.no_model,
-                "--html (ROADMAP Queue 1, item 4)": args.html is not None,
-                "--fused_encoder (ROADMAP Queue 1, item 2)":
-                args.fused_encoder}
-    on = [k for k, v in unported.items() if v]
-    if on:
-        raise NotImplementedError(f"infer options not ported: {on}")
-    if args.checkpoint and not Path(args.checkpoint + ".json").exists():
-        print("checkpoint meta json missing; cannot reconstruct model",
-              file=sys.stderr)
-        return 1
+    if args.fused_encoder:
+        raise NotImplementedError(
+            "infer options not ported: --fused_encoder (ROADMAP Queue 1, "
+            "item 2)")
     t0 = time.perf_counter()
-    cloud = infer(_load_image(args.image), args.checkpoint,
-                  gaussians_per_patch=args.gaussians_per_patch,
-                  depth_estimator=args.depth_estimator,
-                  feature_extractor=args.feature_extractor,
-                  device=args.device)
-    cloud = compact(cloud)
+    if args.saag or args.checkpoint is None and args.no_model:
+        cloud, categories = saag_infer(
+            _load_image(args.image), params=_saag_params_from_args(args),
+            depth_estimator=args.depth_estimator,
+            depth_exponent=args.depth_exponent,
+            depth_scale=args.depth_scale, opacity=args.opacity,
+            device=args.device)
+    else:
+        if (args.checkpoint
+                and not Path(args.checkpoint + ".json").exists()):
+            print("checkpoint meta json missing; cannot reconstruct model",
+                  file=sys.stderr)
+            return 1
+        cloud = infer(_load_image(args.image), args.checkpoint,
+                      gaussians_per_patch=args.gaussians_per_patch,
+                      depth_estimator=args.depth_estimator,
+                      feature_extractor=args.feature_extractor,
+                      device=args.device)
+        categories = None
+    cloud, categories = compact(cloud, categories)
     dt = (time.perf_counter() - t0) * 1000
     out_path = Path(args.output)
     if out_path.suffix == ".ply":
@@ -168,6 +306,12 @@ def cmd_infer(args) -> int:
     else:
         gio.save_binary(out_path, cloud)
     print(f"{cloud.num_gaussians} gaussians -> {out_path}  ({dt:.0f} ms)")
+    if args.html:
+        n = export_html(cloud, args.html, max_gaussians=args.max_gaussians,
+                        categories=categories)
+        print(f"viewer with {n} gaussians -> {args.html}"
+              + (" (SAAG category toggles live)"
+                 if categories is not None else ""))
     return 0
 
 
@@ -366,6 +510,23 @@ def cmd_orbit(args) -> int:
     return 0
 
 
+def cmd_view(args) -> int:
+    dev = resolve_device(args.device)
+    if args.serve:
+        from fresnel_tpu_torch.viewer.serve import serve_image
+
+        serve_image(args.cloud, port=args.port,
+                    depth_estimator=args.depth_estimator, device=dev)
+        return 0
+    if args.output is None:
+        print("output .html required in static export mode", file=sys.stderr)
+        return 1
+    cloud = _load_cloud(args.cloud).to(dev)
+    n = export_html(cloud, args.output, args.max_gaussians, args.distance)
+    print(f"viewer with {n} gaussians -> {args.output}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="fresnel-torch",
                                  description=__doc__.split("\n")[0])
@@ -375,10 +536,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("output", help=".ply or .bin")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--saag", action="store_true",
-                   help="the geometric SAAG pipeline; not ported")
+                   help="use the geometric SAAG pipeline (no learned model)")
     p.add_argument("--no_model", action="store_true",
-                   help="SAAG without a checkpoint; not ported")
+                   help="without --checkpoint: the SAAG pipeline")
     p.add_argument("--gaussians_per_patch", type=int, default=4)
+    p.add_argument("--depth_scale", type=float, default=2.0)
+    p.add_argument("--opacity", type=float, default=0.8)
     p.add_argument("--depth_estimator", default="auto",
                    choices=["auto", "depth_anything", "gradient", "center"],
                    help="'auto' takes the gradient estimator when no "
@@ -392,9 +555,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "weights are found (found weights raise: not "
                         "ported)")
     p.add_argument("--html", default=None, metavar="OUT.html",
-                   help="the interactive HTML viewer; not ported")
+                   help="also export the interactive HTML viewer (with live "
+                        "SAAG category toggles on the --saag path)")
+    p.add_argument("--max_gaussians", type=int, default=30000,
+                   help="viewer preview cap (highest-opacity kept)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    _add_saag_quality_flags(p)
 
     p = sub.add_parser(
         "refine", help="image -> per-scene optimized 3D Gaussian cloud")
@@ -436,6 +603,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
 
+    p = sub.add_parser("view", help="export an interactive HTML splat viewer")
+    p.add_argument("cloud", help="a .ply/.bin cloud (static export) or, with "
+                                 "--serve, the source IMAGE to reprocess")
+    p.add_argument("output", nargs="?", default=None,
+                   help="output .html (static export mode only)")
+    p.add_argument("--max_gaussians", type=int, default=30000)
+    p.add_argument("--distance", type=float, default=2.0)
+    p.add_argument("--serve", action="store_true",
+                   help="live mode: serve the viewer over HTTP with an "
+                        "in-page reprocess panel (SAAG run again with new "
+                        "params on the server)")
+    p.add_argument("--port", type=int, default=8008)
+    p.add_argument("--depth_estimator", default="auto")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+
     sub.add_parser("train", add_help=False,
                    help="train a Gaussian decoder (the flags of "
                         "fresnel_tpu_torch.train.train_gaussian_decoder)")
@@ -466,7 +649,8 @@ def main(argv=None) -> int:
         return 0
     args = build_parser().parse_args(argv)
     return {"infer": cmd_infer, "refine": cmd_refine, "render": cmd_render,
-            "orbit": cmd_orbit, "eval": cmd_eval}[args.cmd](args)
+            "orbit": cmd_orbit, "eval": cmd_eval,
+            "view": cmd_view}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 from fresnel_tpu_torch.core.camera import Camera
 from fresnel_tpu_torch.core.gaussians import (
     GaussianCloud,
+    quaternion_multiply,
     quaternion_normalize,
     quaternion_to_rotation_matrix,
     rotation_6d_to_quaternion,
@@ -10,6 +11,7 @@ from fresnel_tpu_torch.core.gaussians import (
 __all__ = [
     "Camera",
     "GaussianCloud",
+    "quaternion_multiply",
     "quaternion_normalize",
     "quaternion_to_rotation_matrix",
     "rotation_6d_to_quaternion",

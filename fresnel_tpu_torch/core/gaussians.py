@@ -1,10 +1,12 @@
 """Gaussian cloud container and rotation math (wxyz quaternions).
 
 Counterpart of fresnel_tpu/core/gaussians.py: `GaussianCloud` with its
-flat (N, 14) interchange [pos 3, scale 3, quat wxyz 4, rgb 3, opacity 1],
-and the rotation helpers with the same formulas in the same order,
-including the branch-free 4-case matrix->quaternion select and the
-degenerate-axis fallback of the 6D parameterisation.
+flat (N, 14) interchange [pos 3, scale 3, quat wxyz 4, rgb 3, opacity 1]
+and its geometry helpers (covariance, bounds, center, normalize,
+concatenate), and the rotation helpers with the same formulas in the same
+order, including the branch-free 4-case matrix->quaternion select, the
+degenerate-axis fallback of the 6D parameterisation and the Hamilton
+product.
 """
 
 from __future__ import annotations
@@ -34,6 +36,46 @@ class GaussianCloud:
     @property
     def num_gaussians(self) -> int:
         return self.positions.shape[-2]
+
+    def __len__(self) -> int:
+        return self.num_gaussians
+
+    def replace(self, **kw) -> "GaussianCloud":
+        return dataclasses.replace(self, **kw)
+
+    def covariance_3d(self) -> torch.Tensor:
+        """Sigma = R S S^T R^T per Gaussian, (..., N, 3, 3), as an
+        elementwise broadcast and sum (the JAX package's formula)."""
+        R = quaternion_to_rotation_matrix(self.rotations)
+        RS = R * self.scales[..., None, :]          # scale R's columns
+        return (RS[..., :, None, :] * RS[..., None, :, :]).sum(-1)
+
+    def bounds(self):
+        return (self.positions.amin(dim=-2), self.positions.amax(dim=-2))
+
+    def center(self) -> "GaussianCloud":
+        lo, hi = self.bounds()
+        mid = 0.5 * (lo + hi)
+        return self.replace(positions=self.positions - mid[..., None, :])
+
+    def normalize(self, target_extent: float = 3.0) -> "GaussianCloud":
+        """Center and rescale uniformly so the largest extent is
+        `target_extent`."""
+        lo, hi = self.bounds()
+        mid = 0.5 * (lo + hi)
+        extent = (hi - lo).amax(dim=-1)
+        s = torch.full_like(extent, target_extent) / torch.clamp(extent,
+                                                                 min=1e-8)
+        return self.replace(
+            positions=(self.positions - mid[..., None, :]) * s[..., None, None],
+            scales=self.scales * s[..., None, None])
+
+    def concatenate(self, other: "GaussianCloud") -> "GaussianCloud":
+        return GaussianCloud(*(torch.cat([getattr(self, f.name),
+                                          getattr(other, f.name)],
+                                         dim=-1 if f.name == "opacities"
+                                         else -2)
+                               for f in dataclasses.fields(self)))
 
     def to_flat(self) -> torch.Tensor:
         """Pack into (..., N, 14): [pos3, scale3, quat4, rgb3, opacity1]."""
@@ -92,6 +134,18 @@ def quaternion_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
         torch.stack([r10, r11, r12], dim=-1),
         torch.stack([r20, r21, r22], dim=-1),
     ], dim=-2)
+
+
+def quaternion_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of wxyz quaternions, (..., 4) each."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
 
 
 def rotation_matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:

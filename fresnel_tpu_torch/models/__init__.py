@@ -1,10 +1,14 @@
-from fresnel_tpu_torch.models.blocks import MLP
+from fresnel_tpu_torch.models.blocks import (
+    MLP, FeatureInterpolator, bilinear_sample)
 from fresnel_tpu_torch.models.decoders import DirectPatchDecoder, head_transform
 from fresnel_tpu_torch.models.encoders import (
     FallbackDepthEstimator,
     create_depth_estimator,
     gradient_depth_estimate,
 )
+from fresnel_tpu_torch.models.nca import NCAGaussianDecoder
+from fresnel_tpu_torch.models.saag_refine import (
+    FeatureGuidedSAAG, SAAGRefinementNet)
 from fresnel_tpu_torch.models.vit import (
     DINOv2,
     DepthAnything,
@@ -17,7 +21,12 @@ __all__ = [
     "DepthAnything",
     "DirectPatchDecoder",
     "FallbackDepthEstimator",
+    "FeatureGuidedSAAG",
+    "FeatureInterpolator",
     "MLP",
+    "NCAGaussianDecoder",
+    "SAAGRefinementNet",
+    "bilinear_sample",
     "create_depth_estimator",
     "gradient_depth_estimate",
     "head_transform",

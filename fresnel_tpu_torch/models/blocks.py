@@ -1,8 +1,8 @@
 """Shared model building blocks.
 
 Counterpart of fresnel_tpu/models/blocks.py (`MLP` with dropout,
-`rotate_positions_for_pose`, `tensegrity_loss`,
-`fibonacci_spiral_positions`), plus the layers every
+`bilinear_sample` / `FeatureInterpolator`, `rotate_positions_for_pose`,
+`tensegrity_loss`, `fibonacci_spiral_positions`), plus the layers every
 model of the port uses to run in a compute dtype with float32 parameters,
 as the Flax modules do with `dtype=bfloat16`.
 """
@@ -81,6 +81,50 @@ class MLP(nn.Module):
             x = dropout(F.relu(layer(x)), self.dropout, deterministic,
                         generator)
         return self.layers[-1](x)
+
+
+class ZeroInitLinear(Linear):
+    """A Linear layer whose weight and bias start at zero (Flax's
+    zeros initialisers; weights.init_flax_like_ keeps them so)."""
+
+    def reset_parameters(self) -> None:
+        nn.init.zeros_(self.weight)
+        nn.init.zeros_(self.bias)
+
+
+def bilinear_sample(features: torch.Tensor, positions: torch.Tensor
+                    ) -> torch.Tensor:
+    """Bilinear sampling of a channels-last grid at normalised positions:
+    features (H, W, C) with positions (N, 2), or batched (B, H, W, C) with
+    (B, N, 2), each (x, y) in [0, 1] -> (N, C) or (B, N, C).  Border
+    padding, pixel centres at (i + 0.5) / size (align_corners=False)."""
+    H, W = features.shape[-3:-1]
+    x = positions[..., 0] * W - 0.5
+    y = positions[..., 1] * H - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0)[..., None], (y - y0)[..., None]
+    if features.dim() == 4:
+        b = torch.arange(features.shape[0], device=features.device)[:, None]
+    else:
+        b = None
+
+    def at(yi, xi):
+        yi = torch.clamp(yi.to(torch.int64), 0, H - 1)
+        xi = torch.clamp(xi.to(torch.int64), 0, W - 1)
+        return features[yi, xi] if b is None else features[b, yi, xi]
+
+    top = at(y0, x0) * (1 - wx) + at(y0, x0 + 1) * wx
+    bot = at(y0 + 1, x0) * (1 - wx) + at(y0 + 1, x0 + 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+class FeatureInterpolator(nn.Module):
+    """Batched bilinear feature lookup: (B, H, W, C) x (B, N, 2) ->
+    (B, N, C)."""
+
+    def forward(self, features: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        return bilinear_sample(features, positions)
 
 
 def rotate_positions_for_pose(positions: torch.Tensor,

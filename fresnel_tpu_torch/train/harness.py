@@ -24,10 +24,15 @@ package's Flax msgpack checkpoints, full (params, Adam moments, count and
 step) and thin (bf16 params; a fresh optimizer state), through
 `train.flax_msgpack`, which needs neither msgpack nor ml_dtypes.
 
-Experiments 2 (DirectPatchDecoder) and 4 (FibonacciPatchDecoder).  Not
-ported (each raises NotImplementedError, queued in ROADMAP.md):
-experiments 1, 3 and 5, the physics decoder, LPIPS in the step, `use_amp`
-and more than one device.
+Experiments 1 (SAAGRefinementNet on a SAAG prior), 2
+(DirectPatchDecoder), 3 (FeatureGuidedSAAG: the patch-mean modulations
+scale the SAAG prior), 4 (FibonacciPatchDecoder) and 5
+(NCAGaussianDecoder, its update masks drawn from the step's generator or
+handed in).  The SAAG prior of experiments 1 and 3 is the base block of
+`geometry.to_surface_gaussians` over the batch's depth subsampled by 8,
+one batched call.  Not ported (each raises NotImplementedError, queued in
+ROADMAP.md): the physics decoder, LPIPS in the step, `use_amp` and more
+than one device.
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ from torch.func import functional_call
 
 from fresnel_tpu_torch.core.camera import Camera
 from fresnel_tpu_torch.device import resolve_device
+from fresnel_tpu_torch.geometry import (
+    AdaptiveDensityParams, SilhouetteWrapParams, SurfaceGaussianParams,
+    VolumetricShellParams, pointcloud_from_depth, to_surface_gaussians)
 from fresnel_tpu_torch.losses.aggregate import compute_losses
 from fresnel_tpu_torch.losses.physics import init_learnable_wavelengths
 from fresnel_tpu_torch.losses.ssim import ssim
@@ -53,6 +61,9 @@ from fresnel_tpu_torch.models.decoders import DirectPatchDecoder
 from fresnel_tpu_torch.models.fibonacci import FibonacciPatchDecoder
 from fresnel_tpu_torch.models.encoders import resize_linear
 from fresnel_tpu_torch.models.image_encoder import ImageEncoder
+from fresnel_tpu_torch.models.nca import NCAGaussianDecoder
+from fresnel_tpu_torch.models.saag_refine import (
+    FeatureGuidedSAAG, SAAGRefinementNet)
 from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones
 from fresnel_tpu_torch.render.factory import select_training_renderer
 from fresnel_tpu_torch.train.config import (
@@ -66,9 +77,20 @@ from fresnel_tpu_torch.weights import init_flax_like_, trainer_opt_state
 
 def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
                   dropout: float = 0.1):
-    """Experiment 2's DirectPatchDecoder or experiment 4's
-    FibonacciPatchDecoder (the other experiments and the physics decoder
-    raise).  Their unported options raise in their constructors."""
+    """The decoder of an experiment: 1 SAAGRefinementNet, 2
+    DirectPatchDecoder, 3 FeatureGuidedSAAG, 4 FibonacciPatchDecoder, 5
+    NCAGaussianDecoder (the physics decoder raises).  Unported options
+    raise in the constructors."""
+    if config.experiment == 5:
+        return NCAGaussianDecoder(
+            feature_dim=config.feature_dim, n_points=config.n_spiral_points,
+            n_steps=config.nca_steps, k_neighbors=config.nca_neighbors,
+            step_size=config.nca_step_size)
+    if config.experiment == 1:
+        return SAAGRefinementNet(feature_dim=config.feature_dim,
+                                 dropout=dropout)
+    if config.experiment == 3:
+        return FeatureGuidedSAAG(feature_dim=config.feature_dim)
     if config.experiment == 4:
         # As in the JAX package, the sidecar's gaussians_per_patch is not
         # passed: one Gaussian per spiral point.
@@ -80,9 +102,7 @@ def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
             use_pose_encoding=config.use_pose_encoding,
             scale_bias=config.scale_bias, opacity_bias=config.opacity_bias)
     if config.experiment != 2:
-        raise NotImplementedError(
-            f"experiment {config.experiment} is not ported (ROADMAP Queue 1, "
-            "items 4 and 7); only experiments 2 and 4")
+        raise ValueError(f"unknown experiment {config.experiment}")
     if physics_config.use_wave_rendering and not config.use_phase_output:
         raise NotImplementedError(
             "PhysicsDirectPatchDecoder is not ported (ROADMAP Queue 1, "
@@ -99,6 +119,29 @@ def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
         use_depth_fusion=config.use_depth_fusion,
         feature_upsample=config.feature_upsample,
         z_offset_scale=config.z_offset_scale)
+
+
+SAAG_SUBSAMPLE = 8  # the depth subsample of the SAAG prior (experiments 1, 3)
+
+
+def saag_prior_from_depth(depth: torch.Tensor,
+                          subsample: int = SAAG_SUBSAMPLE
+                          ) -> Dict[str, torch.Tensor]:
+    """(B, H, W) depth -> the batch's base-only SAAG clouds, (B, N, ...)
+    fields under the keys of SAAGRefinementNet's arguments: depth scale
+    2, normalised to extent 3, base size 0.05, shell, wrap and density
+    off; the subsampled points read the full-resolution surface maps.
+    One batched call."""
+    pc = pointcloud_from_depth(depth, depth_scale=2.0,
+                               subsample=subsample).normalize(3.0)
+    g = to_surface_gaussians(
+        pc, depth, params=SurfaceGaussianParams(base_size=0.05),
+        wrap_params=SilhouetteWrapParams(enabled=False),
+        shell_params=VolumetricShellParams(enabled=False),
+        density_params=AdaptiveDensityParams(enabled=False))
+    return {"saag_positions": g.positions, "saag_scales": g.scales,
+            "saag_rotations": g.rotations, "saag_colors": g.colors,
+            "saag_opacities": g.opacities}
 
 
 def save_loss_plots(history: Dict[str, list], path) -> bool:
@@ -253,12 +296,54 @@ class Trainer:
         return functional_call(self.encoder, _split(params, "encoder"),
                                (image,))
 
+    def gaussians(self, params: Dict[str, torch.Tensor],
+                  feats: torch.Tensor, depth: torch.Tensor, K: int,
+                  generator: Optional[torch.Generator] = None,
+                  poses: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                  nca_masks: Optional[torch.Tensor] = None,
+                  return_raw: bool = False) -> Dict[str, torch.Tensor]:
+        """The training-mode decoder output for a batch: (B, N, ...)
+        Gaussian fields (with "residuals" for experiment 1, "raw" with
+        `return_raw`).  Experiment 1 refines the batch's SAAG prior,
+        experiment 3 scales it by its patch-mean modulations."""
+        mp = _split(params, "model")
+        exp = self.config.experiment
+        if exp == 1:
+            saag = saag_prior_from_depth(depth)
+            return functional_call(self.model, mp, (feats,), dict(
+                saag, deterministic=False, generator=generator))
+        if exp == 3:
+            saag = saag_prior_from_depth(depth)
+            mods = functional_call(self.model, mp, (feats,))
+            size_m = mods["base_size_mult"].mean(dim=(1, 2))
+            op_m = mods["opacity_mult"].mean(dim=(1, 2))
+            return {"positions": saag["saag_positions"],
+                    "scales": saag["saag_scales"] * size_m[:, None, None],
+                    "rotations": saag["saag_rotations"],
+                    "colors": saag["saag_colors"],
+                    "opacities": torch.clamp(
+                        saag["saag_opacities"] * op_m[:, None], 0.0, 1.0)}
+        kwargs: Dict[str, Any] = dict(num_gaussians=K, deterministic=False,
+                                      generator=generator)
+        if exp == 5:
+            kwargs["masks"] = nca_masks
+        else:
+            kwargs["return_raw"] = return_raw
+        if poses is not None:
+            el, az = (torch.as_tensor(a, dtype=torch.float32,
+                                      device=feats.device) for a in poses)
+            kwargs.update(elevation=el, azimuth=az)
+        return functional_call(self.model, mp, (feats, depth), kwargs)
+
     def loss(self, params: Dict[str, torch.Tensor], batch: Dict,
              K: int, stochastic_k: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
-             poses: Optional[Tuple[np.ndarray, np.ndarray]] = None):
+             poses: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+             nca_masks: Optional[torch.Tensor] = None):
         """(total, loss dict) of one batch of device tensors.  `poses` are
-        the multi-pose (elevation, azimuth) draws in radians, (B,) each."""
+        the multi-pose (elevation, azimuth) draws in radians, (B,) each;
+        `nca_masks` experiment 5's update masks (steps, B, N, 1), drawn
+        from `generator` when None."""
         cfg = self.config
         res = self.train_res
         depth, target = batch["depth"], batch["image"]
@@ -269,16 +354,10 @@ class Trainer:
             target = resize_linear(target, res, res)
         target_depth = resize_linear(depth, res, res)
 
-        distill = cfg.distill_weight > 0 and "teacher_raw" in batch
-        kwargs: Dict[str, Any] = dict(num_gaussians=K, deterministic=False,
-                                      generator=generator,
-                                      return_raw=distill)
-        if poses is not None:
-            el, az = (torch.as_tensor(a, dtype=torch.float32,
-                                      device=feats.device) for a in poses)
-            kwargs.update(elevation=el, azimuth=az)
-        out = functional_call(self.model, _split(params, "model"),
-                              (feats, depth), kwargs)
+        distill = (cfg.distill_weight > 0 and "teacher_raw" in batch
+                   and cfg.experiment in (2, 4))
+        out = self.gaussians(params, feats, depth, K, generator, poses,
+                             nca_masks, return_raw=distill)
         pos, sc, rot = out["positions"], out["scales"], out["rotations"]
         col, op = out["colors"], out["opacities"]
 
@@ -355,7 +434,8 @@ class Trainer:
     def train_step(self, state: Dict, batch: Dict, K: int,
                    stochastic_k: Optional[int] = None,
                    generator: Optional[torch.Generator] = None,
-                   poses=None) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+                   poses=None, nca_masks: Optional[torch.Tensor] = None
+                   ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
         """One optimizer step; returns (new state, loss dict on the
         device).  A non-finite loss or gradient leaves params, moments and
         the schedule's count as they were (the step counter still
@@ -365,7 +445,7 @@ class Trainer:
                   for k, v in state["params"].items()}
         with torch.enable_grad():
             total, ld = self.loss(params, batch, K, stochastic_k, generator,
-                                  poses)
+                                  poses, nca_masks)
             grads = torch.autograd.grad(total, [params[k] for k in names],
                                         allow_unused=True)
         new_params, new_opt = self.optimizer.update(
@@ -441,6 +521,10 @@ class Trainer:
         if state is None:
             state = self.init_state(first)
             if cfg.depth_offset_init is not None:
+                if "model.depth_offset" not in state["params"]:
+                    raise ValueError(
+                        f"depth_offset_init: experiment {cfg.experiment}'s "
+                        "decoder has no depth offset")
                 state["params"]["model.depth_offset"] = torch.tensor(
                     float(cfg.depth_offset_init), device=self.device)
                 log_fn(f"depth_offset initialized at "
@@ -516,8 +600,11 @@ class Trainer:
         return state
 
     def _total_gaussians(self, K: int) -> int:
-        if self.config.experiment == 4:
+        if self.config.experiment in (4, 5):
             return self.config.n_spiral_points
+        if self.config.experiment in (1, 3):
+            side = getattr(self, "_depth_side", 256)
+            return (side // SAAG_SUBSAMPLE) ** 2   # the SAAG prior's points
         return self.config.feature_size ** 2 * K
 
     # ------------------------------------------------------------------
@@ -535,7 +622,17 @@ class Trainer:
     def decode(self, params: Dict[str, torch.Tensor], features,
                depth) -> Dict[str, torch.Tensor]:
         """The decoder in inference mode (no dropout) on (B, g, g, C)
-        features and (B, H, W) depth -> the B clouds' Gaussian fields."""
+        features and (B, H, W) depth -> the B clouds' Gaussian fields.
+        Experiments 1 and 3 refine a SAAG prior and take no depth
+        argument: the JAX package's `infer` and `eval` call
+        `model.apply(params, feats, depth)` on them, which fails with a
+        TypeError, so here they raise a ValueError saying so."""
+        if self.config.experiment in (1, 3):
+            raise ValueError(
+                f"experiment {self.config.experiment} refines a SAAG prior "
+                "and has no (features, depth) decoder: infer / eval of its "
+                "checkpoints is not defined (the JAX package's cli calls "
+                "model.apply(params, feats, depth), which fails)")
         features = torch.as_tensor(features, dtype=torch.float32,
                                    device=self.device)
         depth = torch.as_tensor(depth, dtype=torch.float32,

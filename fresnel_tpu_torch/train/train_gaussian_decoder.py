@@ -3,12 +3,13 @@
 Counterpart of fresnel_tpu/train/train_gaussian_decoder.py: the same
 flags, defaults, choices and umbrella expansions (--use_qsr,
 --surface_init, --fast_mode), so launch scripts port unchanged, plus
---device (the card by default, `cpu` on request).  Experiments 2 and 4
-(`--n_spiral_points`), with distillation from `fit_teacher` sidecars
-(`--distill_weight`, `--distill_decay_epochs`; the dataset reads the
-sidecars of the experiment trained).  Flags whose features are not ported
-(--streaming, --lpips_weights or found LPIPS weights, --use_amp,
---num_devices > 1, experiments 1, 3 and 5) raise NotImplementedError.
+--device (the card by default, `cpu` on request).  Experiments 1-5
+(`--experiment`; `--n_spiral_points` and `--nca_*` for 4 and 5), with
+distillation from `fit_teacher` sidecars for 2 and 4 (`--distill_weight`,
+`--distill_decay_epochs`; the dataset reads the sidecars of the
+experiment trained).  Flags whose features are not ported (--streaming,
+--lpips_weights or found LPIPS weights, --use_amp, --num_devices > 1)
+raise NotImplementedError.
 Checkpoints are `.pt` files with the JAX package's JSON sidecars.
 
 Run:  python -m fresnel_tpu_torch.train.train_gaussian_decoder --synthetic \

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from fresnel_tpu_torch.models.blocks import Conv2d, LayerNorm, Linear
+from fresnel_tpu_torch.models.blocks import (
+    Conv2d, LayerNorm, Linear, ZeroInitLinear)
 from fresnel_tpu_torch.models.cvs import (
     FresnelWaveAttention, ImageFeatureAdapter, PluckerPoseEncoder)
 from fresnel_tpu_torch.models.decoders import (
@@ -90,11 +91,15 @@ def depth_anything_state_dict(flat: Mapping[str, np.ndarray]
 
 def decoder_state_dict(flat: Mapping[str, np.ndarray]
                        ) -> Dict[str, torch.Tensor]:
-    """Flat DirectPatchDecoder params (with feature_upsample, its
-    `upsample_conv` and `upsample_refine` kernels HWIO -> OIHW) or
-    FibonacciPatchDecoder params -> state dict of the port's module of the
-    same name (`MLP_0` -> `mlp`, `depth_offset` as it is)."""
-    return _convert(flat, renames=((r"^MLP_0\.Dense_(\d+)\.", r"mlp.layers.\1."),))
+    """Flat params of a decoder -> state dict of the port's module of the
+    same name: DirectPatchDecoder (with feature_upsample, its
+    `upsample_conv` and `upsample_refine` kernels HWIO -> OIHW),
+    FibonacciPatchDecoder, SAAGRefinementNet and FeatureGuidedSAAG
+    (`MLP_0` -> `mlp`, `Dense_i` and the scalars as they are) and
+    NCAGaussianDecoder (a Flax Sequential's `layers_i` -> torch's `i`)."""
+    return _convert(flat, renames=(
+        (r"^MLP_0\.Dense_(\d+)\.", r"mlp.layers.\1."),
+        (r"\.layers_(\d+)\.", r".\1.")))
 
 
 _ENCODER_RENAMES = (
@@ -268,12 +273,13 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     and Conv kernels lecun-normal, biases zero, LayerNorm and GroupNorm
     scale one, LayerScale 1e-5, cls / pos tokens and PatchUpsample kernels
     normal(0.02), the decoders' `depth_offset` -2 and the zero-initialised
-    `upsample_refine` conv 0; in CVS the adapter's `pos_embed` and
+    `upsample_refine` conv and output Dense layers (FeatureGuidedSAAG's,
+    the NCA's update) 0; in CVS the adapter's `pos_embed` and
     `compress_queries` and the pose encoder's `pose_queries` normal(0.02),
     each `wavelength` 0.1.  Draws from `generator`, so it is
     reproducible."""
     for m in model.modules():
-        if isinstance(m, ZeroInitConv2d):
+        if isinstance(m, (ZeroInitConv2d, ZeroInitLinear)):
             m.weight.zero_()
             m.bias.zero_()
         elif isinstance(m, (Linear, Conv2d)):

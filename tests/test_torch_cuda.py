@@ -940,3 +940,128 @@ def test_optimize_3dgs_pack_kernels_match_plain(cuda):
             assert (raster.launches - f0, raster.launches_bwd - b0) == (1, 1)
         losses[dev.type] = float(got[0])
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * losses["cpu"]
+
+
+def _saag_cloud(dev, grid=128, subsample=1, seed=6):
+    """A SAAG cloud of the gradient depth of a seeded smooth image, on
+    `dev` (the same depth and colour for every device)."""
+    from fresnel_tpu_torch.geometry import (pointcloud_from_depth,
+                                            to_surface_gaussians)
+    from fresnel_tpu_torch.models.encoders import (gradient_depth_estimate,
+                                                   resize_linear)
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(size=(3, 16, 16)).astype(np.float32))
+    img = resize_linear(img, 2 * grid, 2 * grid)
+    depth = gradient_depth_estimate(img.permute(1, 2, 0), grid)
+    color = resize_linear(img, grid, grid).permute(1, 2, 0)
+    pc = pointcloud_from_depth(depth.to(dev), color=color.to(dev),
+                               depth_scale=2.0,
+                               subsample=subsample).normalize(3.0)
+    return pc, to_surface_gaussians(pc, depth.to(dev))
+
+
+def test_saag_on_card_matches_cpu(cuda):
+    """to_surface_gaussians at 128^2 on the card and the CPU from the same
+    depth: the point clouds bit for bit, the masks equal, rotations
+    within 2e-4 (norms an ulp apart near a flat normal move the arccos by
+    ulp / sin(angle); chip_smoke.py's saag_reference), every other field
+    within 1e-6."""
+    pc_g, g = _saag_cloud(cuda)
+    pc_c, c = _saag_cloud(torch.device("cpu"))
+    for k in ("positions", "colors", "confidence", "valid"):
+        assert torch.equal(getattr(pc_g, k).cpu(), getattr(pc_c, k)), k
+    assert torch.equal(g.opacities.cpu() > 0, c.opacities > 0)
+    for k in ("positions", "scales", "colors", "opacities", "rotations"):
+        d = (getattr(g, k).cpu() - getattr(c, k)).abs().max().item()
+        assert d <= (2e-4 if k == "rotations" else 1e-6), (k, d)
+
+
+def test_saag_render_pack_kernels_match_plain(cuda):
+    """K3 and K1 at the viewer server's /render pack: the session's
+    default cloud (grid 256, subsample 2: 196 608 Gaussians) at 1 024^2,
+    M 512: K3 bit for bit over every search group, K1 within 1e-5."""
+    _, cloud = _saag_cloud(cuda, grid=256, subsample=2)
+    assert cloud.num_gaussians == 196608
+    cam = Camera.from_pose(0.1, 0.3, 1024, distance=2.0).to(cuda)
+    cfg = tile.TileRendererConfig(max_per_tile=512)
+    fields = (cloud.positions, cloud.scales, cloud.rotations, cloud.colors,
+              cloud.opacities)
+    with torch.no_grad():
+        sp = tile.project_sorted(*fields, cam, cfg)
+        xlo, xhi, ylo, yhi, vis, n2 = tile._padded_intervals(
+            sp.means2d, sp.radii, sp.visible, 16)
+        b = (xlo, torch.where(vis, xhi, -1), ylo, torch.where(vis, yhi, -1))
+        groups = tile.search_groups(cloud.num_gaussians, 64, 64)
+        gy = -(-64 // groups)
+        for gi in range(groups):
+            got = binning.build_rank_table(*b, 64, gy, n2, y_offset=gi * gy)
+            ref = binning.build_rank_table_plain(*b, 64, gy, n2,
+                                                 y_offset=gi * gy)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+            del got, ref
+        tp = tile.pack_tiles(*fields, cam, cfg)
+        assert tuple(tp.pack.shape[:2]) == (4096, 512)
+        fwd = raster.composite_tiles_packed(tp.pack, tp.counts, tp.n_tiles_x)
+        ref = raster.composite_tiles_plain(tp.pack, tp.counts, tp.n_tiles_x)
+    for g, r in zip(fwd, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("exp", [1, 3, 5])
+def test_exp135_step_on_card_matches_cpu(cuda, exp):
+    """One training step of experiment 1, 3 or 5 (64^2, batch 2, 55 spiral
+    points, 4 NCA steps, dropout 0, the NCA's masks drawn once on the
+    host) on the card and the CPU from one init: each loss term within
+    1e-4 relative; one K1 and one K2 launch on the card."""
+    from fresnel_tpu_torch.train import config as tconfig
+    from fresnel_tpu_torch.train.harness import Trainer, build_decoder
+    rng = np.random.default_rng(exp)
+    yy, xx = np.mgrid[0:256, 0:256] / 256.0
+    batch = {"image": rng.uniform(size=(2, 3, 64, 64)).astype(np.float32),
+             "features": rng.normal(size=(2, 37, 37, 384)).astype(np.float32),
+             "depth": np.stack([0.3 + 0.4 * xx * yy, 0.6 - 0.3 * yy]
+                               ).astype(np.float32)}
+    masks = (torch.rand((4, 2, 55, 1), generator=torch.Generator()
+                        .manual_seed(0)) < 0.5).float()
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg = tconfig.TrainingConfig(experiment=exp, image_size=64,
+                                     batch_size=2, n_spiral_points=55,
+                                     nca_steps=4, lpips_weight=0.0)
+        t = Trainer(cfg, tconfig.PhysicsConfig(), tconfig.HFGSConfig(
+            use_phase_retrieval_loss=False, use_frequency_loss=False,
+            learnable_wavelengths=False), tconfig.HFTSConfig(), device=dev)
+        t.model = build_decoder(cfg, t.physics_config, dropout=0.0)
+        st = t.init_state()
+        f0, b0 = raster.launches, raster.launches_bwd
+        _, ld = t.train_step(st, t.device_batch(batch), 1, None,
+                             torch.Generator(device=dev).manual_seed(1),
+                             nca_masks=masks.to(dev) if exp == 5 else None)
+        out[dev.type] = {k: float(v) for k, v in ld.items()}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (raster.launches - f0, raster.launches_bwd - b0) == (1, 1)
+    for k, v in out["cpu"].items():
+        assert abs(out["cuda"][k] - v) <= 1e-4 * max(abs(v), 1e-6), k
+
+
+def test_reprocess_session_on_card(cuda):
+    """The viewer server's session on the card: reprocess at subsample 1
+    and 2 (the counts its cloud's opacities give) and a 256^2 render (one
+    K1; a PNG not all background)."""
+    import io
+    from PIL import Image
+    from fresnel_tpu_torch.viewer import serve
+    rng = np.random.default_rng(3)
+    img = rng.uniform(0.2, 0.9, (64, 64, 3)).astype(np.float32)
+    yy, xx = np.mgrid[0:64, 0:64]
+    depth = ((xx + yy) / 126.0).astype(np.float32)
+    s = serve.ReprocessSession(img, depth, grid=64, device=cuda)
+    for sub in (1, 2):
+        _, n = s.reprocess({"subsample": sub})
+        assert s.cloud.positions.device.type == "cuda"
+        assert n == int((s.cloud.opacities > 1e-3).sum()) > 0
+    f0 = raster.launches
+    png = np.asarray(Image.open(io.BytesIO(s.render_png(0.3, 0.1, 2.0, 256))))
+    assert raster.launches - f0 == 1
+    assert png.shape == (256, 256, 3) and png.max() > 0

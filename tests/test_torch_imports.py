@@ -140,3 +140,36 @@ class TestDevice:
             render(cloud, size=16)
         with pytest.raises(RuntimeError, match="CUDA"):
             orbit(cloud, views=1, size=16)
+
+    def test_saag_view_and_experiments_raise_without_cuda(self, tmp_path):
+        import numpy as np
+        from PIL import Image
+        from fresnel_tpu_torch import cli
+        from fresnel_tpu_torch.core import io as gio
+        from fresnel_tpu_torch.core.gaussians import GaussianCloud
+        from fresnel_tpu_torch.train.config import TrainingConfig
+        from fresnel_tpu_torch.train.harness import Trainer
+        from fresnel_tpu_torch.viewer import serve
+        img = tmp_path / "img.png"
+        Image.new("RGB", (16, 16)).save(img)
+        ply = tmp_path / "c.ply"
+        gio.save_ply(ply, GaussianCloud.test_cloud(4))
+        for argv in (["infer", str(img), str(tmp_path / "o.ply"), "--saag"],
+                     ["infer", str(img), str(tmp_path / "o.ply"),
+                      "--no_model", "--html", str(tmp_path / "o.html")],
+                     ["view", str(ply), str(tmp_path / "v.html")],
+                     ["view", str(img), "--serve", "--port", "0"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cli.main(argv)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.saag_infer(np.zeros((16, 16, 3), np.float32))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.ReprocessSession(np.zeros((16, 16, 3), np.float32),
+                                   np.zeros((16, 16), np.float32), grid=16)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.serve_image(str(img), port=0, grid=16)
+        for exp in (1, 3, 5):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                Trainer(TrainingConfig(experiment=exp))
+        assert not (tmp_path / "o.ply").exists()
+        assert not (tmp_path / "v.html").exists()

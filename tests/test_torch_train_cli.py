@@ -12,6 +12,9 @@ width 8, 2 epochs of 2 steps.
 * Flags of unported features raise NotImplementedError, and the CLI
   refuses to run without CUDA unless --device cpu is given.
 * `--experiment 4` trains the spiral decoder (one Gaussian per point);
+  `--experiment 1`, `3` and `5` train the SAAG refinement, the
+  feature-guided SAAG and the NCA decoders (one epoch, finite losses,
+  the JAX package's Gaussian counts);
   `--distill_weight` without teacher sidecars (the synthetic dataset has
   none) raises ValueError naming `fit_teacher`.
 """
@@ -102,9 +105,9 @@ def test_cli_train_subcommand(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--streaming"], ["--use_amp"],
-                                   ["--experiment", "5"],
+                                   ["--use_fresnel_zones"],
                                    ["--num_devices", "2"],
-                                   ["--experiment", "3"],
+                                   ["--use_edge_aware"],
                                    ["--use_wave_rendering"],
                                    ["--use_fourier_renderer"],
                                    ["--lpips_weights", "lpips.pth"]])
@@ -113,6 +116,20 @@ def test_unported_flags_raise(extra, tmp_path):
                     "--synthetic_samples", "2"] + extra
     with pytest.raises(NotImplementedError):
         tcli.main(argv)
+
+
+@pytest.mark.parametrize("exp,n", [(1, 1024), (3, 1024), (5, 55)])
+def test_experiments_135_train(exp, n, tmp_path):
+    argv = ["--synthetic", "--synthetic_samples", "2", "--batch_size", "2",
+            "--epochs", "1", "--image_size", "32", "--max_per_tile", "64",
+            "--lpips_weight", "0", "--n_spiral_points", "55", "--nca_steps",
+            "2", "--experiment", str(exp), "--output_dir", str(tmp_path),
+            "--device", "cpu"]
+    trainer, state = tcli.main(argv)
+    assert trainer._total_gaussians(1) == n     # 256^2 depth / 8, squared
+    assert np.isfinite(trainer.history["total"][0])
+    meta = json.loads((tmp_path / "final_model.pt.json").read_text())
+    assert meta["config"]["experiment"] == exp
 
 
 def test_experiment4_trains(tmp_path):

@@ -18,8 +18,10 @@
   through its encoder (features within 1e-4, as exp2_k8's below; measured
   6.6e-6), decodes the two scenes within 1e-5 of each field's largest
   value (measured 4.8e-6 at most; positions reach |398|, the trained XY
-  offsets are large, so an absolute bound would hold their last bits).  A sidecar that needs what the port still lacks (experiments
-  1, 3 and 5, the physics decoder) raises NotImplementedError naming it; a
+  offsets are large, so an absolute bound would hold their last bits).  A sidecar that needs what the port still lacks (`use_amp`,
+  more than one device, the Fresnel-zone decoder) raises
+  NotImplementedError naming it, and experiments 1, 3 and 5 build their
+  decoders; a
   missing sidecar raises FileNotFoundError unless
   FRESNEL_ALLOW_MISSING_SIDECAR; optax's two counts must agree.
 * The `z_offset_scale` head against JAX's DirectPatchDecoder (atol 1e-5
@@ -203,8 +205,8 @@ def test_exp2_g74zi_decodes_like_jax(scenes):
 
 
 @pytest.mark.parametrize("over,missing", [
-    (dict(experiment=5), "experiment 5"), (dict(experiment=1), "experiment 1"),
-    (dict(experiment=3), "experiment 3")])
+    (dict(use_amp=True), "use_amp"), (dict(num_devices=2), "num_devices"),
+    (dict(experiment=2, use_fresnel_zones=True), "use_fresnel_zones")])
 def test_unported_configs_raise(tmp_path, over, missing):
     meta = _meta("exp4")
     meta["config"].update(over)
@@ -212,6 +214,18 @@ def test_unported_configs_raise(tmp_path, over, missing):
     (tmp_path / "model.msgpack.json").write_text(json.dumps(meta))
     with pytest.raises(NotImplementedError, match=missing):
         trainer_from_checkpoint(path, device="cpu")
+
+
+@pytest.mark.parametrize("exp,module", [
+    (1, "SAAGRefinementNet"), (3, "FeatureGuidedSAAG"),
+    (5, "NCAGaussianDecoder")])
+def test_experiment_135_sidecars_build(tmp_path, exp, module):
+    meta = _meta("exp4")
+    meta["config"].update(experiment=exp)
+    path = tmp_path / "model.msgpack"
+    (tmp_path / "model.msgpack.json").write_text(json.dumps(meta))
+    assert type(trainer_from_checkpoint(path, device="cpu").model
+                ).__name__ == module
 
 
 def test_exp2_e74_loads():
