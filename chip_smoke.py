@@ -20,8 +20,11 @@ datasets, training through `train.train_cvs.main` at the campaign's full
 width in bf16, resume, generation and `inference.cvs_multiview.main` with
 its 3DGS fit), the geometric SAAG path (`cli infer --saag` / `--no_model` /
 `--html`), the live viewer server (`viewer.serve`: reprocess, /render,
-/export.ply) and decoder experiments 1, 3 and 5 (`cli train
---experiment`).  Phases,
+/export.ply), decoder experiments 1, 3 and 5 (`cli train
+--experiment`), and DINOv2 and Depth-Anything weights found on disk
+(`cli infer`, separate and fused, `cli refine`, the overnight launcher's
+training with its Fresnel-zone and edge-aware decoder, the viewer) with
+the remaining decoder options.  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
@@ -330,6 +333,52 @@ non-zero:
                   with times and bounds.
       saag_phases  the seconds of each of 44-48 and their total, beside
                   the 60 s they are meant to keep to.
+  49. backbone_load  DINOv2 ViT-S/14 as an HF-named
+                  dinov2_small.safetensors and a facebook-named
+                  dinov2_vits14_pretrain.pth, Depth-Anything-V2-Small as an
+                  HF-named depth_anything_v2_small.safetensors with a
+                  config.json (out_indices [3, 6, 9, 12]), written at the
+                  published shapes, random from a numpy seed
+                  (models/backbone_files.py; the port's own safetensors
+                  writer), each found under FRESNEL_TPU_MODELS and loaded
+                  by the factories onto the card: seconds, tensors and
+                  parameters per load (every parameter filled);
+  50. backbone_reference  features (37^2 x 384) and depth (256^2) of a
+                  512^2 image at 518^2, the card against the port on the
+                  CPU: float32 within 1e-4 of the largest value; the card's
+                  bf16 within twice the CPU's own bf16-vs-float32 gap of
+                  the CPU's float32;
+  51. infer_backbones  cli infer with both backbones found, separate and
+                  --fused_encoder: host ms (median of 3 after a warmup;
+                  each call loads both files), kernels and device ms per
+                  call (torch.profiler), no K1-K4 launched; the encoders
+                  alone on both routes (CUDA events; kernels per call, so
+                  the trunk kernels the fused route saves); fused against
+                  separate within 1e-5 of the largest value in float32;
+  52. refine_backbones  cli refine at its defaults (grid 37, K 4, 256^2, M
+                  1 024) with Depth-Anything found, 10 and 60 steps: ms per
+                  step from the two calls' difference; K1 = steps + 1 and
+                  K2 = steps launches;
+  53. train_launcher  cloud/train_overnight.sh's training flags (exp 2,
+                  batch 8, 256^2, Fresnel zones, edge-aware, progressive K,
+                  100 epochs) through cli train over 8 seeded images,
+                  stopped after 3 epochs (one step each, K 1): the caches
+                  made by the loaded backbones (equal to their outputs), K1
+                  + K2 once per step; 5 steps at K 1 and at K 4 timed by
+                  CUDA events, 3 under torch.profiler; K1 / K2 at its pack
+                  against their plain versions; the card against the CPU
+                  at 64^2, batch 2, dropout 0, 2 steps: losses within 1e-4
+                  relative;
+  54. decoder_options  cli train for one epoch (2 steps, batch 4, 256^2)
+                  with use_phase_output, use_pose_encoding (with
+                  multi_pose_augmentation), use_depth_fusion, and
+                  experiment 4 with Fresnel zones, phase output and pose
+                  encoding: K1 + K2 per step; 3 steps timed; each card
+                  against CPU (64^2, batch 2, one step, the same poses)
+                  within 1e-4 relative; then /render at 1 024^2 of a viewer
+                  session whose depth is Depth-Anything's (K3 + K1).
+      backbone_phases  the seconds of each of 49-54 and their total, beside
+                  the 90 s they are meant to keep to.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -3256,6 +3305,546 @@ def saag_phases(torch, dev, path_launches, tmp):
     return dict(k1=k1_render, k3=k3), train_packs
 
 
+# ---------------------------------------------------------------------------
+# Phases 49-54: DINOv2 and Depth-Anything weights from a local path, and the
+# decoder options the training launchers set
+# ---------------------------------------------------------------------------
+
+# config.json's backbone_config.out_indices, as Depth-Anything-V2-Small-hf
+# ships it.
+BB_OUT_INDICES = [3, 6, 9, 12]
+# Card against the port's CPU, of the largest value: float32.  bf16 on the
+# card is held to twice the CPU's own bf16-against-float32 gap.
+BB_TOL = 1e-4
+BB_FUSED_TOL = 1e-5
+BB_INFER_TIMED, BB_ENCODER_TIMED = 3, 10
+# refine with Depth-Anything: K1 / K2 per step from two calls' difference.
+BB_REFINE_STEPS = (10, 60)
+# cloud/train_overnight.sh's training step over 8 seeded 256^2 images,
+# cut to its first 3 epochs of 100 (--stop_epoch 3: one step each, at K 1
+# of the progressive schedule).
+BB_LAUNCHER = ["--experiment", "2", "--epochs", "100", "--batch_size", "8",
+               "--image_size", "256", "--use_fresnel_zones",
+               "--use_edge_aware", "--progressive_schedule"]
+BB_SCENES, BB_STOP_EPOCH = 8, 3
+BB_WARMUP, BB_TIMED, BB_PROFILED = 2, 5, 3
+BB_REF = dict(image_size=64, batch_size=2)
+BB_REF_STEPS = 2
+# Path 5: one training step for each remaining option, at the CLI's (the
+# TrainingConfig's) defaults: 256^2, batch 4, K 4, M 256.
+BB_OPTIONS = {
+    "phase_output": ["--use_phase_output"],
+    "pose_encoding": ["--use_pose_encoding", "--multi_pose_augmentation"],
+    "depth_fusion": ["--use_depth_fusion"],
+    "exp4_zones_phase_pose": ["--experiment", "4", "--use_fresnel_zones",
+                              "--use_phase_output", "--use_pose_encoding"],
+}
+BB_OPTION_TIMED = 3
+BB_PHASES_CAP_S = 90.0
+
+
+def rel_max(torch, got, want):
+    """max |got - want| over max |want| (float32, on the host)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def quiet(fn, *a, **k):
+    """fn(*a, **k) with its standard output captured: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **k)
+    return out, buf.getvalue()
+
+
+def backbone_phases(torch, dev, path_launches, tmp):
+    """Phases 49-54: DINOv2 and Depth-Anything-V2-Small files written at
+    the published shapes (random from a seed) under FRESNEL_TPU_MODELS and
+    loaded by the factories; the backbones on the card against the CPU;
+    `cli infer` on both routes; `cli refine`, the overnight launcher's
+    training and `/render` of the viewer with Depth-Anything found; one
+    training step per decoder option.  Returns K1 / K2 at the launcher's
+    training pack."""
+    import threading
+    import urllib.request
+    from io import BytesIO
+    from pathlib import Path
+
+    from PIL import Image
+
+    from fresnel_tpu_torch import cli
+    from fresnel_tpu_torch.core import io as gio
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import (
+        ImageDataset, _load_image, cache_paths)
+    from fresnel_tpu_torch.models import backbone_files as bfiles
+    from fresnel_tpu_torch.models import encoders, vit
+    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+    from fresnel_tpu_torch.train.harness import Trainer, build_decoder
+    from fresnel_tpu_torch.viewer import serve
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+    env_before = os.environ.get("FRESNEL_TPU_MODELS")
+
+    def models_at(path):
+        os.environ["FRESNEL_TPU_MODELS"] = path
+
+    # 49. backbone_load: the three files, then each through the factories.
+    hf_dir = os.path.join(tmp, "models_hf")
+    fb_dir = os.path.join(tmp, "models_fb")
+    os.makedirs(hf_dir, exist_ok=True)
+    os.makedirs(fb_dir, exist_ok=True)
+    files = {
+        "dinov2_hf": (os.path.join(hf_dir, "dinov2_small.safetensors"),
+                      bfiles.dinov2_checkpoint("hf", seed=11)),
+        "depth_anything": (
+            os.path.join(hf_dir, "depth_anything_v2_small.safetensors"),
+            bfiles.depth_anything_checkpoint(seed=12)),
+        "dinov2_facebook": (
+            os.path.join(fb_dir, "dinov2_vits14_pretrain.pth"),
+            bfiles.dinov2_checkpoint("facebook", seed=13)),
+    }
+    written = {}
+    for key, (path, sd) in files.items():
+        t0 = time.perf_counter()
+        bfiles.save_checkpoint(path, sd)
+        written[key] = dict(file=os.path.basename(path), tensors=len(sd),
+                            params=bfiles.n_params(sd),
+                            bytes=os.path.getsize(path),
+                            write_seconds=time.perf_counter() - t0)
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump({"backbone_config": {"out_indices": BB_OUT_INDICES}}, f)
+
+    def timed_load(make):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obj = make()
+        torch.cuda.synchronize()
+        model = obj.model if hasattr(obj, "model") else obj
+        return obj, dict(
+            seconds=time.perf_counter() - t0,
+            kind=getattr(obj, "kind", type(obj).__name__),
+            weights_path=getattr(obj, "weights_path", None),
+            tensors=getattr(obj, "n_loaded", len(model.state_dict())),
+            params=sum(p.numel() for p in model.parameters()),
+            device=str(next(model.parameters()).device))
+
+    loads = {}
+    models_at(fb_dir)
+    ext_fb, loads["dinov2_facebook"] = timed_load(
+        lambda: encoders.create_feature_extractor(device=dev))
+    models_at(hf_dir)
+    ext, loads["dinov2_hf"] = timed_load(
+        lambda: encoders.create_feature_extractor(device=dev))
+    est, loads["depth_anything"] = timed_load(
+        lambda: encoders.create_depth_estimator(device=dev))
+    da_cfg, loads["load_depth_anything"] = timed_load(
+        lambda: vit.load_depth_anything(
+            "small", files["depth_anything"][0], device=dev))
+    log("backbone_load", files=written, loads=loads,
+        config_out_indices=list(da_cfg.out_indices),
+        phase_seconds=lap("backbone_load"))
+    # Every parameter filled (a mask token and fusion level 0's dead
+    # residual unit are the only file entries no parameter takes).
+    dino_params = written["dinov2_hf"]["params"] - 384
+    da_params = (written["depth_anything"]["params"] - 384
+                 - 2 * (64 * 64 * 9 + 64))
+    if not (loads["dinov2_hf"]["weights_path"] == files["dinov2_hf"][0]
+            and loads["dinov2_facebook"]["weights_path"]
+            == files["dinov2_facebook"][0]
+            and loads["depth_anything"]["weights_path"]
+            == files["depth_anything"][0]
+            and loads["dinov2_hf"]["kind"] == "dinov2"
+            and loads["depth_anything"]["kind"] == "depth_anything"
+            and loads["dinov2_hf"]["params"] == dino_params
+            and loads["dinov2_facebook"]["params"] == dino_params
+            and loads["depth_anything"]["params"] == da_params
+            and tuple(da_cfg.out_indices) == tuple(BB_OUT_INDICES)
+            and all(v["device"].startswith("cuda") for v in loads.values())):
+        fail(f"the backbones did not load from where they were written: "
+             f"{loads}")
+    del ext_fb, da_cfg
+
+    # 50. backbone_reference: features and depth at 518^2, the card
+    # against the port on the CPU, float32 and bf16.
+    img_path = infer_image(tmp)
+    image = torch.from_numpy(np.asarray(
+        Image.open(img_path).convert("RGB"), np.float32) / 255.0)
+    path_d, path_a = files["dinov2_hf"][0], files["depth_anything"][0]
+    outs, seconds, f32_card = {}, {}, None
+    for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for side, d in (("card", dev), ("cpu", cpu)):
+            t0 = time.perf_counter()
+            if (dname, side) == ("bf16", "card"):
+                e, s = ext, est
+            else:
+                e = encoders.DINOv2FeatureExtractor(path_d, compute_dtype=dt,
+                                                    device=d)
+                s = encoders.DepthAnythingEstimator(path_a, compute_dtype=dt,
+                                                    device=d)
+            x = image.to(d)
+            outs[dname, side] = (e(x).cpu(), s(x, 256).cpu())
+            seconds[f"{dname}_{side}"] = time.perf_counter() - t0
+            if (dname, side) == ("f32", "card"):
+                f32_card = (e, s)
+            del e, s
+    ref_errs = {}
+    for i, what in enumerate(("features", "depth")):
+        gap = rel_max(torch, outs["bf16", "cpu"][i], outs["f32", "cpu"][i])
+        ref_errs[what] = dict(
+            f32=rel_max(torch, outs["f32", "card"][i], outs["f32", "cpu"][i]),
+            bf16_card_vs_cpu_f32=rel_max(torch, outs["bf16", "card"][i],
+                                         outs["f32", "cpu"][i]),
+            bf16_card_vs_cpu_bf16=rel_max(torch, outs["bf16", "card"][i],
+                                          outs["bf16", "cpu"][i]),
+            cpu_bf16_gap=gap)
+    log("backbone_reference", shapes=[list(o.shape) for o in
+                                      outs["f32", "card"]],
+        max_rel_err=ref_errs, f32_tol=BB_TOL, bf16_rule="card bf16 within "
+        "2 x the CPU's bf16-vs-f32 gap of the CPU's f32", seconds=seconds,
+        phase_seconds=lap("backbone_reference"))
+    if not (tuple(outs["f32", "card"][0].shape) == (37, 37, 384)
+            and tuple(outs["f32", "card"][1].shape) == (256, 256)
+            and all(e["f32"] <= BB_TOL
+                    and e["bf16_card_vs_cpu_f32"] <= 2 * e["cpu_bf16_gap"]
+                    for e in ref_errs.values())):
+        fail(f"the backbones on the card disagree with the CPU: {ref_errs}")
+
+    # 51. infer_backbones: cli infer, separate and --fused_encoder; then
+    # the encoders alone on both routes.
+    infer = {}
+    for route, extra in (("separate", []), ("fused", ["--fused_encoder"])):
+        ply = os.path.join(tmp, f"bb_{route}.ply")
+        argv = ["infer", img_path, ply] + extra
+        _, printed = quiet(cli.main, argv)                     # warmup
+        ms = []
+        for _ in range(BB_INFER_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            quiet(cli.main, argv)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        reset_counts(*counters)
+        quiet(cli.main, argv)
+        torch.cuda.synchronize()
+        path_launches[f"infer_backbones_{route}"] = read_counts(*counters)
+        prof = profile_ms(torch, lambda: [quiet(cli.main, argv)
+                                          for _ in range(2)], 2, top=5)
+        cloud = gio.load_ply(ply)
+        infer[route] = dict(host_ms=ms, host_ms_median=statistics.median(ms),
+                            printed=[ln for ln in printed.splitlines()
+                                     if "estimator" in ln or "extractor" in ln
+                                     or "route" in ln],
+                            kept=cloud.num_gaussians,
+                            finite=bool(torch.isfinite(cloud.to_flat()).all()),
+                            profile=prof)
+    clouds = {r: gio.load_ply(os.path.join(tmp, f"bb_{r}.ply"))
+              for r in infer}
+    ply_rel = (rel_err(clouds["fused"], clouds["separate"])
+               if clouds["fused"].num_gaussians
+               == clouds["separate"].num_gaussians else None)
+    e32, s32 = f32_card
+    fused32 = encoders.create_fused_encoder(e32, s32)
+    fused16 = encoders.create_fused_encoder(ext, est)
+    if fused32 is None or fused16 is None:
+        fail("the fused encoder is None with both backbones loaded")
+    x = image.to(dev)
+    f_f, d_f = fused32(x, 256)
+    fused_errs = dict(features=rel_max(torch, f_f, outs["f32", "card"][0]),
+                      depth=rel_max(torch, d_f, outs["f32", "card"][1]))
+    encoder = {}
+    for route, fn in (("separate", lambda: (ext(x), est(x, 256))),
+                      ("fused", lambda: fused16(x, 256))):
+        p = profile_ms(torch, lambda: [fn() for _ in range(3)], 3, top=5)
+        encoder[route] = dict(ms=cuda_median_ms(torch, fn,
+                                                n=BB_ENCODER_TIMED),
+                              device_ms=p["device_ms"],
+                              kernels=p["kernels"],
+                              device_busy_share=p["device_busy_share"],
+                              top_kernels_ms=p["top_kernels_ms"])
+    del e32, s32, fused32, f32_card
+    log("infer_backbones", infer=infer, ply_fused_vs_separate=ply_rel,
+        fused_vs_separate_f32=fused_errs, fused_tol=BB_FUSED_TOL,
+        encoder=encoder,
+        kernels_saved_per_call=(encoder["separate"]["kernels"]
+                                - encoder["fused"]["kernels"]),
+        phase_seconds=lap("infer_backbones"))
+    if not (all(r["finite"] and r["kept"] > 0 for r in infer.values())
+            and any("depth_anything (" in ln
+                    for ln in infer["separate"]["printed"])
+            and any("dinov2 (" in ln for ln in infer["separate"]["printed"])
+            and any("fused dual trunk" in ln
+                    for ln in infer["fused"]["printed"])
+            and all(v <= BB_FUSED_TOL for v in fused_errs.values())
+            and all(path_launches[f"infer_backbones_{r}"]
+                    == dict(k1=0, k2=0, k3=0, k4=0) for r in infer)):
+        fail(f"cli infer with the backbones failed its checks: "
+             f"{fused_errs}")
+
+    # 52. refine_backbones: cli refine at its defaults with Depth-Anything.
+    refine_runs = {}
+    for steps in BB_REFINE_STEPS:
+        ply = os.path.join(tmp, f"refine_bb_{steps}.ply")
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        _, printed = quiet(cli.main, ["refine", img_path, ply, "--steps",
+                                      str(steps)])
+        torch.cuda.synchronize()
+        refine_runs[steps] = dict(
+            seconds=time.perf_counter() - t0,
+            launches=read_counts(*counters),
+            depth_anything=any("depth estimator: depth_anything (" in ln
+                               for ln in printed.splitlines()),
+            rows=gio.load_ply(ply).num_gaussians)
+    lo, hi = BB_REFINE_STEPS
+    path_launches["refine_backbones"] = refine_runs[hi]["launches"]
+    ms_step = ((refine_runs[hi]["seconds"] - refine_runs[lo]["seconds"])
+               * 1e3 / (hi - lo))
+    log("refine_backbones", runs=refine_runs, ms_per_step=ms_step,
+        phase_seconds=lap("refine_backbones"))
+    if not all(r["depth_anything"] and r["rows"] == 5476
+               and r["launches"] == dict(k1=s + 1, k2=s, k3=0, k4=0)
+               for s, r in refine_runs.items()):
+        fail("cli refine with Depth-Anything failed its checks")
+
+    # 53. train_launcher: the overnight launcher's training step; caches
+    # made by the loaded backbones.
+    # A directory of seeded images alone (the corpus's own depth caches
+    # left out), so the dataset makes both caches with the backbones.
+    corpus_dir = os.path.join(tmp, "corpus_bb")
+    synthetic_corpus.generate_corpus(corpus_dir, n_images=BB_SCENES,
+                                     image_size=256, seed=5)
+    data_dir = os.path.join(tmp, "images_bb")
+    os.makedirs(data_dir, exist_ok=True)
+    for png in sorted(Path(corpus_dir).glob("*.png")):
+        shutil.copy(png, data_dir)
+    out_dir = os.path.join(tmp, "launcher")
+    argv = (["--data_dir", data_dir, "--output_dir", out_dir] + BB_LAUNCHER
+            + ["--stop_epoch", str(BB_STOP_EPOCH), "--device", "cuda"])
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    quiet(cli.main, ["train"] + argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    path_launches["train_launcher"] = cli_launch = read_counts(*counters)
+    with open(os.path.join(out_dir, "loss_history.json")) as f:
+        hist = json.load(f)
+    # The caches are the backbones' outputs (bf16 on the card, as the
+    # dataset builds them).
+    first = sorted(Path(data_dir).glob("*.png"))[0]
+    img0 = torch.from_numpy(_load_image(first, 256)).to(dev)
+    _, feat_p, depth_p, _ = cache_paths(first, 256, 384)
+    cache_err = dict(
+        features=float(np.abs(np.fromfile(feat_p, np.float32).reshape(
+            37, 37, 384) - ext(img0).cpu().numpy()).max()),
+        depth=float(np.abs(np.fromfile(depth_p, np.float32).reshape(
+            256, 256) - est(img0, 256).cpu().numpy()).max()))
+    cfg, phys, hfgs, hfts = tcli.configs_from_args(
+        tcli.build_parser().parse_args(argv))
+    cfg.lpips_weight = 0.0
+    ds = ImageDataset(data_dir, image_size=256, feature_dim=384,
+                      use_augmentation=False, device=dev)
+    tr = Trainer(cfg, phys, hfgs, hfts, device=dev)
+    state = tr.init_state()
+    batches = [tr.device_batch(b) for b in train_batches(
+        ds, cfg.batch_size, BB_WARMUP + BB_TIMED)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    step_ms = {}
+    for K in (1, cfg.gaussians_per_patch):
+        st = state
+        for b in batches[:BB_WARMUP]:
+            st, _ = tr.train_step(st, b, K, None, gen)
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        lds = []
+        for b in batches[BB_WARMUP:]:
+            st, ld = tr.train_step(st, b, K, None, gen)
+            lds.append(ld["total"])
+        end.record()
+        torch.cuda.synchronize()
+        step_ms[K] = dict(ms_per_step=start.elapsed_time(end) / BB_TIMED,
+                          launches=read_counts(*counters),
+                          losses=[float(v) for v in lds])
+    def profiled():
+        st_ = state
+        for b in batches[-BB_PROFILED:]:
+            st_, _ = tr.train_step(st_, b, 1, None, gen)
+    prof = profile_ms(torch, profiled, BB_PROFILED, top=5)
+    with torch.no_grad():
+        out = tr.gaussians(state["params"], batches[-1]["features"],
+                           batches[-1]["depth"], 1, gen)
+        bp = tile.pack_tiles_batched(
+            *[out[k] for k in FIELDS], tr.camera,
+            tile.TileRendererConfig(max_per_tile=cfg.max_per_tile))
+    k_launch = pack_kernels(torch, raster, bp.pack, bp.counts, bp.n_tiles_x,
+                            bp.tiles_per_image, backward=True)
+    ref_ds = ImageDataset(data_dir, image_size=BB_REF["image_size"],
+                          feature_dim=384, use_augmentation=False,
+                          device=dev)
+    ref_batches = train_batches(ref_ds, BB_REF["batch_size"], BB_REF_STEPS)
+    ref_runs = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        rcfg = dataclasses.replace(cfg, **BB_REF)
+        rt = Trainer(rcfg, phys, hfgs, hfts, device=d)
+        rt.model = build_decoder(rcfg, rt.physics_config, dropout=0.0)
+        st = rt.init_state()
+        g_ = torch.Generator(device=d).manual_seed(1)
+        ls = []
+        for b in ref_batches:
+            st, ld = rt.train_step(st, rt.device_batch(b), 1, None, g_)
+            ls.append(float(ld["total"]))
+        ref_runs[name] = ls
+    rel = max(abs(a - b) / max(abs(b), 1e-6)
+              for a, b in zip(ref_runs["card"], ref_runs["cpu"]))
+    log("train_launcher", flags=BB_LAUNCHER, stop_epoch=BB_STOP_EPOCH,
+        scenes=BB_SCENES, cli_seconds=cli_s, cli_launches=cli_launch,
+        cli_history=hist.get("total"), cache_max_abs_diff=cache_err,
+        steps=step_ms, profile=prof,
+        pack=dict(T=k_launch["T"], M=k_launch["M"]),
+        ref_losses_card=ref_runs["card"], ref_losses_cpu=ref_runs["cpu"],
+        ref_loss_rel_max=rel, loss_rtol=REF_LOSS_RTOL,
+        phase_seconds=lap("train_launcher"))
+    if not (cli_launch == dict(k1=BB_STOP_EPOCH, k2=BB_STOP_EPOCH, k3=0,
+                               k4=0)
+            and np.all(np.isfinite(hist.get("total", [np.nan])))
+            and len(hist.get("total", [])) == BB_STOP_EPOCH
+            and max(cache_err.values()) <= 1e-6
+            and all(v["launches"] == dict(k1=BB_TIMED, k2=BB_TIMED, k3=0,
+                                          k4=0)
+                    and np.all(np.isfinite(v["losses"]))
+                    for v in step_ms.values())
+            and rel <= REF_LOSS_RTOL
+            and k_launch["k1_max_abs_err"] <= KERNEL_TOL
+            and k_launch["k2_rel_err"] <= KERNEL_BWD_TOL):
+        fail("the overnight launcher's training failed its checks")
+    del tr, state, batches, st
+
+    # 54. decoder_options: one training step per option through cli
+    # train, timed steps, the card against the CPU; then /render of a
+    # session whose depth is Depth-Anything's.
+    options = {}
+    pose_rng = np.random.default_rng(7)
+    for name, flags in BB_OPTIONS.items():
+        o_dir = os.path.join(tmp, f"opt_{name}")
+        o_argv = ["--data_dir", data_dir, "--output_dir", o_dir, "--epochs",
+                  "1", "--device", "cuda"] + flags
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        quiet(cli.main, ["train"] + o_argv)
+        torch.cuda.synchronize()
+        cli_launch = read_counts(*counters)
+        path_launches[f"option_{name}"] = cli_launch
+        ocfg, ophys, ohfgs, ohfts = tcli.configs_from_args(
+            tcli.build_parser().parse_args(o_argv))
+        ocfg.lpips_weight = 0.0
+        tr = Trainer(ocfg, ophys, ohfgs, ohfts, device=dev)
+        st = tr.init_state()
+        K = ocfg.gaussians_per_patch
+        obatches = [tr.device_batch(b) for b in train_batches(
+            ds, ocfg.batch_size, 1 + BB_OPTION_TIMED)]
+        poses = [tr.draw_poses(pose_rng, ocfg.batch_size)
+                 for _ in obatches]
+        st, _ = tr.train_step(st, obatches[0], K, None, gen, poses[0])
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        lds = []
+        for b, p in zip(obatches[1:], poses[1:]):
+            st, ld = tr.train_step(st, b, K, None, gen, p)
+            lds.append(ld["total"])
+        end.record()
+        torch.cuda.synchronize()
+        timed_launch = read_counts(*counters)
+        ref = {}
+        ref_poses = tr.draw_poses(np.random.default_rng(8),
+                                  BB_REF["batch_size"])
+        for side, d in (("card", dev), ("cpu", cpu)):
+            rcfg = dataclasses.replace(ocfg, **BB_REF)
+            rt = Trainer(rcfg, ophys, ohfgs, ohfts, device=d)
+            rt.model = build_decoder(rcfg, rt.physics_config, dropout=0.0)
+            _, ld = rt.train_step(rt.init_state(),
+                                  rt.device_batch(ref_batches[0]), K, None,
+                                  torch.Generator(device=d).manual_seed(1),
+                                  ref_poses)
+            ref[side] = {k: float(v) for k, v in ld.items()}
+        o_rel = max(abs(ref["card"][k] - v) / max(abs(v), 1e-6)
+                    for k, v in ref["cpu"].items())
+        options[name] = dict(
+            flags=flags, cli_launches=cli_launch,
+            ms_per_step=start.elapsed_time(end) / BB_OPTION_TIMED,
+            timed_launches=timed_launch,
+            losses=[float(v) for v in lds], ref_loss_rel_max=o_rel,
+            n_gaussians=int(tr._total_gaussians(K)))
+        steps = BB_SCENES // ocfg.batch_size
+        if not (cli_launch == dict(k1=steps, k2=steps, k3=0, k4=0)
+                and timed_launch == dict(k1=BB_OPTION_TIMED,
+                                         k2=BB_OPTION_TIMED, k3=0, k4=0)
+                and np.all(np.isfinite(options[name]["losses"]))
+                and o_rel <= REF_LOSS_RTOL):
+            fail(f"the decoder option {name} failed its checks: "
+                 f"{options[name]}")
+        del tr, st, obatches
+    session, printed = quiet(serve.load_session, img_path, grid=SAAG_GRID,
+                             device=dev)
+    httpd = serve.make_server(session, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        render_ms, launches = [], None
+        for i in range(SERVE_TIMED + 1):
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(
+                    base + f"/render?az=0.3&el=0.1&dist=2.0"
+                    f"&size={SERVE_RENDER}", timeout=300) as r:
+                st_r, png = r.status, r.read()
+            if i:
+                render_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = read_counts(*counters)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    path_launches["viewer_render_depth_anything"] = launches
+    arr = np.asarray(Image.open(BytesIO(png)))
+    da_session = "depth estimator: depth_anything (" in printed
+    log("decoder_options", options=options, loss_rtol=REF_LOSS_RTOL,
+        render=dict(status=st_r, depth_anything=da_session,
+                    host_ms=render_ms,
+                    host_ms_median=statistics.median(render_ms),
+                    launches=launches, shape=list(arr.shape),
+                    mean=float(arr.mean())),
+        phase_seconds=lap("decoder_options"))
+    if not (da_session and st_r == 200 and arr.max() > 0
+            and arr.shape == (SERVE_RENDER, SERVE_RENDER, 3)
+            and launches["k1"] == 1 and launches["k3"] >= 1
+            and launches["k2"] == launches["k4"] == 0):
+        fail("/render of the Depth-Anything session failed its checks")
+    del session, ext, est
+    if env_before is None:
+        os.environ.pop("FRESNEL_TPU_MODELS", None)
+    else:
+        os.environ["FRESNEL_TPU_MODELS"] = env_before
+    log("backbone_phases", seconds=phase_s,
+        total_seconds=sum(phase_s.values()), cap_seconds=BB_PHASES_CAP_S)
+    return k_launch
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
     """K1 (and with `backward` K2, cotangents from a seed) against their
     plain versions on one pack: errors, times and bounds."""
@@ -3685,6 +4274,10 @@ def main():
     # 44-48. the SAAG path, the viewer server (K3 + K1 at /render) and
     # experiments 1, 3 and 5 (K1 + K2 in training)
     k_saag, k_exp135 = saag_phases(torch, dev, path_launches, tmp)
+    # 49-54. DINOv2 and Depth-Anything from a local path (no K1-K4 in
+    # infer; K1 + K2 in refine and training; K3 + K1 at /render) and the
+    # decoder options (K1 + K2 per step)
+    k_launcher = backbone_phases(torch, dev, path_launches, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k_saag["k1"]["k1_max_abs_err"])
@@ -3702,7 +4295,8 @@ def main():
     for key, pack in (("at_m384_pack", k_m384), ("at_exp4_train_pack",
                                                   k_train4),
                       ("at_cvs_teacher_pack", k_teacher),
-                      ("at_cvs_fit_pack", k_fit)):
+                      ("at_cvs_fit_pack", k_fit),
+                      ("at_launcher_train_pack", k_launcher)):
         k1["max_abs_err"] = max(k1["max_abs_err"], pack["k1_max_abs_err"])
         k1[key] = dict(pack["k1"], T=pack["T"], M=pack["M"])
         if "k2" in pack:

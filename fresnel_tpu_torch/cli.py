@@ -20,15 +20,18 @@ depth at 256^2 (its `--depth_exponent` curve), a point cloud over the
 density flags (65 536 points x 12 static blocks at the defaults);
 otherwise through a trained checkpoint (its `.json` sidecar rebuilds the
 model; Flax msgpack or `.pt`) or, without one, a decoder initialised from
-seed 0, with features from the checkpoint's own encoder or the patch
-extractor.  Depth comes from the gradient estimator; Gaussians of opacity
+seed 0, with features from the checkpoint's own encoder, DINOv2 (weights
+found under $FRESNEL_TPU_MODELS, ./models or ~/models) or the patch
+extractor, and depth from Depth-Anything (weights found there) or the
+gradient estimator; `--fused_encoder` runs both found backbones in one
+trunk forward (it prints which route ran).  Gaussians of opacity
 <= 1e-4 are dropped before the file is written; `--html` also writes the
 interactive viewer (with the SAAG categories on the SAAG path).
 `refine`: image -> per-scene fitted 3D Gaussian cloud; `--steps` Adam
 steps through the tiled rasterizer fit decoder-space Gaussians (grid 37,
-K per patch) to the image, with depth from the procedural gradient
-estimator unless Depth-Anything weights are found (which raises: they are
-not ported).  `render`: a `.ply` / `.bin` cloud from an orbit pose to a
+K per patch) to the image, with depth from Depth-Anything when its
+weights are found, else from the procedural gradient estimator.
+`render`: a `.ply` / `.bin` cloud from an orbit pose to a
 PNG; `orbit`: `--views` PNGs around it.  Clouds of 98 304 Gaussians or
 more go through the rank-table search binning.  `view`: a cloud file to
 the self-contained HTML viewer, or with `--serve` the live reprocess
@@ -36,8 +39,8 @@ server over an image (viewer.serve).  `train`: decoder training, the
 flags of `train.train_gaussian_decoder` (the JAX package's `fresnel
 train`).  `eval`: novel-view evaluation of a checkpoint over a corpus (8
 orbit views per scene, `evaluation.novel_view_eval`).  Everything runs on
-the card unless `--device cpu` is given.  `infer --fused_encoder` and the
-`smoke` subcommand are not ported.
+the card unless `--device cpu` is given.  The `smoke` subcommand is not
+ported.
 """
 
 from __future__ import annotations
@@ -64,7 +67,8 @@ from fresnel_tpu_torch.geometry import (
     VolumetricShellParams, pointcloud_from_depth, to_surface_gaussians)
 from fresnel_tpu_torch.models.decoders import DirectPatchDecoder, head_transform
 from fresnel_tpu_torch.models.encoders import (
-    create_depth_estimator, create_feature_extractor, resize_linear)
+    create_depth_estimator, create_feature_extractor, create_fused_encoder,
+    resize_linear)
 from fresnel_tpu_torch.render.tile import TileRendererConfig, render_tiled
 from fresnel_tpu_torch.train.fit_teacher import fit_scene
 from fresnel_tpu_torch.train.harness import trainer_from_checkpoint
@@ -197,9 +201,8 @@ def saag_infer(image: Union[np.ndarray, torch.Tensor], *,
         SurfaceGaussianParams(), SilhouetteWrapParams(),
         VolumetricShellParams(), AdaptiveDensityParams())
     image = torch.as_tensor(np.asarray(image, np.float32)).to(dev)
-    estimator = create_depth_estimator(depth_estimator)
-    print(f"depth estimator: {estimator.kind} (procedural fallback - no "
-          "weights found)")
+    estimator = create_depth_estimator(depth_estimator, device=dev)
+    print(_described("depth estimator", estimator))
     with torch.no_grad():
         depth = estimator(image, SAAG_GRID)
         if depth_exponent != 1.0:
@@ -215,27 +218,47 @@ def saag_infer(image: Union[np.ndarray, torch.Tensor], *,
     return cloud, saag_categories(SAAG_GRID * SAAG_GRID, wp, shp, dp)
 
 
+def _described(what: str, model) -> str:
+    """`what: kind (weights path)`, or the procedural fallback's note."""
+    if model.weights_path:
+        return f"{what}: {model.kind} ({model.weights_path})"
+    return f"{what}: {model.kind} (procedural fallback - no weights found)"
+
+
 def infer(image: Union[np.ndarray, torch.Tensor],
           checkpoint: Optional[str] = None, *, gaussians_per_patch: int = 4,
           depth_estimator: str = "auto", feature_extractor: str = "auto",
+          fused_encoder: bool = False,
           device: Optional[Union[str, torch.device]] = None
           ) -> GaussianCloud:
     """(H, W, 3) image in [0, 1] -> the decoded cloud on `device`, before
     compaction.  With a checkpoint, the model its sidecar describes, with
     its weights (and its encoder's features with `train_encoder`);
     without one, a DirectPatchDecoder of `gaussians_per_patch` initialised
-    from seed 0.  CUDA by default."""
+    from seed 0.  `fused_encoder` runs found DINOv2 and Depth-Anything
+    weights in one trunk forward (models.encoders.FusedDinoDepthEncoder),
+    else the two apart.  CUDA by default."""
     dev = resolve_device(device)
     image = torch.as_tensor(np.asarray(image, np.float32)).to(dev)
-    estimator = create_depth_estimator(depth_estimator)
-    print(f"depth estimator: {estimator.kind} (procedural fallback - no "
-          "weights found)")
+    estimator = create_depth_estimator(depth_estimator, device=dev)
+    print(_described("depth estimator", estimator))
     extractor = create_feature_extractor(feature_extractor, grid=37,
-                                         dim=384)
-    print(f"feature extractor: {extractor.kind} (procedural fallback - no "
-          "weights found)")
-    depth = estimator(image, 256)[None]
-    feats = extractor(image)[None]
+                                         dim=384, device=dev)
+    print(_described("feature extractor", extractor))
+    fused = (create_fused_encoder(extractor, estimator) if fused_encoder
+             else None)
+    if fused is not None:
+        print("encoder route: fused dual trunk (features + depth in one "
+              "trunk forward)")
+        f, d = fused(image, 256)
+        feats, depth = f[None], d[None]
+    else:
+        print("encoder route: separate" + (
+            " (--fused_encoder needs both backbones' weights with matching "
+            "trunks)" if fused_encoder else ""))
+        with torch.no_grad():
+            depth = estimator(image, 256)[None]
+            feats = extractor(image)[None]
     if checkpoint:
         trainer = trainer_from_checkpoint(checkpoint, device=dev)
         state, _ = trainer.load_checkpoint(checkpoint)
@@ -274,10 +297,6 @@ def compact(cloud: GaussianCloud,
 
 
 def cmd_infer(args) -> int:
-    if args.fused_encoder:
-        raise NotImplementedError(
-            "infer options not ported: --fused_encoder (ROADMAP Queue 1, "
-            "item 2)")
     t0 = time.perf_counter()
     if args.saag or args.checkpoint is None and args.no_model:
         cloud, categories = saag_infer(
@@ -296,7 +315,7 @@ def cmd_infer(args) -> int:
                       gaussians_per_patch=args.gaussians_per_patch,
                       depth_estimator=args.depth_estimator,
                       feature_extractor=args.feature_extractor,
-                      device=args.device)
+                      fused_encoder=args.fused_encoder, device=args.device)
         categories = None
     cloud, categories = compact(cloud, categories)
     dt = (time.perf_counter() - t0) * 1000
@@ -437,8 +456,10 @@ def refine(image: Union[np.ndarray, torch.Tensor], *, steps: int = 800,
     the depth estimator's kind.  CUDA by default."""
     dev = resolve_device(device)
     image = torch.as_tensor(np.asarray(image, np.float32)).to(dev)
-    estimator = create_depth_estimator(depth_estimator)
-    depth = estimator(image, 256).cpu().numpy().astype(np.float32)
+    estimator = create_depth_estimator(depth_estimator, device=dev)
+    print(_described("depth estimator", estimator))
+    with torch.no_grad():
+        depth = estimator(image, 256).cpu().numpy().astype(np.float32)
 
     target = image.permute(2, 0, 1)
     if target.shape[-1] != size:
@@ -472,8 +493,6 @@ def cmd_refine(args) -> int:
         gaussians_per_patch=args.gaussians_per_patch,
         max_per_tile=args.max_per_tile, depth_estimator=args.depth_estimator,
         depth_offset_init=args.depth_offset_init, device=args.device)
-    print(f"depth estimator: {metrics['depth_estimator']} "
-          "(procedural fallback)")
     out_path = Path(args.output)
     if out_path.suffix == ".ply":
         gio.save_ply(out_path, cloud)
@@ -544,16 +563,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--opacity", type=float, default=0.8)
     p.add_argument("--depth_estimator", default="auto",
                    choices=["auto", "depth_anything", "gradient", "center"],
-                   help="'auto' takes the gradient estimator when no "
-                        "Depth-Anything weights are found (found weights "
-                        "raise: not ported)")
+                   help="'auto' loads Depth-Anything weights when found, "
+                        "else the gradient estimator")
     p.add_argument("--fused_encoder", action="store_true",
-                   help="DINOv2 and depth as one program; not ported")
+                   help="DINOv2 and Depth-Anything in one trunk forward "
+                        "(both weights found)")
     p.add_argument("--feature_extractor", default="auto",
                    choices=["auto", "dinov2", "patch"],
-                   help="'auto' takes the patch extractor when no DINOv2 "
-                        "weights are found (found weights raise: not "
-                        "ported)")
+                   help="'auto' loads DINOv2 weights when found, else the "
+                        "patch extractor")
     p.add_argument("--html", default=None, metavar="OUT.html",
                    help="also export the interactive HTML viewer (with live "
                         "SAAG category toggles on the --saag path)")

@@ -138,7 +138,8 @@ class ImageDataset:
             from fresnel_tpu_torch.models.encoders import (
                 create_feature_extractor)
             self._extractor = create_feature_extractor(
-                grid=self.feature_size, dim=self.feature_dim)
+                grid=self.feature_size, dim=self.feature_dim,
+                device=self.device)
         return self._extractor
 
     def _load_sample(self, path: Path) -> Sample:
@@ -163,7 +164,8 @@ class ImageDataset:
             from fresnel_tpu_torch.models.encoders import (
                 create_depth_estimator)
             if self._depth_estimator is None:
-                self._depth_estimator = create_depth_estimator("auto")
+                self._depth_estimator = create_depth_estimator(
+                    "auto", device=self.device)
             depth = self._depth_estimator(
                 torch.from_numpy(img).to(self.device), 256).cpu().numpy()
             if self.write_cache:
@@ -248,7 +250,8 @@ class SyntheticGaussianDataset:
 
         dev = resolve_device(device)
         self.image_size = image_size
-        extractor = create_feature_extractor(grid=feature_size, dim=feature_dim)
+        extractor = create_feature_extractor(grid=feature_size,
+                                             dim=feature_dim, device=dev)
         cam = Camera.default_training(image_size)
         self._samples: List[Sample] = []
         with torch.no_grad():

@@ -30,8 +30,8 @@ def load_and_decode(checkpoint: str, image: torch.Tensor, device=None):
     """(512, 512, 3) image -> the checkpoint's decoded Gaussian dict."""
     trainer = trainer_from_checkpoint(checkpoint, device=device)
     image = image.to(trainer.device)
-    feats = create_feature_extractor(dim=trainer.config.feature_dim)(
-        image)[None]
+    feats = create_feature_extractor(dim=trainer.config.feature_dim,
+                                     device=trainer.device)(image)[None]
     depth = gradient_depth_estimate(image, 256)[None]
     state, _ = trainer.load_checkpoint(checkpoint)
     out = trainer.decode(state["params"], feats, depth)

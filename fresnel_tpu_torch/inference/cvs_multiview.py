@@ -151,7 +151,7 @@ def main(argv=None) -> dict:
 
     img = Image.open(args.image).convert("RGB").resize((S, S))
     image = np.asarray(img, np.float32) / 255.0
-    feats = create_feature_extractor(dim=384)(
+    feats = create_feature_extractor(dim=384, device=dev)(
         torch.from_numpy(image).to(dev))[None]
     chw = np.transpose(image, (2, 0, 1))[None]
     batch = {"input_image": chw, "features": feats.cpu().numpy(),

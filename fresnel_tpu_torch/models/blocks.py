@@ -1,8 +1,10 @@
 """Shared model building blocks.
 
 Counterpart of fresnel_tpu/models/blocks.py (`MLP` with dropout,
-`bilinear_sample` / `FeatureInterpolator`, `rotate_positions_for_pose`,
-`tensegrity_loss`, `fibonacci_spiral_positions`), plus the layers every
+`sinusoidal_encode` / `PoseEncoder`, `bilinear_sample` /
+`FeatureInterpolator`, `adaptive_average_pool` / `DepthEncoder`,
+`rotate_positions_for_pose`, `tensegrity_loss`,
+`fibonacci_spiral_positions`), plus the layers every
 model of the port uses to run in a compute dtype with float32 parameters,
 as the Flax modules do with `dtype=bfloat16`.
 """
@@ -81,6 +83,69 @@ class MLP(nn.Module):
             x = dropout(F.relu(layer(x)), self.dropout, deterministic,
                         generator)
         return self.layers[-1](x)
+
+
+def sinusoidal_encode(x: torch.Tensor, num_frequencies: int = 8
+                      ) -> torch.Tensor:
+    """(...,) angles -> (..., 2 * num_frequencies): [sin | cos] of the
+    angle times 2^k, k < num_frequencies."""
+    freqs = 2.0 ** torch.arange(num_frequencies, dtype=x.dtype,
+                                device=x.device)
+    xe = x[..., None] * freqs
+    return torch.cat([torch.sin(xe), torch.cos(xe)], dim=-1)
+
+
+class PoseEncoder(nn.Module):
+    """Camera pose (elevation, azimuth), (B,) each in radians -> (B,
+    embed_dim): their sinusoidal encodings, then Dense, ReLU, Dense.
+    `dense0` / `dense1` are Flax's `Dense_0` / `Dense_1`."""
+
+    def __init__(self, embed_dim: int = 64, num_frequencies: int = 8):
+        super().__init__()
+        self.num_frequencies = num_frequencies
+        self.dense0 = Linear(4 * num_frequencies, embed_dim)
+        self.dense1 = Linear(embed_dim, embed_dim)
+
+    def forward(self, elevation: torch.Tensor,
+                azimuth: torch.Tensor) -> torch.Tensor:
+        enc = torch.cat([sinusoidal_encode(elevation, self.num_frequencies),
+                         sinusoidal_encode(azimuth, self.num_frequencies)],
+                        dim=-1)
+        return self.dense1(F.relu(self.dense0(enc)))
+
+
+def adaptive_average_pool(x: torch.Tensor, out_hw: Tuple[int, int]
+                          ) -> torch.Tensor:
+    """(B, H, W, C) -> (B, out_h, out_w, C) by jax.image.resize's linear
+    resize, antialiased when shrinking: the JAX package's smooth stand-in
+    for adaptive_avg_pool2d."""
+    from fresnel_tpu_torch.models.encoders import resize_linear
+
+    return resize_linear(x.permute(0, 3, 1, 2), *out_hw).permute(0, 2, 3, 1)
+
+
+class DepthEncoder(nn.Module):
+    """(B, H, W[, 1]) depth -> (B, grid, grid, out_channels): three 3x3
+    SAME convolutions (32, 64, out_channels), each with a ReLU, pooled to
+    the patch grid.  `conv0`..`conv2` are Flax's `Conv_0`..`Conv_2`."""
+
+    def __init__(self, out_channels: int = 64, grid_size: int = 37):
+        super().__init__()
+        self.grid_size = grid_size
+        self.conv0 = Conv2d(1, 32, 3, padding=1)
+        self.conv1 = Conv2d(32, 64, 3, padding=1)
+        self.conv2 = Conv2d(64, out_channels, 3, padding=1)
+
+    def forward(self, depth: torch.Tensor,
+                grid_size: Optional[int] = None) -> torch.Tensor:
+        """`grid_size` overrides the constructor's (the decoder passes its
+        feature grid's side)."""
+        g = grid_size or self.grid_size
+        x = (depth[..., 0] if depth.dim() == 4 else depth)[:, None]
+        x = F.relu(self.conv0(x))
+        x = F.relu(self.conv1(x))
+        x = F.relu(self.conv2(x)).permute(0, 2, 3, 1)
+        return adaptive_average_pool(x, (g, g))
 
 
 class ZeroInitLinear(Linear):

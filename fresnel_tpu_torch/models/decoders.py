@@ -1,17 +1,22 @@
 """DirectPatchDecoder: per-patch MLP from the DINOv2 grid to Gaussians.
 
-Counterpart of fresnel_tpu/models/decoders.py at the configuration the
-image->3DGS path runs: K Gaussians per patch x 16 outputs, base grid in
-[-1, 1], XY offsets scaled 0.25, Z locked to depth (depth_offset + depth *
-depth_z_scale, plus tanh(raw z) * z_offset_scale when that is not 0),
-scales softplus(raw + 1) * 0.15 clamped, 6D rotations,
-sigmoid colors and opacities, dropout 0.1 in the MLP in training (called
-with deterministic=False), the grid rotated to face a given (elevation,
-azimuth) pose as the multi-pose trainer asks, and with feature_upsample f
-the features decoded on an f-times finer lattice (bilinear upsample, then
-a 3x3 conv, GELU and a zero-initialised 3x3 conv added as a residual).
-The Fresnel-zone, edge-aware, phase-output, pose-encoding and
-depth-fusion options raise NotImplementedError.
+Counterpart of fresnel_tpu/models/decoders.py::DirectPatchDecoder and
+`head_transform`: K Gaussians per patch x 16 outputs (19 with per-RGB
+phases, `use_phase_output`), base grid in [-1, 1], XY offsets scaled
+0.25, Z locked to depth (depth_offset + depth * depth_z_scale, plus
+tanh(raw z) * z_offset_scale when that is not 0), scales softplus(raw +
+1) * 0.15 clamped, 6D rotations, sigmoid colors and opacities, dropout
+0.1 in the MLP in training (called with deterministic=False), the grid
+rotated to face a given (elevation, azimuth) pose as the multi-pose
+trainer asks, and with feature_upsample f the features decoded on an
+f-times finer lattice (bilinear upsample, then a 3x3 conv, GELU and a
+zero-initialised 3x3 conv added as a residual).  The options: the depth
+quantised to Fresnel-zone centres (`use_fresnel_zones`), scales shrunk
+and opacities raised at depth edges found by a learned
+`FresnelEdgeDetector` (`use_edge_aware`), phases sigmoid * 2 pi
+(`use_phase_output`), opacities modulated into [0.5, 1.5] by a
+`PoseEncoder` of the pose (`use_pose_encoding`), and a `DepthEncoder`'s
+features concatenated to the patch features (`use_depth_fusion`).
 """
 
 from __future__ import annotations
@@ -26,10 +31,15 @@ from torch import nn
 
 from fresnel_tpu_torch.core.gaussians import rotation_6d_to_quaternion
 from fresnel_tpu_torch.models.blocks import (
-    MLP, Conv2d, rotate_positions_for_pose)
+    MLP, Conv2d, DepthEncoder, Linear, PoseEncoder,
+    rotate_positions_for_pose)
 from fresnel_tpu_torch.models.encoders import _resize_weights, resize_linear
+from fresnel_tpu_torch.physics.edge_detector import FresnelEdgeDetector
+from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones
 
 OUTPUTS_PER_GAUSSIAN = 16
+OUTPUTS_WITH_PHASE = 19
+TWO_PI = 6.283185307179586
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,15 +89,31 @@ def _resize_depth_to_grid(depth: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 def head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
                    depth_offset: torch.Tensor, *, scale_bias: float = 0.0,
-                   opacity_bias: float = 0.0, depth_z_scale: float = -2.0,
+                   opacity_bias: float = 0.0,
+                   use_fresnel_zones: bool = False,
+                   num_fresnel_zones: int = 8,
+                   use_edge_aware: bool = False,
+                   edge_scale_factor: float = 0.5,
+                   edge_opacity_boost: float = 0.2,
+                   use_phase_output: bool = False,
+                   edge_detector: Optional[nn.Module] = None,
+                   depth_z_scale: float = -2.0,
                    z_offset_scale: float = 0.0,
                    elevation: Optional[torch.Tensor] = None,
                    azimuth: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
-    """Raw per-patch head outputs (B, H, W, K, 16) -> Gaussian parameters;
-    with a (B,) elevation and azimuth the positions are rotated to face
-    that pose.  A z_offset_scale other than 0 adds tanh(raw z) times it to
-    the depth-locked z, a bounded per-Gaussian residual."""
+    """Raw per-patch head outputs (B, H, W, K, 16 or 19) -> Gaussian
+    parameters; with a (B,) elevation and azimuth the positions are
+    rotated to face that pose.  A z_offset_scale other than 0 adds
+    tanh(raw z) times it to the depth-locked z, a bounded per-Gaussian
+    residual.  With a depth, `use_edge_aware` runs `edge_detector` (the
+    decoder's module: this function builds none, so a caller outside a
+    decoder keeps it off) on the depth grid, shrinks scales by
+    1 - edge_scale_factor * edge and adds edge_opacity_boost * edge to
+    the opacities, and returns "edge_strength" (B, H, W, 1);
+    `use_fresnel_zones` then snaps the depth grid to its zone's centre.
+    `use_phase_output` returns "phases" (B, N, 3), sigmoid * 2 pi of raw
+    channels 16-18."""
     B, H, W, K = raw.shape[:4]
     raw_pos = raw[..., 0:3]
     raw_scale = raw[..., 3:6]
@@ -101,8 +127,17 @@ def head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
     base_x = x_grid[None, :, :, None].expand(B, H, W, K)
     base_y = y_grid[None, :, :, None].expand(B, H, W, K)
 
+    edge_strength = None
     if depth is not None:
         depth_grid = _resize_depth_to_grid(depth, H, W)            # (B, H, W)
+        if use_edge_aware:
+            if edge_detector is None:
+                raise ValueError("use_edge_aware needs the decoder's "
+                                 "edge detector")
+            edge_strength = edge_detector(depth_grid)              # (B,H,W,1)
+        if use_fresnel_zones:
+            depth_grid = FresnelZones(
+                num_zones=num_fresnel_zones).zone_centers_for_depth(depth_grid)
         base_z = depth_offset + depth_grid[..., None] * depth_z_scale
         base_z = base_z.expand(B, H, W, K)
     else:
@@ -121,15 +156,36 @@ def head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
     rotations = rotation_6d_to_quaternion(rot_6d)
     colors = torch.sigmoid(raw_color)
     opacities = torch.sigmoid(raw_opacity + opacity_bias)
+    if edge_strength is not None:
+        edge = edge_strength                                   # (B, H, W, 1)
+        scales = scales * (1.0 - edge_scale_factor * edge[..., None])
+        opacities = torch.clamp(opacities + edge_opacity_boost * edge,
+                                0.0, 1.0)
 
     N = H * W * K
-    return {
+    result = {
         "positions": positions.reshape(B, N, 3),
         "scales": scales.reshape(B, N, 3),
         "rotations": rotations.reshape(B, N, 4),
         "colors": colors.reshape(B, N, 3),
         "opacities": opacities.reshape(B, N),
     }
+    if use_phase_output:
+        result["phases"] = (torch.sigmoid(raw[..., 16:19]) * TWO_PI
+                            ).reshape(B, N, 3)
+    if edge_strength is not None:
+        result["edge_strength"] = edge_strength
+    return result
+
+
+def pose_opacity(opacities: torch.Tensor, pose_encoder: nn.Module,
+                 hidden: nn.Module, out: nn.Module,
+                 elevation: torch.Tensor, azimuth: torch.Tensor
+                 ) -> torch.Tensor:
+    """(B, N) opacities times 0.5 + sigmoid(out(relu(hidden(pose
+    embedding)))), a (B, 1) factor in [0.5, 1.5], clamped to [0, 1]."""
+    mod = out(F.relu(hidden(pose_encoder(elevation, azimuth))))
+    return torch.clamp(opacities * (0.5 + torch.sigmoid(mod)), 0.0, 1.0)
 
 
 class ZeroInitConv2d(Conv2d):
@@ -146,37 +202,53 @@ class DirectPatchDecoder(nn.Module):
                  scale_bias: float = 0.0, opacity_bias: float = 0.0,
                  depth_z_scale: float = -2.0, *, dropout: float = 0.1,
                  use_fresnel_zones: bool = False,
+                 num_fresnel_zones: int = 8,
                  use_edge_aware: bool = False,
+                 edge_scale_factor: float = 0.5,
+                 edge_opacity_boost: float = 0.2,
                  use_phase_output: bool = False,
                  use_pose_encoding: bool = False,
+                 pose_embed_dim: int = 64,
                  use_depth_fusion: bool = False,
+                 depth_feature_dim: int = 64,
                  feature_upsample: int = 1,
                  z_offset_scale: float = 0.0):
         super().__init__()
-        unported = dict(use_fresnel_zones=use_fresnel_zones,
-                        use_edge_aware=use_edge_aware,
-                        use_phase_output=use_phase_output,
-                        use_pose_encoding=use_pose_encoding,
-                        use_depth_fusion=use_depth_fusion)
-        on = [k for k, v in unported.items() if v]
-        if on:
-            raise NotImplementedError(
-                f"DirectPatchDecoder options not ported: {on}")
         self.gaussians_per_patch = gaussians_per_patch
         self.scale_bias = scale_bias
         self.opacity_bias = opacity_bias
         self.depth_z_scale = depth_z_scale
         self.z_offset_scale = z_offset_scale
         self.feature_upsample = feature_upsample
+        self.use_fresnel_zones = use_fresnel_zones
+        self.num_fresnel_zones = num_fresnel_zones
+        self.use_edge_aware = use_edge_aware
+        self.edge_scale_factor = edge_scale_factor
+        self.edge_opacity_boost = edge_opacity_boost
+        self.use_phase_output = use_phase_output
+        self.use_pose_encoding = use_pose_encoding
+        self.use_depth_fusion = use_depth_fusion
+        self.outputs = (OUTPUTS_WITH_PHASE if use_phase_output
+                        else OUTPUTS_PER_GAUSSIAN)
         if feature_upsample > 1:
             # Flax's names; 3x3 SAME, NHWC there, NCHW here.
             self.upsample_conv = Conv2d(feature_dim, feature_dim, 3,
                                         padding=1)
             self.upsample_refine = ZeroInitConv2d(feature_dim, feature_dim,
                                                   3, padding=1)
-        self.mlp = MLP(feature_dim, hidden_dims,
-                       gaussians_per_patch * OUTPUTS_PER_GAUSSIAN, dropout)
+        mlp_in = feature_dim
+        if use_depth_fusion:
+            self.depth_encoder = DepthEncoder(depth_feature_dim)
+            mlp_in += depth_feature_dim
+        self.mlp = MLP(mlp_in, hidden_dims,
+                       gaussians_per_patch * self.outputs, dropout)
         self.depth_offset = nn.Parameter(torch.tensor(-2.0))
+        if use_edge_aware:
+            self.edge_detector = FresnelEdgeDetector()
+        if use_pose_encoding:
+            self.pose_encoder = PoseEncoder(pose_embed_dim)
+            self.opacity_hidden = Linear(pose_embed_dim, 128)
+            self.opacity_out = Linear(128, 1)
 
     def forward(self, features: torch.Tensor,
                 depth: Optional[torch.Tensor] = None,
@@ -188,8 +260,9 @@ class DirectPatchDecoder(nn.Module):
                 return_raw: bool = False) -> Dict[str, torch.Tensor]:
         """Dropout is active only with deterministic=False (the masks
         drawn from `generator`); a (B,) elevation and azimuth rotate the
-        grid to face that pose; with `return_raw` the result also holds
-        "raw", the (B, H, W, K, 16) head outputs."""
+        grid to face that pose (and, with `use_pose_encoding`, modulate
+        the opacities); with `return_raw` the result also holds "raw",
+        the (B, H, W, K, 16 or 19) head outputs."""
         B, H, W, C = features.shape
         if self.feature_upsample > 1:
             f = self.feature_upsample
@@ -201,15 +274,32 @@ class DirectPatchDecoder(nn.Module):
             features = up.permute(0, 2, 3, 1)
         full_K = self.gaussians_per_patch
         K = min(num_gaussians, full_K) if num_gaussians is not None else full_K
-        out = self.mlp(features.reshape(B * H * W, C), deterministic,
+        if self.use_depth_fusion:
+            if depth is None:
+                raise ValueError("use_depth_fusion needs a depth")
+            features = torch.cat(
+                [features, self.depth_encoder(depth, grid_size=H)], dim=-1)
+        out = self.mlp(features.reshape(B * H * W, -1), deterministic,
                        generator)
-        out = out.reshape(B, H, W, full_K, OUTPUTS_PER_GAUSSIAN)[:, :, :, :K]
-        result = head_transform(out, depth, self.depth_offset,
-                                scale_bias=self.scale_bias,
-                                opacity_bias=self.opacity_bias,
-                                depth_z_scale=self.depth_z_scale,
-                                z_offset_scale=self.z_offset_scale,
-                                elevation=elevation, azimuth=azimuth)
+        out = out.reshape(B, H, W, full_K, self.outputs)[:, :, :, :K]
+        result = head_transform(
+            out, depth, self.depth_offset, scale_bias=self.scale_bias,
+            opacity_bias=self.opacity_bias,
+            use_fresnel_zones=self.use_fresnel_zones,
+            num_fresnel_zones=self.num_fresnel_zones,
+            use_edge_aware=self.use_edge_aware,
+            edge_scale_factor=self.edge_scale_factor,
+            edge_opacity_boost=self.edge_opacity_boost,
+            use_phase_output=self.use_phase_output,
+            edge_detector=getattr(self, "edge_detector", None),
+            depth_z_scale=self.depth_z_scale,
+            z_offset_scale=self.z_offset_scale,
+            elevation=elevation, azimuth=azimuth)
+        if self.use_pose_encoding and elevation is not None \
+                and azimuth is not None:
+            result["opacities"] = pose_opacity(
+                result["opacities"], self.pose_encoder, self.opacity_hidden,
+                self.opacity_out, elevation, azimuth)
         if return_raw:
             result["raw"] = out
         return result

@@ -1,14 +1,18 @@
-"""Procedural depth estimators, the patch feature extractor and their
+"""Image -> features and depth: the weight-loaded DINOv2 and
+Depth-Anything, their fused dual trunk, the procedural fallbacks and the
 factories.
 
 Counterpart of fresnel_tpu/models/encoders.py: `gradient_depth_estimate`
 (luminance Sobel magnitude, blurred, blended with a centre prior),
 `center_depth_estimate` (radial prior), `FallbackDepthEstimator`,
-`create_depth_estimator`, `PatchFeatureExtractor` (the deterministic
-DINOv2 stand-in) and `create_feature_extractor`.  The real DINOv2 and
-Depth-Anything extractors with weights from disk are not ported: when
-"auto" (or "dinov2" / "depth_anything") finds weights, the factories raise
-NotImplementedError rather than quietly using a fallback.
+`PatchFeatureExtractor` (the deterministic DINOv2 stand-in),
+`DINOv2FeatureExtractor` and `DepthAnythingEstimator` (the ViTs of
+models/vit.py with a checkpoint's weights, loaded strictly, computing in
+bf16 by default), `FusedDinoDepthEncoder` (both trunks in one vmapped
+forward) and the factories.  "auto" (or "dinov2" / "depth_anything")
+loads weights found under $FRESNEL_TPU_MODELS, ./models or ~/models, and
+falls back to the procedural estimators only when there are none: a file
+that is found but does not load raises.
 """
 
 from __future__ import annotations
@@ -139,18 +143,20 @@ class FallbackDepthEstimator:
         return self._fn(image, out_size)
 
 
-def create_depth_estimator(kind: str = "auto") -> FallbackDepthEstimator:
-    """'auto' probes for Depth-Anything weights and falls back to the
-    gradient estimator when there are none; 'gradient' and 'center' are
-    the procedural estimators.  Found weights raise NotImplementedError:
-    the weight-loaded Depth-Anything estimator is not ported."""
+def create_depth_estimator(kind: str = "auto", device=None,
+                           compute_dtype: Optional[torch.dtype] = None):
+    """'auto' loads Depth-Anything weights found under the standard roots
+    (FRESNEL_TPU_MODELS, ./models, ~/models) onto `device` (CUDA when
+    None) and falls back to the gradient estimator when there are none;
+    'depth_anything' needs the weights; 'gradient' and 'center' are the
+    procedural estimators, which run on their image's device.  Returns a
+    callable (image (H, W, 3), out_size=256) -> (out_size, out_size) depth
+    with `.kind` and `.weights_path`."""
     if kind in ("auto", "depth_anything"):
         path = _probe_weights(_DEPTH_CANDIDATES)
         if path is not None:
-            raise NotImplementedError(
-                f"Depth-Anything weights found at {path}, but loading them "
-                "is not ported (ROADMAP Queue 1, item 2); pass "
-                "depth_estimator='gradient' to use the procedural estimator")
+            return DepthAnythingEstimator(path, compute_dtype=compute_dtype,
+                                          device=device)
         if kind == "depth_anything":
             raise FileNotFoundError(
                 "no Depth-Anything weights found (set FRESNEL_TPU_MODELS or "
@@ -285,19 +291,20 @@ _DINOV2_CANDIDATES = {
 
 
 def create_feature_extractor(kind: str = "auto", grid: int = 37,
-                             dim: int = 384) -> PatchFeatureExtractor:
-    """'auto' probes for DINOv2 weights of width `dim` and falls back to
-    the patch extractor when there are none; 'patch' / 'fallback' is the
-    patch extractor.  Found weights raise NotImplementedError: the
-    weight-loaded DINOv2 extractor is not ported."""
+                             dim: int = 384, device=None,
+                             compute_dtype: Optional[torch.dtype] = None):
+    """'auto' loads DINOv2 weights of width `dim` found under the standard
+    roots onto `device` (CUDA when None) and falls back to the patch
+    extractor when there are none; 'dinov2' needs the weights; 'patch' /
+    'fallback' is the patch extractor.  Returns a callable (image (H, W,
+    3)) -> (grid, grid, dim) with `.kind` and `.weights_path`."""
     if kind in ("auto", "dinov2"):
         cands = _DINOV2_CANDIDATES.get(dim)
         path = _probe_weights(cands) if cands else None
         if path is not None:
-            raise NotImplementedError(
-                f"DINOv2 weights found at {path}, but loading them is not "
-                "ported (ROADMAP Queue 1, item 2); pass kind='patch' to use "
-                "the patch extractor")
+            return DINOv2FeatureExtractor(path, grid=grid, dim=dim,
+                                          compute_dtype=compute_dtype,
+                                          device=device)
         if kind == "dinov2":
             raise FileNotFoundError(
                 f"no DINOv2 weights found for dim={dim} (set "
@@ -305,3 +312,168 @@ def create_feature_extractor(kind: str = "auto", grid: int = 37,
     elif kind not in ("patch", "fallback"):
         raise ValueError(f"unknown feature extractor: {kind}")
     return PatchFeatureExtractor(grid=grid, dim=dim)
+
+
+# ----------------------------------------------------------------------
+# The weight-loaded backbones
+# ----------------------------------------------------------------------
+
+_DIM_TO_SIZE = {384: "small", 768: "base", 1024: "large"}
+DEPTH_IMAGE_SIZE = 518
+
+
+def _hwc_to_model(image, size: int, device) -> torch.Tensor:
+    """(H, W, 3) in [0, 1] -> (1, size, size, 3) float32 on `device`, by
+    jax.image.resize's linear weights (antialiased when downsampling)."""
+    img = torch.as_tensor(image, dtype=torch.float32).to(device)
+    return resize_linear(img.permute(2, 0, 1), size, size).permute(
+        1, 2, 0)[None]
+
+
+class DINOv2FeatureExtractor:
+    """DINOv2 features: (H, W, 3) in [0, 1] -> (grid, grid, dim) float32.
+
+    The checkpoint at `weights_path` is loaded strictly at construction
+    (models/vit.py's converters, either naming, .pth or .safetensors);
+    the image is resized to grid * 14 (518^2 for grid 37), normalised
+    with ImageNet's statistics, and the final-norm patch tokens come out.
+    `compute_dtype` is bf16 by default, as in the JAX package (float32
+    parameters, float32 softmax and outputs)."""
+
+    kind = "dinov2"
+
+    def __init__(self, weights_path: str, grid: int = 37, dim: int = 384,
+                 compute_dtype: Optional[torch.dtype] = None, device=None):
+        from fresnel_tpu_torch.device import resolve_device
+        from fresnel_tpu_torch.models.vit import (
+            DINOv2, VIT_CONFIGS, convert_dinov2_torch, load_state_dict_strict)
+        from fresnel_tpu_torch.weights import dinov2_state_dict
+
+        size = _DIM_TO_SIZE.get(dim)
+        if size is None:
+            raise ValueError(f"no DINOv2 size with width {dim}")
+        self.grid, self.dim = grid, dim
+        self.weights_path = weights_path
+        self.image_size = grid * 14
+        self.device = resolve_device(device)
+        dtype = torch.bfloat16 if compute_dtype is None else compute_dtype
+        model = DINOv2(image_size=self.image_size, dtype=dtype,
+                       **VIT_CONFIGS[size])
+        try:
+            flat = convert_dinov2_torch(weights_path, size, self.image_size)
+            self.n_loaded = load_state_dict_strict(model,
+                                                   dinov2_state_dict(flat))
+        except (ValueError, KeyError) as e:
+            raise ValueError(f"DINOv2 weights at {weights_path} do not "
+                             f"load: {e}") from e
+        self.model = model.to(self.device).eval().requires_grad_(False)
+
+    @torch.no_grad()
+    def __call__(self, image) -> torch.Tensor:
+        return self.model(_hwc_to_model(image, self.image_size,
+                                        self.device))[0]
+
+
+class DepthAnythingEstimator:
+    """Depth-Anything-V2 relative depth: (H, W, 3) in [0, 1] ->
+    (out_size, out_size) in [0, 1].
+
+    The whole checkpoint (backbone, DPT neck, head) is loaded strictly at
+    construction; the model taps the default out_indices (3, 6, 9, 12),
+    as the JAX package's estimator does (only `load_depth_anything` reads
+    a config.json).  The image is resized to 518^2, the head's output
+    min-max normalised and resized to `out_size` (jax.image.resize's
+    linear weights, antialiased).  bf16 compute by default."""
+
+    kind = "depth_anything"
+
+    def __init__(self, weights_path: str, size: str = "small",
+                 compute_dtype: Optional[torch.dtype] = None, device=None):
+        from fresnel_tpu_torch.device import resolve_device
+        from fresnel_tpu_torch.models.vit import (
+            VIT_CONFIGS, DepthAnything, convert_depth_anything_torch,
+            load_state_dict_strict)
+        from fresnel_tpu_torch.weights import depth_anything_state_dict
+
+        self.weights_path = weights_path
+        self.device = resolve_device(device)
+        dtype = torch.bfloat16 if compute_dtype is None else compute_dtype
+        model = DepthAnything(out_size=DEPTH_IMAGE_SIZE,
+                              image_size=DEPTH_IMAGE_SIZE, dtype=dtype,
+                              **VIT_CONFIGS[size])
+        try:
+            flat = convert_depth_anything_torch(weights_path, size)
+            self.n_loaded = load_state_dict_strict(
+                model, depth_anything_state_dict(flat))
+        except (ValueError, KeyError) as e:
+            raise ValueError(f"Depth-Anything weights at {weights_path} do "
+                             f"not load: {e}") from e
+        self.model = model.to(self.device).eval().requires_grad_(False)
+
+    @torch.no_grad()
+    def __call__(self, image, out_size: int = 256) -> torch.Tensor:
+        rel = self.model(_hwc_to_model(image, DEPTH_IMAGE_SIZE,
+                                       self.device))[0]
+        return resize_linear(rel, out_size, out_size)
+
+
+def _trunk_key(trunk) -> tuple:
+    return (trunk.width, trunk.depth, trunk.heads, trunk.patch_size,
+            trunk.image_size, trunk.dtype)
+
+
+class FusedDinoDepthEncoder:
+    """Both weight-loaded backbones in one trunk forward: image ->
+    (features, depth).
+
+    DINOv2 and Depth-Anything share the ViT-S/14 trunk; the two weight
+    sets are stacked and one vmapped forward (models/vit.py
+    `fused_features_and_depth`) taps both, so each trunk product runs
+    once over both weight sets.  The outputs are those of the extractor
+    and the estimator run apart.  The trunks must match in architecture,
+    image size and compute dtype (ValueError otherwise: the fused trunk
+    runs at the estimator's dtype)."""
+
+    kind = "fused_dinov2_depth_anything"
+
+    def __init__(self, extractor: DINOv2FeatureExtractor,
+                 estimator: DepthAnythingEstimator):
+        from fresnel_tpu_torch.models.vit import stack_trunk_params
+
+        fm, dm = extractor.model, estimator.model.backbone
+        if _trunk_key(fm) != _trunk_key(dm):
+            raise ValueError(
+                "the fused encoder needs matching trunks; got features "
+                f"{_trunk_key(fm)} and depth backbone {_trunk_key(dm)}")
+        if extractor.device != estimator.device:
+            raise ValueError("the two backbones are on different devices: "
+                             f"{extractor.device}, {estimator.device}")
+        self.extractor, self.estimator = extractor, estimator
+        self.grid = extractor.grid
+        self.device = estimator.device
+        self.weights_path = (extractor.weights_path, estimator.weights_path)
+        self._stacked = stack_trunk_params(fm, estimator.model)
+
+    @torch.no_grad()
+    def __call__(self, image, out_size: int = 256):
+        """(H, W, 3) in [0, 1] -> ((grid, grid, dim) float32, (out_size,
+        out_size) depth)."""
+        from fresnel_tpu_torch.models.vit import fused_features_and_depth
+
+        model = self.estimator.model
+        x = _hwc_to_model(image, model.backbone.image_size, self.device)
+        feats, rel = fused_features_and_depth(model, self._stacked, x)
+        return feats[0], resize_linear(rel[0], out_size, out_size)
+
+
+def create_fused_encoder(extractor, estimator
+                         ) -> Optional[FusedDinoDepthEncoder]:
+    """A FusedDinoDepthEncoder when both are the weight-loaded models with
+    matching trunks, else None (the caller runs them apart)."""
+    if getattr(extractor, "kind", None) == "dinov2" and \
+            getattr(estimator, "kind", None) == "depth_anything":
+        try:
+            return FusedDinoDepthEncoder(extractor, estimator)
+        except ValueError:
+            return None
+    return None

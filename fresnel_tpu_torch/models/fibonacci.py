@@ -5,8 +5,11 @@ Counterpart of fresnel_tpu/models/fibonacci.py: N Vogel-spiral points
 coordinates (align_corners=True, border clipping), an MLP (512, 256, 128)
 per point, XY offsets scaled 0.15 around the spiral, Z locked to the depth
 sampled at each point, softplus(raw + 1 + bias) * 0.15 scales, 6D
-rotations and sigmoid colours and opacities.  The Fresnel-zone,
-phase-output and pose-encoding options raise NotImplementedError.
+rotations and sigmoid colours and opacities.  The options: the sampled
+depth snapped to Fresnel-zone centres (`use_fresnel_zones`), per-RGB
+phases sigmoid * 2 pi from 19 outputs per Gaussian (`use_phase_output`)
+and opacities modulated into [0.5, 1.5] by a `PoseEncoder` of the pose
+(`use_pose_encoding`, a 64-wide hidden layer).
 """
 
 from __future__ import annotations
@@ -19,10 +22,10 @@ from torch import nn
 
 from fresnel_tpu_torch.core.gaussians import rotation_6d_to_quaternion
 from fresnel_tpu_torch.models.blocks import (
-    MLP, rotate_positions_for_pose, spiral_table)
-from fresnel_tpu_torch.models.decoders import _fma
-
-OUTPUTS_PER_GAUSSIAN = 16
+    MLP, Linear, PoseEncoder, rotate_positions_for_pose, spiral_table)
+from fresnel_tpu_torch.models.decoders import (
+    OUTPUTS_PER_GAUSSIAN, OUTPUTS_WITH_PHASE, TWO_PI, _fma, pose_opacity)
+from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones
 
 
 def sample_grid_at(grid: torch.Tensor, coords_m11: torch.Tensor
@@ -72,16 +75,23 @@ def _spiral_samples(grid: torch.Tensor, n_points: int) -> torch.Tensor:
 def fib_head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
                        depth_offset: torch.Tensor, *,
                        scale_bias: float = 0.0, opacity_bias: float = 0.0,
+                       use_fresnel_zones: bool = False,
+                       num_fresnel_zones: int = 8,
+                       use_phase_output: bool = False,
                        elevation: Optional[torch.Tensor] = None,
                        azimuth: Optional[torch.Tensor] = None
                        ) -> Dict[str, torch.Tensor]:
-    """Raw spiral-point head outputs (B, N, K, 16) and depth (B, H, W[, 1])
+    """Raw spiral-point head outputs (B, N, K, 16 or 19) and depth (B, H,
+    W[, 1])
     -> Gaussian parameters: the spiral base, XY offsets * 0.15, Z locked
     to the depth sampled at each point (depth_offset - 2 * depth), scales
     softplus(clip(raw, -10, 20) + 1 + scale_bias) * 0.15 clamped, 6D
     rotations, sigmoid colours and opacities; with a (B,) elevation and
-    azimuth the positions are rotated to face that pose.  Shared by the
-    decoder and the experiment-4 teacher fit."""
+    azimuth the positions are rotated to face that pose.
+    `use_fresnel_zones` snaps the sampled depth to its zone's centre;
+    `use_phase_output` adds "phases" (B, N * K, 3), sigmoid * 2 pi of raw
+    channels 16-18.  Shared by the decoder and the experiment-4 teacher
+    fit."""
     B, N, K = raw.shape[:3]
     raw_pos, raw_scale = raw[..., 0:3], raw[..., 3:6]
     rot_6d, raw_color, raw_op = raw[..., 6:12], raw[..., 12:15], raw[..., 15]
@@ -92,6 +102,9 @@ def fib_head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
     if depth is not None:
         d = depth[..., 0] if depth.dim() == 4 else depth
         d_sampled = _spiral_samples(d[..., None], N)[..., 0]
+        if use_fresnel_zones:
+            d_sampled = FresnelZones(
+                num_zones=num_fresnel_zones).zone_centers_for_depth(d_sampled)
         base_z = (depth_offset + d_sampled[..., None] * (-2.0)).expand(
             B, N, K)
     else:
@@ -109,13 +122,17 @@ def fib_head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
     opacities = torch.sigmoid(raw_op + opacity_bias)
 
     total = N * K
-    return {
+    result = {
         "positions": positions.reshape(B, total, 3),
         "scales": scales.reshape(B, total, 3),
         "rotations": rotations.reshape(B, total, 4),
         "colors": colors.reshape(B, total, 3),
         "opacities": opacities.reshape(B, total),
     }
+    if use_phase_output:
+        result["phases"] = (torch.sigmoid(raw[..., 16:19]) * TWO_PI
+                            ).reshape(B, total, 3)
+    return result
 
 
 class FibonacciPatchDecoder(nn.Module):
@@ -126,24 +143,29 @@ class FibonacciPatchDecoder(nn.Module):
                  gaussians_per_point: int = 1,
                  hidden_dims: Sequence[int] = (512, 256, 128),
                  dropout: float = 0.1, *, use_fresnel_zones: bool = False,
+                 num_fresnel_zones: int = 8,
                  use_phase_output: bool = False,
                  use_pose_encoding: bool = False,
+                 pose_embed_dim: int = 64,
                  scale_bias: float = 0.0, opacity_bias: float = 0.0):
         super().__init__()
-        unported = dict(use_fresnel_zones=use_fresnel_zones,
-                        use_phase_output=use_phase_output,
-                        use_pose_encoding=use_pose_encoding)
-        on = [k for k, v in unported.items() if v]
-        if on:
-            raise NotImplementedError(
-                f"FibonacciPatchDecoder options not ported: {on}")
         self.n_points = n_points
         self.gaussians_per_point = gaussians_per_point
         self.scale_bias = scale_bias
         self.opacity_bias = opacity_bias
+        self.use_fresnel_zones = use_fresnel_zones
+        self.num_fresnel_zones = num_fresnel_zones
+        self.use_phase_output = use_phase_output
+        self.use_pose_encoding = use_pose_encoding
+        self.outputs = (OUTPUTS_WITH_PHASE if use_phase_output
+                        else OUTPUTS_PER_GAUSSIAN)
         self.mlp = MLP(feature_dim, hidden_dims,
-                       gaussians_per_point * OUTPUTS_PER_GAUSSIAN, dropout)
+                       gaussians_per_point * self.outputs, dropout)
         self.depth_offset = nn.Parameter(torch.tensor(-2.0))
+        if use_pose_encoding:
+            self.pose_encoder = PoseEncoder(pose_embed_dim)
+            self.opacity_hidden = Linear(pose_embed_dim, 64)
+            self.opacity_out = Linear(64, 1)
 
     def forward(self, features: torch.Tensor,
                 depth: Optional[torch.Tensor] = None,
@@ -156,16 +178,24 @@ class FibonacciPatchDecoder(nn.Module):
         """`num_gaussians` is accepted and ignored, as in the JAX module;
         dropout is active only with deterministic=False (masks from
         `generator`); with `return_raw` the result also holds "raw", the
-        (B, N, K, 16) head outputs."""
+        (B, N, K, 16 or 19) head outputs."""
         B = features.shape[0]
         N, K = self.n_points, self.gaussians_per_point
         sampled = _spiral_samples(features, N)
         out = self.mlp(sampled.reshape(B * N, -1), deterministic, generator)
-        out = out.reshape(B, N, K, OUTPUTS_PER_GAUSSIAN)
+        out = out.reshape(B, N, K, self.outputs)
         result = fib_head_transform(
             out, depth, self.depth_offset, scale_bias=self.scale_bias,
-            opacity_bias=self.opacity_bias, elevation=elevation,
+            opacity_bias=self.opacity_bias,
+            use_fresnel_zones=self.use_fresnel_zones,
+            num_fresnel_zones=self.num_fresnel_zones,
+            use_phase_output=self.use_phase_output, elevation=elevation,
             azimuth=azimuth)
+        if self.use_pose_encoding and elevation is not None \
+                and azimuth is not None:
+            result["opacities"] = pose_opacity(
+                result["opacities"], self.pose_encoder, self.opacity_hidden,
+                self.opacity_out, elevation, azimuth)
         if return_raw:
             result["raw"] = out
         return result

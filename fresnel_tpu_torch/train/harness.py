@@ -28,7 +28,9 @@ Experiments 1 (SAAGRefinementNet on a SAAG prior), 2
 (DirectPatchDecoder), 3 (FeatureGuidedSAAG: the patch-mean modulations
 scale the SAAG prior), 4 (FibonacciPatchDecoder) and 5
 (NCAGaussianDecoder, its update masks drawn from the step's generator or
-handed in).  The SAAG prior of experiments 1 and 3 is the base block of
+handed in); the decoders' options (Fresnel zones, edge-aware, phase
+output, pose encoding with the frontal pose when none is drawn, depth
+fusion).  The SAAG prior of experiments 1 and 3 is the base block of
 `geometry.to_surface_gaussians` over the batch's depth subsampled by 8,
 one batched call.  Not ported (each raises NotImplementedError, queued in
 ROADMAP.md): the physics decoder, LPIPS in the step, `use_amp` and more
@@ -78,9 +80,11 @@ from fresnel_tpu_torch.weights import init_flax_like_, trainer_opt_state
 def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
                   dropout: float = 0.1):
     """The decoder of an experiment: 1 SAAGRefinementNet, 2
-    DirectPatchDecoder, 3 FeatureGuidedSAAG, 4 FibonacciPatchDecoder, 5
-    NCAGaussianDecoder (the physics decoder raises).  Unported options
-    raise in the constructors."""
+    DirectPatchDecoder (with its Fresnel-zone, edge-aware, phase-output,
+    pose-encoding and depth-fusion options), 3 FeatureGuidedSAAG, 4
+    FibonacciPatchDecoder (its zones, phases and pose encoding), 5
+    NCAGaussianDecoder.  The physics decoder (wave rendering without
+    phase output) raises NotImplementedError."""
     if config.experiment == 5:
         return NCAGaussianDecoder(
             feature_dim=config.feature_dim, n_points=config.n_spiral_points,
@@ -98,6 +102,7 @@ def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
             feature_dim=config.feature_dim,
             n_points=config.n_spiral_points, dropout=dropout,
             use_fresnel_zones=config.use_fresnel_zones,
+            num_fresnel_zones=config.num_fresnel_zones,
             use_phase_output=config.use_phase_output,
             use_pose_encoding=config.use_pose_encoding,
             scale_bias=config.scale_bias, opacity_bias=config.opacity_bias)
@@ -113,10 +118,14 @@ def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
         scale_bias=config.scale_bias, opacity_bias=config.opacity_bias,
         depth_z_scale=config.depth_z_scale, dropout=dropout,
         use_fresnel_zones=config.use_fresnel_zones,
+        num_fresnel_zones=config.num_fresnel_zones,
         use_edge_aware=config.use_edge_aware,
+        edge_scale_factor=config.edge_scale_factor,
+        edge_opacity_boost=config.edge_opacity_boost,
         use_phase_output=config.use_phase_output,
         use_pose_encoding=config.use_pose_encoding,
         use_depth_fusion=config.use_depth_fusion,
+        depth_feature_dim=config.depth_feature_dim,
         feature_upsample=config.feature_upsample,
         z_offset_scale=config.z_offset_scale)
 
@@ -333,6 +342,11 @@ class Trainer:
             el, az = (torch.as_tensor(a, dtype=torch.float32,
                                       device=feats.device) for a in poses)
             kwargs.update(elevation=el, azimuth=az)
+        elif self.config.use_pose_encoding:
+            # As the JAX trainer: the pose encoder sees the frontal pose
+            # when no pose is drawn (the grid's rotation by it is exact).
+            zero = torch.zeros(feats.shape[0], device=feats.device)
+            kwargs.update(elevation=zero, azimuth=zero)
         return functional_call(self.model, mp, (feats, depth), kwargs)
 
     def loss(self, params: Dict[str, torch.Tensor], batch: Dict,
@@ -343,7 +357,8 @@ class Trainer:
         """(total, loss dict) of one batch of device tensors.  `poses` are
         the multi-pose (elevation, azimuth) draws in radians, (B,) each;
         `nca_masks` experiment 5's update masks (steps, B, N, 1), drawn
-        from `generator` when None."""
+        from `generator` when None.  The decoder's "phases" reach no
+        renderer: only phase blending reads them, which is not ported."""
         cfg = self.config
         res = self.train_res
         depth, target = batch["depth"], batch["image"]

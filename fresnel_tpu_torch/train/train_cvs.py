@@ -133,7 +133,7 @@ class GaussianBootstrapDataset(PairDataset):
         dev = resolve_device(device)
         self.image_size = image_size
         rng = np.random.default_rng(seed)
-        extractor = create_feature_extractor(dim=feature_dim)
+        extractor = create_feature_extractor(dim=feature_dim, device=dev)
         self._samples = []
         for s in range(n_scenes):
             cloud = GaussianCloud.test_cloud(
@@ -183,7 +183,7 @@ class TeacherMultiviewDataset(PairDataset):
         dev = resolve_device(device)
         self.image_size = image_size
         rng = np.random.default_rng(seed)
-        extractor = create_feature_extractor(dim=feature_dim)
+        extractor = create_feature_extractor(dim=feature_dim, device=dev)
         rcfg = TileRendererConfig(max_per_tile=1024)
 
         pngs = sorted(Path(data_dir).glob("*.png"))
@@ -281,7 +281,8 @@ class GTMultiviewDataset(PairDataset):
                     37, 37, feature_dim)
             else:
                 if extractor is None:
-                    extractor = create_feature_extractor(dim=feature_dim)
+                    extractor = create_feature_extractor(
+                        dim=feature_dim, device=dev)
                 feats = _features(extractor, inp_hwc.transpose(2, 0, 1), dev)
 
             mats = [_pose_mats(Camera.from_pose(

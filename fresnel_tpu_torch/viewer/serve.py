@@ -368,8 +368,11 @@ def load_session(image_path: str, grid: int = 256,
     dev = resolve_device(device)
     img = np.asarray(Image.open(image_path).convert("RGB"),
                      np.float32) / 255.0
-    estimator = create_depth_estimator(depth_estimator)
-    print(f"depth estimator: {estimator.kind}")
+    # Loaded once per session: found Depth-Anything weights are ~100 MB.
+    estimator = create_depth_estimator(depth_estimator, device=dev)
+    print(f"depth estimator: {estimator.kind}"
+          + (f" ({estimator.weights_path})" if estimator.weights_path
+             else ""))
     with torch.no_grad():
         depth = estimator(torch.as_tensor(img, device=dev), grid)
     return ReprocessSession(img, depth.cpu().numpy(), grid=grid,

@@ -89,17 +89,36 @@ def depth_anything_state_dict(flat: Mapping[str, np.ndarray]
     return _convert(flat, renames=(_BLOCKS,))
 
 
+_OPTION_RENAMES = (
+    (r"^FresnelEdgeDetector_0\.Conv_(\d)\.", r"edge_detector.conv\1."),
+    (r"^DepthEncoder_0\.Conv_(\d)\.", r"depth_encoder.conv\1."),
+    (r"^PoseEncoder_0\.Dense_(\d)\.", r"pose_encoder.dense\1."),
+)
+# The pose-modulated opacity head, `nn.Dense(1)(relu(nn.Dense(128)(emb)))`:
+# Flax names modules in the order they are built, and the outer Dense(1)
+# is built first, so `Dense_0` is the output layer and `Dense_1` the
+# hidden one.
+_OPACITY_HEAD = ((r"^Dense_0\.", "opacity_out."),
+                 (r"^Dense_1\.", "opacity_hidden."))
+
+
 def decoder_state_dict(flat: Mapping[str, np.ndarray]
                        ) -> Dict[str, torch.Tensor]:
     """Flat params of a decoder -> state dict of the port's module of the
     same name: DirectPatchDecoder (with feature_upsample, its
-    `upsample_conv` and `upsample_refine` kernels HWIO -> OIHW),
-    FibonacciPatchDecoder, SAAGRefinementNet and FeatureGuidedSAAG
-    (`MLP_0` -> `mlp`, `Dense_i` and the scalars as they are) and
-    NCAGaussianDecoder (a Flax Sequential's `layers_i` -> torch's `i`)."""
+    `upsample_conv` and `upsample_refine` kernels HWIO -> OIHW; its
+    options' `FresnelEdgeDetector_0`, `DepthEncoder_0` and `PoseEncoder_0`
+    -> `edge_detector`, `depth_encoder`, `pose_encoder`, and with a pose
+    encoder the opacity head's `Dense_0` / `Dense_1` -> `opacity_out` /
+    `opacity_hidden`), FibonacciPatchDecoder (the same pose names),
+    SAAGRefinementNet and FeatureGuidedSAAG (`MLP_0` -> `mlp`, `Dense_i`
+    and the scalars as they are) and NCAGaussianDecoder (a Flax
+    Sequential's `layers_i` -> torch's `i`)."""
+    pose = any(k.startswith("PoseEncoder_0/") for k in flat)
     return _convert(flat, renames=(
         (r"^MLP_0\.Dense_(\d+)\.", r"mlp.layers.\1."),
-        (r"\.layers_(\d+)\.", r".\1.")))
+        (r"\.layers_(\d+)\.", r".\1."), *_OPTION_RENAMES,
+        *(_OPACITY_HEAD if pose else ())))
 
 
 _ENCODER_RENAMES = (

@@ -1065,3 +1065,90 @@ def test_reprocess_session_on_card(cuda):
     png = np.asarray(Image.open(io.BytesIO(s.render_png(0.3, 0.1, 2.0, 256))))
     assert raster.launches - f0 == 1
     assert png.shape == (256, 256, 3) and png.max() > 0
+
+
+def _backbone_files(tmp_path):
+    """ViT-S/14 DINOv2 (HF naming, .safetensors) and Depth-Anything-V2-
+    Small (.pth) at the published shapes, random from a seed."""
+    from fresnel_tpu_torch.models import backbone_files as bf
+    dino = str(tmp_path / "dinov2_small.safetensors")
+    depth = str(tmp_path / "depth_anything_v2_small.pth")
+    bf.save_checkpoint(dino, bf.dinov2_checkpoint("hf", seed=1))
+    bf.save_checkpoint(depth, bf.depth_anything_checkpoint(seed=2))
+    return dino, depth
+
+
+def _rel(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def test_backbones_on_card_match_cpu(cuda, tmp_path):
+    """The weight-loaded DINOv2 and Depth-Anything at 518^2 on the card
+    against the CPU: float32 within 1e-4 of the largest value; the card's
+    bf16 no further from the CPU's float32 than twice the CPU's own bf16
+    gap.  The fused trunk on the card against the separate route there,
+    float32, within 1e-5."""
+    from fresnel_tpu_torch.models import encoders as te
+    dino, depth = _backbone_files(tmp_path)
+    img = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(300, 300, 3)).astype(np.float32))
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for dev in (cuda, torch.device("cpu")):
+            ext = te.DINOv2FeatureExtractor(dino, compute_dtype=dt,
+                                            device=dev)
+            est = te.DepthAnythingEstimator(depth, compute_dtype=dt,
+                                            device=dev)
+            out[dt, dev.type] = (ext(img), est(img, 256), ext, est)
+    f32, b16 = torch.float32, torch.bfloat16
+    for i in (0, 1):
+        assert _rel(out[f32, "cuda"][i], out[f32, "cpu"][i]) <= 1e-4
+        gap = _rel(out[b16, "cpu"][i], out[f32, "cpu"][i])
+        assert _rel(out[b16, "cuda"][i], out[f32, "cpu"][i]) <= 2 * gap
+    _, _, ext, est = out[f32, "cuda"]
+    fused = te.create_fused_encoder(ext, est)
+    f, d = fused(img, 256)
+    assert _rel(f, out[f32, "cuda"][0]) <= 1e-5
+    assert _rel(d, out[f32, "cuda"][1]) <= 1e-5
+
+
+def test_option_step_on_card_matches_cpu(cuda):
+    """One training step of experiment 2 with every decoder option the
+    port has (Fresnel zones, edge-aware, phase output, pose encoding with
+    multi-pose augmentation, depth fusion) at 64^2, batch 2, dropout 0,
+    on the card and the CPU from one init with the same poses: each loss
+    term within 1e-4 relative; one K1 and one K2 launch on the card."""
+    from fresnel_tpu_torch.train import config as tconfig
+    from fresnel_tpu_torch.train.harness import Trainer, build_decoder
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:256, 0:256] / 256.0
+    batch = {"image": rng.uniform(size=(2, 3, 64, 64)).astype(np.float32),
+             "features": rng.normal(size=(2, 37, 37, 384)).astype(np.float32),
+             "depth": np.stack([0.3 + 0.4 * xx * yy, 0.6 - 0.3 * yy]
+                               ).astype(np.float32)}
+    poses = (np.array([0.0, 0.2], np.float32), np.array([0.0, -0.5],
+                                                         np.float32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg = tconfig.TrainingConfig(
+            image_size=64, batch_size=2, lpips_weight=0.0,
+            gaussians_per_patch=2, use_fresnel_zones=True,
+            use_edge_aware=True, use_phase_output=True,
+            use_pose_encoding=True, multi_pose_augmentation=True,
+            use_depth_fusion=True)
+        t = Trainer(cfg, tconfig.PhysicsConfig(), tconfig.HFGSConfig(
+            use_phase_retrieval_loss=False, use_frequency_loss=False,
+            learnable_wavelengths=False), tconfig.HFTSConfig(), device=dev)
+        t.model = build_decoder(cfg, t.physics_config, dropout=0.0)
+        st = t.init_state()
+        f0, b0 = raster.launches, raster.launches_bwd
+        _, ld = t.train_step(st, t.device_batch(batch), 2, None,
+                             torch.Generator(device=dev).manual_seed(1),
+                             poses=poses)
+        out[dev.type] = {k: float(v) for k, v in ld.items()}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (raster.launches - f0, raster.launches_bwd - b0) == (1, 1)
+    for k, v in out["cpu"].items():
+        assert abs(out["cuda"][k] - v) <= 1e-4 * max(abs(v), 1e-6), k

@@ -58,9 +58,11 @@ def test_feature_extractor_factory(monkeypatch, tmp_path):
     monkeypatch.setenv("FRESNEL_TPU_MODELS", str(tmp_path))
     monkeypatch.chdir(tmp_path)
     assert create_feature_extractor("auto", grid=4, dim=8).kind == "patch"
+    # A found file that does not load raises; it never falls back to the
+    # patch extractor.
     (tmp_path / "dinov2_small.pth").write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="DINOv2"):
-        create_feature_extractor("auto", dim=384)
+    with pytest.raises(ValueError, match="DINOv2"):
+        create_feature_extractor("auto", dim=384, device="cpu")
 
 
 @pytest.fixture(scope="module")

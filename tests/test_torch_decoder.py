@@ -20,6 +20,8 @@ from fresnel_tpu.models import decoders as jd
 
 from fresnel_tpu_torch import weights
 from fresnel_tpu_torch.models import decoders as td
+from fresnel_tpu_torch.train.config import TrainingConfig
+from fresnel_tpu_torch.train.harness import Trainer
 from test_torch_threads import _few_threads  # noqa: F401
 
 
@@ -175,5 +177,11 @@ def test_feature_upsample_init_is_flax_like():
     dict(feature_upsample=2, use_edge_aware=True),
     dict(feature_upsample=3, use_depth_fusion=True)])
 def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError):
-        td.DirectPatchDecoder(gaussians_per_patch=4, **flag)
+    """Each option builds (held against Flax in
+    tests/test_torch_decoder_options.py); with it, the Trainer's
+    still-unported `use_amp` raises."""
+    td.DirectPatchDecoder(gaussians_per_patch=4, **flag)
+    cfg = TrainingConfig(experiment=2, gaussians_per_patch=4, use_amp=True,
+                         **flag)
+    with pytest.raises(NotImplementedError, match="use_amp"):
+        Trainer(cfg, device="cpu")

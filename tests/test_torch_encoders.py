@@ -72,6 +72,14 @@ class TestFactory:
 
     @pytest.mark.parametrize("kind", ["auto", "depth_anything"])
     def test_found_weights_are_not_ported(self, kind):
-        (self.models / "depth_anything_v2_small.pth").write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            te.create_depth_estimator(kind)
+        """Found weights load (tests/test_torch_backbones.py); a found
+        file that is unreadable, or a DINOv2 backbone without the DPT
+        neck, raises and never falls back to the gradient estimator."""
+        path = self.models / "depth_anything_v2_small.pth"
+        path.write_bytes(b"")
+        with pytest.raises(ValueError, match="cannot read"):
+            te.create_depth_estimator(kind, device="cpu")
+        torch.save({"backbone.patch_embed.proj.weight":
+                    torch.zeros(384, 3, 14, 14)}, path)
+        with pytest.raises(ValueError, match="no DPT neck"):
+            te.create_depth_estimator(kind, device="cpu")

@@ -38,6 +38,8 @@ from fresnel_tpu.models.blocks import fibonacci_spiral_positions as jspiral
 from fresnel_tpu_torch import weights
 from fresnel_tpu_torch.models import fibonacci as tf
 from fresnel_tpu_torch.models.blocks import fibonacci_spiral_positions
+from fresnel_tpu_torch.train.config import TrainingConfig
+from fresnel_tpu_torch.train.harness import Trainer
 from test_torch_threads import _few_threads  # noqa: F401
 
 N_POINTS = [377, 5476]
@@ -186,5 +188,10 @@ def test_decoder_init_and_dropout():
                                   dict(use_phase_output=True),
                                   dict(use_pose_encoding=True)])
 def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError, match=list(flag)[0]):
-        tf.FibonacciPatchDecoder(**flag)
+    """Each option builds (held against Flax in
+    tests/test_torch_decoder_options.py); with it, experiment 4 under
+    phase blending (the Fourier renderer) still raises."""
+    tf.FibonacciPatchDecoder(**flag)
+    cfg = TrainingConfig(experiment=4, use_phase_blending=True, **flag)
+    with pytest.raises(NotImplementedError, match="use_phase_blending"):
+        Trainer(cfg, device="cpu")

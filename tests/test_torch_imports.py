@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, Flax, optax or fresnel_tpu import, nor
-msgpack or ml_dtypes (Flax's dependencies, which the card's machine may
-lack), and entry points refuse to run without CUDA unless the caller asks
+msgpack, ml_dtypes, safetensors or transformers (packages the card's
+machine may lack: the port reads Flax and safetensors files with its own
+readers), and entry points refuse to run without CUDA unless the caller asks
 for the CPU."""
 
 import ast
@@ -13,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fresnel_tpu", "msgpack",
-             "ml_dtypes"}
+             "ml_dtypes", "safetensors", "transformers"}
 PORT_FILES = sorted((ROOT / "fresnel_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -42,7 +43,7 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'fresnel_tpu',\n"
-        "        'msgpack', 'ml_dtypes')]\n"
+        "        'msgpack', 'ml_dtypes', 'safetensors', 'transformers')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

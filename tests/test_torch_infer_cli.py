@@ -4,9 +4,14 @@ encoder's features), and without a checkpoint (a decoder from seed 0;
 JAX's `init` is handed the port's seed-0 weights, since the two packages
 draw different random bits): the same kept count after compaction, and
 positions, scales, rotations, colours and opacities read back from the
-files within 1e-4 absolute (measured below 2e-5).  The unported option,
---fused_encoder, raises NotImplementedError naming the queue (--saag,
---no_model and --html are held by tests/test_torch_viewer.py)."""
+files within 1e-4 absolute (measured below 2e-5).  A checkpoint that
+needs an unported option (`use_amp`) raises NotImplementedError naming
+the queue (--saag, --no_model and --html are held by
+tests/test_torch_viewer.py; --fused_encoder and found backbone weights by
+tests/test_torch_backbones.py)."""
+
+import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import pytest
@@ -70,8 +75,15 @@ def test_infer_without_checkpoint_matches_jax(image_path, tmp_path,
 
 
 def test_infer_refuses_unported_options(image_path, tmp_path):
+    """`--fused_encoder` is ported (tests/test_torch_backbones.py); a
+    checkpoint whose sidecar sets the unported `use_amp` raises, naming
+    the queue, with or without it."""
+    meta = json.loads(Path(K8 + ".json").read_text())
+    meta["config"]["use_amp"] = True
+    ckpt = tmp_path / "amp_model.msgpack"
+    (tmp_path / "amp_model.msgpack.json").write_text(json.dumps(meta))
     out = str(tmp_path / "x.ply")
-    for extra in ([], ["--saag"], ["--html", "v.html"]):
+    for extra in ([], ["--fused_encoder"], ["--html", "v.html"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(["infer", image_path, out, "--device", "cpu",
-                      "--fused_encoder"] + extra)
+                      "--checkpoint", str(ckpt)] + extra)

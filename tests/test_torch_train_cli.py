@@ -105,9 +105,9 @@ def test_cli_train_subcommand(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--streaming"], ["--use_amp"],
-                                   ["--use_fresnel_zones"],
+                                   ["--use_phase_blending"],
                                    ["--num_devices", "2"],
-                                   ["--use_edge_aware"],
+                                   ["--use_qsr"],
                                    ["--use_wave_rendering"],
                                    ["--use_fourier_renderer"],
                                    ["--lpips_weights", "lpips.pth"]])

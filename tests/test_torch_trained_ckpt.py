@@ -206,7 +206,11 @@ def test_exp2_g74zi_decodes_like_jax(scenes):
 
 @pytest.mark.parametrize("over,missing", [
     (dict(use_amp=True), "use_amp"), (dict(num_devices=2), "num_devices"),
-    (dict(experiment=2, use_fresnel_zones=True), "use_fresnel_zones")])
+    # The Fresnel zones are ported; with them, phase blending still raises
+    # (the case keeps its earlier id).
+    pytest.param(dict(experiment=2, use_fresnel_zones=True,
+                      use_phase_blending=True), "use_phase_blending",
+                 id="over2-use_fresnel_zones")])
 def test_unported_configs_raise(tmp_path, over, missing):
     meta = _meta("exp4")
     meta["config"].update(over)
