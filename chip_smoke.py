@@ -24,11 +24,13 @@ its 3DGS fit), the geometric SAAG path (`cli infer --saag` / `--no_model` /
 --experiment`), and DINOv2 and Depth-Anything weights found on disk
 (`cli infer`, separate and fused, `cli refine`, the overnight launcher's
 training with its Fresnel-zone and edge-aware decoder, the viewer) with
-the remaining decoder options.  Phases,
+the remaining decoder options, and the wave-optics training routes
+(`cli train` with phase blending, the wave-field renderer, QSR, the
+physics decoder and experiment 4's Fourier route).  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
-   2. build       compile the four kernels from fresnel_tpu_torch/csrc/
+   2. build       compile the eight kernels from fresnel_tpu_torch/csrc/
                   into build/ (one nvcc each, run together, sm_90a), with
                   ptxas's registers, shared memory and spills;
    3. kernel      K1 against its plain PyTorch version at the image->3DGS
@@ -379,6 +381,49 @@ non-zero:
                   session whose depth is Depth-Anything's (K3 + K1).
       backbone_phases  the seconds of each of 49-54 and their total, beside
                   the 90 s they are meant to keep to.
+  55. kernel_phase  K1-phi / K2-phi (phase blending) against their plain
+                  versions at the pack of --use_phase_blending
+                  --use_phase_output (4 decoded clouds of 5 476 with their
+                  radian phases, T 1 024, M 256): K1-phi within 1e-5 of
+                  each field's largest plain value, K2-phi within 1e-4 per
+                  field and bit for bit from run to run; K1 / K2 with the
+                  box off (hard_cutoff=False) on that pack; device ms, call
+                  ms, plain ms, the plain backward's peak memory, bounds;
+  56. kernel_dense  K5 / K6 (the dense splat) at each route's own launch,
+                  the inputs its first training step hands dense_splat
+                  (QSR: 4 clouds of 5 476 at 256^2, per-RGB phases, WAVE;
+                  the physics decoder: 4 clouds, scalar phases, WAVE; exp4's
+                  Fourier route: 8 spiral clouds, ISO), each image against
+                  the plain versions on that image at the same tolerances,
+                  K6 bit for bit from run to run; the plain backward's peak
+                  memory; kernels and plain versions timed over the whole
+                  batch, with their bounds and the Gaussians' reach;
+  57. train_sh_full  cloud/train.sh full's flags (phase blending without
+                  phase output renders plain: K1 + K2 per step);
+  58. phase_train  --use_fourier_renderer --use_phase_output (amplitude
+                  0.3) and --use_phase_blending --use_phase_output (0.25):
+                  K1-phi + K2-phi per step;
+  59. qsr_train   --use_qsr (per-RGB phases, the wave-field renderer):
+                  K5 + K6 per step;
+  60. physics_train  --use_wave_rendering --learnable_wavelength
+                  --use_diffraction_placement (PhysicsDirectPatchDecoder):
+                  K5 + K6 per step; its checkpoint through
+                  trainer_from_checkpoint and cli infer;
+  61. exp4_fourier  --experiment 4 --use_phase_blending at exp4_budget's
+                  sidecar config (5 476 spiral points, batch 8): the
+                  Fourier renderer's spatial mode, K5 + K6 per step.
+                  Each of 57-61: cli train for one epoch over an 8-scene
+                  corpus at the TrainingConfig defaults (256^2, batch 4,
+                  37^2 x 384 features, K 4, M 256) unless a flag says
+                  otherwise, then 5 steps timed by CUDA events after 2
+                  warmup steps and 3 under torch.profiler; the expected
+                  launches of all eight kernels per step, every loss
+                  finite; the card against the CPU at 64^2, batch 2,
+                  dropout 0, 2 steps: every loss term within 1e-4
+                  relative, the physics decoder's wavelength_raw within
+                  1e-5 relative;
+  62. wave_phases  the seconds of each of 55-61 and their total, beside a
+                  90 s cap.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -591,14 +636,18 @@ def smooth_image(size, seed):
     return np.clip(img, 0, 1).astype(np.float32)
 
 
-def profile_ms(torch, fn, n, top=8):
+def profile_ms(torch, fn, n, top=8, cpu=True):
     """torch.profiler over fn(): wall ms, device ms, kernels and the `top`
-    kernels by device time, each per unit of n."""
+    kernels by device time, each per unit of n.  cpu=False traces the
+    device alone, which keeps the profiler's own summary of a step's
+    thousands of host-side operators out of the phase's seconds (none of
+    these numbers reads them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if cpu else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -621,8 +670,14 @@ def profile_ms(torch, fn, n, top=8):
 
 
 def reset_counts(raster, binning, stream_binning):
+    """Every launch counter to 0: K1-K4 here, and the wave-optics kernels'
+    (K1-phi, K2-phi, K5, K6; read by read_all_counts) with them."""
+    from fresnel_tpu_torch.render import splat
+
     raster.launches = raster.launches_bwd = 0
     binning.launches = stream_binning.launches = 0
+    raster.launches_phase = raster.launches_phase_bwd = 0
+    splat.launches = splat.launches_bwd = 0
 
 
 def read_counts(raster, binning, stream_binning):
@@ -684,19 +739,25 @@ def pack_stats(torch, raster, pack, counts, ntx, tiles_per_image=None):
                 box_warp_share=warps_in / (occupied * raster.PIX // 32))
 
 
-def compositing_bounds(stats, T, M, occupied):
-    """The bounds of K1 and K2 on a pack: the bytes the function moves and
-    the operations it does on the pixel-slot pairs inside the slots' boxes
-    (plus each slot's box), beside the count over all pairs
-    (`all_pairs_ops`: every pair, as if no term were 0)."""
+def compositing_bounds(stats, T, M, occupied, names=("k1", "k2"),
+                       ops=(OPS_PER_EVAL, OPS_PER_EVAL_BWD), bwd_pix=10,
+                       carry_bytes=0):
+    """The bounds of K1 and K2 on a pack (or, with their `names`, `ops`
+    per pair, the backward's floats read per pixel and the bytes of the
+    carry between them, K1-phi and K2-phi):
+    the bytes the function moves and the operations it does on the
+    pixel-slot pairs inside the slots' boxes (plus each slot's box),
+    beside the count over all pairs (`all_pairs_ops`: every pair, as if no
+    term were 0)."""
     box_ops = occupied * OPS_PER_SLOT_BOX
     out = {}
     for name, per_pair, bytes_moved in (
-            ("k1", OPS_PER_EVAL,
-             occupied * PACK_BYTES + T * 4 + T * PIX_F * 5 * 4),
-            ("k2", OPS_PER_EVAL_BWD,
-             occupied * PACK_BYTES + T * 4 + T * PIX_F * 10 * 4
-             + T * M * PACK_BYTES)):
+            (names[0], ops[0],
+             occupied * PACK_BYTES + T * 4 + T * PIX_F * 5 * 4
+             + carry_bytes),
+            (names[1], ops[1],
+             occupied * PACK_BYTES + T * 4 + T * PIX_F * bwd_pix * 4
+             + T * M * PACK_BYTES + carry_bytes)):
         ms, by, work = bound(bytes_moved,
                              stats["box_pixel_pairs"] * per_pair + box_ops)
         all_pairs = occupied * PIX_F * per_pair
@@ -3845,6 +3906,616 @@ def backbone_phases(torch, dev, path_launches, tmp):
     return k_launch
 
 
+# The wave-optics training routes: cli train over a seeded corpus
+# at the TrainingConfig defaults (256^2, batch 4, 37^2 x 384 features, K 4,
+# M 256) unless a flag says otherwise; (phase, label, flags, kernels per
+# step).  exp4_fourier takes exp4_budget's sidecar config
+# (results/exp4_budget_model.msgpack.json: 5 476 spiral points, batch 8,
+# M 1 024, surface-init head biases, depth_offset_init -0.128, no
+# augmentation).
+WAVE_PATHS = (
+    ("train_sh_full", "train_sh_full",
+     ["--experiment", "2", "--use_fresnel_zones", "--use_edge_aware",
+      "--image_size", "256", "--use_phase_blending",
+      "--use_phase_retrieval_loss", "--use_frequency_loss"],
+     dict(k1=1, k2=1)),
+    ("phase_train", "fourier_renderer",
+     ["--use_fourier_renderer", "--use_phase_output"],
+     dict(k1phi=1, k2phi=1)),
+    ("phase_train", "phase_blending",
+     ["--use_phase_blending", "--use_phase_output"],
+     dict(k1phi=1, k2phi=1)),
+    ("qsr_train", "qsr", ["--use_qsr"], dict(k5=1, k6=1)),
+    ("physics_train", "physics",
+     ["--use_wave_rendering", "--learnable_wavelength",
+      "--use_diffraction_placement"], dict(k5=1, k6=1)),
+    ("exp4_fourier", "exp4_fourier",
+     ["--experiment", "4", "--use_phase_blending", "--n_spiral_points",
+      "5476", "--batch_size", "8", "--max_per_tile", "1024",
+      "--surface_init", "--depth_offset_init", "-0.128",
+      "--no_augmentation"], dict(k5=1, k6=1)),
+)
+# The routes that launch K5 / K6, held against the plain versions at
+# their own launches (kernel_dense).
+DENSE_ROUTES = ("qsr", "physics", "exp4_fourier")
+WAVE_SCENES, WAVE_WARMUP, WAVE_TIMED, WAVE_PROFILED = 8, 2, 5, 3
+WAVE_REF = dict(image_size=64, batch_size=2)
+WAVE_REF_STEPS = 2
+WAVE_PHASES_CAP_S = 90.0
+# physics_train: the decoder's wavelength_raw, card against CPU after the
+# reference steps, relative.
+WAVELENGTH_RTOL = 1e-5
+# Operations per pixel-Gaussian pair, counted from csrc/: K1-phi's
+# phase_step inside the box (offsets 2, box 4, quadratic form 7, exp 1,
+# opacity 1, interference 8 with its cos, clip 3, weight 1, four sums 8,
+# acc_alpha 2, transmittance 2, the phase weight 2, the running phase 4);
+# K2-phi, the forward's 45 to know each slot's state, the adjoint and the
+# chain rule (~44) and 11 adds of the reduction over the tile's pixels.
+OPS_PER_EVAL_PHASE = 45
+OPS_PER_EVAL_PHASE_BWD = 100
+# K5: offsets 2, (WAVE: box 4, quadratic form 7; ISO: r^2 3, the division
+# 1), exp 1, opacity 1, and a multiply-add per channel (8 WAVE, 3 ISO).
+OPS_PER_SPLAT = {0: 31, 1: 14}
+# K6: the forward's weight (15 WAVE, 8 ISO), dw and the g_V sums (a
+# multiply-add each per channel), the opacity term 2 and the chain into
+# the mean and conic (14 WAVE) or mean and sigma (9 ISO).
+OPS_PER_SPLAT_BWD = {0: 63, 1: 31}
+
+
+def read_all_counts(raster, binning, stream_binning, splat):
+    """Every kernel's launches: K1-K4, K1-phi, K2-phi, K5 and K6."""
+    return dict(read_counts(raster, binning, stream_binning),
+                k1phi=raster.launches_phase, k2phi=raster.launches_phase_bwd,
+                k5=splat.launches, k6=splat.launches_bwd)
+
+
+def splat_reach(torch, params, mode):
+    """Each Gaussian's reach in pixels, past which its weight is exactly 0
+    (csrc/dense_common.cuh): WAVE, the box's radius; ISO, where the
+    exponent passes -110, sqrt(110 (2 sigma^2 + 1e-8)) + 1."""
+    if mode == 0:
+        return params[..., 5]
+    return torch.sqrt(110.0 * (2.0 * params[..., 2] ** 2 + 1e-8)) + 1.0
+
+
+def splat_pairs(torch, params, H, W, mode):
+    """(pairs K5 evaluates with weight, pairs K6 walks): the integer pixels
+    within each Gaussian's reach, where its weight can be nonzero; K5 skips
+    opacity 0, K6 walks them for the opacity's own gradient."""
+    def span(m, r, n):
+        lo = torch.clamp(torch.ceil(m - r), min=0)
+        hi = torch.clamp(torch.floor(m + r), max=n - 1)
+        return torch.clamp(hi - lo + 1, min=0)
+
+    r = splat_reach(torch, params, mode)
+    n = (span(params[..., 0], r, W) * span(params[..., 1], r, H)).double()
+    return (int(n[params[..., 6] != 0].sum().item()),
+            int(n.sum().item()))
+
+
+def splat_bounds(torch, params, V, H, W, mode):
+    B, N = params.shape[:2]
+    C = V.shape[-1]
+    fwd_pairs, bwd_pairs = splat_pairs(torch, params, H, W, mode)
+    io = B * N * (8 + C) * 4
+    img = B * H * W * C * 4
+    k5 = bound(io + img, fwd_pairs * OPS_PER_SPLAT[mode])
+    k6 = bound(io + img + io, bwd_pairs * OPS_PER_SPLAT_BWD[mode])
+    return (dict(k5=dict(**k5[2], bound_ms=k5[0], bound_by=k5[1]),
+                 k6=dict(**k6[2], bound_ms=k6[0], bound_by=k6[1])),
+            dict(k5_pairs=fwd_pairs, k6_pairs=bwd_pairs,
+                 all_pairs=B * N * H * W))
+
+
+def splat_spread(torch, params, mode, pairs):
+    """How far the live Gaussians reach: quantiles of the reach in pixels
+    and the pixels K6 walks per Gaussian."""
+    B, N = params.shape[:2]
+    r = splat_reach(torch, params, mode)[params[..., 6] != 0].float()
+    q = torch.quantile(r, torch.tensor([0.05, 0.5, 0.95], device=r.device))
+    return dict(pairs=pairs, pairs_per_gaussian=pairs["k6_pairs"] / (B * N),
+                live=int(r.numel()),
+                reach_px=dict(p05=q[0].item(), p50=q[1].item(),
+                              p95=q[2].item(), max=r.max().item()))
+
+
+def dense_times(torch, splat, params, V, H, W, mode, dev):
+    """K5 / K6 device times at one launch's inputs, with their bounds and
+    the Gaussians' reach (no comparison: kernel_dense holds the kernels
+    against their plain versions)."""
+    g_out = torch.randn((params.shape[0], H, W, V.shape[-1]),
+                        generator=torch.Generator(device=dev).manual_seed(2),
+                        device=dev)
+    with torch.no_grad():
+        k5 = kernel_times(torch, lambda: splat._launch_fwd(
+            params, V, H, W, mode), n=20)
+        k6 = kernel_times(torch, lambda: splat._launch_bwd(
+            params, V, g_out, mode), n=20)
+    bounds, pairs = splat_bounds(torch, params, V, H, W, mode)
+    return dict(k5=dict(**k5, **bounds["k5"]), k6=dict(**k6, **bounds["k6"]),
+                **splat_spread(torch, params, mode, pairs))
+
+
+def dense_check(torch, splat, params, V, H, W, mode, dev):
+    """K5 / K6 through splat.dense_splat at a route's whole launch (B
+    images), each image against the plain versions on that image alone:
+    K5 relative to the largest plain value, K6 per field; K6 twice, bit for
+    bit.  The plain versions' times are CUDA events summed over the B
+    images (after one untimed warm-up), the batch's whole work."""
+    B, N = params.shape[:2]
+    C = V.shape[-1]
+    g_out = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(B, H, W, C)).astype(np.float32)).to(dev)
+    p = params.clone().requires_grad_()
+    v = V.clone().requires_grad_()
+    got = splat.dense_splat(p, v, H, W, mode)
+    gp, gv = torch.autograd.grad(got, (p, v), g_out, retain_graph=True)
+    gp2, gv2 = torch.autograd.grad(got, (p, v), g_out)
+    got = got.detach()
+    rep = bool(torch.equal(gp, gp2) and torch.equal(gv, gv2))
+    del p, v, gp2, gv2
+    with torch.no_grad():
+        splat.dense_splat_plain(params[:1], V[:1], H, W, mode)
+    splat.dense_splat_bwd_plain(params[:1], V[:1], g_out[:1], mode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = bwd_ms = 0.0
+    f_err = f_ref = 0.0
+    names = ([f"params{f}" for f in range(params.shape[-1])]
+             + [f"V{f}" for f in range(C)])
+    b_err = dict.fromkeys(names, 0.0)
+    b_ref = dict.fromkeys(names, 0.0)
+    for b in range(B):
+        pb, vb, gb = params[b:b + 1], V[b:b + 1], g_out[b:b + 1]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        with torch.no_grad():
+            ref = splat.dense_splat_plain(pb, vb, H, W, mode)
+        ev[1].record()
+        ev[2].record()
+        rp, rv = splat.dense_splat_bwd_plain(pb, vb, gb, mode)
+        ev[3].record()
+        torch.cuda.synchronize()
+        fwd_ms += ev[0].elapsed_time(ev[1])
+        bwd_ms += ev[2].elapsed_time(ev[3])
+        f_err = max(f_err, (got[b] - ref[0]).abs().max().item())
+        f_ref = max(f_ref, ref.abs().max().item())
+        for key, g_, r_ in (("params", gp[b], rp[0]), ("V", gv[b], rv[0])):
+            for f in range(g_.shape[-1]):
+                n_ = f"{key}{f}"
+                b_err[n_] = max(b_err[n_],
+                                (g_[..., f] - r_[..., f]).abs().max().item())
+                b_ref[n_] = max(b_ref[n_], r_[..., f].abs().max().item())
+        del ref, rp, rv
+    plain_gb = torch.cuda.max_memory_allocated() / 1e9
+    # A field whose plain gradient is 0 everywhere (the radius, the pad, the
+    # ISO mode's unused columns) is held by its absolute error.
+    b_rel = {n_: b_err[n_] / b_ref[n_] if b_ref[n_] else b_err[n_]
+             for n_ in names}
+    with torch.no_grad():
+        k5 = kernel_times(torch, lambda: splat._launch_fwd(
+            params, V, H, W, mode), n=20)
+        k6 = kernel_times(torch, lambda: splat._launch_bwd(
+            params, V, g_out, mode), n=20)
+    bounds, pairs = splat_bounds(torch, params, V, H, W, mode)
+    return dict(
+        B=B, n=N, H=H, W=W, mode="wave" if mode == 0 else "iso",
+        k5=dict(rel_err=f_err / max(f_ref, 1e-30), abs_err=f_err, **k5,
+                plain_ms=fwd_ms, **bounds["k5"]),
+        k6=dict(rel_err=b_rel, abs_err=max(b_err.values()),
+                repeat_bitwise_equal=rep, **k6, plain_ms=bwd_ms,
+                plain_peak_mem_gb=plain_gb, **bounds["k6"]),
+        **splat_spread(torch, params, mode, pairs))
+
+
+def wave_phases(torch, dev, path_launches, tmp):
+    """Phases 55-62: the wave-optics training routes.  K1-phi / K2-phi at
+    the phase-blended training pack and K1 / K2 with the box off; K5 / K6
+    at each route's own launch (QSR, physics WAVE; exp4 ISO); paths 1-5
+    through cli train, timed steps, profiles and the card against the CPU;
+    a physics checkpoint through trainer_from_checkpoint and cli infer.
+    Returns the
+    four new kernels' numbers for the kernels line."""
+    from fresnel_tpu_torch import cli
+    from fresnel_tpu_torch.core import io as gio
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+    from fresnel_tpu_torch.render import (
+        binning, raster, splat, stream_binning, tile)
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+    from fresnel_tpu_torch.train.harness import (
+        Trainer, build_decoder, trainer_from_checkpoint)
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+
+    def reset():
+        reset_counts(*counters)
+
+    def read():
+        return read_all_counts(raster, binning, stream_binning, splat)
+
+    def expected(per_step, n):
+        out = dict(k1=0, k2=0, k3=0, k4=0, k1phi=0, k2phi=0, k5=0, k6=0)
+        out.update({k: v * n for k, v in per_step.items()})
+        return out
+
+    def trainer_of(flags, device, **over):
+        argv = ["--output_dir", os.path.join(tmp, "wave_cfg")] + flags
+        cfg, phys, hfgs, hfts = tcli.configs_from_args(
+            tcli.build_parser().parse_args(argv))
+        cfg = dataclasses.replace(cfg, lpips_weight=0.0, **over)
+        t = Trainer(cfg, phys, hfgs, hfts, device=device)
+        return t
+
+    data_dir = os.path.join(tmp, "corpus_wave")
+    synthetic_corpus.generate_corpus(data_dir, n_images=WAVE_SCENES,
+                                     image_size=256, seed=0)
+    datasets = {}
+
+    def dataset(size, augment):
+        key = (size, augment)
+        if key not in datasets:
+            datasets[key] = ImageDataset(data_dir, image_size=size,
+                                         feature_dim=384,
+                                         use_augmentation=augment,
+                                         device=dev)
+        return datasets[key]
+
+    def first_state(flags):
+        t = trainer_of(flags, dev)
+        st = t.init_state()
+        if t.config.depth_offset_init is not None:
+            st["params"]["model.depth_offset"] = torch.tensor(
+                float(t.config.depth_offset_init), device=dev)
+        b = t.device_batch(train_batches(
+            dataset(256, "--no_augmentation" not in flags),
+            t.config.batch_size, 1)[0])
+        return t, st, b
+
+    def first_clouds(flags):
+        t, st, b = first_state(flags)
+        with torch.no_grad():
+            out = t.gaussians(st["params"], b["features"], b["depth"],
+                              t.config.gaussians_per_patch)
+        return t, out
+
+    def dense_inputs(t, st, b):
+        """The (params, V, H, W, mode) of each splat.dense_splat call in one
+        training step of trainer t from state st on batch b, as the step
+        launches them."""
+        seen = []
+        real = splat.dense_splat
+
+        def capture(params, V, height, width, mode):
+            seen.append((params.detach().contiguous().clone(),
+                         V.detach().contiguous().clone(), int(height),
+                         int(width), int(mode)))
+            return real(params, V, height, width, mode)
+
+        splat.dense_splat = capture
+        try:
+            t.train_step(st, b, t.config.gaussians_per_patch, None,
+                         torch.Generator(device=dev).manual_seed(1))
+        finally:
+            splat.dense_splat = real
+        return seen
+
+    # 55. kernel_phase: K1-phi / K2-phi against their plain versions at the
+    # phase-blended training pack (--use_phase_blending --use_phase_output:
+    # 4 clouds of 5 476, T 1 024, M 256), then K1 / K2 with the box off.
+    kp_s, kmark = lap_timer()
+    t, out = first_clouds(WAVE_PATHS[2][2])
+    kmark("clouds")
+    cfg_t = t.renderer.config
+    with torch.no_grad():
+        bp = tile.pack_tiles_batched(*[out[k] for k in FIELDS], t.camera,
+                                     cfg_t, phases=out["phases"])
+    pack, counts, ntx, ti = bp.pack, bp.counts, bp.n_tiles_x, bp.tiles_per_image
+    T, M, _ = pack.shape
+    amp = cfg_t.phase_amplitude
+    with torch.no_grad():
+        got = raster._launch_fwd_phase(pack, counts, ntx, amp,
+                                       keep_ckpt=True, tiles_per_image=ti)
+        ref = raster.composite_tiles_plain(pack, counts, ntx,
+                                           tiles_per_image=ti,
+                                           phase_amplitude=amp)
+    fwd_abs = {n: (g - r).abs().max().item()
+               for n, g, r in zip(("color", "depth", "transmittance"),
+                                  got[:3], ref)}
+    fwd_rel = {n: e / max(r.abs().max().item(), 1e-30)
+               for (n, e), r in zip(fwd_abs.items(), ref)}
+    crng = np.random.default_rng(12)
+    cots = [torch.from_numpy(crng.normal(size=tuple(o.shape)).astype(
+        np.float32)).to(dev) for o in ref]
+    with torch.no_grad():
+        g1 = raster._launch_bwd_phase(pack, counts, ntx, amp, *cots,
+                                      ckpt=got[3], tiles_per_image=ti)
+        g2 = raster._launch_bwd_phase(pack, counts, ntx, amp, *cots,
+                                      ckpt=got[3], tiles_per_image=ti)
+    torch.cuda.reset_peak_memory_stats()
+    gref = raster.composite_tiles_phase_bwd_plain(pack, counts, ntx, amp,
+                                                  *cots, tiles_per_image=ti)
+    plain_bwd_gb = torch.cuda.max_memory_allocated() / 1e9
+    BWD_PHASE_FIELDS = BWD_FIELDS[:11] + ("phase",)
+    babs = {f: (g1[..., i] - gref[..., i]).abs().max().item()
+            for i, f in enumerate(BWD_PHASE_FIELDS) if f != "radius"}
+    berr = {f: babs[f] / max(gref[..., i].abs().max().item(), 1e-30)
+            for i, f in enumerate(BWD_PHASE_FIELDS) if f != "radius"}
+    repeat_equal = bool(torch.equal(g1, g2))
+    kmark("compare")
+    with torch.no_grad():
+        k1p_t = kernel_times(torch, lambda: raster._launch_fwd_phase(
+            pack, counts, ntx, amp, keep_ckpt=True, tiles_per_image=ti))
+        k2p_t = kernel_times(torch, lambda: raster._launch_bwd_phase(
+            pack, counts, ntx, amp, *cots, ckpt=got[3], tiles_per_image=ti))
+        k1p_plain = cuda_median_ms(torch, lambda: raster.composite_tiles_plain(
+            pack, counts, ntx, tiles_per_image=ti, phase_amplitude=amp),
+            n=1, warmup=0)
+    k2p_plain = cuda_median_ms(
+        torch, lambda: raster.composite_tiles_phase_bwd_plain(
+            pack, counts, ntx, amp, *cots, tiles_per_image=ti), n=1,
+        warmup=0)
+    kmark("times")
+    occupied = int(counts.sum().item())
+    stats = pack_stats(torch, raster, pack, counts, ntx, tiles_per_image=ti)
+    kmark("stats")
+    ckpt_bytes = math.prod(raster.checkpoint_shape(T, M)) * 4
+    # K2-phi reads the cotangents of color, depth and trans (5 floats a
+    # pixel where K2 reads 10: it needs no forward outputs) and the carry.
+    pb = compositing_bounds(stats, T, M, occupied, names=("k1phi", "k2phi"),
+                            ops=(OPS_PER_EVAL_PHASE, OPS_PER_EVAL_PHASE_BWD),
+                            bwd_pix=5, carry_bytes=ckpt_bytes)
+    # K1 / K2 with the box off (hard_cutoff=False) on the same pack.
+    with torch.no_grad():
+        nb = raster.composite_tiles_packed(pack, counts, ntx,
+                                           tiles_per_image=ti, box=False)
+        nb_ref = raster.composite_tiles_plain(pack, counts, ntx,
+                                              tiles_per_image=ti, box=False)
+        nb_err = max((g - r).abs().max().item() for g, r in zip(nb, nb_ref))
+        nb_g = raster.composite_tiles_bwd(pack, counts, ntx, *nb, *cots,
+                                          tiles_per_image=ti, box=False)
+        nb_gref = raster.composite_tiles_bwd_plain(
+            pack, counts, ntx, *nb_ref, *cots, tiles_per_image=ti, box=False)
+        _, _, nb_rel = bwd_errors(nb_g, nb_gref)
+    kmark("box_off")
+    k_phase = dict(T=T, M=M, tiles_per_image=ti, occupied_slots=occupied,
+                   amplitude=amp, phases_radians_max=float(
+                       out["phases"].max()),
+                   k1phi=dict(rel_err=fwd_rel,
+                              abs_err=max(fwd_abs.values()), **k1p_t,
+                              plain_ms=k1p_plain,
+                              **pb["k1phi"]),
+                   k2phi=dict(rel_err=berr, abs_err=max(babs.values()),
+                              repeat_bitwise_equal=repeat_equal,
+                              **k2p_t, plain_ms=k2p_plain,
+                              plain_peak_mem_gb=plain_bwd_gb,
+                              **pb["k2phi"]),
+                   box_off=dict(k1_max_abs_err=nb_err,
+                                k2_rel_err=max(nb_rel.values())),
+                   box_pixel_pairs=stats["box_pixel_pairs"],
+                   checkpoint_bytes=ckpt_bytes, seconds_by_part=kp_s)
+    log("kernel_phase", **k_phase, k1_tol=KERNEL_TOL, k2_tol=KERNEL_BWD_TOL,
+        phase_seconds=lap("kernel_phase"))
+    if not (max(fwd_rel.values()) <= KERNEL_TOL
+            and max(berr.values()) <= KERNEL_BWD_TOL and repeat_equal
+            and nb_err <= KERNEL_TOL
+            and max(nb_rel.values()) <= KERNEL_BWD_TOL):
+        fail(f"K1-phi / K2-phi or the box-off K1 / K2 disagree with their "
+             f"plain versions: {k_phase}")
+    del t, out, bp, pack, got, ref, g1, g2, gref, nb, nb_ref, nb_g, nb_gref
+
+    # 56. kernel_dense: K5 / K6 at each route's own launch, the inputs its
+    # first training step hands splat.dense_splat (QSR: 4 clouds of 5 476,
+    # per-RGB phases, WAVE; the physics decoder: 4 clouds, scalar phases,
+    # WAVE; exp4's Fourier route: 8 spiral clouds, ISO), each image against
+    # the plain versions on that image; K6 bit for bit from run to run.
+    k_dense = {}
+    for label in DENSE_ROUTES:
+        flags = next(f for _, lb, f, _ in WAVE_PATHS if lb == label)
+        seen = dense_inputs(*first_state(flags))
+        if len(seen) != 1:
+            fail(f"{label}'s step called dense_splat {len(seen)} times")
+        k_dense[label] = dense_check(torch, splat, *seen[0], dev)
+        del seen
+    log("kernel_dense", **k_dense, k5_tol=KERNEL_TOL, k6_tol=KERNEL_BWD_TOL,
+        phase_seconds=lap("kernel_dense"))
+    if not all(d["k5"]["rel_err"] <= KERNEL_TOL
+               and max(d["k6"]["rel_err"].values()) <= KERNEL_BWD_TOL
+               and d["k6"]["repeat_bitwise_equal"]
+               for d in k_dense.values()):
+        fail(f"K5 / K6 disagree with their plain versions: {k_dense}")
+
+    # 57-61. the training paths through cli train, timed steps, profiles
+    # and the card against the CPU.
+    runs = {}
+    ref_ds = None
+    for phase, label, flags, per_step in WAVE_PATHS:
+        part_s, mark = lap_timer()
+        augment = "--no_augmentation" not in flags
+        o_dir = os.path.join(tmp, f"wave_{label}")
+        argv = (["--data_dir", data_dir, "--output_dir", o_dir, "--epochs",
+                 "1", "--device", "cuda"] + flags)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        quiet(cli.main, ["train"] + argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        path_launches[f"wave_{label}"] = cli_launch = read()
+        with open(os.path.join(o_dir, "loss_history.json")) as f:
+            hist = json.load(f)
+        mark("cli")
+        tr = trainer_of(flags, dev)
+        cfg = tr.config
+        steps = WAVE_SCENES // cfg.batch_size
+        state = tr.init_state()
+        if cfg.depth_offset_init is not None:
+            state["params"]["model.depth_offset"] = torch.tensor(
+                float(cfg.depth_offset_init), device=dev)
+        batches = [tr.device_batch(b) for b in train_batches(
+            dataset(256, augment), cfg.batch_size,
+            WAVE_WARMUP + WAVE_TIMED)]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        K = cfg.gaussians_per_patch
+        mark("setup")
+        for b in batches[:WAVE_WARMUP]:
+            state, _ = tr.train_step(state, b, K, None, gen)
+        torch.cuda.synchronize()
+        mark("warmup")
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        start.record()
+        lds = []
+        for b in batches[WAVE_WARMUP:]:
+            state, ld = tr.train_step(state, b, K, None, gen)
+            lds.append(ld["total"])
+        end.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        timed_launch = read()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [float(v) for v in lds]
+        mark("timed")
+
+        def profiled():
+            st_ = state
+            for b in batches[-WAVE_PROFILED:]:
+                st_, _ = tr.train_step(st_, b, K, None, gen)
+        prof = profile_ms(torch, profiled, WAVE_PROFILED, top=5, cpu=False)
+        mark("profile")
+        dense_prof = None
+        if label in DENSE_ROUTES:
+            # K5 / K6 at the clouds of the state the profile starts from:
+            # their reach sets the dense splat's work, and moves as the
+            # route trains.
+            seen = dense_inputs(tr, state, batches[-1])
+            dense_prof = dense_times(torch, splat, *seen[0], dev)
+            del seen
+            mark("dense_at_profile")
+
+        # Card against CPU: 64^2, batch 2, dropout 0, the same init.
+        if ref_ds is None:
+            ref_ds = ImageDataset(data_dir,
+                                  image_size=WAVE_REF["image_size"],
+                                  feature_dim=384, use_augmentation=False,
+                                  device=dev)
+        ref_batches = train_batches(ref_ds, WAVE_REF["batch_size"],
+                                    WAVE_REF_STEPS)
+        ref_runs, ref_wl = {}, {}
+        for name, d in (("card", dev), ("cpu", cpu)):
+            rt = trainer_of(flags, d, **WAVE_REF)
+            rt.model = build_decoder(rt.config, rt.physics_config,
+                                     dropout=0.0)
+            st = rt.init_state()
+            if rt.config.depth_offset_init is not None:
+                st["params"]["model.depth_offset"] = torch.tensor(
+                    float(rt.config.depth_offset_init), device=d)
+            g_ = torch.Generator(device=d).manual_seed(1)
+            ls = []
+            for b in ref_batches:
+                st, ld = rt.train_step(st, rt.device_batch(b), K, None, g_)
+                ls.append({k: float(v) for k, v in ld.items()})
+            ref_runs[name] = ls
+            mark(f"ref_{name}")
+            if "model.wavelength_raw" in st["params"]:
+                ref_wl[name] = float(st["params"]["model.wavelength_raw"])
+        rel = max(abs(c[k] - v) / max(abs(v), 1e-6)
+                  for c, want in zip(ref_runs["card"], ref_runs["cpu"])
+                  for k, v in want.items())
+        wl_rel = (abs(ref_wl["card"] - ref_wl["cpu"]) / abs(ref_wl["cpu"])
+                  if ref_wl else None)
+        run = dict(label=label, flags=flags, cli_seconds=cli_s,
+                   cli_launches=cli_launch, cli_steps=steps,
+                   cli_history=hist.get("total"),
+                   renderer=type(tr.renderer).__name__,
+                   n_gaussians=int(tr._total_gaussians(K)),
+                   ms_per_step=start.elapsed_time(end) / WAVE_TIMED,
+                   host_ms_per_step=host_s * 1e3 / WAVE_TIMED,
+                   timed_launches=timed_launch, losses=losses,
+                   peak_mem_gb=peak_gb, profile=prof,
+                   ref_losses_card=[r["total"] for r in ref_runs["card"]],
+                   ref_losses_cpu=[r["total"] for r in ref_runs["cpu"]],
+                   ref_loss_rel_max=rel, seconds_by_part=part_s,
+                   wavelength_raw_card=ref_wl.get(
+                       "card"), wavelength_raw_cpu=ref_wl.get("cpu"),
+                   wavelength_rel=wl_rel, dense_at_profile=dense_prof)
+        ok = (cli_launch == expected(per_step, steps)
+              and timed_launch == expected(per_step, WAVE_TIMED)
+              and np.all(np.isfinite(losses))
+              and np.all(np.isfinite(hist.get("total", [np.nan])))
+              and rel <= REF_LOSS_RTOL
+              and (wl_rel is None or wl_rel <= WAVELENGTH_RTOL))
+        if label == "physics":
+            # The checkpoint cli train wrote rebuilds its physics decoder
+            # and runs through cli infer.
+            ckpt = os.path.join(o_dir, "final_model.pt")
+            back = trainer_from_checkpoint(ckpt, device=dev)
+            ply = os.path.join(tmp, "physics_infer.ply")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            quiet(cli.main, ["infer", infer_image(tmp), ply, "--checkpoint",
+                             ckpt])
+            torch.cuda.synchronize()
+            cloud = gio.load_ply(ply)
+            run["infer"] = dict(
+                decoder=type(back.model).__name__,
+                host_ms=(time.perf_counter() - t0) * 1e3,
+                rows=cloud.num_gaussians,
+                finite=bool(torch.isfinite(cloud.to_flat()).all()))
+            ok = ok and (run["infer"]["decoder"]
+                         == "PhysicsDirectPatchDecoder"
+                         and run["infer"]["rows"] > 0
+                         and run["infer"]["finite"])
+        runs[label] = run
+        log(phase, **run, loss_rtol=REF_LOSS_RTOL,
+            wavelength_rtol=WAVELENGTH_RTOL,
+            expected_per_step=per_step, phase_seconds=lap(phase))
+        if not ok:
+            fail(f"the wave-optics route {label} failed its checks: {run}")
+        del tr, state, batches
+
+    log("wave_phases", seconds=phase_s, total_seconds=sum(phase_s.values()),
+        cap_seconds=WAVE_PHASES_CAP_S)
+    def dense_row(kk):
+        routes = {lb: dict(B=d["B"], mode=d["mode"], ms=d[kk]["ms"],
+                           plain_ms=d[kk]["plain_ms"],
+                           bound_ms=d[kk]["bound_ms"],
+                           bound_by=d[kk]["bound_by"],
+                           max_abs_err=d[kk]["abs_err"],
+                           max_rel_err=(d[kk]["rel_err"] if kk == "k5" else
+                                        max(d[kk]["rel_err"].values())))
+                  for lb, d in k_dense.items()}
+        head = routes["qsr"]
+        return dict(max_abs_err=max(r["max_abs_err"] for r in routes.values()),
+                    max_rel_err=max(r["max_rel_err"] for r in routes.values()),
+                    ms=head["ms"], plain_ms=head["plain_ms"],
+                    bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                    at="qsr's launch (4 clouds, WAVE); every route in routes",
+                    routes=routes,
+                    rel_err_is=("relative to the largest plain value"
+                                if kk == "k5" else
+                                "relative to each field's largest plain "
+                                "value"))
+
+    def phase_row(kk, abs_err):
+        return dict(max_abs_err=abs_err,
+                    max_rel_err=max(k_phase[kk]["rel_err"].values()),
+                    ms=k_phase[kk]["ms"], plain_ms=k_phase[kk]["plain_ms"],
+                    bound_ms=k_phase[kk]["bound_ms"],
+                    bound_by=k_phase[kk]["bound_by"], at="phase train pack",
+                    rel_err_is="relative to each field's largest plain "
+                               "value")
+
+    return dict(k1phi=phase_row("k1phi", k_phase["k1phi"]["abs_err"]),
+                k2phi=phase_row("k2phi", k_phase["k2phi"]["abs_err"]),
+                k5=dense_row("k5"), k6=dense_row("k6"))
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
     """K1 (and with `backward` K2, cotangents from a seed) against their
     plain versions on one pack: errors, times and bounds."""
@@ -3922,7 +4593,7 @@ def main():
         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0])
 
-    # 2. build, all four kernels at once
+    # 2. build, all eight kernels at once
     counters = (raster, binning, stream_binning)
     t0 = time.perf_counter()
     built = _build.build()
@@ -4278,6 +4949,10 @@ def main():
     # infer; K1 + K2 in refine and training; K3 + K1 at /render) and the
     # decoder options (K1 + K2 per step)
     k_launcher = backbone_phases(torch, dev, path_launches, tmp)
+    # 55-62. the wave-optics training routes (K1 + K2 on train.sh full's,
+    # K1-phi + K2-phi on the phase-blended, K5 + K6 on the wave and
+    # Fourier routes)
+    k_wave = wave_phases(torch, dev, path_launches, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k_saag["k1"]["k1_max_abs_err"])
@@ -4310,9 +4985,11 @@ def main():
         return {"name": name, "route": "cuda",
                 "source": f"fresnel_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces,
-                "launches": sum(v[key] for v in path_launches.values()),
+                "launches": sum(v.get(key, 0)
+                                for v in path_launches.values()),
                 "launches_by_path": {p: v[key]
-                                     for p, v in path_launches.items()},
+                                     for p, v in path_launches.items()
+                                     if key in v},
                 **numbers, "library_ms": None}
 
     print(json.dumps({"kernels": [
@@ -4323,7 +5000,17 @@ def main():
         entry("k3", "bin_table", "fresnel_tpu/render/pallas_binning.py:44",
               k3),
         entry("k4", "bin_stream",
-              "fresnel_tpu/render/pallas_stream_binning.py:56", k4)]}),
+              "fresnel_tpu/render/pallas_stream_binning.py:56", k4),
+        entry("k1phi", "raster_phase_fwd",
+              "fresnel_tpu/render/tile.py:672", k_wave["k1phi"]),
+        entry("k2phi", "raster_phase_bwd",
+              "fresnel_tpu/render/tile.py:672", k_wave["k2phi"]),
+        entry("k5", "dense_fwd", "fresnel_tpu/render/wave.py:63",
+              dict(k_wave["k5"],
+                   also_replaces="fresnel_tpu/render/fourier.py:85")),
+        entry("k6", "dense_bwd", "fresnel_tpu/render/wave.py:63",
+              dict(k_wave["k6"],
+                   also_replaces="fresnel_tpu/render/fourier.py:85"))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,8 +22,11 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 # K1, K2 (render/raster.py), K3 (render/binning.py), K4
-# (render/stream_binning.py).
-KERNELS = ("raster_fwd", "raster_bwd", "bin_table", "bin_stream")
+# (render/stream_binning.py); K1-phi, K2-phi (render/raster.py, phase
+# blending), K5, K6 (render/splat.py, the dense splat of the wave-field
+# and Fourier renderers).
+KERNELS = ("raster_fwd", "raster_bwd", "bin_table", "bin_stream",
+           "raster_phase_fwd", "raster_phase_bwd", "dense_fwd", "dense_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -79,28 +82,31 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, Tuple[Path, str]]:
     return out
 
 
-def load(name: str, n_pointers: int, n_ints: int):
+def load(name: str, n_pointers: int, n_ints: int, n_floats: int = 0):
     """The C entry point of kernel `name`, built if need be.  Its arguments
-    are `n_pointers` device pointers, `n_ints` ints and the stream; it
-    returns cudaGetLastError() of its launches (0 on success)."""
+    are `n_pointers` device pointers, `n_ints` ints, `n_floats` floats and
+    the stream; it returns cudaGetLastError() of its launches (0 on
+    success)."""
     if name not in _libs:
         path, _ = build([name])[name]
         lib = ctypes.CDLL(str(path))
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * n_pointers
-                       + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+                       + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _libs[name] = lib
     return getattr(_libs[name], name)
 
 
 def launch(name: str, device, pointers: Sequence[int],
-           ints: Sequence[int]) -> None:
+           ints: Sequence[int], floats: Sequence[float] = ()) -> None:
     """Launch kernel `name` on `device`, on that device's current stream,
     whichever device the process has current.  Raises if the build or the
     launch fails."""
     with torch.cuda.device(device):
-        err = load(name, len(pointers), len(ints))(
-            *pointers, *ints, torch.cuda.current_stream().cuda_stream)
+        err = load(name, len(pointers), len(ints), len(floats))(
+            *pointers, *ints, *floats,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")

@@ -115,6 +115,7 @@ __device__ __forceinline__ int reduced_term(int lane) {
   return (lane & 1) == 0 && idx >= 0 ? 5 * (lane >> 4) + idx : -1;
 }
 
+template <bool BOX>
 __global__ void __launch_bounds__(PIX)
 raster_bwd_segments(const float* __restrict__ pack,
                     const int* __restrict__ counts,
@@ -176,8 +177,8 @@ raster_bwd_segments(const float* __restrict__ pack,
       __syncthreads();
       for (int j = 0; j < cnt; ++j) {
         const float* g = sh + j * PACK;
-        const Alpha a = eval_alpha(g, px, py);
-        if (!__any_sync(FULL, in_box(g, a.dx, a.dy))) {
+        const Alpha a = eval_alpha<BOX>(g, px, py);
+        if (BOX && !__any_sync(FULL, in_box(g, a.dx, a.dy))) {
           if (term >= 0) sums[warp][j][term] = 0.0f;
           continue;
         }
@@ -242,9 +243,9 @@ raster_bwd_segments(const float* __restrict__ pack,
 // Launches on `stream` and returns the first nonzero cudaGetLastError() (0
 // on success).  When `prefix_ready`, part holds the forward's prefixes for
 // the same pack, counts and `resident`; else the forward's kernel fills it
-// first (tickets as the forward's).  The caller allocates every buffer
-// (grad need not be zeroed: the kernel writes every element); nothing is
-// synchronised here.
+// first (tickets as the forward's).  `box` 0 drops the box test, as the
+// forward's.  The caller allocates every buffer (grad need not be zeroed:
+// the kernel writes every element); nothing is synchronised here.
 extern "C" int raster_bwd(const float* pack, const int* counts,
                           const float* color, const float* depth,
                           const float* trans, const float* g_color,
@@ -252,18 +253,23 @@ extern "C" int raster_bwd(const float* pack, const int* counts,
                           float* part, int* tickets, float* grad,
                           int n_tiles, int max_per_tile, int n_tiles_x,
                           int tiles_per_image, int resident, int prefix_ready,
-                          void* stream) {
+                          int box, void* stream) {
   if (n_tiles <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   if (!prefix_ready) {
     const cudaError_t err = raster::launch_composite(
         pack, counts, nullptr, nullptr, nullptr, part, tickets, n_tiles,
-        max_per_tile, n_tiles_x, tiles_per_image, resident, 1, s);
+        max_per_tile, n_tiles_x, tiles_per_image, resident, 1, box, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  raster_bwd_segments<<<raster::grid_size(n_tiles, max_per_tile, resident),
-                        raster::PIX, 0, s>>>(
-      pack, counts, color, depth, trans, g_color, g_depth, g_trans, part,
-      grad, n_tiles, max_per_tile, n_tiles_x, tiles_per_image, resident);
+  const int grid = raster::grid_size(n_tiles, max_per_tile, resident);
+  if (box)
+    raster_bwd_segments<true><<<grid, raster::PIX, 0, s>>>(
+        pack, counts, color, depth, trans, g_color, g_depth, g_trans, part,
+        grad, n_tiles, max_per_tile, n_tiles_x, tiles_per_image, resident);
+  else
+    raster_bwd_segments<false><<<grid, raster::PIX, 0, s>>>(
+        pack, counts, color, depth, trans, g_color, g_depth, g_trans, part,
+        grad, n_tiles, max_per_tile, n_tiles_x, tiles_per_image, resident);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,14 +59,15 @@
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success).  The caller allocates every buffer; nothing is synchronised.
+// `box` 0 drops the 3-sigma box test (hard_cutoff=False).
 extern "C" int raster_fwd(const float* pack, const int* counts, float* color,
                           float* depth, float* trans, float* part,
                           int* tickets, int n_tiles, int max_per_tile,
                           int n_tiles_x, int tiles_per_image, int resident,
-                          int keep_prefix, void* stream) {
+                          int keep_prefix, int box, void* stream) {
   if (n_tiles <= 0) return 0;
   return static_cast<int>(raster::launch_composite(
       pack, counts, color, depth, trans, part, tickets, n_tiles,
-      max_per_tile, n_tiles_x, tiles_per_image, resident, keep_prefix,
+      max_per_tile, n_tiles_x, tiles_per_image, resident, keep_prefix, box,
       static_cast<cudaStream_t>(stream)));
 }

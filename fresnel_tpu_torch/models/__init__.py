@@ -1,6 +1,7 @@
 from fresnel_tpu_torch.models.blocks import (
     MLP, FeatureInterpolator, bilinear_sample)
-from fresnel_tpu_torch.models.decoders import DirectPatchDecoder, head_transform
+from fresnel_tpu_torch.models.decoders import (
+    DirectPatchDecoder, PhysicsDirectPatchDecoder, head_transform)
 from fresnel_tpu_torch.models.encoders import (
     FallbackDepthEstimator,
     create_depth_estimator,
@@ -25,6 +26,7 @@ __all__ = [
     "FeatureInterpolator",
     "MLP",
     "NCAGaussianDecoder",
+    "PhysicsDirectPatchDecoder",
     "SAAGRefinementNet",
     "bilinear_sample",
     "create_depth_estimator",

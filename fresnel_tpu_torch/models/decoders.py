@@ -17,6 +17,15 @@ and opacities raised at depth edges found by a learned
 (`use_phase_output`), opacities modulated into [0.5, 1.5] by a
 `PoseEncoder` of the pose (`use_pose_encoding`), and a `DepthEncoder`'s
 features concatenated to the patch features (`use_depth_fusion`).
+
+`PhysicsDirectPatchDecoder` (the JAX package's, for the wave-field
+renderer) has the same MLP and head, its z always depth-locked (offset
+plus depth times -2), and computes its phase from z by the wave equation
+instead of predicting it: z normalised over each image to [0, 1], phi =
+(2 pi / lambda) |z - focal| wrapped to [0, 2 pi), with a learnable
+wavelength `wavelength_raw`; with `use_diffraction_placement` the
+opacities are scaled by the Fresnel edge-diffraction profile of the
+depth grid's Sobel edges.
 """
 
 from __future__ import annotations
@@ -35,7 +44,9 @@ from fresnel_tpu_torch.models.blocks import (
     rotate_positions_for_pose)
 from fresnel_tpu_torch.models.encoders import _resize_weights, resize_linear
 from fresnel_tpu_torch.physics.edge_detector import FresnelEdgeDetector
-from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones
+from fresnel_tpu_torch.physics.diffraction import FresnelDiffraction
+from fresnel_tpu_torch.physics.fresnel_zones import (
+    FresnelZones, PhysicsFresnelZones, sobel_gradients, sqrt_rn)
 
 OUTPUTS_PER_GAUSSIAN = 16
 OUTPUTS_WITH_PHASE = 19
@@ -302,4 +313,88 @@ class DirectPatchDecoder(nn.Module):
                 self.opacity_out, elevation, azimuth)
         if return_raw:
             result["raw"] = out
+        return result
+
+
+def wrap_phase(phi: torch.Tensor) -> torch.Tensor:
+    """phi mod 2 pi with the sign of the divisor, as jnp.mod: fmod, then 2
+    pi added where the remainder is negative (its gradient is 1)."""
+    two_pi = torch.tensor(TWO_PI, dtype=phi.dtype, device=phi.device)
+    r = torch.fmod(phi, two_pi)
+    return torch.where((r != 0) & (r < 0), r + two_pi, r)
+
+
+class PhysicsDirectPatchDecoder(nn.Module):
+    """DirectPatchDecoder with its phase computed from z by the wave
+    equation (batch-normalised z -> phi = (2 pi / lambda) |z~ - f|,
+    wrapped to [0, 2 pi)) instead of predicted: features (B, H, W, C) [+
+    depth] -> H * W * K Gaussians with a scalar phase each."""
+
+    def __init__(self, feature_dim: int = 384, gaussians_per_patch: int = 8,
+                 hidden_dims: Sequence[int] = (512, 512, 256, 128),
+                 dropout: float = 0.1, wavelength: float = 0.05,
+                 learnable_wavelength: bool = True, focal_depth: float = 0.5,
+                 use_diffraction_placement: bool = False,
+                 scale_bias: float = 0.0, opacity_bias: float = 0.0):
+        super().__init__()
+        self.gaussians_per_patch = gaussians_per_patch
+        self.wavelength = wavelength
+        self.learnable_wavelength = learnable_wavelength
+        self.focal_depth = focal_depth
+        self.use_diffraction_placement = use_diffraction_placement
+        self.scale_bias = scale_bias
+        self.opacity_bias = opacity_bias
+        self.mlp = MLP(feature_dim, hidden_dims,
+                       gaussians_per_patch * OUTPUTS_PER_GAUSSIAN, dropout)
+        self.depth_offset = nn.Parameter(torch.tensor(-2.0))
+        if learnable_wavelength:
+            self.wavelength_raw = nn.Parameter(torch.tensor(float(wavelength)))
+
+    def fringe(self, depth_grid: torch.Tensor) -> torch.Tensor:
+        """(B, H, W) Fresnel edge-diffraction opacity factor in [0.5,
+        1.25]: strong Sobel edges of the depth grid lie in the fringe
+        region."""
+        fd = FresnelDiffraction(wavelength=self.wavelength)
+        gx, gy = sobel_gradients(depth_grid)
+        edge = torch.tanh(sqrt_rn(gx * gx + gy * gy + 1e-12) * 10.0)
+        dist = (1.0 - edge) * 0.5
+        w = fd.compute_fresnel_parameter(dist, torch.abs(depth_grid) + 1.0)
+        return torch.clamp(fd.fresnel_intensity(w) / 2.0, 0.5, 1.25)
+
+    def forward(self, features: torch.Tensor,
+                depth: Optional[torch.Tensor] = None,
+                num_gaussians: Optional[int] = None,
+                elevation: Optional[torch.Tensor] = None,
+                azimuth: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Dropout is active only with deterministic=False (the masks
+        drawn from `generator`).  The pose arguments are accepted, as the
+        JAX decoder accepts them, and unused."""
+        B, H, W, C = features.shape
+        full_K = self.gaussians_per_patch
+        K = min(num_gaussians, full_K) if num_gaussians is not None else full_K
+        out = self.mlp(features.reshape(B * H * W, C), deterministic,
+                       generator)
+        out = out.reshape(B, H, W, full_K, OUTPUTS_PER_GAUSSIAN)[:, :, :, :K]
+        result = head_transform(out, depth, self.depth_offset,
+                                scale_bias=self.scale_bias,
+                                opacity_bias=self.opacity_bias)
+        if self.use_diffraction_placement and depth is not None:
+            fringe = self.fringe(_resize_depth_to_grid(depth, H, W))
+            op = result["opacities"].reshape(B, H, W, K)
+            result["opacities"] = torch.clamp(
+                op * fringe[..., None], 0.0, 1.0).reshape(B, H * W * K)
+
+        wl = (self.wavelength_raw if self.learnable_wavelength
+              else torch.tensor(self.wavelength, device=features.device))
+        zones = PhysicsFresnelZones(wavelength_init=self.wavelength,
+                                    focal_depth=self.focal_depth)
+        z = result["positions"][..., 2]                            # (B, N)
+        z_min = torch.amin(z, dim=1, keepdim=True)
+        z_max = torch.amax(z, dim=1, keepdim=True)
+        z_norm = (z - z_min) / (z_max - z_min + 1e-8)
+        result["phases"] = wrap_phase(zones.depth_to_phase(z_norm,
+                                                           wavelength=wl))
         return result

@@ -1,19 +1,52 @@
-"""Fresnel-zone utilities: `sobel_gradients` and `FresnelZones`.
+"""Fresnel-zone utilities.
 
-Counterpart of fresnel_tpu/physics/fresnel_zones.py::sobel_gradients
-(which the gradient depth fallback uses) and its `FresnelZones`: uniform
-depth zones, zone-centre snapping and the soft boundary mask that weights
-the trainer's boundary loss.  `PhysicsFresnelZones` and
-`MultiWavelengthPhysics` are not ported (ROADMAP Queue 1, item 5).
+Counterpart of fresnel_tpu/physics/fresnel_zones.py:
+  * `sobel_gradients` (which the gradient depth fallback uses);
+  * `FresnelZones`: uniform depth zones, zone-centre snapping and the soft
+    boundary mask that weights the trainer's boundary loss;
+  * `constrain_wavelength`, `PhysicsFresnelZones` (zone-plate boundaries
+    r_n = sqrt(n lambda f) normalised to [0, 1], alternating 0 / pi zone
+    phases, the wave equation phi = (2 pi / lambda) |d - f|) and
+    `MultiWavelengthPhysics` (per-RGB wavelengths at the ratios 700 : 550
+    : 450, per-channel phases, chromatic dispersion).
+The wavelength is an argument of each call, so a learnable one lives in
+the caller's parameters.  Every division takes a tensor divisor and every
+square root is rounded once from float64, so the values equal the JAX
+package's on XLA:CPU bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+PI = math.pi
+# Physical wavelength ratios normalised to green (700/550, 1, 450/550).
+WAVELENGTH_RATIO_R = 700.0 / 550.0
+WAVELENGTH_RATIO_G = 1.0
+WAVELENGTH_RATIO_B = 450.0 / 550.0
+
+
+def _f32(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded once (through float64, where it is
+    exact before the final rounding), as XLA computes it; torch's
+    vectorised CPU sqrt is 1 ulp off for a few inputs."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def constrain_wavelength(raw, lo: float = 0.01, hi: float = 0.5
+                         ) -> torch.Tensor:
+    """|raw| clamped to [lo, hi]: no divergence, still differentiable."""
+    return torch.clamp(torch.abs(raw), lo, hi)
 
 
 def sobel_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -88,3 +121,125 @@ class FresnelZones:
         else:
             per_b = (dist < t).to(torch.float32)
         return (per_b * emphasis).max(dim=-1).values
+
+
+@dataclasses.dataclass(frozen=True)
+class PhysicsFresnelZones:
+    """Zone-plate physics: sqrt-spaced boundaries and wave-equation phases.
+    The (possibly learnable) wavelength is passed per call; None takes
+    `wavelength_init`."""
+
+    num_zones: int = 8
+    wavelength_init: float = 0.05
+    focal_depth: float = 0.5
+    wavelength_min: float = 0.01
+    wavelength_max: float = 0.5
+
+    def _wl(self, wavelength, device=None) -> torch.Tensor:
+        wl = self.wavelength_init if wavelength is None else wavelength
+        return constrain_wavelength(_f32(wl, device), self.wavelength_min,
+                                    self.wavelength_max)
+
+    def zone_boundaries(self, wavelength=None, device=None) -> torch.Tensor:
+        wl = self._wl(wavelength, device)
+        n = torch.arange(self.num_zones + 1, dtype=torch.float32,
+                         device=wl.device)
+        r = sqrt_rn(n * wl * self.focal_depth)
+        return r / (r[-1] + 1e-8)
+
+    def zone_index(self, depth: torch.Tensor, wavelength=None
+                   ) -> torch.Tensor:
+        """Zone of each depth: searchsorted(side="right") over the inner
+        boundaries, clipped to [0, num_zones - 1]."""
+        b = self.zone_boundaries(wavelength, depth.device)
+        idx = torch.bucketize(depth, b[1:-1].contiguous(), right=True)
+        return torch.clamp(idx, 0, self.num_zones - 1)
+
+    @staticmethod
+    def zone_phase(zone_idx: torch.Tensor) -> torch.Tensor:
+        """Alternating 0 / pi phases, the zone-plate signature."""
+        return (zone_idx % 2).to(torch.float32) * PI
+
+    def path_difference(self, depth: torch.Tensor) -> torch.Tensor:
+        return torch.abs(depth - self.focal_depth)
+
+    def depth_to_phase(self, depth: torch.Tensor, wavelength=None
+                       ) -> torch.Tensor:
+        """phi = (2 pi / lambda) |depth - focal|."""
+        wl = self._wl(wavelength, depth.device)
+        return (_f32(2.0 * PI, wl.device) / wl) * self.path_difference(depth)
+
+    def __call__(self, depth: torch.Tensor, wavelength=None,
+                 return_all: bool = False):
+        if not return_all:
+            return self.depth_to_phase(depth, wavelength)
+        zi = self.zone_index(depth, wavelength)
+        return {
+            "phase": self.depth_to_phase(depth, wavelength),
+            "zone_idx": zi,
+            "zone_phase": self.zone_phase(zi),
+            "path_difference": self.path_difference(depth),
+            "boundaries": self.zone_boundaries(wavelength, depth.device),
+            "wavelength": self._wl(wavelength, depth.device),
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiWavelengthPhysics:
+    """Per-RGB-channel wavelength physics."""
+
+    base_wavelength: float = 0.05
+    use_physical_ratios: bool = True
+    wavelength_min: float = 0.01
+    wavelength_max: float = 0.5
+    focal_depth: float = 0.5
+
+    def init_wavelengths(self, device=None) -> torch.Tensor:
+        """Initial raw (3,) wavelengths [R, G, B], the learnable
+        parameter."""
+        if self.use_physical_ratios:
+            return _f32([self.base_wavelength * WAVELENGTH_RATIO_R,
+                         self.base_wavelength * WAVELENGTH_RATIO_G,
+                         self.base_wavelength * WAVELENGTH_RATIO_B], device)
+        return torch.full((3,), self.base_wavelength, dtype=torch.float32,
+                          device=device)
+
+    def _wls(self, wavelengths, device=None) -> torch.Tensor:
+        wl = (self.init_wavelengths(device) if wavelengths is None
+              else _f32(wavelengths, device))
+        return constrain_wavelength(wl, self.wavelength_min,
+                                    self.wavelength_max)
+
+    def path_difference(self, depth: torch.Tensor) -> torch.Tensor:
+        return torch.abs(depth - self.focal_depth)
+
+    def depth_to_phase_rgb(self, depth: torch.Tensor, wavelengths=None
+                           ) -> torch.Tensor:
+        """(...,) depth -> (..., 3) per-channel phase."""
+        pd = self.path_difference(depth)[..., None]
+        wl = self._wls(wavelengths, depth.device)
+        return (_f32(2.0 * PI, wl.device) / wl) * pd
+
+    def depth_to_phase_single(self, depth: torch.Tensor, channel: str = "g",
+                              wavelengths=None) -> torch.Tensor:
+        c = {"r": 0, "g": 1, "b": 2}[channel.lower()]
+        wl = self._wls(wavelengths, depth.device)[c]
+        return (_f32(2.0 * PI, wl.device) / wl) * self.path_difference(depth)
+
+    def chromatic_dispersion(self, wavelengths=None, device=None
+                             ) -> torch.Tensor:
+        wl = self._wls(wavelengths, device)
+        return (wl[0] - wl[2]) / wl[1]
+
+    def __call__(self, depth: torch.Tensor, wavelengths=None,
+                 return_all: bool = False):
+        phases = self.depth_to_phase_rgb(depth, wavelengths)
+        if not return_all:
+            return phases
+        out: Dict[str, torch.Tensor] = {
+            "phases": phases,
+            "wavelengths": self._wls(wavelengths, depth.device),
+            "chromatic_dispersion": self.chromatic_dispersion(
+                wavelengths, depth.device),
+        }
+        return out

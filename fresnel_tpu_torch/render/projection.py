@@ -124,6 +124,19 @@ def project_gaussians(positions: torch.Tensor, scales: torch.Tensor,
                               depths=depths, radii=radii, visible=visible)
 
 
+def batch_cameras(cameras, B: int):
+    """The B cameras of a batch: one Camera for every cloud, or a sequence
+    of B of one size."""
+    cams = (list(cameras) if isinstance(cameras, (list, tuple))
+            else [cameras] * B)
+    if len(cams) != B:
+        raise ValueError(f"{len(cams)} cameras for {B} clouds")
+    if any((c.height, c.width) != (cams[0].height, cams[0].width)
+           for c in cams):
+        raise ValueError("every camera of a batch must have one size")
+    return cams
+
+
 def depth_sort_indices(proj: GaussianProjection, method: str = "exact"
                        ) -> torch.Tensor:
     """Front-to-back order with invisible Gaussians pushed to the end.

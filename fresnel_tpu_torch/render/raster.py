@@ -12,7 +12,20 @@ K2; for CPU tensors they run the plain versions `composite_tiles_plain` and
 `composite_tiles_bwd_plain`.  There is no fall back from one to the other.
 `launches` and `launches_bwd` count calls of each kernel's C entry point
 (K2's also launches K1's kernel as its pre-pass when it is not handed K1's
-segment prefixes).
+segment prefixes).  `box=False` (the tiled renderer's hard_cutoff=False)
+drops the 3-sigma box test in both kernels and both plain versions, as the
+JAX package's XLA scan does.
+
+Phase blending (`composite_tiles_phase`): each slot's alpha is scaled by
+an interference factor against the pixel's running weighted phase
+(fresnel_tpu/render/tile.py:672-716), the slot's phase riding in pack
+column 11.  The kernels are K1-phi (csrc/raster_phase_fwd.cu) and K2-phi
+(csrc/raster_phase_bwd.cu), counted by `launches_phase` and
+`launches_phase_bwd`; the plain version of K1-phi is tile.py's sequential
+`_composite_tiles` phase path, and of K2-phi autograd through it.  The
+recurrence is not associative, so a tile's list runs whole in one block;
+when the pack needs a gradient K1-phi leaves (T, acc_phase) per pixel
+every CKPT slots, which K2-phi recomputes each segment from.
 
 Both kernels split a tile's list into segments that run as separate
 blocks, the segment length set on the card from the pack's work, at least
@@ -24,6 +37,7 @@ has K2 recompute them.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -40,9 +54,12 @@ ALPHA_MAX = 0.99
 SEG = 64            # the shortest segment of K1 and K2 (raster_common.cuh)
 NPART = 5           # floats per pixel and segment in the scratch
 BLOCKS_PER_SM = 8   # of K1's kernel, by its launch bounds
+CKPT = 16           # slots between K1-phi's checkpoints (raster_common.cuh)
 
 launches = 0        # K1 launches
 launches_bwd = 0    # K2 launches
+launches_phase = 0      # K1-phi launches
+launches_phase_bwd = 0  # K2-phi launches
 
 
 def _tile_grid(T: int, M: int, counts: torch.Tensor, n_tiles_x: int,
@@ -65,9 +82,12 @@ def _tile_grid(T: int, M: int, counts: torch.Tensor, n_tiles_x: int,
 
 def composite_tiles_plain(pack: torch.Tensor, counts: torch.Tensor,
                           n_tiles_x: int, chunk: int = 32,
-                          tiles_per_image=None
+                          tiles_per_image=None, box: bool = True,
+                          phase_amplitude=None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1, on any device and float dtype.
+    """Plain PyTorch version of K1 (or, with a `phase_amplitude`, of
+    K1-phi: the phases from pack column 11), on any device and float
+    dtype.
 
     Unpacks the (T, M, 12) pack and runs tile.py's `_composite_tiles`,
     which autograd can differentiate."""
@@ -77,16 +97,39 @@ def composite_tiles_plain(pack: torch.Tensor, counts: torch.Tensor,
     T, M, _ = pack.shape
     px, py, valid = _tile_grid(T, M, counts, n_tiles_x, pack.device,
                                pack.dtype, tiles_per_image)
+    cfg = TileRendererConfig(chunk=chunk, hard_cutoff=box)
+    g_phase = None
+    if phase_amplitude is not None:
+        cfg = dataclasses.replace(cfg, use_phase_blending=True,
+                                  phase_amplitude=phase_amplitude)
+        g_phase = pack[..., 11]
     return _composite_tiles(
         px, py, pack[..., 0:2], pack[..., 2:5], pack[..., 6:9],
-        pack[..., 9], pack[..., 10], pack[..., 5], valid,
-        TileRendererConfig(chunk=chunk))
+        pack[..., 9], pack[..., 10], pack[..., 5], valid, cfg,
+        g_phase=g_phase)
+
+
+def composite_tiles_phase_bwd_plain(pack, counts, n_tiles_x: int,
+                                    phase_amplitude: float, g_color,
+                                    g_depth, g_trans, box: bool = True,
+                                    tiles_per_image=None) -> torch.Tensor:
+    """Plain PyTorch version of K2-phi, on any device: the gradient of the
+    pack (T, M, 12) by autograd through the plain K1-phi (the radius
+    column and slots >= count are 0)."""
+    with torch.enable_grad():
+        p = pack.detach().requires_grad_()
+        out = composite_tiles_plain(p, counts, n_tiles_x,
+                                    tiles_per_image=tiles_per_image, box=box,
+                                    phase_amplitude=phase_amplitude)
+        (grad,) = torch.autograd.grad(out, p, (g_color, g_depth, g_trans),
+                                      allow_unused=True)
+    return torch.zeros_like(pack) if grad is None else grad
 
 
 def composite_tiles_bwd_plain(pack, counts, n_tiles_x: int, color, depth,
                               trans, g_color, g_depth, g_trans,
-                              chunk: int = 32, tiles_per_image=None
-                              ) -> torch.Tensor:
+                              chunk: int = 32, tiles_per_image=None,
+                              box: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K2, on any device and float dtype.
 
     The formulas of pallas_raster.py's _bwd_chunk_body over (T, C, P)
@@ -113,8 +156,9 @@ def composite_tiles_bwd_plain(pack, counts, n_tiles_x: int, color, depth,
         dx = px[:, None, :] - g[..., 0, None]                   # (T, C, P)
         dy = py[:, None, :] - g[..., 1, None]
         rr = g[..., 5, None]
-        inside = ((torch.abs(dx) <= rr) & (torch.abs(dy) <= rr)
-                  & valid[:, sl, None])
+        inside = valid[:, sl, None]
+        if box:
+            inside = inside & (torch.abs(dx) <= rr) & (torch.abs(dy) <= rr)
         m = ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
         e = torch.where(inside, torch.exp(-0.5 * m), 0.0)
         alpha_raw = e * g[..., 9, None]
@@ -228,8 +272,8 @@ def _per_image(T: int, tiles_per_image) -> int:
 
 
 def _launch_fwd(pack: torch.Tensor, counts: torch.Tensor, n_tiles_x: int,
-                keep_prefix: bool = False, tiles_per_image=None
-                ) -> Tuple[torch.Tensor, ...]:
+                keep_prefix: bool = False, tiles_per_image=None,
+                box: bool = True) -> Tuple[torch.Tensor, ...]:
     """K1 on CUDA tensors: (color, depth, trans, prefix), prefix the
     segment prefixes for K2 when `keep_prefix`, else None."""
     global launches
@@ -250,14 +294,14 @@ def _launch_fwd(pack: torch.Tensor, counts: torch.Tensor, n_tiles_x: int,
                    _tile_tickets(T, pack.device).data_ptr()),
                   (T, M, n_tiles_x, ti,
                    resident_blocks(pack.device.index or 0),
-                   int(keep_prefix)))
+                   int(keep_prefix), int(box)))
     launches += 1
     return color, depth, trans, prefix
 
 
 def _launch_bwd(pack, counts, n_tiles_x: int, color, depth, trans, g_color,
-                g_depth, g_trans, prefix=None, tiles_per_image=None
-                ) -> torch.Tensor:
+                g_depth, g_trans, prefix=None, tiles_per_image=None,
+                box: bool = True) -> torch.Tensor:
     """K2 on CUDA tensors.  `prefix` is K1's for the same pack and counts;
     without it K2 recomputes it first."""
     global launches_bwd
@@ -285,8 +329,80 @@ def _launch_bwd(pack, counts, n_tiles_x: int, color, depth, trans, g_color,
                    _tile_tickets(T, pack.device).data_ptr(), grad.data_ptr()),
                   (T, M, n_tiles_x, ti,
                    resident_blocks(pack.device.index or 0),
-                   int(prefix is not None)))
+                   int(prefix is not None), int(box)))
     launches_bwd += 1
+    return grad
+
+
+def _amplitude(phase_amplitude: float) -> Tuple[float, float]:
+    """The kernels' (A, 1 - A): 1 - A computed in double and rounded to
+    float32 once, as the plain version's Python scalar is."""
+    a = float(phase_amplitude)
+    return a, 1.0 - a
+
+
+def checkpoint_shape(T: int, M: int) -> Tuple[int, ...]:
+    """Shape of K1-phi's checkpoints: (T, ceil(M / CKPT), 2, 256)."""
+    return (T, max(1, -(-M // CKPT)), 2, PIX)
+
+
+def _launch_fwd_phase(pack: torch.Tensor, counts: torch.Tensor,
+                      n_tiles_x: int, phase_amplitude: float,
+                      keep_ckpt: bool = False, tiles_per_image=None,
+                      box: bool = True) -> Tuple[torch.Tensor, ...]:
+    """K1-phi on CUDA tensors: (color, depth, trans, ckpt), ckpt the
+    per-pixel (T, acc_phase) checkpoints for K2-phi when `keep_ckpt`,
+    else None."""
+    global launches_phase
+    _check_inputs(pack, counts)
+    T, M, _ = pack.shape
+    ti = _per_image(T, tiles_per_image)
+    color = torch.empty((T, PIX, 3), dtype=torch.float32, device=pack.device)
+    depth = torch.empty((T, PIX), dtype=torch.float32, device=pack.device)
+    trans = torch.empty((T, PIX), dtype=torch.float32, device=pack.device)
+    ckpt = (torch.empty(checkpoint_shape(T, M), dtype=torch.float32,
+                        device=pack.device) if keep_ckpt else None)
+    if T == 0:
+        return color, depth, trans, ckpt
+    _build.launch("raster_phase_fwd", pack.device,
+                  (pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
+                   depth.data_ptr(), trans.data_ptr(),
+                   0 if ckpt is None else ckpt.data_ptr()),
+                  (T, M, n_tiles_x, ti, int(box)), _amplitude(phase_amplitude))
+    launches_phase += 1
+    return color, depth, trans, ckpt
+
+
+def _launch_bwd_phase(pack, counts, n_tiles_x: int, phase_amplitude: float,
+                      g_color, g_depth, g_trans, ckpt: torch.Tensor,
+                      tiles_per_image=None, box: bool = True
+                      ) -> torch.Tensor:
+    """K2-phi on CUDA tensors.  `ckpt` is the checkpoints K1-phi left for
+    the same pack (`keep_ckpt=True`)."""
+    global launches_phase_bwd
+    _check_inputs(pack, counts)
+    T, M, _ = pack.shape
+    for name, t in (("g_color", g_color), ("g_depth", g_depth),
+                    ("g_trans", g_trans)):
+        shape = (T, PIX, 3) if name == "g_color" else (T, PIX)
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != pack.device):
+            raise ValueError(f"{name} must be contiguous float32 {shape} "
+                             f"on {pack.device}")
+    if (ckpt is None or tuple(ckpt.shape) != checkpoint_shape(T, M)
+            or ckpt.dtype != torch.float32 or ckpt.device != pack.device
+            or not ckpt.is_contiguous()):
+        raise ValueError("ckpt must be K1-phi's for this pack")
+    ti = _per_image(T, tiles_per_image)
+    grad = torch.empty_like(pack)
+    if T == 0:
+        return grad
+    _build.launch("raster_phase_bwd", pack.device,
+                  (pack.data_ptr(), counts.data_ptr(), g_color.data_ptr(),
+                   g_depth.data_ptr(), g_trans.data_ptr(), ckpt.data_ptr(),
+                   grad.data_ptr()),
+                  (T, M, n_tiles_x, ti, int(box)), _amplitude(phase_amplitude))
+    launches_phase_bwd += 1
     return grad
 
 
@@ -298,7 +414,8 @@ def _device_of(pack: torch.Tensor) -> str:
 
 def composite_tiles_bwd(pack, counts, n_tiles_x: int, color, depth, trans,
                         g_color, g_depth, g_trans, chunk: int = 32,
-                        tiles_per_image=None) -> torch.Tensor:
+                        tiles_per_image=None, box: bool = True
+                        ) -> torch.Tensor:
     """Gradient of the pack (T, M, 12) from the forward's outputs (color,
     depth before the background, final transmittance) and their
     cotangents: K2 for CUDA tensors, the plain version for CPU tensors.
@@ -306,10 +423,10 @@ def composite_tiles_bwd(pack, counts, n_tiles_x: int, color, depth, trans,
     if _device_of(pack) == "cuda":
         return _launch_bwd(pack, counts, n_tiles_x, color, depth, trans,
                            g_color, g_depth, g_trans,
-                           tiles_per_image=tiles_per_image)
+                           tiles_per_image=tiles_per_image, box=box)
     return composite_tiles_bwd_plain(pack, counts, n_tiles_x, color, depth,
                                      trans, g_color, g_depth, g_trans, chunk,
-                                     tiles_per_image)
+                                     tiles_per_image, box=box)
 
 
 class _Composite(torch.autograd.Function):
@@ -320,18 +437,19 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pack, counts, n_tiles_x: int, chunk: int,
-                tiles_per_image):
+                tiles_per_image, box: bool):
         if _device_of(pack) == "cuda":
             *out, prefix = _launch_fwd(pack, counts, n_tiles_x,
                                        keep_prefix=ctx.needs_input_grad[0],
-                                       tiles_per_image=tiles_per_image)
+                                       tiles_per_image=tiles_per_image,
+                                       box=box)
         else:
             out = composite_tiles_plain(pack, counts, n_tiles_x, chunk,
-                                        tiles_per_image)
+                                        tiles_per_image, box=box)
             prefix = None
         ctx.save_for_backward(pack, counts, *out, prefix)
         ctx.n_tiles_x, ctx.chunk = n_tiles_x, chunk
-        ctx.tiles_per_image = tiles_per_image
+        ctx.tiles_per_image, ctx.box = tiles_per_image, box
         return tuple(out)
 
     @staticmethod
@@ -345,17 +463,76 @@ class _Composite(torch.autograd.Function):
         if _device_of(pack) == "cuda":
             grad = _launch_bwd(pack, counts, ctx.n_tiles_x, color, depth,
                                trans, *cots, prefix=prefix,
-                               tiles_per_image=ctx.tiles_per_image)
+                               tiles_per_image=ctx.tiles_per_image,
+                               box=ctx.box)
         else:
             grad = composite_tiles_bwd_plain(
                 pack, counts, ctx.n_tiles_x, color, depth, trans, *cots,
-                chunk=ctx.chunk, tiles_per_image=ctx.tiles_per_image)
-        return grad, None, None, None, None
+                chunk=ctx.chunk, tiles_per_image=ctx.tiles_per_image,
+                box=ctx.box)
+        return grad, None, None, None, None, None
+
+
+class _CompositePhase(torch.autograd.Function):
+    """K1-phi forward and K2-phi backward on CUDA tensors, K2-phi taking
+    K1-phi's checkpoints; the plain versions of both on CPU tensors.  Only
+    the pack gets a gradient, and only once."""
+
+    @staticmethod
+    def forward(ctx, pack, counts, n_tiles_x: int, phase_amplitude: float,
+                tiles_per_image, box: bool):
+        if _device_of(pack) == "cuda":
+            *out, ckpt = _launch_fwd_phase(
+                pack, counts, n_tiles_x, phase_amplitude,
+                keep_ckpt=ctx.needs_input_grad[0],
+                tiles_per_image=tiles_per_image, box=box)
+        else:
+            with torch.no_grad():
+                out = composite_tiles_plain(
+                    pack, counts, n_tiles_x, tiles_per_image=tiles_per_image,
+                    box=box, phase_amplitude=phase_amplitude)
+            ckpt = None
+        ctx.save_for_backward(pack, counts, ckpt)
+        ctx.n_tiles_x, ctx.amp = n_tiles_x, phase_amplitude
+        ctx.tiles_per_image, ctx.box = tiles_per_image, box
+        return tuple(out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_color, g_depth, g_trans):
+        pack, counts, ckpt = ctx.saved_tensors
+        cots = (g_color.contiguous(), g_depth.contiguous(),
+                g_trans.contiguous())
+        if _device_of(pack) == "cuda":
+            grad = _launch_bwd_phase(pack, counts, ctx.n_tiles_x, ctx.amp,
+                                     *cots, ckpt=ckpt,
+                                     tiles_per_image=ctx.tiles_per_image,
+                                     box=ctx.box)
+        else:
+            grad = composite_tiles_phase_bwd_plain(
+                pack, counts, ctx.n_tiles_x, ctx.amp, *cots, box=ctx.box,
+                tiles_per_image=ctx.tiles_per_image)
+        return grad, None, None, None, None, None
+
+
+def composite_tiles_phase(pack: torch.Tensor, counts: torch.Tensor,
+                          n_tiles_x: int, phase_amplitude: float,
+                          tiles_per_image=None, box: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Phase-blended compositing of binned, depth-ordered tiles,
+    differentiably in the pack (the phase in column 11 included): the
+    contract of `composite_tiles_packed`, each slot's alpha scaled by 1 -
+    A + A cos(2 pi d) of its phase's wrap-around distance d to the pixel's
+    running phase, A = `phase_amplitude`.  CUDA tensors launch K1-phi (and
+    K2-phi on backward), CPU tensors run the plain versions."""
+    return _CompositePhase.apply(pack, counts, n_tiles_x,
+                                 float(phase_amplitude), tiles_per_image,
+                                 bool(box))
 
 
 def composite_tiles_packed(pack: torch.Tensor, counts: torch.Tensor,
                            n_tiles_x: int, chunk: int = 32,
-                           tiles_per_image=None
+                           tiles_per_image=None, box: bool = True
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Composite binned, depth-ordered tiles, differentiably in the pack.
 
@@ -367,5 +544,7 @@ def composite_tiles_packed(pack: torch.Tensor, counts: torch.Tensor,
     backward), CPU tensors run the plain versions.  `chunk` is the plain
     versions' step and does not change the kernels.  A pack of B images
     holds each one's `tiles_per_image` tiles in turn (default T: one
-    image), so a batch takes one launch of each kernel."""
-    return _Composite.apply(pack, counts, n_tiles_x, chunk, tiles_per_image)
+    image), so a batch takes one launch of each kernel.  `box=False`
+    drops the 3-sigma box test (hard_cutoff=False)."""
+    return _Composite.apply(pack, counts, n_tiles_x, chunk, tiles_per_image,
+                            bool(box))

@@ -30,9 +30,16 @@ Counterpart of fresnel_tpu/render/tile.py:
      CPU tensors.  The gradient of the pack flows back through the packed
      gather to projection; the radius and the binning carry none.
 
+With `use_phase_blending` and phases (N,) or (N, 3) (the first channel is
+taken, as the JAX package takes it), each Gaussian's phase rides in the
+pack's column 11 and the tiles composite through
+`render.raster.composite_tiles_phase` (K1-phi and K2-phi on the card);
+given no phases, phase blending is off, as in the JAX package.
+`hard_cutoff=False` drops the 3-sigma box test, as the JAX package's XLA
+scan does (its TPU kernel keeps the box whatever the option says).
+
 Options of the JAX renderer that are not ported raise NotImplementedError:
-phase blending, depth sorts other than "exact", tile sizes other than 16
-and hard_cutoff=False.
+depth sorts other than "exact" and tile sizes other than 16.
 """
 
 from __future__ import annotations
@@ -47,15 +54,17 @@ from fresnel_tpu_torch.render import raster
 from fresnel_tpu_torch.render.binning import (
     CHUNK as RANK_CHUNK, build_rank_table, tile_intervals)
 from fresnel_tpu_torch.render.projection import (
+    batch_cameras,
     depth_sort_indices,
     project_gaussians,
 )
 from fresnel_tpu_torch.render.stream_binning import bin_gaussians_stream
 
 ALPHA_MAX = raster.ALPHA_MAX
+TWO_PI = 6.283185307179586
 # Sentinel-row radius: the inside-box test |d| <= -1 is false everywhere.
 SENTINEL_RADIUS = -1.0
-PACK = 12       # [mean 2, conic 3, radius, rgb 3, opacity, depth, pad]
+PACK = 12       # [mean 2, conic 3, radius, rgb 3, opacity, depth, phase]
 _SEARCH_MIN_N = 98304   # binning="auto" switches to "search" from here
 _MAX_SLAB = 1 << 30     # rank-table elements per tile-row group of "search"
 BINNINGS = ("auto", "pairs", "search", "stream", "rows", "chunked")
@@ -527,14 +536,19 @@ def tile_pixel_coords(n_tiles_x: int, n_tiles_y: int, tile_size: int,
 
 
 def _composite_tiles(px, py, g_mean, g_conic, g_color, g_op, g_depth,
-                     g_radius, valid, cfg: TileRendererConfig):
+                     g_radius, valid, cfg: TileRendererConfig, g_phase=None):
     """Front-to-back compositing of binned Gaussians over tile pixels: the
-    plain PyTorch version of the compositing kernel.
+    plain PyTorch version of the compositing kernels.
 
     px, py: (T, P); g_*: (T, M, ...).  Chunks of `cfg.chunk` Gaussians use
     the exclusive-cumprod transmittance identity, as the JAX package's
-    scan compositor does.  Returns (color (T, P, 3), depth (T, P),
-    transmittance (T, P))."""
+    scan compositor does; with `g_phase` (T, M) it runs the phase-blending
+    recurrence one slot at a time, as the JAX package does.  Returns
+    (color (T, P, 3), depth (T, P), transmittance (T, P))."""
+    if g_phase is not None:
+        return _composite_tiles_phase(px, py, g_mean, g_conic, g_color,
+                                      g_op, g_depth, g_radius, valid, cfg,
+                                      g_phase)
     T_tiles, M = valid.shape
     P = px.shape[1]
     chunk = cfg.chunk
@@ -567,14 +581,51 @@ def _composite_tiles(px, py, g_mean, g_conic, g_color, g_op, g_depth,
     return acc_c, acc_d, Tr
 
 
-def _check_supported(cfg: TileRendererConfig, phases) -> None:
+def _composite_tiles_phase(px, py, g_mean, g_conic, g_color, g_op, g_depth,
+                           g_radius, valid, cfg: TileRendererConfig,
+                           g_phase):
+    """The phase-blending path of `_composite_tiles`: strictly sequential
+    per slot, each alpha scaled by the interference of the slot's phase
+    with the pixel's running weighted phase (unit-interval phases,
+    wrap-around distance), clipped to ALPHA_MAX after the interference."""
+    T_tiles, M = valid.shape
+    P = px.shape[1]
+    A = cfg.phase_amplitude
+    acc_c = torch.zeros((T_tiles, P, 3), dtype=px.dtype, device=px.device)
+    acc_d = torch.zeros((T_tiles, P), dtype=px.dtype, device=px.device)
+    Tr = torch.ones((T_tiles, P), dtype=px.dtype, device=px.device)
+    acc_phase = torch.zeros((T_tiles, P), dtype=px.dtype, device=px.device)
+    for i in range(M):
+        mean, conic = g_mean[:, i], g_conic[:, i]
+        dx = px - mean[:, 0:1]
+        dy = py - mean[:, 1:2]
+        mahal = (conic[:, 0:1] * dx * dx + 2.0 * conic[:, 1:2] * dx * dy
+                 + conic[:, 2:3] * dy * dy)
+        alpha = torch.exp(-0.5 * mahal) * g_op[:, i, None]
+        if cfg.hard_cutoff:
+            rr = g_radius[:, i, None]
+            alpha = torch.where((torch.abs(dx) <= rr) & (torch.abs(dy) <= rr),
+                                alpha, 0.0)
+        alpha = torch.where(valid[:, i, None], alpha, 0.0)
+        phase = g_phase[:, i, None]
+        diff = torch.abs(phase - acc_phase)
+        diff = torch.minimum(diff, 1.0 - diff)
+        interference = (1.0 - A) + A * torch.cos(diff * TWO_PI)
+        alpha = torch.clamp(alpha * interference, 0.0, ALPHA_MAX)
+        w = alpha * Tr
+        acc_c = acc_c + w[..., None] * g_color[:, i, None, :]
+        acc_d = acc_d + w * g_depth[:, i, None]
+        new_acc_alpha = (1.0 - Tr) + w
+        Tr = Tr * (1.0 - alpha)
+        contrib = w / torch.clamp(new_acc_alpha, min=1e-6)
+        acc_phase = acc_phase * (1.0 - contrib) + phase * contrib
+    return acc_c, acc_d, Tr
+
+
+def _check_supported(cfg: TileRendererConfig) -> None:
     if cfg.tile_size != raster.TS:
         raise NotImplementedError(
             f"tile_size {cfg.tile_size} is not ported (only {raster.TS})")
-    if not cfg.hard_cutoff:
-        raise NotImplementedError("hard_cutoff=False is not ported")
-    if cfg.use_phase_blending and phases is not None:
-        raise NotImplementedError("phase blending is not ported")
     if cfg.binning not in BINNINGS:
         raise ValueError(f"unknown binning {cfg.binning!r}")
     if cfg.table_build not in TABLE_BUILDS:
@@ -595,12 +646,24 @@ class SortedProjection:
     visible: torch.Tensor
     colors: torch.Tensor
     opacities: torch.Tensor   # 0 where invisible
+    phases: Optional[torch.Tensor] = None   # (N,), when blended
+
+
+def blend_phases(cfg: TileRendererConfig, phases, batched: bool = False):
+    """The per-Gaussian phase the compositor blends, (N,) (or (B, N) when
+    `batched`), or None: only with `use_phase_blending` and phases given;
+    of per-RGB phases (N, 3) the first channel."""
+    if not cfg.use_phase_blending or phases is None:
+        return None
+    return phases[..., 0] if phases.dim() > 1 + batched else phases
 
 
 def project_sorted(positions, scales, rotations, colors, opacities,
-                   camera: Camera, cfg: TileRendererConfig
+                   camera: Camera, cfg: TileRendererConfig,
+                   phases: Optional[torch.Tensor] = None
                    ) -> SortedProjection:
-    """Projection and the stable depth sort: what binning is fed."""
+    """Projection and the stable depth sort: what binning is fed.
+    `phases` (N,) are the blended phases, if any."""
     # The pair window only covers tiles within tile_window // 2 of a
     # Gaussian's center tile: clamp radii to match, for every binning, so
     # that they stay interchangeable.
@@ -616,16 +679,19 @@ def project_sorted(positions, scales, rotations, colors, opacities,
         means2d=proj.means2d[order], conic=proj.conic[order],
         depths=proj.depths[order], radii=proj.radii[order], visible=visible,
         colors=colors[order],
-        opacities=torch.where(visible, opacities[order], 0.0))
+        opacities=torch.where(visible, opacities[order], 0.0),
+        phases=None if phases is None else phases[order])
 
 
 def _pack_fields(sp: SortedProjection) -> torch.Tensor:
-    """The per-Gaussian packed rows (N, 12).  The radius only gates the
-    inside-box test, so it carries no gradient."""
+    """The per-Gaussian packed rows (N, 12), the blended phase (or 0) in
+    the last column.  The radius only gates the inside-box test, so it
+    carries no gradient."""
+    phase = (torch.zeros_like(sp.opacities) if sp.phases is None
+             else sp.phases)
     return torch.cat(
         [sp.means2d, sp.conic, sp.radii.detach()[:, None], sp.colors,
-         sp.opacities[:, None], sp.depths[:, None],
-         torch.zeros_like(sp.opacities)[:, None]], dim=-1)
+         sp.opacities[:, None], sp.depths[:, None], phase[:, None]], dim=-1)
 
 
 def _gather_rows(fields: torch.Tensor, tile_idx: torch.Tensor,
@@ -667,11 +733,11 @@ def _layout(cfg: TileRendererConfig, camera: Camera, n: int):
 
 def _project_and_bin(positions, scales, rotations, colors, opacities,
                      camera: Camera, cfg: TileRendererConfig, n_tiles_x: int,
-                     n_tiles_y: int, m_cap: int):
+                     n_tiles_y: int, m_cap: int, phases=None):
     """(SortedProjection, tile_idx (T, M), tile_valid (T, M)) of one
-    cloud."""
+    cloud; `phases` (N,) the blended phases, if any."""
     sp = project_sorted(positions, scales, rotations, colors, opacities,
-                        camera, cfg)
+                        camera, cfg, phases)
     tile_idx, tile_valid = bin_tiles(sp.means2d, sp.radii, sp.visible,
                                      n_tiles_x, n_tiles_y, m_cap, cfg)
     return sp, tile_idx, tile_valid
@@ -691,13 +757,14 @@ def pack_tiles(positions, scales, rotations, colors, opacities,
                camera: Camera, config: TileRendererConfig = TileRendererConfig(),
                phases: Optional[torch.Tensor] = None) -> TilePack:
     """Projection, depth sort, binning and the packed gather: everything
-    of `render_tiled` before compositing."""
+    of `render_tiled` before compositing (the blended phases, if any, in
+    column 11)."""
     cfg = config
-    _check_supported(cfg, phases)
+    _check_supported(cfg)
     ntx, nty, m_cap = _layout(cfg, camera, positions.shape[0])
     sp, tile_idx, tile_valid = _project_and_bin(
         positions, scales, rotations, colors, opacities, camera, cfg, ntx,
-        nty, m_cap)
+        nty, m_cap, blend_phases(cfg, phases))
     pack, counts = gather_pack(sp, tile_idx, tile_valid)
     return TilePack(pack=pack, counts=counts, means2d=sp.means2d,
                     radii=sp.radii, visible=sp.visible, m_cap=m_cap,
@@ -718,9 +785,10 @@ def render_tiled(positions: torch.Tensor, scales: torch.Tensor,
     Runs on the device of `positions`: on CUDA the compositing goes
     through the hand-written kernels (forward and backward), on the CPU
     through their plain versions; the image is differentiable on both.
-    Output order: img[, depth (H, W)][, transmittance (H, W)][, overflow
-    (4,) int32 = [dropped_pairs, total_pairs, overflow_tiles,
-    max_tile_hits]].
+    `phases` (N,) or (N, 3), with config.use_phase_blending, blend by
+    interference.  Output order: img[, depth (H, W)][, transmittance (H,
+    W)][, overflow (4,) int32 = [dropped_pairs, total_pairs,
+    overflow_tiles, max_tile_hits]].
     """
     cfg = config
     H, W = camera.height, camera.width
@@ -728,8 +796,8 @@ def render_tiled(positions: torch.Tensor, scales: torch.Tensor,
     tp = pack_tiles(positions, scales, rotations, colors, opacities, camera,
                     cfg, phases=phases)
     ntx, nty = tp.n_tiles_x, tp.n_tiles_y
-    acc_c, acc_d, Tr = raster.composite_tiles_packed(
-        tp.pack, tp.counts, ntx, chunk=cfg.chunk)
+    acc_c, acc_d, Tr = _composite(cfg, tp.pack, tp.counts, ntx,
+                                  blend_phases(cfg, phases) is not None)
 
     bg = torch.tensor(background, dtype=torch.float32, device=acc_c.device)
     acc_c = acc_c + Tr[..., None] * bg
@@ -747,6 +815,19 @@ def render_tiled(positions: torch.Tensor, scales: torch.Tensor,
         out += (_overflow(tp.means2d, tp.radii, tp.visible, ntx, nty, ts,
                           tp.m_cap),)
     return out if len(out) > 1 else img
+
+
+def _composite(cfg: TileRendererConfig, pack, counts, n_tiles_x: int,
+               blended: bool, tiles_per_image=None):
+    """The pack's compositing: phase-blended (K1-phi / K2-phi) when
+    `blended`, else K1 / K2; the box test per cfg.hard_cutoff."""
+    if blended:
+        return raster.composite_tiles_phase(
+            pack, counts, n_tiles_x, cfg.phase_amplitude,
+            tiles_per_image=tiles_per_image, box=cfg.hard_cutoff)
+    return raster.composite_tiles_packed(
+        pack, counts, n_tiles_x, chunk=cfg.chunk,
+        tiles_per_image=tiles_per_image, box=cfg.hard_cutoff)
 
 
 def _overflow(means2d, radii, visible, n_tiles_x, n_tiles_y, tile_size,
@@ -776,27 +857,24 @@ class BatchPack:
 
 
 def pack_tiles_batched(positions, scales, rotations, colors, opacities,
-                       cameras, config: TileRendererConfig = TileRendererConfig()
-                       ) -> BatchPack:
+                       cameras, config: TileRendererConfig = TileRendererConfig(),
+                       phases: Optional[torch.Tensor] = None) -> BatchPack:
     """Projection, sort and binning of each of B clouds (B, N, ...) under
     its camera (one Camera for all or a sequence of B), then one gather of
-    every image's occupied slots into one pack."""
+    every image's occupied slots into one pack; `phases` (B, N[, 3]) with
+    use_phase_blending ride in column 11."""
     cfg = config
     B, n = positions.shape[:2]
-    _check_supported(cfg, None)
-    cams = (list(cameras) if isinstance(cameras, (list, tuple))
-            else [cameras] * B)
-    if len(cams) != B:
-        raise ValueError(f"{len(cams)} cameras for {B} clouds")
-    if any((c.height, c.width) != (cams[0].height, cams[0].width)
-           for c in cams):
-        raise ValueError("every camera of a batch must have one size")
+    _check_supported(cfg)
+    blended = blend_phases(cfg, phases, batched=True)
+    cams = batch_cameras(cameras, B)
     ntx, nty, m_cap = _layout(cfg, cams[0], n)
     fields, idx, valid, ovf = [], [], [], []
     for b in range(B):
         sp, tile_idx, tile_valid = _project_and_bin(
             positions[b], scales[b], rotations[b], colors[b], opacities[b],
-            cams[b], cfg, ntx, nty, m_cap)
+            cams[b], cfg, ntx, nty, m_cap,
+            None if blended is None else blended[b])
         fields.append(_pack_fields(sp))
         idx.append(tile_idx.long() + b * n)
         valid.append(tile_valid)
@@ -812,10 +890,13 @@ def pack_tiles_batched(positions, scales, rotations, colors, opacities,
 def render_tiled_batched(positions: torch.Tensor, scales: torch.Tensor,
                          rotations: torch.Tensor, colors: torch.Tensor,
                          opacities: torch.Tensor, cameras,
-                         config: TileRendererConfig = TileRendererConfig()):
+                         config: TileRendererConfig = TileRendererConfig(),
+                         phases: Optional[torch.Tensor] = None):
     """Render B clouds (B, N, ...) to (images (B, 3, H, W), depth (B, H, W),
     overflow (B, 4) int32), what `jax.vmap` of `render_tiled(...,
-    return_depth=True, return_overflow=True)` returns.
+    return_depth=True, return_overflow=True)` returns; `phases` (B, N[,
+    3]) blend by interference under use_phase_blending (K1-phi / K2-phi,
+    one launch each for the batch).
 
     `cameras` is one Camera for every image or a sequence of B.  Each
     image is projected, sorted and binned alone; the B packs are one
@@ -825,11 +906,11 @@ def render_tiled_batched(positions: torch.Tensor, scales: torch.Tensor,
     cfg = config
     cam = cameras[0] if isinstance(cameras, (list, tuple)) else cameras
     bp = pack_tiles_batched(positions, scales, rotations, colors, opacities,
-                            cameras, cfg)
+                            cameras, cfg, phases)
     ntx, nty = bp.n_tiles_x, bp.n_tiles_y
-    acc_c, acc_d, _ = raster.composite_tiles_packed(
-        bp.pack, bp.counts, ntx, chunk=cfg.chunk,
-        tiles_per_image=bp.tiles_per_image)
+    acc_c, acc_d, _ = _composite(cfg, bp.pack, bp.counts, ntx,
+                                 blend_phases(cfg, phases, True) is not None,
+                                 tiles_per_image=bp.tiles_per_image)
 
     def untile(x):
         return _untile(x, ntx, nty, cfg.tile_size, cam.height, cam.width)

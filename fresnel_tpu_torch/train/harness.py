@@ -25,16 +25,20 @@ step) and thin (bf16 params; a fresh optimizer state), through
 `train.flax_msgpack`, which needs neither msgpack nor ml_dtypes.
 
 Experiments 1 (SAAGRefinementNet on a SAAG prior), 2
-(DirectPatchDecoder), 3 (FeatureGuidedSAAG: the patch-mean modulations
+(DirectPatchDecoder, or PhysicsDirectPatchDecoder under wave rendering
+without phase output), 3 (FeatureGuidedSAAG: the patch-mean modulations
 scale the SAAG prior), 4 (FibonacciPatchDecoder) and 5
 (NCAGaussianDecoder, its update masks drawn from the step's generator or
 handed in); the decoders' options (Fresnel zones, edge-aware, phase
 output, pose encoding with the frontal pose when none is drawn, depth
-fusion).  The SAAG prior of experiments 1 and 3 is the base block of
+fusion).  The renderer is the JAX package's choice
+(`render.factory.select_training_renderer`): tiled (K1 / K2, or K1-phi /
+K2-phi when phase blending gets the decoder's phases), wave field or
+Fourier (K5 / K6); only the tiled renderer bins, so only it logs overflow
+telemetry.  The SAAG prior of experiments 1 and 3 is the base block of
 `geometry.to_surface_gaussians` over the batch's depth subsampled by 8,
 one batched call.  Not ported (each raises NotImplementedError, queued in
-ROADMAP.md): the physics decoder, LPIPS in the step, `use_amp` and more
-than one device.
+ROADMAP.md): LPIPS in the step, `use_amp` and more than one device.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ from fresnel_tpu_torch.losses.aggregate import compute_losses
 from fresnel_tpu_torch.losses.physics import init_learnable_wavelengths
 from fresnel_tpu_torch.losses.ssim import ssim
 from fresnel_tpu_torch.models.blocks import tensegrity_loss
-from fresnel_tpu_torch.models.decoders import DirectPatchDecoder
+from fresnel_tpu_torch.models.decoders import (
+    DirectPatchDecoder, PhysicsDirectPatchDecoder)
 from fresnel_tpu_torch.models.fibonacci import FibonacciPatchDecoder
 from fresnel_tpu_torch.models.encoders import resize_linear
 from fresnel_tpu_torch.models.image_encoder import ImageEncoder
@@ -77,14 +82,24 @@ from fresnel_tpu_torch.train.thin_ckpt import (
 from fresnel_tpu_torch.weights import init_flax_like_, trainer_opt_state
 
 
+def physics_route(config: TrainingConfig,
+                  physics_config: Optional[PhysicsConfig]) -> bool:
+    """Wave rendering without phase output: experiment 2's decoder is then
+    PhysicsDirectPatchDecoder, whose head differs, and no experiment
+    distils (the JAX trainer's test, which does not read the
+    experiment)."""
+    return (physics_config is not None and physics_config.use_wave_rendering
+            and not config.use_phase_output)
+
+
 def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
                   dropout: float = 0.1):
     """The decoder of an experiment: 1 SAAGRefinementNet, 2
     DirectPatchDecoder (with its Fresnel-zone, edge-aware, phase-output,
-    pose-encoding and depth-fusion options), 3 FeatureGuidedSAAG, 4
+    pose-encoding and depth-fusion options), or PhysicsDirectPatchDecoder
+    under wave rendering without phase output, 3 FeatureGuidedSAAG, 4
     FibonacciPatchDecoder (its zones, phases and pose encoding), 5
-    NCAGaussianDecoder.  The physics decoder (wave rendering without
-    phase output) raises NotImplementedError."""
+    NCAGaussianDecoder."""
     if config.experiment == 5:
         return NCAGaussianDecoder(
             feature_dim=config.feature_dim, n_points=config.n_spiral_points,
@@ -108,10 +123,16 @@ def build_decoder(config: TrainingConfig, physics_config: PhysicsConfig,
             scale_bias=config.scale_bias, opacity_bias=config.opacity_bias)
     if config.experiment != 2:
         raise ValueError(f"unknown experiment {config.experiment}")
-    if physics_config.use_wave_rendering and not config.use_phase_output:
-        raise NotImplementedError(
-            "PhysicsDirectPatchDecoder is not ported (ROADMAP Queue 1, "
-            "item 3)")
+    if physics_route(config, physics_config):
+        return PhysicsDirectPatchDecoder(
+            feature_dim=config.feature_dim,
+            gaussians_per_patch=config.gaussians_per_patch, dropout=dropout,
+            wavelength=physics_config.wavelength,
+            learnable_wavelength=physics_config.learnable_wavelength,
+            focal_depth=physics_config.focal_depth,
+            use_diffraction_placement=(
+                physics_config.use_diffraction_placement),
+            scale_bias=config.scale_bias, opacity_bias=config.opacity_bias)
     return DirectPatchDecoder(
         feature_dim=config.feature_dim,
         gaussians_per_patch=config.gaussians_per_patch,
@@ -336,8 +357,8 @@ class Trainer:
                                       generator=generator)
         if exp == 5:
             kwargs["masks"] = nca_masks
-        else:
-            kwargs["return_raw"] = return_raw
+        elif return_raw:
+            kwargs["return_raw"] = True
         if poses is not None:
             el, az = (torch.as_tensor(a, dtype=torch.float32,
                                       device=feats.device) for a in poses)
@@ -357,8 +378,9 @@ class Trainer:
         """(total, loss dict) of one batch of device tensors.  `poses` are
         the multi-pose (elevation, azimuth) draws in radians, (B,) each;
         `nca_masks` experiment 5's update masks (steps, B, N, 1), drawn
-        from `generator` when None.  The decoder's "phases" reach no
-        renderer: only phase blending reads them, which is not ported."""
+        from `generator` when None.  The decoder's "phases" go to the
+        renderer (the wave field's, or phase blending's), and the same
+        stochastic-K subsample as the Gaussians."""
         cfg = self.config
         res = self.train_res
         depth, target = batch["depth"], batch["image"]
@@ -370,11 +392,13 @@ class Trainer:
         target_depth = resize_linear(depth, res, res)
 
         distill = (cfg.distill_weight > 0 and "teacher_raw" in batch
-                   and cfg.experiment in (2, 4))
+                   and cfg.experiment in (2, 4)
+                   and not physics_route(cfg, self.physics_config))
         out = self.gaussians(params, feats, depth, K, generator, poses,
                              nca_masks, return_raw=distill)
         pos, sc, rot = out["positions"], out["scales"], out["rotations"]
         col, op = out["colors"], out["opacities"]
+        phases = out.get("phases")
 
         if stochastic_k is not None and stochastic_k < pos.shape[1]:
             importance = op.detach().mean(dim=0) + 1e-6
@@ -382,12 +406,15 @@ class Trainer:
                                       stochastic_k)
             pos, sc, rot = pos[:, idx], sc[:, idx], rot[:, idx]
             col, op = col[:, idx], op[:, idx]
+            if phases is not None:
+                phases = phases[:, idx]
 
         cams = self.camera
         if poses is not None:
             cams = [Camera.from_pose(float(e), float(a), res).to(pos.device)
                     for e, a in zip(*poses)]
-        imgs, rdepth, ovf = self.renderer.batch(pos, sc, rot, col, op, cams)
+        imgs, rdepth, ovf = self.renderer.batch(pos, sc, rot, col, op, cams,
+                                                phases=phases)
 
         total, ld = compute_losses(
             imgs, target, rendered_depth=rdepth, target_depth=target_depth,
@@ -398,13 +425,15 @@ class Trainer:
             fresnel_zones=self.fresnel_zones,
             boundary_emphasis=params.get("boundary_emphasis"))
 
-        # (B, 4) [dropped, total_pairs, overflow_tiles, max] per image.
-        n_tiles = (-(-res // 16)) ** 2
-        ovf_sum = ovf.sum(dim=0).to(torch.float32)
-        ld["overflow_dropped_frac"] = ovf_sum[0] / torch.clamp(ovf_sum[1],
-                                                               min=1.0)
-        ld["overflow_tiles_frac"] = ovf_sum[2] / (B * n_tiles)
-        ld["overflow_max_tile_hits"] = ovf[:, 3].max().to(torch.float32)
+        if ovf is not None:
+            # (B, 4) [dropped, total_pairs, overflow_tiles, max] per image;
+            # only the tiled renderer bins.
+            n_tiles = (-(-res // 16)) ** 2
+            ovf_sum = ovf.sum(dim=0).to(torch.float32)
+            ld["overflow_dropped_frac"] = ovf_sum[0] / torch.clamp(
+                ovf_sum[1], min=1.0)
+            ld["overflow_tiles_frac"] = ovf_sum[2] / (B * n_tiles)
+            ld["overflow_max_tile_hits"] = ovf[:, 3].max().to(torch.float32)
 
         if cfg.view_weight > 0 and "view_gt" in batch:
             # One non-frontal GT orbit view per sample (drawn on the host
@@ -424,9 +453,10 @@ class Trainer:
             ld["view"] = v_loss
             total = total + cfg.view_weight * v_loss
             ld["total"] = total
-            ovf_v_sum = ovf_v.sum(dim=0).to(torch.float32)
-            ld["view_overflow_dropped_frac"] = (
-                ovf_v_sum[0] / torch.clamp(ovf_v_sum[1], min=1.0))
+            if ovf_v is not None:
+                ovf_v_sum = ovf_v.sum(dim=0).to(torch.float32)
+                ld["view_overflow_dropped_frac"] = (
+                    ovf_v_sum[0] / torch.clamp(ovf_v_sum[1], min=1.0))
 
         if distill:
             d_total = distill_loss(out["raw"], batch["teacher_raw"],

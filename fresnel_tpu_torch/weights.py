@@ -38,7 +38,7 @@ from fresnel_tpu_torch.models.blocks import (
 from fresnel_tpu_torch.models.cvs import (
     FresnelWaveAttention, ImageFeatureAdapter, PluckerPoseEncoder)
 from fresnel_tpu_torch.models.decoders import (
-    DirectPatchDecoder, ZeroInitConv2d)
+    DirectPatchDecoder, PhysicsDirectPatchDecoder, ZeroInitConv2d)
 from fresnel_tpu_torch.models.fibonacci import FibonacciPatchDecoder
 from fresnel_tpu_torch.models.image_encoder import GroupNorm, ImageEncoder
 from fresnel_tpu_torch.models.vit import (
@@ -110,7 +110,9 @@ def decoder_state_dict(flat: Mapping[str, np.ndarray]
     options' `FresnelEdgeDetector_0`, `DepthEncoder_0` and `PoseEncoder_0`
     -> `edge_detector`, `depth_encoder`, `pose_encoder`, and with a pose
     encoder the opacity head's `Dense_0` / `Dense_1` -> `opacity_out` /
-    `opacity_hidden`), FibonacciPatchDecoder (the same pose names),
+    `opacity_hidden`), PhysicsDirectPatchDecoder (`MLP_0`, the scalars
+    `depth_offset` and `wavelength_raw` as they are),
+    FibonacciPatchDecoder (the same pose names),
     SAAGRefinementNet and FeatureGuidedSAAG (`MLP_0` -> `mlp`, `Dense_i`
     and the scalars as they are) and NCAGaussianDecoder (a Flax
     Sequential's `layers_i` -> torch's `i`)."""
@@ -291,7 +293,8 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise `model` in place as the Flax modules initialise: Dense
     and Conv kernels lecun-normal, biases zero, LayerNorm and GroupNorm
     scale one, LayerScale 1e-5, cls / pos tokens and PatchUpsample kernels
-    normal(0.02), the decoders' `depth_offset` -2 and the zero-initialised
+    normal(0.02), the decoders' `depth_offset` -2, the physics decoder's
+    `wavelength_raw` its wavelength, and the zero-initialised
     `upsample_refine` conv and output Dense layers (FeatureGuidedSAAG's,
     the NCA's update) 0; in CVS the adapter's `pos_embed` and
     `compress_queries` and the pose encoder's `pose_queries` normal(0.02),
@@ -320,6 +323,10 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.pos_embed.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, (DirectPatchDecoder, FibonacciPatchDecoder)):
             m.depth_offset.fill_(-2.0)
+        elif isinstance(m, PhysicsDirectPatchDecoder):
+            m.depth_offset.fill_(-2.0)
+            if m.learnable_wavelength:
+                m.wavelength_raw.fill_(m.wavelength)
         elif isinstance(m, ImageFeatureAdapter):
             m.pos_embed.normal_(0.0, 0.02, generator=generator)
             m.compress_queries.normal_(0.0, 0.02, generator=generator)

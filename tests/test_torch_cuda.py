@@ -15,6 +15,9 @@ the segment boundaries and on packs for which the kernels choose segments
 of SEG, 2 SEG and 4 SEG slots, or whole tiles; K1's segment prefixes
 against the plain forward of each tile's slots before the segment.  The
 binning kernels K3 and K4 are integer functions and are held bit for bit.
+K1 and K2 with the box test off (hard_cutoff=False), the phase-blending
+pair K1-phi / K2-phi and the dense splat K5 / K6 (both modes) are held at
+the same tolerances, K2-phi and K6 bit for bit from run to run.
 """
 
 import numpy as np
@@ -583,7 +586,7 @@ def test_entry_point_launch_error_raises(cuda):
         _build.launch("raster_fwd", pack.device,
                       (pack.data_ptr(), cnt.data_ptr(),
                        *(t.data_ptr() for t in out + [part, tickets])),
-                      (4, 256, 2, 4, 0, 0))
+                      (4, 256, 2, 4, 0, 0, 1))
 
 
 def test_entry_points_refuse_bad_image_tiling(cuda):
@@ -599,7 +602,7 @@ def test_entry_points_refuse_bad_image_tiling(cuda):
         _build.launch("raster_fwd", pack.device,
                       (pack.data_ptr(), cnt.data_ptr(),
                        *(t.data_ptr() for t in out + [part, tickets])),
-                      (4, 256, 2, 0, raster.resident_blocks(0), 0))
+                      (4, 256, 2, 0, raster.resident_blocks(0), 0, 1))
     with pytest.raises(ValueError, match="whole images"):
         raster.composite_tiles_packed(pack, cnt, 2, tiles_per_image=3)
     outs = raster.composite_tiles_packed(pack, cnt, 2, tiles_per_image=2)
@@ -1150,5 +1153,177 @@ def test_option_step_on_card_matches_cpu(cuda):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert (raster.launches - f0, raster.launches_bwd - b0) == (1, 1)
+    for k, v in out["cpu"].items():
+        assert abs(out["cuda"][k] - v) <= 1e-4 * max(abs(v), 1e-6), k
+
+
+# ----------------------------------------------------------------------
+# hard_cutoff=False, phase blending (K1-phi / K2-phi), the dense splat
+# (K5 / K6)
+# ----------------------------------------------------------------------
+
+def _phase_pack(T, M, counts, seed, width, radians):
+    """A pack with phases in column 11: in [0, 2 pi) (the decoders'
+    radians, which the reference blends as unit-interval fractions) or in
+    [0, 1)."""
+    pack, cnt = _pack(T, M, counts, seed, width)
+    rng = np.random.default_rng(seed + 100)
+    ph = rng.uniform(0, 2 * np.pi if radians else 1.0, (T, M))
+    pack[..., 11] = torch.from_numpy(ph.astype(np.float32))
+    pack[np.arange(M)[None, :] >= cnt.numpy()[:, None]] *= torch.tensor(
+        [1.0] * 11 + [0.0])
+    return pack, cnt
+
+
+@pytest.mark.parametrize("T,M,ntx,pattern", [
+    (64, 256, 8, "random"), (64, 256, 8, "cap"), (16, 32, 4, "random"),
+    (256, 1024, 16, "random")])
+def test_box_off_kernels_match_plain(cuda, T, M, ntx, pattern):
+    pack, cnt = _pack(T, M, _counts(pattern, T, M, T), T, ntx * 16)
+    pack, cnt = pack.to(cuda), cnt.to(cuda)
+    before = (raster.launches, raster.launches_bwd)
+    got = raster.composite_tiles_packed(pack, cnt, ntx, box=False)
+    ref = raster.composite_tiles_plain(pack, cnt, ntx, box=False)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+    boxed = raster.composite_tiles_plain(pack, cnt, ntx)
+    assert not torch.equal(ref[2], boxed[2])
+    cots = _cots(T, 5, cuda)
+    grad = raster.composite_tiles_bwd(pack, cnt, ntx, *got, *cots,
+                                      box=False)
+    assert (raster.launches, raster.launches_bwd) == (before[0] + 1,
+                                                      before[1] + 1)
+    _assert_fields_close(grad, raster.composite_tiles_bwd_plain(
+        pack, cnt, ntx, *ref, *cots, box=False))
+
+
+@pytest.mark.parametrize("T,M,ntx,pattern,amp,box,radians", [
+    (64, 256, 8, "random", 0.3, True, False),
+    (64, 256, 8, "cap", 0.25, True, False),
+    (64, 256, 8, "around_seg", 0.3, False, False),
+    (16, 32, 4, "random", 0.25, True, False),
+    (64, 96, 8, "random", 0.3, True, False),
+    (64, 256, 8, "random", 0.3, True, True)])
+def test_phase_kernels_match_plain(cuda, T, M, ntx, pattern, amp, box,
+                                   radians):
+    pack, cnt = _phase_pack(T, M, _counts(pattern, T, M, T), T, ntx * 16,
+                            radians)
+    pack, cnt = pack.to(cuda), cnt.to(cuda)
+    before = (raster.launches_phase, raster.launches_phase_bwd)
+    p = pack.clone().requires_grad_()
+    got = raster.composite_tiles_phase(p, cnt, ntx, amp, box=box)
+    ref = raster.composite_tiles_plain(pack, cnt, ntx, box=box,
+                                       phase_amplitude=amp)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+    cots = _cots(T, 6, cuda)
+    (grad,) = torch.autograd.grad(got, p, cots)
+    assert (raster.launches_phase, raster.launches_phase_bwd) == (
+        before[0] + 1, before[1] + 1)
+    ref_g = raster.composite_tiles_phase_bwd_plain(pack, cnt, ntx, amp,
+                                                   *cots, box=box)
+    _assert_fields_close(grad, ref_g)
+    ckpt = raster._launch_fwd_phase(pack, cnt, ntx, amp, keep_ckpt=True,
+                                    box=box)[3]
+    again = raster._launch_bwd_phase(pack, cnt, ntx, amp, *cots, ckpt,
+                                     box=box)
+    assert torch.equal(grad, again)
+
+
+def _splat_inputs(B, N, size, mode, seed):
+    rng = np.random.default_rng(seed)
+    p = np.zeros((B, N, 8), np.float32)
+    p[..., 0:2] = rng.uniform(-10, size + 10, (B, N, 2))
+    if mode == 0:
+        p[..., 2] = rng.uniform(0.002, 0.05, (B, N))
+        p[..., 3] = rng.uniform(-0.001, 0.001, (B, N))
+        p[..., 4] = rng.uniform(0.002, 0.05, (B, N))
+        p[..., 5] = rng.uniform(1, 40, (B, N))
+        C = 8
+    else:
+        p[..., 2] = rng.uniform(0.5, 12, (B, N))
+        C = 3
+    p[..., 6] = rng.uniform(0, 1, (B, N))
+    p[:, ::7, 6] = 0.0                       # invisible ones
+    V = rng.normal(size=(B, N, C)).astype(np.float32)
+    return torch.from_numpy(p), torch.from_numpy(V)
+
+
+@pytest.mark.parametrize("B,N,H,W,mode", [
+    (1, 300, 48, 48, 0), (3, 257, 40, 56, 0), (1, 300, 48, 48, 1),
+    (2, 129, 33, 47, 1)])
+def test_dense_splat_kernels_match_plain(cuda, B, N, H, W, mode):
+    from fresnel_tpu_torch.render import splat
+
+    params, V = _splat_inputs(B, N, max(H, W), mode, N)
+    params, V = params.to(cuda), V.to(cuda)
+    before = (splat.launches, splat.launches_bwd)
+    pg = params.clone().requires_grad_()
+    vg = V.clone().requires_grad_()
+    got = splat.dense_splat(pg, vg, H, W, mode)
+    ref = splat.dense_splat_plain(params, V, H, W, mode)
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-5 * scale
+    g_out = torch.from_numpy(np.random.default_rng(3).normal(
+        size=tuple(got.shape)).astype(np.float32)).to(cuda)
+    gp, gv = torch.autograd.grad(got, (pg, vg), g_out)
+    assert (splat.launches, splat.launches_bwd) == (before[0] + 1,
+                                                    before[1] + 1)
+    rp, rv = splat.dense_splat_bwd_plain(params, V, g_out, mode)
+    for got_g, ref_g in ((gp, rp), (gv, rv)):
+        for f in range(got_g.shape[-1]):
+            s = ref_g[..., f].abs().max().item()
+            e = (got_g[..., f] - ref_g[..., f]).abs().max().item()
+            assert e <= BWD_TOL * max(s, 1e-30), (f, e, s)
+    again = splat._launch_bwd(params, V, g_out, mode)
+    assert torch.equal(again[0], gp) and torch.equal(again[1], gv)
+
+
+@pytest.mark.parametrize("over,physics,hfgs,kernels", [
+    (dict(use_phase_blending=True, use_phase_output=True), dict(), dict(),
+     ("launches_phase", "launches_phase_bwd")),
+    (dict(use_phase_output=True), dict(use_wave_rendering=True), dict(),
+     ("launches", "launches_bwd")),
+    (dict(), dict(use_wave_rendering=True, learnable_wavelength=True,
+                  use_diffraction_placement=True), dict(),
+     ("launches", "launches_bwd")),
+    (dict(experiment=4, use_phase_blending=True, n_spiral_points=377),
+     dict(), dict(), ("launches", "launches_bwd"))])
+def test_wave_route_step_on_card_matches_cpu(cuda, over, physics, hfgs,
+                                             kernels):
+    """One training step on each wave-optics route (phase blending with
+    phases, QSR's wave field with per-RGB phases, the physics decoder,
+    experiment 4's Fourier route) at 64^2, batch 2, dropout 0, on the card
+    and the CPU from one init: each loss term within 1e-4 relative; one
+    launch of the route's forward and backward kernel on the card."""
+    from fresnel_tpu_torch.render import splat
+    from fresnel_tpu_torch.train import config as tconfig
+    from fresnel_tpu_torch.train.harness import Trainer, build_decoder
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:256, 0:256] / 256.0
+    batch = {"image": rng.uniform(size=(2, 3, 64, 64)).astype(np.float32),
+             "features": rng.normal(size=(2, 37, 37, 384)).astype(np.float32),
+             "depth": np.stack([0.3 + 0.4 * xx * yy, 0.6 - 0.3 * yy]
+                               ).astype(np.float32)}
+    counter = raster if kernels[0] == "launches_phase" else splat
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg = tconfig.TrainingConfig(image_size=64, batch_size=2,
+                                     lpips_weight=0.0, gaussians_per_patch=2,
+                                     **over)
+        t = Trainer(cfg, tconfig.PhysicsConfig(**physics),
+                    tconfig.HFGSConfig(**hfgs), tconfig.HFTSConfig(),
+                    device=dev)
+        t.model = build_decoder(cfg, t.physics_config, dropout=0.0)
+        st = t.init_state()
+        before = [getattr(counter, k) for k in kernels]
+        _, ld = t.train_step(st, t.device_batch(batch), 2, None,
+                             torch.Generator(device=dev).manual_seed(1))
+        out[dev.type] = {k: float(v) for k, v in ld.items()}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert [getattr(counter, k) - b
+                    for k, b in zip(kernels, before)] == [1, 1]
+    assert set(out["cpu"]) == set(out["cuda"])
     for k, v in out["cpu"].items():
         assert abs(out["cuda"][k] - v) <= 1e-4 * max(abs(v), 1e-6), k

@@ -104,6 +104,14 @@ def test_cli_train_subcommand(tmp_path):
     assert (tmp_path / "final_model.pt").exists()
 
 
+# The wave-optics flags are ported: their cases (same ids) train one
+# epoch on the renderer the JAX package picks.
+PORTED_FLAGS = {"--use_phase_blending": "TileRenderer",
+                "--use_qsr": "WaveRenderer",
+                "--use_wave_rendering": "WaveRenderer",
+                "--use_fourier_renderer": "TileRenderer"}
+
+
 @pytest.mark.parametrize("extra", [["--streaming"], ["--use_amp"],
                                    ["--use_phase_blending"],
                                    ["--num_devices", "2"],
@@ -114,6 +122,12 @@ def test_cli_train_subcommand(tmp_path):
 def test_unported_flags_raise(extra, tmp_path):
     argv = FLAGS + ["--output_dir", str(tmp_path), "--device", "cpu",
                     "--synthetic_samples", "2"] + extra
+    if extra[0] in PORTED_FLAGS:
+        argv[argv.index("--epochs") + 1] = "1"
+        trainer, _ = tcli.main(argv)
+        assert type(trainer.renderer).__name__ == PORTED_FLAGS[extra[0]]
+        assert np.isfinite(trainer.history["total"][0])
+        return
     with pytest.raises(NotImplementedError):
         tcli.main(argv)
 

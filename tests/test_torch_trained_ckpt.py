@@ -206,10 +206,10 @@ def test_exp2_g74zi_decodes_like_jax(scenes):
 
 @pytest.mark.parametrize("over,missing", [
     (dict(use_amp=True), "use_amp"), (dict(num_devices=2), "num_devices"),
-    # The Fresnel zones are ported; with them, phase blending still raises
-    # (the case keeps its earlier id).
+    # The Fresnel zones and phase blending are ported; with them, use_amp
+    # still raises (the case keeps its earlier id).
     pytest.param(dict(experiment=2, use_fresnel_zones=True,
-                      use_phase_blending=True), "use_phase_blending",
+                      use_phase_blending=True, use_amp=True), "use_amp",
                  id="over2-use_fresnel_zones")])
 def test_unported_configs_raise(tmp_path, over, missing):
     meta = _meta("exp4")
