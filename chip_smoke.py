@@ -395,9 +395,12 @@ non-zero:
                   the physics decoder: 4 clouds, scalar phases, WAVE; exp4's
                   Fourier route: 8 spiral clouds, ISO), each image against
                   the plain versions on that image at the same tolerances,
-                  K6 bit for bit from run to run; the plain backward's peak
-                  memory; kernels and plain versions timed over the whole
-                  batch, with their bounds and the Gaussians' reach;
+                  K5 and K6 each bit for bit from run to run; the plain
+                  backward's peak memory; kernels and plain versions timed
+                  over the whole batch, with their bounds and the
+                  Gaussians' reach.  Phases 59-61 repeat this check
+                  (`dense_at_profile`) at the clouds of the state each
+                  route's profile starts from, where the reach is widest;
   57. train_sh_full  cloud/train.sh full's flags (phase blending without
                   phase output renders plain: K1 + K2 per step);
   58. phase_train  --use_fourier_renderer --use_phase_output (amplitude
@@ -431,15 +434,19 @@ With `--ab`, each ROOT is a checkout of this repository (a parent commit
 unpacked with `git archive` into a git-ignored directory, or `.`), given
 in turns (`.archive/parent . . .archive/parent`) so that drift on the card
 shows.  For each root in order, a subprocess imports that checkout's
-`fresnel_tpu_torch` (building its four kernels into its `build/`),
+`fresnel_tpu_torch` (building its six kernels into its `build/`),
 builds this script's image, refine and render packs with it, and times
 through the functions every version has: K1 at all three, K2 with
 cotangents from a seed and K1 + K2 through autograd (a refine step's pair)
 at the refine and render packs; K3 (`build_rank_table`), K4
 (`bin_gaussians_stream`) and K4's launch alone (`_launch`) on the render
-path's million depth-sorted Gaussians.  Each as `ms` on the device,
-`call_ms` per call and the device ms of each kernel by name
-(torch.profiler), with ptxas's registers and spills of all four kernels;
+path's million depth-sorted Gaussians; K5 and K6 (`splat._launch_fwd` /
+`_launch_bwd`, whose signatures every version of the dense splat keeps)
+on seeded synthetic clouds (DENSE_AB: 8 ISO clouds of 5 476 at 256^2
+whose reach matches experiment 4's at its profiled state, 4 WAVE clouds
+with the box at the 64-px cap).  Each as `ms` on the device, `call_ms`
+per call and the device ms of each kernel by name (torch.profiler),
+with ptxas's registers and spills of those six kernels;
 and the refine step at full width (`fit_scene`: ms per step over 20
 steps, device ms per step and top kernels over 5); one JSON line per
 root.
@@ -3953,13 +3960,23 @@ WAVELENGTH_RTOL = 1e-5
 # chain rule (~44) and 11 adds of the reduction over the tile's pixels.
 OPS_PER_EVAL_PHASE = 45
 OPS_PER_EVAL_PHASE_BWD = 100
-# K5: offsets 2, (WAVE: box 4, quadratic form 7; ISO: r^2 3, the division
-# 1), exp 1, opacity 1, and a multiply-add per channel (8 WAVE, 3 ISO).
-OPS_PER_SPLAT = {0: 31, 1: 14}
-# K6: the forward's weight (15 WAVE, 8 ISO), dw and the g_V sums (a
-# multiply-add each per channel), the opacity term 2 and the chain into
-# the mean and conic (14 WAVE) or mean and sigma (9 ISO).
-OPS_PER_SPLAT_BWD = {0: 63, 1: 31}
+# K5 / K6: the least operations any implementation needs per pixel-Gaussian
+# pair within reach (a multiply-add counts 2; exp 1), with C channels (8
+# WAVE, 3 ISO) and all that can be done once per Gaussian, row or column
+# done so.  K5 WAVE: the quadratic form updated along a row (2 adds, the box
+# then walked, never tested), its exp (1) and a multiply-add per channel
+# (2C) with the opacity folded into V: 2C + 3 = 19.  K5 ISO: the weight is
+# separable, so the row factor times the opacity times V is formed once per
+# row and a pair is a multiply-add per channel with the column factor:
+# 2C = 6.  K6 WAVE: the forward's weight (3), dw = g_out . V and the g_V
+# sums (2C each), k = dw e (1), and two sums of k, along the row and down
+# the column, one of them times dx (4), every moment (dx, dy, dx^2, dx dy,
+# dy^2) formed from those per row or column: 4C + 8 = 40.  K6 ISO: dw and
+# the g_V sums of g_out times one factor (2C each), and dw times the column
+# factor summed along the row and times the row factor down the column (2
+# each), the rest per row or column: 4C + 4 = 16.
+OPS_PER_SPLAT = {0: 19, 1: 6}
+OPS_PER_SPLAT_BWD = {0: 40, 1: 16}
 
 
 def read_all_counts(raster, binning, stream_binning, splat):
@@ -4021,27 +4038,82 @@ def splat_spread(torch, params, mode, pairs):
 
 def dense_times(torch, splat, params, V, H, W, mode, dev):
     """K5 / K6 device times at one launch's inputs, with their bounds and
-    the Gaussians' reach (no comparison: kernel_dense holds the kernels
-    against their plain versions)."""
+    the Gaussians' reach (no comparison: the --ab mode times each
+    checkout's kernels on the same synthetic inputs, through the launchers
+    whose signatures every version of the dense splat keeps)."""
     g_out = torch.randn((params.shape[0], H, W, V.shape[-1]),
                         generator=torch.Generator(device=dev).manual_seed(2),
                         device=dev)
-    with torch.no_grad():
-        k5 = kernel_times(torch, lambda: splat._launch_fwd(
-            params, V, H, W, mode), n=20)
-        k6 = kernel_times(torch, lambda: splat._launch_bwd(
-            params, V, g_out, mode), n=20)
+    calls = dict(k5=lambda: splat._launch_fwd(params, V, H, W, mode),
+                 k6=lambda: splat._launch_bwd(params, V, g_out, mode))
+    out = {}
     bounds, pairs = splat_bounds(torch, params, V, H, W, mode)
-    return dict(k5=dict(**k5, **bounds["k5"]), k6=dict(**k6, **bounds["k6"]),
+    with torch.no_grad():
+        for name, fn in calls.items():
+            prof = profile_ms(torch, lambda: [fn() for _ in range(10)], 10)
+            out[name] = dict(**kernel_times(torch, fn, n=20), **bounds[name],
+                             device_ms_by_kernel=prof["top_kernels_ms"])
+    return dict(B=params.shape[0], n=params.shape[1], H=H, W=W,
+                mode="wave" if mode == 0 else "iso", **out,
                 **splat_spread(torch, params, mode, pairs))
+
+
+# The --ab mode's K5 / K6 inputs.  ISO: 8 clouds of 5 476 at 256^2 whose
+# reach matches experiment 4's Fourier route at the state its profile
+# starts from (p50 54.85, p95 80.04, max 187.23 px; PERF.md 5): log-normal
+# reach, one Gaussian per image at the max, means uniform in a disc of 96
+# px about the centre.  WAVE: 4 clouds of 5 476, the box at the 64-px cap
+# that QSR's and the physics decoder's clouds reach.
+DENSE_AB = dict(iso=dict(B=8, n=5476, size=256, reach_p50=54.85,
+                         reach_p95=80.04, reach_max=187.23, disc=96.0),
+                wave=dict(B=4, n=5476, size=256, radius=64.0))
+
+
+def dense_synthetic(torch, dev, mode):
+    """(params, V, H, W, mode) of DENSE_AB's ISO (mode 1) or WAVE (mode 0)
+    inputs, from a seed."""
+    rng = np.random.default_rng(29 + mode)
+    cfg = DENSE_AB["iso" if mode else "wave"]
+    B, N, S = cfg["B"], cfg["n"], cfg["size"]
+    p = np.zeros((B, N, 8), np.float64)
+    p[..., 6] = rng.uniform(0.05, 1.0, (B, N))
+    if mode:
+        rad = cfg["disc"] * np.sqrt(rng.uniform(0, 1, (B, N)))
+        ang = rng.uniform(0, 2 * np.pi, (B, N))
+        p[..., 0] = S / 2 + rad * np.cos(ang)
+        p[..., 1] = S / 2 + rad * np.sin(ang)
+        spread = np.log(cfg["reach_p95"] / cfg["reach_p50"]) / 1.6448536
+        reach = np.minimum(cfg["reach_p50"] * np.exp(
+            spread * rng.standard_normal((B, N))), cfg["reach_max"])
+        reach[:, 0] = cfg["reach_max"]
+        # reach = sqrt(110 (2 sigma^2 + 1e-8)) + 1 (splat_reach)
+        p[..., 2] = np.sqrt(((reach - 1.0) ** 2 / 110.0 - 1e-8) / 2.0)
+        V = rng.uniform(0, 1, (B, N, 3))
+    else:
+        p[..., 0:2] = rng.uniform(0, S, (B, N, 2))
+        sx, sy = (rng.uniform(22.0, 32.0, (B, N)) for _ in range(2))
+        th = rng.uniform(0, np.pi, (B, N))
+        c, s_ = np.cos(th), np.sin(th)
+        cxx = c * c * sx * sx + s_ * s_ * sy * sy
+        cyy = s_ * s_ * sx * sx + c * c * sy * sy
+        cxy = c * s_ * (sx * sx - sy * sy)
+        det = cxx * cyy - cxy * cxy
+        p[..., 2], p[..., 3], p[..., 4] = cyy / det, -cxy / det, cxx / det
+        p[..., 5] = cfg["radius"]
+        V = np.concatenate([rng.uniform(-1, 1, (B, N, 6)),
+                            rng.uniform(1, 3, (B, N, 1)),
+                            np.ones((B, N, 1))], axis=-1)
+    return (torch.from_numpy(p.astype(np.float32)).to(dev),
+            torch.from_numpy(V.astype(np.float32)).to(dev), S, S, mode)
 
 
 def dense_check(torch, splat, params, V, H, W, mode, dev):
     """K5 / K6 through splat.dense_splat at a route's whole launch (B
     images), each image against the plain versions on that image alone:
-    K5 relative to the largest plain value, K6 per field; K6 twice, bit for
-    bit.  The plain versions' times are CUDA events summed over the B
-    images (after one untimed warm-up), the batch's whole work."""
+    K5 relative to the largest plain value, K6 per field; each kernel
+    twice, bit for bit.  The plain versions' times are CUDA events summed
+    over the B images (after one untimed warm-up), the batch's whole
+    work."""
     B, N = params.shape[:2]
     C = V.shape[-1]
     g_out = torch.from_numpy(np.random.default_rng(13).normal(
@@ -4053,6 +4125,9 @@ def dense_check(torch, splat, params, V, H, W, mode, dev):
     gp2, gv2 = torch.autograd.grad(got, (p, v), g_out)
     got = got.detach()
     rep = bool(torch.equal(gp, gp2) and torch.equal(gv, gv2))
+    with torch.no_grad():
+        rep_fwd = bool(torch.equal(got, splat._launch_fwd(params, V, H, W,
+                                                          mode)))
     del p, v, gp2, gv2
     with torch.no_grad():
         splat.dense_splat_plain(params[:1], V[:1], H, W, mode)
@@ -4100,12 +4175,22 @@ def dense_check(torch, splat, params, V, H, W, mode, dev):
     bounds, pairs = splat_bounds(torch, params, V, H, W, mode)
     return dict(
         B=B, n=N, H=H, W=W, mode="wave" if mode == 0 else "iso",
-        k5=dict(rel_err=f_err / max(f_ref, 1e-30), abs_err=f_err, **k5,
-                plain_ms=fwd_ms, **bounds["k5"]),
+        k5=dict(rel_err=f_err / max(f_ref, 1e-30), abs_err=f_err,
+                repeat_bitwise_equal=rep_fwd, **k5, plain_ms=fwd_ms,
+                **bounds["k5"]),
         k6=dict(rel_err=b_rel, abs_err=max(b_err.values()),
                 repeat_bitwise_equal=rep, **k6, plain_ms=bwd_ms,
                 plain_peak_mem_gb=plain_gb, **bounds["k6"]),
         **splat_spread(torch, params, mode, pairs))
+
+
+def dense_ok(d):
+    """Whether dense_check found K5 / K6 within their tolerances and each
+    bit for bit from run to run."""
+    return (d["k5"]["rel_err"] <= KERNEL_TOL
+            and max(d["k6"]["rel_err"].values()) <= KERNEL_BWD_TOL
+            and d["k5"]["repeat_bitwise_equal"]
+            and d["k6"]["repeat_bitwise_equal"])
 
 
 def wave_phases(torch, dev, path_launches, tmp):
@@ -4321,10 +4406,7 @@ def wave_phases(torch, dev, path_launches, tmp):
         del seen
     log("kernel_dense", **k_dense, k5_tol=KERNEL_TOL, k6_tol=KERNEL_BWD_TOL,
         phase_seconds=lap("kernel_dense"))
-    if not all(d["k5"]["rel_err"] <= KERNEL_TOL
-               and max(d["k6"]["rel_err"].values()) <= KERNEL_BWD_TOL
-               and d["k6"]["repeat_bitwise_equal"]
-               for d in k_dense.values()):
+    if not all(dense_ok(d) for d in k_dense.values()):
         fail(f"K5 / K6 disagree with their plain versions: {k_dense}")
 
     # 57-61. the training paths through cli train, timed steps, profiles
@@ -4390,11 +4472,12 @@ def wave_phases(torch, dev, path_launches, tmp):
         mark("profile")
         dense_prof = None
         if label in DENSE_ROUTES:
-            # K5 / K6 at the clouds of the state the profile starts from:
-            # their reach sets the dense splat's work, and moves as the
-            # route trains.
+            # Phase 56's check, continued: K5 / K6 against their plain
+            # versions at the clouds of the state the profile starts from,
+            # where the reach, and with it K6's window, is widest (it
+            # grows as the route trains).
             seen = dense_inputs(tr, state, batches[-1])
-            dense_prof = dense_times(torch, splat, *seen[0], dev)
+            dense_prof = dense_check(torch, splat, *seen[0], dev)
             del seen
             mark("dense_at_profile")
 
@@ -4449,7 +4532,8 @@ def wave_phases(torch, dev, path_launches, tmp):
               and np.all(np.isfinite(losses))
               and np.all(np.isfinite(hist.get("total", [np.nan])))
               and rel <= REF_LOSS_RTOL
-              and (wl_rel is None or wl_rel <= WAVELENGTH_RTOL))
+              and (wl_rel is None or wl_rel <= WAVELENGTH_RTOL)
+              and (dense_prof is None or dense_ok(dense_prof)))
         if label == "physics":
             # The checkpoint cli train wrote rebuilds its physics decoder
             # and runs through cli infer.
@@ -4482,21 +4566,28 @@ def wave_phases(torch, dev, path_launches, tmp):
     log("wave_phases", seconds=phase_s, total_seconds=sum(phase_s.values()),
         cap_seconds=WAVE_PHASES_CAP_S)
     def dense_row(kk):
-        routes = {lb: dict(B=d["B"], mode=d["mode"], ms=d[kk]["ms"],
-                           plain_ms=d[kk]["plain_ms"],
-                           bound_ms=d[kk]["bound_ms"],
-                           bound_by=d[kk]["bound_by"],
-                           max_abs_err=d[kk]["abs_err"],
-                           max_rel_err=(d[kk]["rel_err"] if kk == "k5" else
-                                        max(d[kk]["rel_err"].values())))
-                  for lb, d in k_dense.items()}
+        def route(d):
+            return dict(B=d["B"], mode=d["mode"], ms=d[kk]["ms"],
+                        plain_ms=d[kk]["plain_ms"],
+                        bound_ms=d[kk]["bound_ms"],
+                        bound_by=d[kk]["bound_by"],
+                        max_abs_err=d[kk]["abs_err"],
+                        max_rel_err=(d[kk]["rel_err"] if kk == "k5" else
+                                     max(d[kk]["rel_err"].values())))
+
+        routes = {lb: route(d) for lb, d in k_dense.items()}
+        at_profile = {lb: route(runs[lb]["dense_at_profile"])
+                      for lb in DENSE_ROUTES}
+        every = list(routes.values()) + list(at_profile.values())
         head = routes["qsr"]
-        return dict(max_abs_err=max(r["max_abs_err"] for r in routes.values()),
-                    max_rel_err=max(r["max_rel_err"] for r in routes.values()),
+        return dict(max_abs_err=max(r["max_abs_err"] for r in every),
+                    max_rel_err=max(r["max_rel_err"] for r in every),
                     ms=head["ms"], plain_ms=head["plain_ms"],
                     bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                    at="qsr's launch (4 clouds, WAVE); every route in routes",
-                    routes=routes,
+                    at="qsr's launch (4 clouds, WAVE); every route's launch "
+                       "in routes, the state its profile starts from in "
+                       "at_profile",
+                    routes=routes, at_profile=at_profile,
                     rel_err_is=("relative to the largest plain value"
                                 if kk == "k5" else
                                 "relative to each field's largest plain "
@@ -5018,22 +5109,24 @@ def main():
 
 
 def ab_measure(root):
-    """The four kernels of the checkout at `root`: K1 and K2 on this
-    script's image, refine and render packs, K3 and K4 on the render
-    path's million depth-sorted Gaussians (T = 1024, M = 256); a dict of
-    device ms, call ms and device ms by kernel name (the --ab mode)."""
+    """The kernels of the checkout at `root`: K1 and K2 on this script's
+    image, refine and render packs, K3 and K4 on the render path's million
+    depth-sorted Gaussians (T = 1024, M = 256), K5 and K6 on DENSE_AB's
+    ISO and WAVE clouds; a dict of device ms, call ms and device ms by
+    kernel name (the --ab mode)."""
     import torch
 
     sys.path.insert(0, os.path.abspath(root))
     from fresnel_tpu_torch import _build, pipeline
     from fresnel_tpu_torch.core.camera import Camera
-    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
+    from fresnel_tpu_torch.render import (
+        binning, raster, splat, stream_binning, tile)
     from fresnel_tpu_torch.train import fit_teacher
 
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     built = _build.build(["raster_fwd", "raster_bwd", "bin_table",
-                          "bin_stream"])
+                          "bin_stream", "dense_fwd", "dense_bwd"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -5109,10 +5202,14 @@ def ab_measure(root):
                 **kernel_times(torch, fn, n=20 if kernel == "k4" else 50),
                 n_gaussians=RENDER["n"], n2=n2,
                 device_ms_by_kernel=prof["top_kernels_ms"])
+    # K5 / K6 on DENSE_AB's synthetic clouds, through the launchers.
+    del packs, sp, iv, bounds, sorted_in
+    for mode in (1, 0):
+        d = dense_times(torch, splat, *dense_synthetic(torch, dev, mode), dev)
+        result["kernels"][f"dense_{d['mode']}"] = d
     # The refine step at full width: fit_scene's ms per step (CUDA events
     # around one call of 20 steps, after a warmup call) and its device ms
     # per step (torch.profiler over 5 steps).
-    del packs, sp, iv, bounds, sorted_in
     fit_kw = dict(REFINE, device=dev)
     fit_teacher.fit_scene(scene, depth, steps=3, **fit_kw)
     n_steps = 20

@@ -13,12 +13,15 @@ The per-Gaussian parameters are one (B, N, 8) tensor [mx, my, conic a (ISO:
 sigma), b, c, radius, opacity, 0]; the radius carries no gradient.
 
 `dense_splat` goes through the autograd Function `_DenseSplat` on both
-devices: for CUDA tensors its forward launches K5 (csrc/dense_fwd.cu) and
-its backward K6 (csrc/dense_bwd.cu); for CPU tensors the plain version
-`dense_splat_plain` (the JAX package's scan: chunks of 64 Gaussians, one
-einsum each) and autograd through it.  There is no fall back from one to
-the other.  `launches` and `launches_bwd` count calls of each kernel's C
-entry point.  B images take one launch.
+devices: for CUDA tensors its forward launches K5 (csrc/dense_fwd.cu: a
+block per 16 x 16 tile culls the image's Gaussians together and walks
+only those that reach the tile) and its backward K6 (csrc/dense_bwd.cu: a
+warp per Gaussian walks its window's rows, 32 columns at a time, and
+combines its lanes in a fixed order; no scratch); for CPU tensors the
+plain version `dense_splat_plain` (the JAX package's scan: chunks of 64
+Gaussians, one einsum each) and autograd through it.  There is no fall
+back from one to the other.  `launches` and `launches_bwd` count calls of
+each kernel's C entry point.  B images take one launch.
 """
 
 from __future__ import annotations
@@ -32,8 +35,6 @@ from fresnel_tpu_torch.render.raster import _device_of
 WAVE, ISO = 0, 1
 CHANNELS = {WAVE: 8, ISO: 3}
 NP = 8          # parameters per Gaussian
-NBAND = 8       # K6's pixel-row bands (csrc/dense_bwd.cu)
-NT = 14         # K6's partial terms per Gaussian and band
 CHUNK = 64      # Gaussians per step of the plain version (the JAX scan's)
 
 launches = 0        # K5 launches
@@ -139,15 +140,15 @@ def _launch_bwd(params: torch.Tensor, V: torch.Tensor, g_out: torch.Tensor,
             or g_out.device != params.device):
         raise ValueError("g_out must be the contiguous float32 cotangent of "
                          "K5's output")
+    if g_out.data_ptr() % 16:
+        g_out = g_out.clone()     # K6 reads a WAVE pixel as two float4s
     g_params = torch.empty_like(params)
     g_V = torch.empty_like(V)
     if B * N == 0:
         return g_params.zero_(), g_V.zero_()
-    part = torch.empty((NBAND, B, N, NT), dtype=torch.float32,
-                       device=params.device)
     _build.launch("dense_bwd", params.device,
                   (params.data_ptr(), V.data_ptr(), g_out.data_ptr(),
-                   part.data_ptr(), g_params.data_ptr(), g_V.data_ptr()),
+                   g_params.data_ptr(), g_V.data_ptr()),
                   (B, N, H, W, mode))
     launches_bwd += 1
     return g_params, g_V

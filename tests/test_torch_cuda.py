@@ -17,7 +17,7 @@ against the plain forward of each tile's slots before the segment.  The
 binning kernels K3 and K4 are integer functions and are held bit for bit.
 K1 and K2 with the box test off (hard_cutoff=False), the phase-blending
 pair K1-phi / K2-phi and the dense splat K5 / K6 (both modes) are held at
-the same tolerances, K2-phi and K6 bit for bit from run to run.
+the same tolerances, K2-phi, K5 and K6 bit for bit from run to run.
 """
 
 import numpy as np
@@ -1230,7 +1230,9 @@ def test_phase_kernels_match_plain(cuda, T, M, ntx, pattern, amp, box,
     assert torch.equal(grad, again)
 
 
-def _splat_inputs(B, N, size, mode, seed):
+def _splat_inputs(B, N, size, mode, seed, opacity="some0"):
+    """B different clouds of N Gaussians around a size^2 image; opacity
+    "some0" (every 7th Gaussian invisible), "none0" or "all0"."""
     rng = np.random.default_rng(seed)
     p = np.zeros((B, N, 8), np.float32)
     p[..., 0:2] = rng.uniform(-10, size + 10, (B, N, 2))
@@ -1244,18 +1246,30 @@ def _splat_inputs(B, N, size, mode, seed):
         p[..., 2] = rng.uniform(0.5, 12, (B, N))
         C = 3
     p[..., 6] = rng.uniform(0, 1, (B, N))
-    p[:, ::7, 6] = 0.0                       # invisible ones
+    if opacity == "some0":
+        p[:, ::7, 6] = 0.0                   # invisible ones
+    elif opacity == "all0":
+        p[..., 6] = 0.0
     V = rng.normal(size=(B, N, C)).astype(np.float32)
     return torch.from_numpy(p), torch.from_numpy(V)
 
 
-@pytest.mark.parametrize("B,N,H,W,mode", [
-    (1, 300, 48, 48, 0), (3, 257, 40, 56, 0), (1, 300, 48, 48, 1),
-    (2, 129, 33, 47, 1)])
-def test_dense_splat_kernels_match_plain(cuda, B, N, H, W, mode):
+# K5 culls 256 Gaussians at a time and K6 walks each Gaussian's window 32
+# columns at a time: N = 1 and 257 around the stage, ISO sigmas up to 12 px
+# at 256^2 (windows wider than 32 and 128 columns, clipped at the edges),
+# H and W not multiples of 16, B clouds in one launch, and clouds whose
+# every opacity is 0 (K5 gives 0; K6 the opacity's own gradient).
+@pytest.mark.parametrize("B,N,H,W,mode,opacity", [
+    (1, 300, 48, 48, 0, "some0"), (3, 257, 40, 56, 0, "some0"),
+    (1, 300, 48, 48, 1, "some0"), (2, 129, 33, 47, 1, "some0"),
+    (1, 400, 256, 256, 1, "some0"), (1, 1, 48, 48, 0, "none0"),
+    (1, 1, 48, 48, 1, "none0"), (1, 257, 64, 64, 1, "some0"),
+    (2, 300, 48, 48, 0, "all0"), (1, 300, 33, 47, 1, "all0"),
+    (3, 300, 40, 56, 1, "some0")])
+def test_dense_splat_kernels_match_plain(cuda, B, N, H, W, mode, opacity):
     from fresnel_tpu_torch.render import splat
 
-    params, V = _splat_inputs(B, N, max(H, W), mode, N)
+    params, V = _splat_inputs(B, N, max(H, W), mode, N, opacity)
     params, V = params.to(cuda), V.to(cuda)
     before = (splat.launches, splat.launches_bwd)
     pg = params.clone().requires_grad_()
@@ -1264,19 +1278,29 @@ def test_dense_splat_kernels_match_plain(cuda, B, N, H, W, mode):
     ref = splat.dense_splat_plain(params, V, H, W, mode)
     scale = ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-5 * scale
+    if opacity == "all0":
+        assert not got.any()
     g_out = torch.from_numpy(np.random.default_rng(3).normal(
         size=tuple(got.shape)).astype(np.float32)).to(cuda)
     gp, gv = torch.autograd.grad(got, (pg, vg), g_out)
     assert (splat.launches, splat.launches_bwd) == (before[0] + 1,
                                                     before[1] + 1)
     rp, rv = splat.dense_splat_bwd_plain(params, V, g_out, mode)
+    if opacity == "all0":
+        assert rp[..., 6].abs().max().item() > 0
     for got_g, ref_g in ((gp, rp), (gv, rv)):
         for f in range(got_g.shape[-1]):
             s = ref_g[..., f].abs().max().item()
             e = (got_g[..., f] - ref_g[..., f]).abs().max().item()
             assert e <= BWD_TOL * max(s, 1e-30), (f, e, s)
-    again = splat._launch_bwd(params, V, g_out, mode)
+    # Again, from a g_out 4 bytes off 16-byte alignment (K6 reads a WAVE
+    # pixel as two float4s; the launcher realigns it).
+    shifted = torch.empty(g_out.numel() + 1, device=cuda)[1:]
+    shifted = shifted.view_as(g_out).copy_(g_out)
+    assert shifted.data_ptr() % 16
+    again = splat._launch_bwd(params, V, shifted, mode)
     assert torch.equal(again[0], gp) and torch.equal(again[1], gv)
+    assert torch.equal(splat._launch_fwd(params, V, H, W, mode), got)
 
 
 @pytest.mark.parametrize("over,physics,hfgs,kernels", [
