@@ -389,6 +389,11 @@ non-zero:
                   field and bit for bit from run to run; K1 / K2 with the
                   box off (hard_cutoff=False) on that pack; device ms, call
                   ms, plain ms, the plain backward's peak memory, bounds;
+                  the pack's largest and median count, the in-box pairs
+                  and the share of warp-slots any pixel of the warp is
+                  inside; both kernels' registers and blocks per SM from
+                  the CUDA runtime; their cosf, sinf and division fast
+                  paths bit for bit against the library over their ranges;
   56. kernel_dense  K5 / K6 (the dense splat) at each route's own launch,
                   the inputs its first training step hands dense_splat
                   (QSR: 4 clouds of 5 476 at 256^2, per-RGB phases, WAVE;
@@ -434,7 +439,7 @@ With `--ab`, each ROOT is a checkout of this repository (a parent commit
 unpacked with `git archive` into a git-ignored directory, or `.`), given
 in turns (`.archive/parent . . .archive/parent`) so that drift on the card
 shows.  For each root in order, a subprocess imports that checkout's
-`fresnel_tpu_torch` (building its six kernels into its `build/`),
+`fresnel_tpu_torch` (building its eight kernels into its `build/`),
 builds this script's image, refine and render packs with it, and times
 through the functions every version has: K1 at all three, K2 with
 cotangents from a seed and K1 + K2 through autograd (a refine step's pair)
@@ -444,9 +449,16 @@ path's million depth-sorted Gaussians; K5 and K6 (`splat._launch_fwd` /
 `_launch_bwd`, whose signatures every version of the dense splat keeps)
 on seeded synthetic clouds (DENSE_AB: 8 ISO clouds of 5 476 at 256^2
 whose reach matches experiment 4's at its profiled state, 4 WAVE clouds
-with the box at the 64-px cap).  Each as `ms` on the device, `call_ms`
-per call and the device ms of each kernel by name (torch.profiler),
-with ptxas's registers and spills of those six kernels;
+with the box at the 64-px cap); K1-phi and K2-phi
+(`raster._launch_fwd_phase` / `_launch_bwd_phase`, which every version
+of the phase kernels has) on a seeded synthetic pack at the
+phase-blended training pack's shape and near its statistics (PHASE_AB:
+T 1 024, M 256, 103.4 slots per tile, median 15, 334 tiles at the cap,
+radian phases), with their bounds, the sha256 of their outputs and,
+where the checkout has it, their residency.  Each as `ms` on the
+device, `call_ms` per call and the device ms of each kernel by name
+(torch.profiler), with ptxas's registers and spills of those eight
+kernels;
 and the refine step at full width (`fit_scene`: ms per step over 20
 steps, device ms per step and top kernels over 5); one JSON line per
 root.
@@ -455,6 +467,7 @@ Imports torch, numpy and fresnel_tpu_torch only.
 """
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -4107,6 +4120,62 @@ def dense_synthetic(torch, dev, mode):
             torch.from_numpy(V.astype(np.float32)).to(dev), S, S, mode)
 
 
+# The --ab mode's K1-phi / K2-phi inputs: a seeded synthetic pack at the
+# phase-blended training pack's shape (4 images x 256 tiles at 256^2, M
+# 256, amplitude 0.25, radian phases) and near its statistics as
+# kernel_phase logs them (105 872 occupied slots, 103.4 per tile, median
+# 9, the largest 256; 50.5 % of pixel-slot pairs and 67.7 % of warp-slots
+# inside the boxes): a few hundred tiles at the cap among nearly empty
+# ones.  Per image, n Gaussians, a share `disc_share` uniform in a disc
+# about a random centre and the rest uniform, log-normal box radii, a
+# conic of sigma = radius / 3, depth order; each tile lists the ones whose
+# box reaches it, at most M.  Seed 3 gives 103.4 per tile, median 15,
+# 334 tiles at the cap, 50.6 % of the pairs and 73.1 % of the warp-slots
+# inside the boxes.
+PHASE_AB = dict(images=4, size=256, M=256, n=5476, disc_share=0.99,
+                disc=70.0, r_median=20.0, r_sigma=0.2, r_max=28.0,
+                amplitude=0.25, seed=3)
+
+
+def phase_synthetic(torch, dev):
+    """(pack, counts, n_tiles_x, tiles_per_image) of PHASE_AB."""
+    cfg = PHASE_AB
+    rng = np.random.default_rng(cfg["seed"])
+    S, M, n = cfg["size"], cfg["M"], cfg["n"]
+    ntx = S // 16
+    ti = ntx * ntx
+    pack = np.zeros((cfg["images"] * ti, M, 12), np.float32)
+    pack[..., 5] = -1.0
+    counts = np.zeros(cfg["images"] * ti, np.int32)
+    edge = np.arange(ntx) * 16
+    for im in range(cfg["images"]):
+        nd = int(n * cfg["disc_share"])
+        rad = cfg["disc"] * np.sqrt(rng.uniform(0, 1, nd))
+        ang = rng.uniform(0, 2 * np.pi, nd)
+        centre = rng.uniform(S / 3, 2 * S / 3, 2)
+        mean = [np.concatenate([rng.uniform(0, S, n - nd),
+                                centre[i] + rad * f(ang)])
+                for i, f in enumerate((np.cos, np.sin))]
+        r = np.clip(cfg["r_median"] * np.exp(
+            cfg["r_sigma"] * rng.standard_normal(n)), 1.5, cfg["r_max"])
+        a, c = ((3.0 / r) ** 2 * rng.uniform(0.7, 1.3, n) for _ in range(2))
+        b = rng.uniform(-0.3, 0.3, n) * np.sqrt(a * c)
+        rows = np.stack([*mean, a, b, c, r, *rng.uniform(0, 1, (3, n)),
+                         rng.uniform(0.05, 0.95, n), rng.uniform(1, 4, n),
+                         rng.uniform(0, 2 * np.pi, n)], -1)
+        rows = rows[rng.permutation(n)].astype(np.float32)
+        rows[:, 10] = np.sort(rows[:, 10])
+        mx, my, r = rows[:, 0:1], rows[:, 1:2], rows[:, 5:6]
+        hit_x = (mx + r >= edge) & (mx - r <= edge + 15)
+        hit_y = (my + r >= edge) & (my - r <= edge + 15)
+        for t in range(ti):
+            idx = np.nonzero(hit_x[:, t % ntx] & hit_y[:, t // ntx])[0][:M]
+            counts[im * ti + t] = len(idx)
+            pack[im * ti + t, :len(idx)] = rows[idx]
+    return (torch.from_numpy(pack).to(dev), torch.from_numpy(counts).to(dev),
+            ntx, ti)
+
+
 def dense_check(torch, splat, params, V, H, W, mode, dev):
     """K5 / K6 through splat.dense_splat at a route's whole launch (B
     images), each image against the plain versions on that image alone:
@@ -4352,6 +4421,9 @@ def wave_phases(torch, dev, path_launches, tmp):
     pb = compositing_bounds(stats, T, M, occupied, names=("k1phi", "k2phi"),
                             ops=(OPS_PER_EVAL_PHASE, OPS_PER_EVAL_PHASE_BWD),
                             bwd_pix=5, carry_bytes=ckpt_bytes)
+    # The exact fast paths K1-phi / K2-phi take (cosf, sinf, division)
+    # against the library, over their whole ranges.
+    fast_paths = raster.phase_fastpath_check(dev)
     # K1 / K2 with the box off (hard_cutoff=False) on the same pack.
     with torch.no_grad():
         nb = raster.composite_tiles_packed(pack, counts, ntx,
@@ -4380,13 +4452,20 @@ def wave_phases(torch, dev, path_launches, tmp):
                    box_off=dict(k1_max_abs_err=nb_err,
                                 k2_rel_err=max(nb_rel.values())),
                    box_pixel_pairs=stats["box_pixel_pairs"],
+                   counts_max=stats["counts_max"],
+                   counts_median=stats["counts_median"],
+                   box_warp_share=stats["box_warp_share"],
+                   residency=raster.phase_residency(dev),
+                   fast_paths=fast_paths,
                    checkpoint_bytes=ckpt_bytes, seconds_by_part=kp_s)
     log("kernel_phase", **k_phase, k1_tol=KERNEL_TOL, k2_tol=KERNEL_BWD_TOL,
         phase_seconds=lap("kernel_phase"))
     if not (max(fwd_rel.values()) <= KERNEL_TOL
             and max(berr.values()) <= KERNEL_BWD_TOL and repeat_equal
             and nb_err <= KERNEL_TOL
-            and max(nb_rel.values()) <= KERNEL_BWD_TOL):
+            and max(nb_rel.values()) <= KERNEL_BWD_TOL
+            and fast_paths["cos_mismatches"] == fast_paths["sin_mismatches"]
+            == fast_paths["div_mismatches"] == 0):
         fail(f"K1-phi / K2-phi or the box-off K1 / K2 disagree with their "
              f"plain versions: {k_phase}")
     del t, out, bp, pack, got, ref, g1, g2, gref, nb, nb_ref, nb_g, nb_gref
@@ -4600,7 +4679,8 @@ def wave_phases(torch, dev, path_launches, tmp):
                     bound_ms=k_phase[kk]["bound_ms"],
                     bound_by=k_phase[kk]["bound_by"], at="phase train pack",
                     rel_err_is="relative to each field's largest plain "
-                               "value")
+                               "value",
+                    residency=k_phase["residency"][kk])
 
     return dict(k1phi=phase_row("k1phi", k_phase["k1phi"]["abs_err"]),
                 k2phi=phase_row("k2phi", k_phase["k2phi"]["abs_err"]),
@@ -5126,7 +5206,8 @@ def ab_measure(root):
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     built = _build.build(["raster_fwd", "raster_bwd", "bin_table",
-                          "bin_stream", "dense_fwd", "dense_bwd"])
+                          "bin_stream", "dense_fwd", "dense_bwd",
+                          "raster_phase_fwd", "raster_phase_bwd"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -5207,6 +5288,47 @@ def ab_measure(root):
     for mode in (1, 0):
         d = dense_times(torch, splat, *dense_synthetic(torch, dev, mode), dev)
         result["kernels"][f"dense_{d['mode']}"] = d
+    # K1-phi / K2-phi on PHASE_AB's pack, through the launchers, with the
+    # sha256 of their outputs (K1-phi's are the same bits in every version).
+    pack, counts, ntx, ti = phase_synthetic(torch, dev)
+    amp = PHASE_AB["amplitude"]
+    T, M = pack.shape[:2]
+    with torch.no_grad():
+        fwd = raster._launch_fwd_phase(pack, counts, ntx, amp,
+                                       keep_ckpt=True, tiles_per_image=ti)
+    rng = np.random.default_rng(12)
+    cots = [torch.from_numpy(rng.normal(size=tuple(o.shape)).astype(
+        np.float32)).to(dev) for o in fwd[:3]]
+    grad = raster._launch_bwd_phase(pack, counts, ntx, amp, *cots,
+                                    ckpt=fwd[3], tiles_per_image=ti)
+    stats = pack_stats(torch, raster, pack, counts, ntx, tiles_per_image=ti)
+    occupied = int(counts.sum().item())
+    bounds = compositing_bounds(
+        stats, T, M, occupied, names=("k1phi", "k2phi"),
+        ops=(OPS_PER_EVAL_PHASE, OPS_PER_EVAL_PHASE_BWD), bwd_pix=5,
+        carry_bytes=math.prod(raster.checkpoint_shape(T, M)) * 4)
+    calls = dict(
+        k1phi=lambda: raster._launch_fwd_phase(
+            pack, counts, ntx, amp, keep_ckpt=True, tiles_per_image=ti),
+        k2phi=lambda: raster._launch_bwd_phase(
+            pack, counts, ntx, amp, *cots, ckpt=fwd[3], tiles_per_image=ti))
+    sha = dict(k1phi=hashlib.sha256(b"".join(
+        o.cpu().numpy().tobytes() for o in fwd[:3])).hexdigest()[:16],
+        k2phi=hashlib.sha256(grad.cpu().numpy().tobytes()).hexdigest()[:16])
+    for kernel, fn in calls.items():
+        with torch.no_grad():
+            prof = profile_ms(torch, lambda: [fn() for _ in range(10)], 10)
+            result["kernels"][f"{kernel}_phase"] = dict(
+                **kernel_times(torch, fn), T=T, M=M, occupied_slots=occupied,
+                bound_ms=bounds[kernel]["bound_ms"],
+                bound_by=bounds[kernel]["bound_by"], output_sha256=sha[kernel],
+                device_ms_by_kernel=prof["top_kernels_ms"])
+    result["phase_pack"] = {k: stats[k] for k in (
+        "counts_max", "counts_median", "tiles_at_cap", "box_pixel_pairs",
+        "box_pixel_share", "box_warp_share")}
+    if hasattr(raster, "phase_residency"):
+        result["phase_residency"] = raster.phase_residency(dev)
+    del pack, counts, fwd, cots, grad
     # The refine step at full width: fit_scene's ms per step (CUDA events
     # around one call of 20 steps, after a warmup call) and its device ms
     # per step (torch.profiler over 5 steps).

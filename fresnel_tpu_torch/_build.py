@@ -82,21 +82,45 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, Tuple[Path, str]]:
     return out
 
 
+def _library_of(name: str) -> ctypes.CDLL:
+    """Kernel `name`'s library, built and loaded if need be."""
+    if name not in _libs:
+        path, _ = build([name])[name]
+        _libs[name] = ctypes.CDLL(str(path))
+    return _libs[name]
+
+
 def load(name: str, n_pointers: int, n_ints: int, n_floats: int = 0):
     """The C entry point of kernel `name`, built if need be.  Its arguments
     are `n_pointers` device pointers, `n_ints` ints, `n_floats` floats and
     the stream; it returns cudaGetLastError() of its launches (0 on
     success)."""
-    if name not in _libs:
-        path, _ = build([name])[name]
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * n_pointers
-                       + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return getattr(_libs[name], name)
+    fn = getattr(_library_of(name), name)
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers
+                   + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+RESIDENCY_KEYS = ("registers", "shared_bytes", "local_bytes", "threads",
+                  "blocks_per_sm")
+
+
+def residency(name: str, device) -> Dict[str, int]:
+    """Registers per thread, static shared and local (spill) bytes,
+    threads per block and blocks per SM of kernel `name` on `device`, as
+    the CUDA runtime reports them, for a kernel whose source exports
+    `<name>_residency`.  Raises on a CUDA error."""
+    fn = getattr(_library_of(name), f"{name}_residency")
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(RESIDENCY_KEYS))()
+    with torch.cuda.device(device):
+        err = fn(out)
+    if err != 0:
+        raise RuntimeError(f"{name}_residency failed with CUDA error {err}")
+    return dict(zip(RESIDENCY_KEYS, out))
 
 
 def launch(name: str, device, pointers: Sequence[int],

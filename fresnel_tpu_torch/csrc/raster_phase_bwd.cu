@@ -2,7 +2,8 @@
 // (sm_90a): the analytic VJP of raster_phase_fwd.cu.
 //
 // Replaces the reverse-mode derivative XLA takes of the phase path of
-// fresnel_tpu/render/tile.py::_composite_tiles (:672-716).
+// fresnel_tpu/render/tile.py::_composite_tiles (:672-716); no Pallas kernel
+// takes that path, so this kernel has no Pallas counterpart.
 //
 // Input:  pack (T, M, 12) float32 with the phases in column 11, counts
 //         (T,) int32, the amplitude A and 1 - A and box as the forward's;
@@ -14,7 +15,7 @@
 //         RGB, opacity, depth and phase (column 11); the radius column
 //         and every slot >= count are 0.
 //
-// Reverse mode over the recurrence (raster_common.cuh, phase_step), per
+// Reverse mode over the recurrence (raster_common.cuh, phase_apply), per
 // pixel, with adjoints lT of the transmittance and lP of the running phase
 // (lT starts at g_trans, lP at 0; the colour and depth sums are linear, so
 // their adjoints stay g_color and g_depth).  For a slot with weight w,
@@ -32,17 +33,51 @@
 //   dphase = lP p + dd * sign(phase - acc_phase)
 // then alpha_raw = e * opacity into mean, conic and opacity as K2 does.
 // The state before each slot comes from recomputing the slot's 16-slot
-// checkpoint segment forward (the same phase_step the forward runs) into
+// checkpoint segment forward (the same phase_apply the forward runs) into
 // shared memory, never from inverting the recurrence: its phase weight is
 // exactly 1 at a pixel's first contributing slot, and 1 - alpha is 0.01
 // at ALPHA_MAX.
 //
-// One block of 256 threads per tile walks its segments last to first.  Per
-// slot, each of the 11 gradient terms is summed over a warp by a shuffle
-// butterfly, then over the 8 warps in a fixed order: no atomics, so the
-// result repeats bit for bit.  A warp in which every pixel's alpha_raw is
-// 0 skips the slot: every term there is exactly 0 and the adjoints do not
-// change.
+// What bounds it on this card: per in-box pixel-slot pair the forward's
+// step (expf, cosf, a division) to know the state, then the adjoint (expf,
+// sin and cos, three divisions) and the chain rule, ~100 operations
+// rounded op by op, and 11 sums over the tile's pixels per slot, each
+// pixel's chain serial over its tile's segments.  The first design, a
+// block of 256 threads per tile (53 registers and 39 KB of shared memory:
+// 4 blocks per SM, 1.9 waves at T = 1 024), summed each slot's 11 terms
+// over every warp with 11 five-step shuffle butterflies (55 shuffles and
+// 55 adds per warp and slot), evaluated every slot in every warp before
+// skipping it, stalled on its chains as K1-phi's first design did, and
+// left a heavy tile of the last wave running alone.  The design:
+//   * heaviest tiles first (tile_by_weight): block b takes the b-th tile
+//     by descending count, found on the card from the counts, so the
+//     second wave holds the lightest tiles;
+//   * two pixels per thread in one column (raster_common.cuh, PixelSet),
+//     and no branch in a step: the recompute is the forward's
+//     phase_step_set, and the adjoint (phase_adjoint_set) takes sin, cos
+//     and the divisions by their exact fast paths and commits by selects,
+//     so the two chains interleave;
+//   * per segment, each warp tests the segment's 16 slots once against its
+//     16 x 4-pixel strip (strip_hit, exact) and keeps a ballot mask; the
+//     recompute walks the mask up and the reverse pass walks it down, so a
+//     warp evaluates only the slots whose box reaches its strip, and a
+//     culled warp-slot writes zero partial sums;
+//   * each warp-slot's 11 terms (the thread's two pixels added first) are
+//     summed over the warp by one reduce-scatter (fold: each step halves
+//     the terms a lane holds, 13 shuffles in all), which leaves each sum in
+//     the order a butterfly would; then a fixed-order sum over the 4 warps
+//     gives each (slot, field), written with coalesced stores;
+//   * the recompute keeps only the state (T, acc_phase) of each listed
+//     slot in shared memory, 32 KB per tile at 16 slots: keeping alpha_raw
+//     and the interference factor as well would double that and halve the
+//     blocks an SM holds, so the reverse pass evaluates expf and cos again.
+// Residency: 128 threads and 35.5 KB of shared memory per block, at most
+// 80 registers a thread (__launch_bounds__(128, 6)): an SM holds 6 tiles,
+// the card 792, so T = 1 024 takes 1.29 waves, the second of the lightest
+// tiles.  The next segment's pack values and checkpoints are loaded while
+// the current one is walked.  No
+// atomics, so the result repeats bit for bit.  expf, cosf, sinf and IEEE
+// division, no fast math.
 
 #include "raster_common.cuh"
 
@@ -50,6 +85,8 @@ namespace {
 
 using namespace raster;
 
+constexpr int NT = PHASE_THREADS;
+constexpr int NW = NT / 32;
 // Gradient terms per slot: mx, my, conic a, b, c, R, G, B, opacity, depth,
 // phase.
 constexpr int NG = 11;
@@ -61,8 +98,135 @@ __device__ __forceinline__ int grad_term(int col) {
   return col - 1;
 }
 
+// One step of the reduce-scatter: lanes with `upper` keep b, the others a;
+// each sends the other to its partner `off` lanes away and adds what it
+// receives (raster_bwd.cu's).
+__device__ __forceinline__ float fold(float a, float b, bool upper,
+                                      int off) {
+  const float keep = upper ? b : a;
+  const float send = upper ? a : b;
+  return keep + __shfl_xor_sync(FULL, send, off);
+}
+
+// Sums eleven terms over the warp.  Returns to lane l the warp's sum of
+// term reduced_term(l), each summed in the order of a butterfly over the
+// lanes: lanes below 16 keep terms 0-5, the others 6-10 (and a gap padded
+// with 0); then 3 of those six; then 2 of the three (one a gap); then one;
+// then a last exchange with the neighbouring lane.
+__device__ __forceinline__ float warp_sum11(const float (&v)[NG],
+                                            int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+  float s[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+    s[i] = fold(v[i], i + 6 < NG ? v[i + 6] : 0.0f, b4, 16);
+  float t[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t[i] = fold(s[i], s[i + 3], b3, 8);
+  const float u0 = fold(t[0], t[2], b2, 4), u1 = fold(t[1], 0.0f, b2, 4);
+  const float w = fold(u0, u1, b1, 2);
+  return w + __shfl_xor_sync(FULL, w, 1);
+}
+
+// The term whose warp sum warp_sum11 leaves in lane l, -1 if none: even
+// lanes only; bit 4 picks terms 0-5 or 6-11, bit 3 the first or last three
+// of those, bits 2 and 1 one of them (0, 1, 2 or a gap); term 11 is a gap.
+__device__ __forceinline__ int reduced_term(int lane) {
+  if (lane & 1) return -1;
+  const int i = (lane & 2) ? ((lane & 4) ? -1 : 1) : ((lane & 4) ? 2 : 0);
+  if (i < 0) return -1;
+  const int term = ((lane & 16) ? 6 : 0) + ((lane & 8) ? 3 : 0) + i;
+  return term < NG ? term : -1;
+}
+
+// The adjoint step of staged slot g at the thread's pixels, whose states
+// before the slot are st[2 k] = T and st[2 k + 1] = acc_phase: updates lT
+// and lP and adds the pixels' 11 terms to v.  Where a pixel's alpha_raw is
+// 0 nothing changes.  As in phase_step_set, every value is computed for
+// every pixel and committed by a select, and sin, cos and the divisions
+// take their fast paths, so the pixels' chains interleave.
 template <bool BOX>
-__global__ void __launch_bounds__(PIX)
+__device__ __forceinline__ void phase_adjoint_set(
+    const float* g, const PixelSet& q, const float (*st)[32], int lane,
+    Amplitude amp, const float (&gR)[PPT], const float (&gG)[PPT],
+    const float (&gB)[PPT], const float (&gD)[PPT], float (&lT)[PPT],
+    float (&lP)[PPT], float (&v)[NG]) {
+  Alpha a[PPT];
+  eval_alpha_set<BOX>(g, q, a);
+  const float phase = g[PHASE];
+  float T[PPT], diff[PPT], pd[PPT], arg[PPT], c[PPT], sn[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    T[k] = st[2 * k][lane];
+    diff[k] = __fsub_rn(phase, st[2 * k + 1][lane]);
+    pd[k] = fabsf(diff[k]);
+    arg[k] = __fmul_rn(fminf(pd[k], __fsub_rn(1.0f, pd[k])), TWO_PI_F);
+  }
+  sin_cos_set(arg, sn, c);
+  // The forward's values, rounded as phase_step_set rounds them.
+  float factor[PPT], x[PPT], w[PPT], acc_alpha[PPT], m[PPT], pc[PPT];
+  float dpc[PPT], dpc_m[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    factor[k] = __fadd_rn(amp.one_minus_a, __fmul_rn(amp.a, c[k]));
+    x[k] = __fmul_rn(a[k].alpha_raw, factor[k]);
+    w[k] = __fmul_rn(clip_alpha(x[k]), T[k]);
+    acc_alpha[k] = __fadd_rn(__fsub_rn(1.0f, T[k]), w[k]);
+    m[k] = fmaxf(acc_alpha[k], 1e-6f);
+    // Through acc_phase' = acc_phase (1 - p) + phase p.
+    dpc[k] = lP[k] * diff[k];
+  }
+  div_set(w, m, pc);
+  div_set(dpc, m, dpc_m);
+  float dm_num[PPT], dm[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) dm_num[k] = -dpc[k] * pc[k];
+  div_set(dm_num, m, dm);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const float alpha = clip_alpha(x[k]);
+    if (!(acc_alpha[k] > 1e-6f)) dm[k] = 0.0f;
+    const float dw = gR[k] * g[R] + gG[k] * g[G] + gB[k] * g[B] +
+                     gD[k] * g[DEPTH] + dpc_m[k] + dm[k];
+    const float dalpha = (dw - lT[k]) * T[k];
+    const float lT_new = lT[k] * (1.0f - alpha) + dw * alpha - dm[k];
+    const float dx = (x[k] > 0.0f && x[k] < ALPHA_MAX) ? dalpha : 0.0f;
+    const float dF = dx * a[k].alpha_raw;
+    const float dpw = dF * amp.a * -sn[k] * TWO_PI_F;
+    const float one_m = 1.0f - pd[k];
+    const float dpd =
+        pd[k] < one_m ? dpw : (pd[k] > one_m ? -dpw : 0.0f);
+    const float sgn =
+        diff[k] > 0.0f ? 1.0f : (diff[k] < 0.0f ? -1.0f : 0.0f);
+    const float dphase = lP[k] * pc[k] + dpd * sgn;
+    const float lP_new = lP[k] * (1.0f - pc[k]) - dpd * sgn;
+    const float da = dx * factor[k];
+    // dmq = d loss / d m, m the quadratic form; the conic is staged as
+    // qa = -a / 2, qb = -b, qc = -c / 2.
+    const float dmq = da * a[k].alpha_raw * -0.5f;
+    const float dmx = dmq * a[k].dx;
+    const float term[NG] = {
+        dmq * 2.0f * (2.0f * g[QA] * a[k].dx + g[QB] * a[k].dy),
+        dmq * 2.0f * (g[QB] * a[k].dx + 2.0f * g[QC] * a[k].dy),
+        dmx * a[k].dx,
+        2.0f * dmx * a[k].dy,
+        dmq * a[k].dy * a[k].dy,
+        w[k] * gR[k],
+        w[k] * gG[k],
+        w[k] * gB[k],
+        da * a[k].e,
+        w[k] * gD[k],
+        dphase};
+    const bool live = a[k].alpha_raw != 0.0f;
+    lT[k] = live ? lT_new : lT[k];
+    lP[k] = live ? lP_new : lP[k];
+#pragma unroll
+    for (int i = 0; i < NG; ++i) v[i] += live ? term[i] : 0.0f;
+  }
+}
+
+template <bool BOX>
+__global__ void __launch_bounds__(NT, 6)
 composite_phase_bwd(const float* __restrict__ pack,
                     const int* __restrict__ counts,
                     const float* __restrict__ g_color,
@@ -71,123 +235,114 @@ composite_phase_bwd(const float* __restrict__ pack,
                     const float* __restrict__ ckpt,
                     float* __restrict__ grad, int max_per_tile,
                     int n_tiles_x, int tiles_per_image, Amplitude amp) {
-  __shared__ float sh[CKPT * PACK];
-  __shared__ float state[CKPT][2][PIX];
-  __shared__ float sums[NWARP][CKPT][NG];
-  const int tile = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p % 32;
-  const int warp = p / 32;
+  __shared__ __align__(16) float sh[CKPT * PACK];
+  // Per warp and slot of the segment, the state before it: T and
+  // acc_phase of the thread's pixels, lane by lane.
+  __shared__ float state[NW][CKPT][2 * PPT][32];
+  __shared__ float sums[NW][CKPT][NG];
+  const int tile =
+      tile_by_weight<NT>(counts, gridDim.x, max_per_tile, blockIdx.x);
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int warp = t / 32;
+  const int term = reduced_term(lane);
   const int n = tile_count(counts, tile, max_per_tile);
   const int nck = n_checkpoints(max_per_tile);
   float* row = grad + static_cast<size_t>(tile) * max_per_tile * PACK;
-  float px, py;
-  pixel_coords(tile, p, n_tiles_x, tiles_per_image, &px, &py);
-  const size_t o = static_cast<size_t>(tile) * PIX + p;
-  const float gR = g_color[o * 3 + 0];
-  const float gG = g_color[o * 3 + 1];
-  const float gB = g_color[o * 3 + 2];
-  const float gD = g_depth[o];
-  float lT = g_trans[o];
-  float lP = 0.0f;
+  const PixelSet q = pixel_set(tile, t, n_tiles_x, tiles_per_image);
+  float gR[PPT], gG[PPT], gB[PPT], gD[PPT], lT[PPT], lP[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const size_t o = static_cast<size_t>(tile) * PIX + q.p + i * 32;
+    gR[i] = g_color[o * 3 + 0];
+    gG[i] = g_color[o * 3 + 1];
+    gB[i] = g_color[o * 3 + 2];
+    gD[i] = g_depth[o];
+    lT[i] = g_trans[o];
+    lP[i] = 0.0f;
+  }
+  float (*st)[2 * PPT][32] = state[warp];
 
-  for (int k = (n + CKPT - 1) / CKPT - 1; k >= 0; --k) {
+  // Segment k's pack values (the thread's elements t, t + NT, ... of its
+  // cnt * PACK) and checkpoints, loaded one segment ahead.
+  const float* tile_pack =
+      pack + static_cast<size_t>(tile) * max_per_tile * PACK;
+  constexpr int PF = (CKPT * PACK + NT - 1) / NT;   // loads a thread
+  float pf[PF], ck[2 * PPT];
+  auto prefetch = [&](int k) {
+    const int first = k * CKPT, cnt = min(CKPT, n - first);
+#pragma unroll
+    for (int h = 0; h < PF; ++h) {
+      const int i = t + h * NT;
+      pf[h] = i < cnt * PACK ? tile_pack[first * PACK + i] : 0.0f;
+    }
+    const float* c =
+        ckpt + (static_cast<size_t>(tile) * nck + k) * 2 * PIX + q.p;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      ck[2 * i] = c[i * 32];
+      ck[2 * i + 1] = c[PIX + i * 32];
+    }
+  };
+  if (n > 0) prefetch(n_segments(n, CKPT) - 1);
+  for (int k = n_segments(n, CKPT) - 1; k >= 0; --k) {
     const int first = k * CKPT;
     const int cnt = min(CKPT, n - first);
     __syncthreads();   // the previous segment's slots and sums are consumed
-    stage_slots(sh, pack + (static_cast<size_t>(tile) * max_per_tile +
-                            first) * PACK, cnt, p);
-    __syncthreads();
-    {
-      const float* q = ckpt + ((static_cast<size_t>(tile) * nck + k) * 2) *
-                                  PIX + p;
-      float T = q[0], acc_phase = q[PIX];
-      for (int j = 0; j < cnt; ++j) {
-        state[j][0][p] = T;
-        state[j][1][p] = acc_phase;
-        phase_step<BOX>(sh + j * PACK, px, py, amp, T, acc_phase, nullptr);
-      }
+#pragma unroll
+    for (int h = 0; h < PF; ++h) {
+      const int i = t + h * NT;
+      if (i < cnt * PACK) sh[i] = staged(pf[h], i % PACK);
     }
-    for (int j = cnt - 1; j >= 0; --j) {
-      const float* g = sh + j * PACK;
-      const Alpha a = eval_alpha_rn<BOX>(g, px, py);
-      const bool live = a.alpha_raw != 0.0f;
-      if (!__any_sync(FULL, live)) {
-        if (lane < NG) sums[warp][j][lane] = 0.0f;
-        continue;
+    float T[PPT], acc_phase[PPT];
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      T[i] = ck[2 * i];
+      acc_phase[i] = ck[2 * i + 1];
+    }
+    if (k > 0) prefetch(k - 1);
+    __syncthreads();
+    // The slots whose box reaches this warp's strip; the others' partial
+    // sums are 0.
+    const bool keep = lane < cnt && (!BOX || strip_hit(sh + lane * PACK,
+                                                       q.x0, q.y0));
+    const unsigned live = __ballot_sync(FULL, keep);
+    if (lane < cnt && !keep) {
+#pragma unroll
+      for (int i = 0; i < NG; ++i) sums[warp][lane][i] = 0.0f;
+    }
+    for (unsigned m = live; m != 0; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        st[j][2 * i][lane] = T[i];
+        st[j][2 * i + 1][lane] = acc_phase[i];
       }
+      phase_step_set<BOX>(sh + j * PACK, q, amp, T, acc_phase, nullptr);
+    }
+    for (unsigned m = live; m != 0;) {
+      const int j = 31 - __clz(m);
+      m ^= 1u << j;
       float v[NG];
 #pragma unroll
-      for (int t = 0; t < NG; ++t) v[t] = 0.0f;
-      if (live) {
-        const float T = state[j][0][p];
-        const float acc_phase = state[j][1][p];
-        const Interference f = interference(g[PHASE], acc_phase, amp);
-        // The forward's values, rounded as phase_step rounds them.
-        const float x = __fmul_rn(a.alpha_raw, f.factor);
-        const float alpha = clip_alpha(x);
-        const float w = __fmul_rn(alpha, T);
-        const float acc_alpha = __fadd_rn(__fsub_rn(1.0f, T), w);
-        const float m = fmaxf(acc_alpha, 1e-6f);
-        const float pc = __fdiv_rn(w, m);
-        // Through acc_phase' = acc_phase (1 - p) + phase p.
-        const float dpc = lP * (g[PHASE] - acc_phase);
-        float dw = gR * g[R] + gG * g[G] + gB * g[B] + gD * g[DEPTH] +
-                   dpc / m;
-        const float dm = acc_alpha > 1e-6f ? -dpc * pc / m : 0.0f;
-        dw += dm;
-        const float dalpha = (dw - lT) * T;
-        const float lT_new = lT * (1.0f - alpha) + dw * alpha - dm;
-        const float dx = (x > 0.0f && x < ALPHA_MAX) ? dalpha : 0.0f;
-        const float dF = dx * a.alpha_raw;
-        const float dpw = dF * amp.a * -sinf(f.arg) * TWO_PI_F;
-        const float one_m = 1.0f - f.pd;
-        const float dpd = f.pd < one_m ? dpw : (f.pd > one_m ? -dpw : 0.0f);
-        const float sgn = f.diff > 0.0f ? 1.0f : (f.diff < 0.0f ? -1.0f
-                                                                 : 0.0f);
-        const float dphase = lP * pc + dpd * sgn;
-        lP = lP * (1.0f - pc) - dpd * sgn;
-        lT = lT_new;
-        const float da = dx * f.factor;
-        // dmq = d loss / d m, m the quadratic form; the conic is staged as
-        // qa = -a / 2, qb = -b, qc = -c / 2.
-        const float dmq = da * a.alpha_raw * -0.5f;
-        const float dmx = dmq * a.dx;
-        v[0] = dmq * 2.0f * (2.0f * g[QA] * a.dx + g[QB] * a.dy);
-        v[1] = dmq * 2.0f * (g[QB] * a.dx + 2.0f * g[QC] * a.dy);
-        v[2] = dmx * a.dx;
-        v[3] = 2.0f * dmx * a.dy;
-        v[4] = dmq * a.dy * a.dy;
-        v[5] = w * gR;
-        v[6] = w * gG;
-        v[7] = w * gB;
-        v[8] = da * a.e;
-        v[9] = w * gD;
-        v[10] = dphase;
-      }
-#pragma unroll
-      for (int t = 0; t < NG; ++t) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          v[t] += __shfl_xor_sync(FULL, v[t], off);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int t = 0; t < NG; ++t) sums[warp][j][t] = v[t];
-      }
+      for (int i = 0; i < NG; ++i) v[i] = 0.0f;
+      phase_adjoint_set<BOX>(sh + j * PACK, q, st[j], lane, amp, gR, gG, gB,
+                             gD, lT, lP, v);
+      const float s = warp_sum11(v, lane);
+      if (term >= 0) sums[warp][j][term] = s;
     }
     __syncthreads();
-    for (int i = p; i < cnt * PACK; i += PIX) {
-      const int t = grad_term(i % PACK);
+    for (int i = t; i < cnt * PACK; i += NT) {
+      const int f = grad_term(i % PACK);
       float s = 0.0f;
-      if (t >= 0) {
+      if (f >= 0) {
 #pragma unroll
-        for (int w = 0; w < NWARP; ++w) s += sums[w][i / PACK][t];
+        for (int w = 0; w < NW; ++w) s += sums[w][i / PACK][f];
       }
       row[first * PACK + i] = s;
     }
   }
-  for (int i = n * PACK + p; i < max_per_tile * PACK; i += PIX) row[i] = 0.0f;
+  for (int i = n * PACK + t; i < max_per_tile * PACK; i += NT) row[i] = 0.0f;
 }
 
 }  // namespace
@@ -207,12 +362,19 @@ extern "C" int raster_phase_bwd(const float* pack, const int* counts,
   const auto s = static_cast<cudaStream_t>(stream);
   const raster::Amplitude a{amp, one_minus_amp};
   if (box)
-    composite_phase_bwd<true><<<n_tiles, PIX, 0, s>>>(
+    composite_phase_bwd<true><<<n_tiles, NT, 0, s>>>(
         pack, counts, g_color, g_depth, g_trans, ckpt, grad, max_per_tile,
         n_tiles_x, tiles_per_image, a);
   else
-    composite_phase_bwd<false><<<n_tiles, PIX, 0, s>>>(
+    composite_phase_bwd<false><<<n_tiles, NT, 0, s>>>(
         pack, counts, g_color, g_depth, g_trans, ckpt, grad, max_per_tile,
         n_tiles_x, tiles_per_image, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The box-test kernel's residency on the current device (raster_common.cuh,
+// kernel_residency): out[5] = registers per thread, static shared bytes,
+// local bytes, threads per block, blocks per SM.  Returns a CUDA error code.
+extern "C" int raster_phase_bwd_residency(int* out) {
+  return raster::kernel_residency(composite_phase_bwd<true>, NT, out);
 }

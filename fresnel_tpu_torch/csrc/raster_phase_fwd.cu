@@ -4,7 +4,8 @@
 // Replaces the phase path of the XLA scan compositor
 // fresnel_tpu/render/tile.py::_composite_tiles (:672-716), which the JAX
 // package runs when a tiled renderer with use_phase_blending is handed
-// phases (render_tiled, :869-871; no Pallas kernel takes it, :889).
+// phases (render_tiled, :869-871).  No Pallas kernel takes it (:889), so
+// this kernel has no Pallas counterpart.
 //
 // Input:  pack    (T, M, 12) float32, K1's layout with each slot's phase in
 //                 column 11 (0 in dead slots); counts (T,) int32.
@@ -17,13 +18,49 @@
 //                 the backward (K2-phi).
 // Output: color (T, 256, 3), depth (T, 256), trans (T, 256), as K1's.
 //
-// The recurrence (raster_common.cuh, phase_step) carries a running phase
-// per pixel that each slot's alpha depends on, so a segment cannot start
-// before every slot ahead of it is done: unlike K1 this kernel does not
-// split a tile's list.  One block of 256 threads (one per pixel) walks
-// each tile's list whole, 64 slots staged in shared memory at a time (the
-// conic pre-scaled as K1 stages it).  One launch, T blocks.  No atomics;
-// the result repeats bit for bit.  expf and cosf, no fast math.
+// What bounds it on this card: the recurrence (raster_common.cuh,
+// phase_step_set) carries a running phase per pixel that each slot's alpha
+// depends on, so each pixel's chain runs serially over its tile's whole
+// list.  A step inside a slot's box is ~45 operations rounded op by op (no
+// fast math, no fused multiply-adds), of which a chain of ~35 is serial:
+// the cosf of the running phase's distance (range reduction, polynomial),
+// the factor, alpha, the weight and an IEEE division.  The bytes (the pack
+// once, the outputs and the checkpoints) would take a tenth of the time.
+// The first design, one pixel per thread in blocks of 256 (32 registers, 8
+// blocks per SM, so T = 1 024 already ran in one wave), evaluated every
+// slot in every warp before skipping it, and stalled on each chain: cosf
+// and the division each branch to a slow path, and the branch stops the
+// compiler from overlapping anything across it.  The design:
+//   * two pixels per thread, one column, two rows apart (raster_common.cuh,
+//     PixelSet): they share the column's offset and its products, and their
+//     two chains interleave;
+//   * no branch in a step (phase_step_set): expf at every pixel with a
+//     select for the box, cosf and the division by their exact fast paths
+//     (sin_quadrant, div_fast: the same instructions CUDA runs, held bit
+//     for bit against the library by phase_fastpath_check.cu) unless an
+//     argument is out of their range, and the commit by selects;
+//   * each warp owns a strip of 16 x 4 pixels and lists the slots whose
+//     box can reach it: 32 slots at a time, one per lane, are loaded from
+//     the pack, tested once against the strip (strip_hit, exact: a slot is
+//     dropped only where no pixel of the strip is inside its box, and there
+//     alpha_raw is 0 and nothing changes) and the survivors compacted in
+//     index order (a ballot, __popc of the lanes below) into the warp's own
+//     list in shared memory.  The warp then walks only its list, with no
+//     barrier with the other warps.  Under box = 0 every slot is listed;
+//   * the checkpoints are written once per 16 slots of the tile's list,
+//     between the two halves of a warp's 32-slot list (every k < ceil(n /
+//     16), whether or not the warp lists a slot there), not tested per
+//     slot;
+//   * heaviest tiles first (raster_common.cuh, tile_by_weight): block b
+//     takes the b-th tile by descending count, so the longest chains start
+//     first and each SM gets one of the heaviest 132 (faster than tile
+//     order on the card, PERF.md).
+// Residency: 128 threads and 6 KB of shared memory per block, at most 64
+// registers a thread (__launch_bounds__(128, 8)): an SM holds 8 tiles, the
+// card 1 056, so the phase-train pack (T = 1 024) runs in one wave.  No
+// atomics; the result repeats bit for bit and equals the plain version's
+// on the card (and the first design's).  expf, cosf and IEEE division, no
+// fast math.
 
 #include "raster_common.cuh"
 
@@ -31,45 +68,81 @@ namespace {
 
 using namespace raster;
 
+constexpr int NT = PHASE_THREADS;
+constexpr int LIST = 32;   // slots a warp tests and lists at a time
+
 template <bool BOX>
-__global__ void __launch_bounds__(PIX)
+__global__ void __launch_bounds__(NT, 8)
 composite_phase(const float* __restrict__ pack,
                 const int* __restrict__ counts, float* __restrict__ color,
                 float* __restrict__ depth, float* __restrict__ trans,
                 float* __restrict__ ckpt, int max_per_tile, int n_tiles_x,
                 int tiles_per_image, Amplitude amp) {
-  __shared__ float sh[SEG * PACK];
-  const int tile = blockIdx.x;
-  const int p = threadIdx.x;
+  __shared__ __align__(16) float list[NT / 32][LIST * PACK];
+  const int tile =
+      tile_by_weight<NT>(counts, gridDim.x, max_per_tile, blockIdx.x);
+  const int t = threadIdx.x;
+  const int lane = t % 32;
   const int n = tile_count(counts, tile, max_per_tile);
   const int nck = n_checkpoints(max_per_tile);
-  float px, py;
-  pixel_coords(tile, p, n_tiles_x, tiles_per_image, &px, &py);
-  float T = 1.0f, acc_phase = 0.0f;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int first = 0; first < n; first += SEG) {
-    const int cnt = min(SEG, n - first);
-    __syncthreads();   // every thread is done with the previous chunk
-    stage_slots(sh, pack + (static_cast<size_t>(tile) * max_per_tile +
-                            first) * PACK, cnt, p);
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      const int slot = first + j;
-      if (ckpt != nullptr && slot % CKPT == 0) {
-        float* q = ckpt + ((static_cast<size_t>(tile) * nck + slot / CKPT) *
-                           2) * PIX + p;
-        q[0] = T;
-        q[PIX] = acc_phase;
-      }
-      phase_step<BOX>(sh + j * PACK, px, py, amp, T, acc_phase, acc);
-    }
+  const PixelSet q = pixel_set(tile, t, n_tiles_x, tiles_per_image);
+  const float* src = pack + static_cast<size_t>(tile) * max_per_tile * PACK;
+  float* mine = list[t / 32];
+  float T[PPT], acc_phase[PPT], acc[PPT][4];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    T[i] = 1.0f;
+    acc_phase[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
   }
-  const size_t o = static_cast<size_t>(tile) * PIX + p;
-  color[o * 3 + 0] = acc[0];
-  color[o * 3 + 1] = acc[1];
-  color[o * 3 + 2] = acc[2];
-  depth[o] = acc[3];
-  trans[o] = T;
+  // Writes checkpoint k (the state before slot 16 k) of the thread's pixels.
+  auto checkpoint = [&](int k) {
+    if (ckpt == nullptr) return;
+    float* c = ckpt + (static_cast<size_t>(tile) * nck + k) * 2 * PIX + q.p;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      c[i * 32] = T[i];
+      c[PIX + i * 32] = acc_phase[i];
+    }
+  };
+  for (int first = 0; first < n; first += LIST) {
+    // Lane l tests slot first + l against the warp's strip.
+    const int j = first + lane;
+    float v[PACK];
+    bool keep = false;
+    if (j < n) {
+#pragma unroll
+      for (int c = 0; c < PACK; ++c)
+        v[c] = staged(src[static_cast<size_t>(j) * PACK + c], c);
+      keep = !BOX || strip_hit(v, q.x0, q.y0);
+    }
+    const unsigned live = __ballot_sync(FULL, keep);
+    __syncwarp();   // the warp is done with its previous list
+    if (keep) {
+      float* row = mine + __popc(live & ((1u << lane) - 1u)) * PACK;
+#pragma unroll
+      for (int c = 0; c < PACK; ++c) row[c] = v[c];
+    }
+    __syncwarp();
+    const int half = __popc(live & 0xffffu);
+    const int listed = __popc(live);
+    checkpoint(first / CKPT);
+    for (int i = 0; i < half; ++i)
+      phase_step_set<BOX>(mine + i * PACK, q, amp, T, acc_phase, acc);
+    if (first + CKPT < n) checkpoint(first / CKPT + 1);
+    for (int i = half; i < listed; ++i)
+      phase_step_set<BOX>(mine + i * PACK, q, amp, T, acc_phase, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const size_t o = static_cast<size_t>(tile) * PIX + q.p + i * 32;
+    color[o * 3 + 0] = acc[i][0];
+    color[o * 3 + 1] = acc[i][1];
+    color[o * 3 + 2] = acc[i][2];
+    depth[o] = acc[i][3];
+    trans[o] = T[i];
+  }
 }
 
 }  // namespace
@@ -87,12 +160,19 @@ extern "C" int raster_phase_fwd(const float* pack, const int* counts,
   const auto s = static_cast<cudaStream_t>(stream);
   const raster::Amplitude a{amp, one_minus_amp};
   if (box)
-    composite_phase<true><<<n_tiles, PIX, 0, s>>>(
+    composite_phase<true><<<n_tiles, NT, 0, s>>>(
         pack, counts, color, depth, trans, ckpt, max_per_tile, n_tiles_x,
         tiles_per_image, a);
   else
-    composite_phase<false><<<n_tiles, PIX, 0, s>>>(
+    composite_phase<false><<<n_tiles, NT, 0, s>>>(
         pack, counts, color, depth, trans, ckpt, max_per_tile, n_tiles_x,
         tiles_per_image, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The box-test kernel's residency on the current device (raster_common.cuh,
+// kernel_residency): out[5] = registers per thread, static shared bytes,
+// local bytes, threads per block, blocks per SM.  Returns a CUDA error code.
+extern "C" int raster_phase_fwd_residency(int* out) {
+  return raster::kernel_residency(composite_phase<true>, NT, out);
 }

@@ -23,9 +23,14 @@ column 11.  The kernels are K1-phi (csrc/raster_phase_fwd.cu) and K2-phi
 (csrc/raster_phase_bwd.cu), counted by `launches_phase` and
 `launches_phase_bwd`; the plain version of K1-phi is tile.py's sequential
 `_composite_tiles` phase path, and of K2-phi autograd through it.  The
-recurrence is not associative, so a tile's list runs whole in one block;
-when the pack needs a gradient K1-phi leaves (T, acc_phase) per pixel
-every CKPT slots, which K2-phi recomputes each segment from.
+recurrence is not associative, so a tile's list runs whole in one block
+(two pixels per thread, each warp walking only the slots whose box
+reaches its strip of the tile); when the pack needs a gradient K1-phi
+leaves (T, acc_phase) per pixel every CKPT slots, which K2-phi recomputes
+each segment from.  Both take cosf, sinf and the division by exact fast
+paths (csrc/raster_common.cuh), which `phase_fastpath_check` holds
+against the library on the card; `phase_residency` reads both kernels'
+registers and blocks per SM from the CUDA runtime.
 
 Both kernels split a tile's list into segments that run as separate
 blocks, the segment length set on the card from the pack's work, at least
@@ -404,6 +409,26 @@ def _launch_bwd_phase(pack, counts, n_tiles_x: int, phase_amplitude: float,
                   (T, M, n_tiles_x, ti, int(box)), _amplitude(phase_amplitude))
     launches_phase_bwd += 1
     return grad
+
+
+def phase_residency(device) -> dict:
+    """Registers, shared and local bytes, threads and blocks per SM of
+    K1-phi and K2-phi (their box-test kernels) on a CUDA `device`."""
+    return {key: _build.residency(name, device)
+            for key, name in (("k1phi", "raster_phase_fwd"),
+                              ("k2phi", "raster_phase_bwd"))}
+
+
+def phase_fastpath_check(device) -> dict:
+    """On a CUDA `device`, the fast paths K1-phi and K2-phi take against
+    the library (csrc/phase_fastpath_check.cu): sin_quadrant against cosf
+    and sinf at every float of its range and its negative, div_fast
+    against __fdiv_rn on 2^30 pairs across its range.  Counts of the
+    arguments checked and of the bitwise mismatches."""
+    out = torch.zeros(5, dtype=torch.int64, device=device)
+    _build.launch("phase_fastpath_check", device, (out.data_ptr(),), ())
+    return dict(zip(("trig_checked", "cos_mismatches", "sin_mismatches",
+                     "div_checked", "div_mismatches"), out.tolist()))
 
 
 def _device_of(pack: torch.Tensor) -> str:

@@ -17,7 +17,11 @@ against the plain forward of each tile's slots before the segment.  The
 binning kernels K3 and K4 are integer functions and are held bit for bit.
 K1 and K2 with the box test off (hard_cutoff=False), the phase-blending
 pair K1-phi / K2-phi and the dense splat K5 / K6 (both modes) are held at
-the same tolerances, K2-phi, K5 and K6 bit for bit from run to run.
+the same tolerances, K2-phi, K5 and K6 bit for bit from run to run;
+K1-phi / K2-phi also on the edges of their per-warp cull (every tile at
+the cap, boxes inside one warp strip or with edges on strip boundaries,
+counts on and one past a checkpoint boundary, the box off with radian
+phases).
 """
 
 import numpy as np
@@ -85,6 +89,9 @@ def _counts(pattern, T, M, seed):
         counts = np.zeros(T, int)
         counts[T // 3] = M
         return counts
+    if pattern == "around_ckpt":
+        edges = [k * raster.CKPT + d for k in (1, 2, 3, 15, 16) for d in (0, 1)]
+        return np.minimum([edges[i % len(edges)] for i in range(T)], M)
     raise ValueError(pattern)
 
 
@@ -1197,17 +1204,46 @@ def test_box_off_kernels_match_plain(cuda, T, M, ntx, pattern):
         pack, cnt, ntx, *ref, *cots, box=False))
 
 
+def _strip_slots(pack, ntx, pattern):
+    """Every third slot of each tile moved onto the edges of the kernels'
+    warp strips (16 x 4 pixels, rows 4 s to 4 s + 3 of the tile):
+    "strip_one" a box of radius 1.5 about a strip's middle row, inside
+    that strip alone; "strip_edge" a box of radius 2 whose edges lie on
+    the first rows of strips s and s + 1."""
+    T, M, _ = pack.shape
+    t, j = np.meshgrid(np.arange(T), np.arange(0, M, 3), indexing="ij")
+    s = j % 4
+    x0, y0 = t % ntx * 16, t // ntx * 16
+    r = 1.5 if pattern == "strip_one" else 2.0
+    my = y0 + 4 * s + (1.5 if pattern == "strip_one" else r)
+    alive = pack[t, j, 5] > 0
+    pack[t, j, 0] = torch.from_numpy(np.where(
+        alive, x0 + 7.5, pack[t, j, 0]).astype(np.float32))
+    pack[t, j, 1] = torch.from_numpy(np.where(
+        alive, my, pack[t, j, 1]).astype(np.float32))
+    pack[t, j, 5] = torch.from_numpy(np.where(
+        alive, r, pack[t, j, 5]).astype(np.float32))
+
+
 @pytest.mark.parametrize("T,M,ntx,pattern,amp,box,radians", [
     (64, 256, 8, "random", 0.3, True, False),
     (64, 256, 8, "cap", 0.25, True, False),
     (64, 256, 8, "around_seg", 0.3, False, False),
     (16, 32, 4, "random", 0.25, True, False),
     (64, 96, 8, "random", 0.3, True, False),
-    (64, 256, 8, "random", 0.3, True, True)])
+    (64, 256, 8, "random", 0.3, True, True),
+    (256, 256, 16, "cap", 0.25, True, True),
+    (64, 256, 8, "strip_one", 0.25, True, True),
+    (64, 256, 8, "strip_edge", 0.25, True, True),
+    (64, 256, 8, "around_ckpt", 0.25, True, True),
+    (64, 256, 8, "random", 0.25, False, True)])
 def test_phase_kernels_match_plain(cuda, T, M, ntx, pattern, amp, box,
                                    radians):
-    pack, cnt = _phase_pack(T, M, _counts(pattern, T, M, T), T, ntx * 16,
-                            radians)
+    strip = pattern.startswith("strip")
+    pack, cnt = _phase_pack(T, M, _counts("random" if strip else pattern,
+                                          T, M, T), T, ntx * 16, radians)
+    if strip:
+        _strip_slots(pack, ntx, pattern)
     pack, cnt = pack.to(cuda), cnt.to(cuda)
     before = (raster.launches_phase, raster.launches_phase_bwd)
     p = pack.clone().requires_grad_()
@@ -1228,6 +1264,17 @@ def test_phase_kernels_match_plain(cuda, T, M, ntx, pattern, amp, box,
     again = raster._launch_bwd_phase(pack, cnt, ntx, amp, *cots, ckpt,
                                      box=box)
     assert torch.equal(grad, again)
+
+
+def test_phase_fast_paths_match_library(cuda):
+    """K1-phi / K2-phi's cosf, sinf and division fast paths round as the
+    library does: every float of the trigonometric fast range and its
+    negative, and 2^30 division pairs across the division's range."""
+    got = raster.phase_fastpath_check(cuda)
+    assert got["trig_checked"] == 2 * 0x47ce4780
+    assert got["div_checked"] > 2 ** 29
+    assert (got["cos_mismatches"], got["sin_mismatches"],
+            got["div_mismatches"]) == (0, 0, 0)
 
 
 def _splat_inputs(B, N, size, mode, seed, opacity="some0"):
