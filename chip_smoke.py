@@ -26,7 +26,8 @@ its 3DGS fit), the geometric SAAG path (`cli infer --saag` / `--no_model` /
 training with its Fresnel-zone and edge-aware decoder, the viewer) with
 the remaining decoder options, and the wave-optics training routes
 (`cli train` with phase blending, the wave-field renderer, QSR, the
-physics decoder and experiment 4's Fourier route).  Phases,
+physics decoder and experiment 4's Fourier route), and bf16 decoder
+training (`use_amp`) on every decoder route.  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
@@ -432,6 +433,34 @@ non-zero:
                   1e-5 relative;
   62. wave_phases  the seconds of each of 55-61 and their total, beside a
                   90 s cap.
+  63. amp_reference  bf16 decoder training (`use_amp`): train_reference's
+                  small config with use_amp, 3 steps from one init on the
+                  card (cuBLAS's bf16 reduced-precision reduction at
+                  torch's default, and off) and on the CPU, and on the
+                  CPU in float32: the card's loss at each step within 2 x
+                  the CPU's own bf16-against-float32 difference (floored
+                  at 1e-4 of the loss; each term's ratio logged: the
+                  encoder's bf16 roundings part the card's from the
+                  CPU's as they part the CPU's from JAX's), the
+                  parameters' mean absolute difference within 2 x the
+                  CPU's own;
+  64. amp_train   the flagship config (train_path's) in float32 and in bf16
+                  on the same 8-scene corpus and batches: 2 warmup and 10
+                  steps timed by CUDA events, 3 under torch.profiler
+                  (device ms, busy share, kernels per step), peak memory,
+                  K1 and K2 once each per step; the encoder's and the
+                  decoder's forward and backward alone on one batch
+                  (device ms and kernels by torch.profiler); the bf16
+                  loss and gradient of one batch with cuBLAS's bf16
+                  reduced-precision reduction on and off, beside the
+                  float32 loss and gradient there;
+  65. amp_routes  one bf16 step on the card of experiments 1, 3, 4 and 5,
+                  the physics decoder (K5 + K6 WAVE) and phase blending
+                  (K1-phi + K2-phi) at 64^2, batch 2, dropout 0, each
+                  loss term against the CPU's bf16 step as 63 holds the
+                  loss;
+  66. amp_phases  the seconds of each of 63-65 and their total, beside a
+                  60 s cap.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -4687,6 +4716,387 @@ def wave_phases(torch, dev, path_launches, tmp):
                 k5=dense_row("k5"), k6=dense_row("k6"))
 
 
+# amp_phases: bf16 decoder training (`use_amp`).  amp_reference holds
+# TRAIN_REF with use_amp on the card against the CPU over TRAIN_REF_STEPS,
+# both within AMP_GAP x the CPU's own bf16-against-float32 difference (each
+# loss term's gap floored at REF_LOSS_RTOL of the term); amp_train times
+# the flagship config in float32 and in bf16 on the same batches; amp_routes
+# takes one bf16 step of each other decoder route at AMP_REF's size.  A
+# float32 run would sit 1 x that gap from the bf16 one and pass the bound,
+# so every run also records the dtypes its encoder and decoder see
+# (`dtype_probe`) and fails unless the amp runs saw bf16 parameters.
+AMP_GAP = 2.0
+AMP_SCENES, AMP_WARMUP, AMP_TIMED, AMP_PROFILED = 8, 2, 10, 3
+AMP_REF = dict(image_size=64, batch_size=2, lpips_weight=0.0)
+AMP_ROUTES = (
+    ("exp1", ["--experiment", "1"], dict(k1=1, k2=1)),
+    ("exp3", ["--experiment", "3"], dict(k1=1, k2=1)),
+    ("exp4", ["--experiment", "4", "--n_spiral_points", "377"],
+     dict(k1=1, k2=1)),
+    ("exp5", ["--experiment", "5", "--n_spiral_points", "55",
+              "--nca_steps", "4"], dict(k1=1, k2=1)),
+    ("physics", ["--use_wave_rendering", "--learnable_wavelength",
+                 "--use_diffraction_placement"], dict(k5=1, k6=1)),
+    ("phase_blending", ["--use_phase_blending", "--use_phase_output"],
+     dict(k1phi=1, k2phi=1)),
+)
+AMP_PHASES_CAP_S = 60.0
+
+
+def amp_gap_ok(got, want, f32, keys=None):
+    """Each loss term in `keys` (every term but the overflow telemetry if
+    None) of each step: |card - CPU bf16| within AMP_GAP x the larger of
+    |CPU bf16 - CPU float32| and REF_LOSS_RTOL of the term.  Returns (ok,
+    the largest ratio of a difference to its bound, and that term)."""
+    worst, at = 0.0, None
+    for g, w, f in zip(got, want, f32):
+        for k, v in w.items():
+            if (k.startswith("overflow") if keys is None else k not in keys):
+                continue
+            bound = AMP_GAP * max(abs(v - f[k]), REF_LOSS_RTOL * abs(v))
+            r = abs(g[k] - v) / bound if bound else (
+                0.0 if g[k] == v else float("inf"))
+            if r > worst:
+                worst, at = r, k
+    return worst <= 1.0, worst, at
+
+
+def dtype_probe(torch, *modules):
+    """Forward hooks on `modules` recording, for each call, the module's
+    class, the dtypes of its parameters during the call and of its tensor
+    outputs by key (before `amp_apply` casts them back).  Returns (the
+    records, a function that removes the hooks)."""
+    seen = []
+
+    def hook(m, args, out):
+        outs = out if isinstance(out, dict) else {"out": out}
+        seen.append((type(m).__name__,
+                     sorted({str(p.dtype) for p in m.parameters()}),
+                     {k: str(v.dtype) for k, v in outs.items()
+                      if torch.is_tensor(v)}))
+
+    handles = [m.register_forward_hook(hook) for m in modules
+               if m is not None]
+    return seen, lambda: [h.remove() for h in handles]
+
+
+def dtypes_ok(seen, amp):
+    """Every recorded call ran on bf16 parameters (float32 without amp),
+    and with amp the ImageEncoder's features and a DirectPatchDecoder's
+    scales came out bf16."""
+    want = "torch.bfloat16" if amp else "torch.float32"
+    for name, params, outs in seen:
+        if params != [want]:
+            return False
+        if name == "ImageEncoder" and outs["out"] != want:
+            return False
+        if name == "DirectPatchDecoder" and outs["scales"] != want:
+            return False
+    return bool(seen)
+
+
+def amp_phases(torch, dev, path_launches, tmp):
+    """Phases 63-66: bf16 decoder training (`use_amp`) on the card."""
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+    from fresnel_tpu_torch.render import (
+        binning, raster, splat, stream_binning)
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+    from fresnel_tpu_torch.train.harness import Trainer, build_decoder
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+    matmul = torch.backends.cuda.matmul
+    reduced_default = matmul.allow_bf16_reduced_precision_reduction
+
+    def read():
+        return read_all_counts(raster, binning, stream_binning, splat)
+
+    def expected(per_step, n):
+        out = dict(k1=0, k2=0, k3=0, k4=0, k1phi=0, k2phi=0, k5=0, k6=0)
+        out.update({k: v * n for k, v in per_step.items()})
+        return out
+
+    data_dir = os.path.join(tmp, "corpus_amp")
+    synthetic_corpus.generate_corpus(data_dir, n_images=AMP_SCENES,
+                                     image_size=256, seed=0)
+    small = ImageDataset(data_dir, image_size=AMP_REF["image_size"],
+                         feature_dim=384, use_augmentation=False, device=dev)
+    corpus_s = lap("amp_data")
+
+    def steps_of(trainer, state, device, batches, K, masks=None):
+        g = torch.Generator(device=device).manual_seed(1)
+        losses = []
+        for b in batches:
+            state, ld = trainer.train_step(
+                state, trainer.device_batch(b), K, None, g,
+                nca_masks=None if masks is None else masks.to(device))
+            losses.append({k: float(v) for k, v in ld.items()})
+        return losses, {k: v.cpu() for k, v in state["params"].items()}
+
+    # 63. amp_reference: TRAIN_REF with use_amp, card against CPU.
+    ref_batches = train_batches(small, TRAIN_REF["batch_size"],
+                                TRAIN_REF_STEPS)
+    K_ref = TRAIN_REF["gaussians_per_patch"]
+    runs = {}
+    for name, d, amp, reduced in (
+            ("card", dev, True, reduced_default),
+            ("card_no_reduced_reduction", dev, True, False),
+            ("cpu", cpu, True, None), ("cpu_f32", cpu, False, None)):
+        if reduced is not None:
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+        trainer, state = train_setup(
+            torch, d, dict(TRAIN_REF, use_amp=amp),
+            os.path.join(tmp, f"amp_ref_{name}"), dropout=0.0)
+        trainer._make_optimizer(TRAIN_REF_STEPS)
+        seen, unhook = dtype_probe(torch, trainer.encoder, trainer.model)
+        runs[name] = steps_of(trainer, state, d, ref_batches, K_ref)
+        unhook()
+        if not dtypes_ok(seen, amp):
+            fail(f"amp_reference {name}: use_amp {amp} ran on {seen}")
+    matmul.allow_bf16_reduced_precision_reduction = reduced_default
+    (lc, pc), (lf, pf) = runs["cpu"], runs["cpu_f32"]
+    n = sum(v.numel() for v in pc.values())
+    gap = sum((pc[k] - pf[k]).abs().sum().item() for k in pc) / n
+    ref = {}
+    for name in ("card", "card_no_reduced_reduction"):
+        lg, pg = runs[name]
+        ok, worst, at = amp_gap_ok(lg, lc, lf)
+        mean = sum((pg[k] - pc[k]).abs().sum().item() for k in pc) / n
+        ref[name] = dict(losses=[r["total"] for r in lg], loss_ok=ok,
+                         loss_worst_ratio=worst, loss_worst_term=at,
+                         terms_last_step=lg[-1], param_mean_abs=mean,
+                         param_mean_ratio=mean / gap if gap else None,
+                         param_max_abs=max((pg[k] - pc[k]).abs().max().item()
+                                           for k in pc))
+    card = ref["card"]
+    log("amp_reference", config={k: TRAIN_REF[k] for k in (
+        "image_size", "feature_size", "encoder_width", "gaussians_per_patch",
+        "max_per_tile", "batch_size")}, steps=TRAIN_REF_STEPS, dropout=0.0,
+        allow_bf16_reduced_precision_reduction=reduced_default,
+        allow_tf32=matmul.allow_tf32, card=card,
+        card_no_reduced_reduction=ref["card_no_reduced_reduction"],
+        losses_cpu=[r["total"] for r in lc],
+        losses_cpu_f32=[r["total"] for r in lf], terms_cpu_last_step=lc[-1],
+        terms_cpu_f32_last_step=lf[-1],
+        cpu_param_mean_gap=gap, gap_factor=AMP_GAP,
+        phase_seconds=lap("amp_reference"))
+    if not (card["loss_ok"] and card["param_mean_abs"] <= AMP_GAP * gap):
+        fail("the card's bf16 training steps disagree with the CPU's "
+             f"beyond twice the CPU's own bf16 gap: {card}")
+
+    # 64. amp_train: the flagship config, float32 and bf16, same batches.
+    big = ImageDataset(data_dir, image_size=TRAIN["image_size"],
+                       feature_dim=TRAIN["feature_dim"],
+                       use_augmentation=False, device=dev)
+    B, K = TRAIN["batch_size"], TRAIN["gaussians_per_patch"]
+    host_batches = train_batches(big, B, AMP_WARMUP + AMP_TIMED)
+    lap("amp_train_data")
+    # Both precisions resident, timed in turns (float32, bf16, bf16,
+    # float32: the host's speed drifts within a call), AMP_TIMED / 2 steps
+    # a turn, each precision on the same batches in the same order.
+    live = {}
+    for name, amp in (("float32", False), ("bf16", True)):
+        trainer, state = train_setup(torch, dev, dict(TRAIN, use_amp=amp),
+                                     os.path.join(tmp, f"amp_{name}"))
+        trainer._make_optimizer(TRAIN["epochs"] * max(1, len(big) // B))
+        batches = [trainer.device_batch(b) for b in host_batches]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        seen, unhook = dtype_probe(torch, trainer.encoder, trainer.model)
+        for b in batches[:AMP_WARMUP]:
+            state, _ = trainer.train_step(state, b, K, None, gen)
+        unhook()
+        if not dtypes_ok(seen, amp):
+            fail(f"amp_train {name}: use_amp {amp} ran on {seen}")
+        live[name] = dict(trainer=trainer, state=state, batches=batches,
+                          dtypes_seen=seen[:2], gen=gen, ms=[], host_ms=[],
+                          losses=[], peak_gb=0.0, step_gb=0.0,
+                          launches=expected({}, 0))
+    half = AMP_TIMED // 2
+    for turn, name in enumerate(("float32", "bf16", "bf16", "float32")):
+        r = live[name]
+        first = AMP_WARMUP + half * (turn in (2, 3))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*counters)
+        events = []
+        t0 = time.perf_counter()
+        for b in r["batches"][first:first + half]:
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            r["state"], ld = r["trainer"].train_step(r["state"], b, K, None,
+                                                     r["gen"])
+            end.record()
+            events.append((start, end))
+            r["losses"].append(ld["total"])
+        torch.cuda.synchronize()
+        r["host_ms"].append((time.perf_counter() - t0) / half * 1e3)
+        r["ms"].extend(s_.elapsed_time(e_) for s_, e_ in events)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        r["peak_gb"] = max(r["peak_gb"], peak)
+        r["step_gb"] = max(r["step_gb"], peak - resident)
+        for k, v in read().items():
+            r["launches"][k] += v
+    train = {}
+    for name, amp in (("float32", False), ("bf16", True)):
+        r = live.pop(name)
+        trainer, state, batches, gen = (r["trainer"], r["state"],
+                                        r["batches"], r["gen"])
+        launches = r["launches"]
+        path_launches[f"amp_train_{name}"] = launches
+        losses = torch.stack(r["losses"]).cpu().tolist()
+        ms, host_ms = r["ms"], statistics.mean(r["host_ms"])
+
+        def run_steps():
+            nonlocal state
+            for b in batches[:AMP_PROFILED]:
+                state, _ = trainer.train_step(state, b, K, None, gen)
+
+        prof = profile_ms(torch, run_steps, AMP_PROFILED, top=8, cpu=False)
+        # The encoder and the decoder alone, forward and backward, on one
+        # batch (device ms by torch.profiler: the kernels' sum).
+        b0 = batches[0]
+        params = {k: v.detach().requires_grad_()
+                  for k, v in state["params"].items()}
+
+        def encoder():
+            f = trainer._features(params, b0["image"], amp)
+            torch.autograd.grad(f.float().sum(), [
+                v for k, v in params.items() if k.startswith("encoder.")])
+
+        feats = trainer._features(params, b0["image"], amp).detach()
+
+        def decoder():
+            out = trainer.gaussians(params, feats, b0["depth"], K, gen,
+                                    amp=amp)
+            torch.autograd.grad(sum(out[k].sum() for k in FIELDS), [
+                v for k, v in params.items() if k.startswith("model.")])
+
+        if amp:
+            # cuBLAS's bf16 reduced-precision reduction on and off, and the
+            # same params in float32: loss and gradient of one batch.
+            def loss_grad(reduced, use_amp=True):
+                matmul.allow_bf16_reduced_precision_reduction = reduced
+                trainer.config = dataclasses.replace(trainer.config,
+                                                     use_amp=use_amp)
+                p = {k: v.detach().requires_grad_() for k, v in
+                     state["params"].items()}
+                total, _ = trainer.loss(p, b0, K, None,
+                                        torch.Generator(device=dev)
+                                        .manual_seed(2))
+                g = torch.autograd.grad(total, list(p.values()),
+                                        allow_unused=True)
+                return total.item(), torch.cat([
+                    (x if x is not None else torch.zeros_like(v)).flatten()
+                    for x, v in zip(g, p.values())])
+
+            lr_on, gr_on = loss_grad(True)
+            lr_off, gr_off = loss_grad(False)
+            lr_f32, gr_f32 = loss_grad(reduced_default, use_amp=False)
+            matmul.allow_bf16_reduced_precision_reduction = reduced_default
+            trainer.config = dataclasses.replace(trainer.config, use_amp=True)
+            reduction = dict(
+                loss_on=lr_on, loss_off=lr_off, loss_f32=lr_f32,
+                grad_mean_abs_on_off=(gr_on - gr_off).abs().mean().item(),
+                grad_mean_abs_bf16_f32=(gr_off - gr_f32).abs().mean().item(),
+                grad_mean_abs_f32=gr_f32.abs().mean().item())
+        parts = {}
+        for part, fn in (("encoder", encoder), ("decoder", decoder)):
+            fn()
+            pp = profile_ms(torch, lambda: [fn() for _ in range(3)], 3,
+                            top=4, cpu=False)
+            parts[part] = dict(device_ms=pp["device_ms"],
+                               kernels=pp["kernels"],
+                               top_kernels_ms=pp["top_kernels_ms"])
+        train[name] = dict(
+            ms_per_step_median=statistics.median(ms), ms_per_step=ms,
+            host_ms_per_step=host_ms, host_ms_per_turn=r["host_ms"],
+            images_per_s=B / (host_ms / 1e3),
+            device_ms_per_step=prof["device_ms"],
+            device_busy_share=prof["device_busy_share"],
+            kernels_per_step=prof["kernels"],
+            top_kernels_ms_per_step=prof["top_kernels_ms"],
+            fwd_bwd_one_batch=parts, peak_mem_gb=r["peak_gb"],
+            peak_mem_step_gb=r["step_gb"], launches=launches,
+            losses=losses, dtypes_seen=r["dtypes_seen"],
+            **(dict(bf16_reduced_precision_reduction=reduction)
+                              if amp else {}))
+        if launches != expected(dict(k1=1, k2=1), AMP_TIMED) or \
+                not np.all(np.isfinite(losses)):
+            fail(f"amp_train {name}: launches {launches}, losses {losses}")
+        del trainer, state, batches, params, feats
+    log("amp_train", config=TRAIN, hfgs=TRAIN_HFGS, scenes=len(big),
+        warmup_steps=AMP_WARMUP, steps=AMP_TIMED,
+        turns=["float32", "bf16", "bf16", "float32"],
+        profiled_steps=AMP_PROFILED, corpus_seconds=corpus_s, **train,
+        bf16_over_float32=dict(
+            ms_per_step=train["bf16"]["ms_per_step_median"]
+            / train["float32"]["ms_per_step_median"],
+            device_ms_per_step=train["bf16"]["device_ms_per_step"]
+            / train["float32"]["device_ms_per_step"],
+            peak_mem_step=train["bf16"]["peak_mem_step_gb"]
+            / train["float32"]["peak_mem_step_gb"]),
+        phase_seconds=lap("amp_train"))
+
+    # 65. amp_routes: one bf16 step of each other route, card and CPU.
+    routes = {}
+    for label, flags, per_step in AMP_ROUTES:
+        argv = ["--output_dir", os.path.join(tmp, "amp_cfg"), "--use_amp"]
+        cfg, phys, hfgs, hfts = tcli.configs_from_args(
+            tcli.build_parser().parse_args(argv + flags))
+        host_batch = train_batches(small, AMP_REF["batch_size"], 1)
+        masks = None
+        if cfg.experiment == 5:
+            masks = (torch.rand((cfg.nca_steps, AMP_REF["batch_size"],
+                                 cfg.n_spiral_points, 1),
+                                generator=torch.Generator().manual_seed(3))
+                     < 0.5).float()
+        out = {}
+        for name, d, amp in (("card", dev, True), ("cpu", cpu, True),
+                             ("cpu_f32", cpu, False)):
+            c = dataclasses.replace(cfg, use_amp=amp, **AMP_REF)
+            t = Trainer(c, phys, hfgs, hfts, device=d)
+            t.model = build_decoder(c, t.physics_config, dropout=0.0)
+            t._make_optimizer(1)
+            st = t.init_state()
+            if name == "card":
+                torch.cuda.synchronize()
+                reset_counts(*counters)
+            seen, unhook = dtype_probe(torch, t.encoder, t.model)
+            out[name] = steps_of(t, st, d, host_batch,
+                                 c.gaussians_per_patch, masks)[0]
+            unhook()
+            if not dtypes_ok(seen, amp):
+                fail(f"amp route {label} {name}: use_amp {amp} ran on "
+                     f"{seen}")
+            if name == "card":
+                torch.cuda.synchronize()
+                launches = read()
+                renderer = type(t.renderer).__name__
+                decoder = type(t.model).__name__
+                dtypes = seen[-1]
+        path_launches[f"amp_{label}"] = launches
+        ok, worst, at = amp_gap_ok(out["card"], out["cpu"], out["cpu_f32"])
+        routes[label] = dict(flags=flags, renderer=renderer, decoder=decoder,
+                             launches=launches, dtypes_seen=dtypes,
+                             loss_card=out["card"][0]["total"],
+                             loss_cpu=out["cpu"][0]["total"],
+                             loss_cpu_f32=out["cpu_f32"][0]["total"],
+                             loss_worst_ratio=worst, loss_worst_term=at,
+                             ok=ok)
+        finite = all(np.isfinite(v) for v in out["card"][0].values())
+        if not (ok and finite and launches == expected(per_step, 1)):
+            fail(f"amp route {label}: {routes[label]}")
+    log("amp_routes", config=AMP_REF, gap_factor=AMP_GAP,
+        loss_floor_rtol=REF_LOSS_RTOL, routes=routes,
+        phase_seconds=lap("amp_routes"))
+    log("amp_phases", seconds=phase_s, total_seconds=sum(phase_s.values()),
+        cap_seconds=AMP_PHASES_CAP_S)
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
     """K1 (and with `backward` K2, cotangents from a seed) against their
     plain versions on one pack: errors, times and bounds."""
@@ -5124,6 +5534,10 @@ def main():
     # K1-phi + K2-phi on the phase-blended, K5 + K6 on the wave and
     # Fourier routes)
     k_wave = wave_phases(torch, dev, path_launches, tmp)
+    # 63-66. bf16 decoder training, use_amp (K1 + K2 on the flagship and
+    # experiments 1, 3, 4, 5; K5 + K6 on the physics decoder; K1-phi +
+    # K2-phi on phase blending)
+    amp_phases(torch, dev, path_launches, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k_saag["k1"]["k1_max_abs_err"])

@@ -33,23 +33,39 @@ class Linear(nn.Linear):
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d (NCHW) whose float32 parameters are cast to the input's
-    dtype."""
+    dtype.  With bf16 parameters (`use_amp`, which casts them) the bias is
+    added after the convolution is rounded to bf16, as Flax's Conv adds
+    it: the fused bias rounds once, and the port's bf16 rotations and edge
+    gradients then leave twice JAX's own bf16 gap
+    (tests/test_torch_amp.py).  Layers that compute in bf16 on float32
+    parameters (CVS, the ViTs) keep the fused bias."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        if self.weight.dtype == torch.bfloat16 and self.bias is not None:
+            return (self._conv_forward(x, w, None)
+                    + self.bias.to(x.dtype).reshape(-1, 1, 1))
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), b)
+        return self._conv_forward(x, w, b)
+
+
+def _f32(p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if p is None else p.float()
 
 
 class LayerNorm(nn.LayerNorm):
     """Flax-style LayerNorm: epsilon 1e-6 (torch's default is 1e-5),
-    statistics in float32, output in the input's dtype."""
+    statistics in float32, the scale and bias (bf16 under `use_amp`)
+    applied in float32, the output rounded once to the input's dtype, as
+    Flax's `_normalize` does."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__(dim, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            _f32(self.weight), _f32(self.bias),
+                            self.eps).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,

@@ -84,9 +84,14 @@ def _resize_depth_to_grid(depth: torch.Tensor, h: int, w: int) -> torch.Tensor:
     The depth-locked Gaussians of a patch, and of patches of equal depth,
     share one z: these last bits decide which of them tie, so the
     compositing order, so the image (F.interpolate's samples moved
-    renders of the trained exp2 model by up to 1.6e-3)."""
+    renders of the trained exp2 model by up to 1.6e-3).  A bf16 depth
+    (`use_amp`) is resized as XLA:CPU resizes it: two bf16 products with
+    the weights rounded to bf16, rows first, which `resize_linear` gives
+    bit for bit."""
     if depth.dim() == 4:
         depth = depth[..., 0]
+    if depth.dtype == torch.bfloat16:
+        return resize_linear(depth, h, w, antialias=False)
     H, W = depth.shape[-2:]
     if H != h:
         i, a = _taps(H, h, depth.device)
@@ -124,7 +129,10 @@ def head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
     the opacities, and returns "edge_strength" (B, H, W, 1);
     `use_fresnel_zones` then snaps the depth grid to its zone's centre.
     `use_phase_output` returns "phases" (B, N, 3), sigmoid * 2 pi of raw
-    channels 16-18."""
+    channels 16-18.  Under `use_amp` the raw outputs are bf16 and the
+    head computes in bf16 as the JAX function does; the float32 grid
+    makes the positions float32, as JAX's strong float32 linspace
+    does."""
     B, H, W, K = raw.shape[:4]
     raw_pos = raw[..., 0:3]
     raw_scale = raw[..., 3:6]

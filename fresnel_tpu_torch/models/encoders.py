@@ -17,6 +17,7 @@ that is found but does not load raises.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Optional
@@ -53,18 +54,30 @@ def _resize_weights(n_in: int, n_out: int, antialias: bool = True
     return np.where(inside[None, :], w, f(0.0)).astype(f)
 
 
-def resize_linear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(n_in: int, n_out: int, antialias: bool,
+                   device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`_resize_weights` on `device` in `dtype`, made once: a fresh copy
+    from the host each call would wait for the stream on the card."""
+    return torch.from_numpy(_resize_weights(n_in, n_out, antialias)).to(
+        device=device, dtype=dtype)
+
+
+def resize_linear(x: torch.Tensor, out_h: int, out_w: int,
+                  antialias: bool = True) -> torch.Tensor:
     """(..., H, W) -> (..., out_h, out_w) bilinear with half-pixel centres,
-    antialiased when downsampling: what jax.image.resize(..., "linear")
-    does to the last two axes, as two products with its weight matrices,
-    the weights rounded as JAX rounds them (F.interpolate places samples
-    up to ~1e-5 px apart, which moves an upsampled image by ~4e-6)."""
+    antialiased when downsampling (unless `antialias` is False): what
+    jax.image.resize(..., "linear") does to the last two axes, as two
+    products with its weight matrices, rows first, the weights rounded as
+    JAX rounds them and cast to x's dtype (in bf16 each product rounds to
+    bf16, as XLA:CPU's does; F.interpolate places samples up to ~1e-5 px
+    apart, which moves an upsampled image by ~4e-6)."""
     H, W = x.shape[-2:]
     if H != out_h:
-        wh = torch.from_numpy(_resize_weights(H, out_h)).to(x)
+        wh = _resize_matrix(H, out_h, antialias, x.device, x.dtype)
         x = torch.einsum("...hw,hH->...Hw", x, wh)
     if W != out_w:
-        ww = torch.from_numpy(_resize_weights(W, out_w)).to(x)
+        ww = _resize_matrix(W, out_w, antialias, x.device, x.dtype)
         x = torch.einsum("...hw,wW->...hW", x, ww)
     return x
 

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fresnel_tpu_torch.models.blocks import Conv2d, LayerNorm, Linear
+from fresnel_tpu_torch.models.blocks import Conv2d, LayerNorm, Linear, _f32
 from fresnel_tpu_torch.models.encoders import resize_linear
 
 
@@ -52,10 +52,16 @@ class SameConv2d(Conv2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    """Flax-style GroupNorm: epsilon 1e-6."""
+    """Flax-style GroupNorm: epsilon 1e-6, statistics in float32, the
+    scale and bias (bf16 under `use_amp`) applied in float32, the output
+    rounded once to the input's dtype."""
 
     def __init__(self, groups: int, channels: int):
         super().__init__(groups, channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, _f32(self.weight),
+                            _f32(self.bias), self.eps).to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -55,9 +55,16 @@ def sobel_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
     The taps are small integers, so each map is a sum of shifted slices:
     exact float32 products on any device, and no cuDNN (whose float32
-    convolutions may run in TF32)."""
+    convolutions may run in TF32).  A bf16 map (`use_amp`) is summed in
+    float32, where its sums are exact, and rounded once to bf16, as
+    XLA:CPU's bf16 convolution rounds them (summed in bf16, the edge
+    detector's gradients leave twice JAX's own bf16 gap,
+    tests/test_torch_amp.py)."""
     if not img.is_floating_point():
         img = img.to(torch.float32)
+    if img.dtype == torch.bfloat16:
+        gx, gy = sobel_gradients(img.float())
+        return gx.to(img.dtype), gy.to(img.dtype)
     lead, (H, W) = img.shape[:-2], img.shape[-2:]
     x = F.pad(img.reshape(-1, H, W), (1, 1, 1, 1))
 

@@ -37,8 +37,13 @@ K2-phi when phase blending gets the decoder's phases), wave field or
 Fourier (K5 / K6); only the tiled renderer bins, so only it logs overflow
 telemetry.  The SAAG prior of experiments 1 and 3 is the base block of
 `geometry.to_surface_gaussians` over the batch's depth subsampled by 8,
-one batched call.  Not ported (each raises NotImplementedError, queued in
-ROADMAP.md): LPIPS in the step, `use_amp` and more than one device.
+one batched call.  With `use_amp` the encoder and the decoder run in
+bf16 inside the loss (`utils.precision.amp_apply`: bf16 copies of their
+float32 parameters and positional inputs, float32 outputs), as the JAX
+package's loss_fn runs them; the SAAG prior, the render, the losses,
+`encode` and `decode` stay float32.  Not ported (each raises
+NotImplementedError, queued in ROADMAP.md): LPIPS in the step and more
+than one device.
 """
 
 from __future__ import annotations
@@ -79,6 +84,7 @@ from fresnel_tpu_torch.train.flax_msgpack import read_flat
 from fresnel_tpu_torch.train.optim import AdamWClip
 from fresnel_tpu_torch.train.thin_ckpt import (
     cast_like, load_thin_params, params_of)
+from fresnel_tpu_torch.utils.precision import amp_apply
 from fresnel_tpu_torch.weights import init_flax_like_, trainer_opt_state
 
 
@@ -264,7 +270,6 @@ class Trainer:
         cfg = self.config
         unported = {
             "lpips (ROADMAP Queue 1, item 6)": self.lpips is not None,
-            "use_amp (ROADMAP Queue 1, item 1)": cfg.use_amp,
             "num_devices > 1 (ROADMAP Queue 1, item 12)":
                 (cfg.num_devices or 1) > 1,
         }
@@ -322,29 +327,38 @@ class Trainer:
                                     device=self.device)}
 
     # ------------------------------------------------------------------
-    def _features(self, params, image: torch.Tensor) -> torch.Tensor:
-        return functional_call(self.encoder, _split(params, "encoder"),
-                               (image,))
+    def _features(self, params, image: torch.Tensor,
+                  amp: bool = False) -> torch.Tensor:
+        return amp_apply(self.encoder, _split(params, "encoder"), image,
+                         use_amp=amp)
 
     def gaussians(self, params: Dict[str, torch.Tensor],
                   feats: torch.Tensor, depth: torch.Tensor, K: int,
                   generator: Optional[torch.Generator] = None,
                   poses: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                   nca_masks: Optional[torch.Tensor] = None,
-                  return_raw: bool = False) -> Dict[str, torch.Tensor]:
+                  return_raw: bool = False,
+                  amp: bool = False) -> Dict[str, torch.Tensor]:
         """The training-mode decoder output for a batch: (B, N, ...)
         Gaussian fields (with "residuals" for experiment 1, "raw" with
         `return_raw`).  Experiment 1 refines the batch's SAAG prior,
-        experiment 3 scales it by its patch-mean modulations."""
+        experiment 3 scales it by its patch-mean modulations.  With `amp`
+        the decoder runs in bf16 on its positional inputs (the features,
+        and the depth where it takes one); the SAAG prior and the poses
+        are keyword inputs and stay float32, as in the JAX trainer."""
         mp = _split(params, "model")
         exp = self.config.experiment
+
+        def apply(*args, **kwargs):
+            return amp_apply(self.model, mp, *args, use_amp=amp, **kwargs)
+
         if exp == 1:
             saag = saag_prior_from_depth(depth)
-            return functional_call(self.model, mp, (feats,), dict(
-                saag, deterministic=False, generator=generator))
+            return apply(feats, **saag, deterministic=False,
+                         generator=generator)
         if exp == 3:
             saag = saag_prior_from_depth(depth)
-            mods = functional_call(self.model, mp, (feats,))
+            mods = apply(feats)
             size_m = mods["base_size_mult"].mean(dim=(1, 2))
             op_m = mods["opacity_mult"].mean(dim=(1, 2))
             return {"positions": saag["saag_positions"],
@@ -368,7 +382,7 @@ class Trainer:
             # when no pose is drawn (the grid's rotation by it is exact).
             zero = torch.zeros(feats.shape[0], device=feats.device)
             kwargs.update(elevation=zero, azimuth=zero)
-        return functional_call(self.model, mp, (feats, depth), kwargs)
+        return apply(feats, depth, **kwargs)
 
     def loss(self, params: Dict[str, torch.Tensor], batch: Dict,
              K: int, stochastic_k: Optional[int] = None,
@@ -384,8 +398,8 @@ class Trainer:
         cfg = self.config
         res = self.train_res
         depth, target = batch["depth"], batch["image"]
-        feats = (self._features(params, target) if self.encoder is not None
-                 else batch["features"])
+        feats = (self._features(params, target, cfg.use_amp)
+                 if self.encoder is not None else batch["features"])
         B = feats.shape[0]
         if target.shape[-1] != res:
             target = resize_linear(target, res, res)
@@ -395,7 +409,8 @@ class Trainer:
                    and cfg.experiment in (2, 4)
                    and not physics_route(cfg, self.physics_config))
         out = self.gaussians(params, feats, depth, K, generator, poses,
-                             nca_masks, return_raw=distill)
+                             nca_masks, return_raw=distill,
+                             amp=cfg.use_amp)
         pos, sc, rot = out["positions"], out["scales"], out["rotations"]
         col, op = out["colors"], out["opacities"]
         phases = out.get("phases")

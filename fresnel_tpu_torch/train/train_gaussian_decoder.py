@@ -7,8 +7,10 @@ flags, defaults, choices and umbrella expansions (--use_qsr,
 (`--experiment`; `--n_spiral_points` and `--nca_*` for 4 and 5), with
 distillation from `fit_teacher` sidecars for 2 and 4 (`--distill_weight`,
 `--distill_decay_epochs`; the dataset reads the sidecars of the
-experiment trained).  Flags whose features are not ported (--streaming,
---lpips_weights or found LPIPS weights, --use_amp, --num_devices > 1)
+experiment trained), and bf16 decoder and encoder compute with float32
+master weights (--use_amp, written to the sidecar; a --resume passes it
+again, as in the JAX package).  Flags whose features are not ported
+(--streaming, --lpips_weights or found LPIPS weights, --num_devices > 1)
 raise NotImplementedError.
 Checkpoints are `.pt` files with the JAX package's JSON sidecars.
 
@@ -126,8 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "holding the dataset in memory; not ported")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--use_amp", action="store_true",
-                   help="bf16 decoder compute (fp32 master weights); "
-                        "not ported")
+                   help="bf16 decoder compute (fp32 master weights)")
     p.add_argument("--scale_bias", type=float, default=0.0,
                    help="Additive bias inside the scale head's softplus "
                         "(0 = reference behavior)")

@@ -179,9 +179,9 @@ def test_feature_upsample_init_is_flax_like():
 def test_unported_options_raise(flag):
     """Each option builds (held against Flax in
     tests/test_torch_decoder_options.py); with it, the Trainer's
-    still-unported `use_amp` raises."""
+    still-unported `num_devices > 1` raises."""
     td.DirectPatchDecoder(gaussians_per_patch=4, **flag)
-    cfg = TrainingConfig(experiment=2, gaussians_per_patch=4, use_amp=True,
+    cfg = TrainingConfig(experiment=2, gaussians_per_patch=4, num_devices=2,
                          **flag)
-    with pytest.raises(NotImplementedError, match="use_amp"):
+    with pytest.raises(NotImplementedError, match="num_devices"):
         Trainer(cfg, device="cpu")

@@ -4,8 +4,10 @@ encoder's features), and without a checkpoint (a decoder from seed 0;
 JAX's `init` is handed the port's seed-0 weights, since the two packages
 draw different random bits): the same kept count after compaction, and
 positions, scales, rotations, colours and opacities read back from the
-files within 1e-4 absolute (measured below 2e-5).  A checkpoint that
-needs an unported option (`use_amp`) raises NotImplementedError naming
+files within 1e-4 absolute (measured below 2e-5).  A checkpoint whose
+sidecar sets `use_amp` decodes in float32 to the same cloud as without
+it (JAX's `cmd_infer` never reads the flag).  A checkpoint that needs an
+unported option (`num_devices > 1`) raises NotImplementedError naming
 the queue (--saag, --no_model and --html are held by
 tests/test_torch_viewer.py; --fused_encoder and found backbone weights by
 tests/test_torch_backbones.py)."""
@@ -76,14 +78,35 @@ def test_infer_without_checkpoint_matches_jax(image_path, tmp_path,
 
 def test_infer_refuses_unported_options(image_path, tmp_path):
     """`--fused_encoder` is ported (tests/test_torch_backbones.py); a
-    checkpoint whose sidecar sets the unported `use_amp` raises, naming
-    the queue, with or without it."""
+    checkpoint whose sidecar sets the unported `num_devices > 1` raises,
+    naming the queue, with or without it."""
     meta = json.loads(Path(K8 + ".json").read_text())
-    meta["config"]["use_amp"] = True
-    ckpt = tmp_path / "amp_model.msgpack"
-    (tmp_path / "amp_model.msgpack.json").write_text(json.dumps(meta))
+    meta["config"]["num_devices"] = 2
+    ckpt = tmp_path / "ddp_model.msgpack"
+    (tmp_path / "ddp_model.msgpack.json").write_text(json.dumps(meta))
     out = str(tmp_path / "x.ply")
     for extra in ([], ["--fused_encoder"], ["--html", "v.html"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(["infer", image_path, out, "--device", "cpu",
                       "--checkpoint", str(ckpt)] + extra)
+
+
+def test_infer_with_amp_sidecar_runs_float32(image_path, tmp_path):
+    """A checkpoint trained with `use_amp` decodes in float32: the same
+    cloud, bit for bit, as with the flag off (JAX's `cmd_infer` never
+    reads it)."""
+    meta = json.loads(Path(K8 + ".json").read_text())
+    assert meta["config"]["use_amp"] is False
+    meta["config"]["use_amp"] = True
+    ckpt = tmp_path / "amp_model.msgpack"
+    ckpt.symlink_to(Path(K8).resolve())
+    (tmp_path / "amp_model.msgpack.json").write_text(json.dumps(meta))
+    outs = {}
+    for name, path in (("amp", str(ckpt)), ("f32", K8)):
+        outs[name] = str(tmp_path / f"{name}.ply")
+        assert cli.main(["infer", image_path, outs[name], "--checkpoint",
+                         path, "--device", "cpu"]) == 0
+    got, want = _ply_fields(outs["amp"]), _ply_fields(outs["f32"])
+    for k in FIELDS:
+        assert got[k].dtype == want[k].dtype
+        assert (got[k] == want[k]).all(), k

@@ -104,9 +104,11 @@ def test_cli_train_subcommand(tmp_path):
     assert (tmp_path / "final_model.pt").exists()
 
 
-# The wave-optics flags are ported: their cases (same ids) train one
-# epoch on the renderer the JAX package picks.
-PORTED_FLAGS = {"--use_phase_blending": "TileRenderer",
+# The wave-optics flags and --use_amp (bf16 decoder training) are
+# ported: their cases (same ids) train one epoch on the renderer the JAX
+# package picks.
+PORTED_FLAGS = {"--use_amp": "TileRenderer",
+                "--use_phase_blending": "TileRenderer",
                 "--use_qsr": "WaveRenderer",
                 "--use_wave_rendering": "WaveRenderer",
                 "--use_fourier_renderer": "TileRenderer"}

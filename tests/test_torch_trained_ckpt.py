@@ -18,8 +18,9 @@
   through its encoder (features within 1e-4, as exp2_k8's below; measured
   6.6e-6), decodes the two scenes within 1e-5 of each field's largest
   value (measured 4.8e-6 at most; positions reach |398|, the trained XY
-  offsets are large, so an absolute bound would hold their last bits).  A sidecar that needs what the port still lacks (`use_amp`,
-  more than one device, the Fresnel-zone decoder) raises
+  offsets are large, so an absolute bound would hold their last bits).
+  A sidecar that needs what the port still lacks (more than one device,
+  beside the ported `use_amp` or the Fresnel-zone decoder) raises
   NotImplementedError naming it, and experiments 1, 3 and 5 build their
   decoders; a
   missing sidecar raises FileNotFoundError unless
@@ -205,12 +206,16 @@ def test_exp2_g74zi_decodes_like_jax(scenes):
 
 
 @pytest.mark.parametrize("over,missing", [
-    (dict(use_amp=True), "use_amp"), (dict(num_devices=2), "num_devices"),
-    # The Fresnel zones and phase blending are ported; with them, use_amp
-    # still raises (the case keeps its earlier id).
+    # use_amp is ported: its case (same id) takes num_devices with the
+    # ported use_amp beside it.
+    pytest.param(dict(use_amp=True, num_devices=3), "num_devices",
+                 id="over0-use_amp"),
+    (dict(num_devices=2), "num_devices"),
+    # The Fresnel zones, phase blending and use_amp are ported; with them,
+    # num_devices still raises (the case keeps its earlier id).
     pytest.param(dict(experiment=2, use_fresnel_zones=True,
-                      use_phase_blending=True, use_amp=True), "use_amp",
-                 id="over2-use_fresnel_zones")])
+                      use_phase_blending=True, use_amp=True, num_devices=2),
+                 "num_devices", id="over2-use_fresnel_zones")])
 def test_unported_configs_raise(tmp_path, over, missing):
     meta = _meta("exp4")
     meta["config"].update(over)
