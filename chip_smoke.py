@@ -461,6 +461,24 @@ non-zero:
                   loss;
   66. amp_phases  the seconds of each of 63-65 and their total, beside a
                   60 s cap.
+  67. kernel_dense_composite  K7 / K8 in DENSE and SIMPLE mode at the
+                  image->3DGS path's decoded cloud (5 476 Gaussians) at
+                  256^2 and 512^2 (the renderers' launch) against their
+                  plain versions (K8's over bands of rows of at most
+                  256^2 pixels, summed): errors, device ms, bounds, plain
+                  ms and peak memory;
+  68. renderers   make_renderer("dense" | "simplified" | "asm" |
+                  "fourier_true") on that cloud at 512^2, forward and the
+                  backward of a mean loss: finite outputs and gradients,
+                  the K5-K8 launches each should make, ms per render,
+                  device ms and peak memory; dense against
+                  render_tiled(hard_cutoff=False);
+  69. renderers_reference  each renderer and both diffractive layers on
+                  the card against the CPU (300 Gaussians, 96^2);
+  70. depth_sorts "counting" (10^6 Gaussians) and "packed" (2^20) on the
+                  card against the CPU's permutation, bit for bit, and a
+                  render_tiled with each; then the seconds of 67-70
+                  beside a 60 s cap.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -489,8 +507,10 @@ device, `call_ms` per call and the device ms of each kernel by name
 (torch.profiler), with ptxas's registers and spills of those eight
 kernels;
 and the refine step at full width (`fit_scene`: ms per step over 20
-steps, device ms per step and top kernels over 5); one JSON line per
-root.
+steps, device ms per step and top kernels over 5); and the
+train_sh_full route's step (its flags, corpus and batch as phase 57
+builds them: ms per step over AB_TRAIN_STEPS steps, host ms, device ms,
+busy share and kernels per step); one JSON line per root.
 
 Imports torch, numpy and fresnel_tpu_torch only.
 """
@@ -720,13 +740,15 @@ def profile_ms(torch, fn, n, top=8, cpu=True):
 
 def reset_counts(raster, binning, stream_binning):
     """Every launch counter to 0: K1-K4 here, and the wave-optics kernels'
-    (K1-phi, K2-phi, K5, K6; read by read_all_counts) with them."""
-    from fresnel_tpu_torch.render import splat
+    (K1-phi, K2-phi, K5, K6; read by read_all_counts) and the dense
+    compositing pair's (K7, K8; read by renderer_counts) with them."""
+    from fresnel_tpu_torch.render import dense_composite, splat
 
     raster.launches = raster.launches_bwd = 0
     binning.launches = stream_binning.launches = 0
     raster.launches_phase = raster.launches_phase_bwd = 0
     splat.launches = splat.launches_bwd = 0
+    dense_composite.launches = dense_composite.launches_bwd = 0
 
 
 def read_counts(raster, binning, stream_binning):
@@ -3988,6 +4010,9 @@ WAVE_PATHS = (
 # their own launches (kernel_dense).
 DENSE_ROUTES = ("qsr", "physics", "exp4_fourier")
 WAVE_SCENES, WAVE_WARMUP, WAVE_TIMED, WAVE_PROFILED = 8, 2, 5, 3
+# The --ab mode's steps of the train_sh_full route (the corpus's batches
+# repeat, epoch after epoch).
+AB_TRAIN_STEPS = 20
 WAVE_REF = dict(image_size=64, batch_size=2)
 WAVE_REF_STEPS = 2
 WAVE_PHASES_CAP_S = 90.0
@@ -5097,6 +5122,432 @@ def amp_phases(torch, dev, path_launches, tmp):
         cap_seconds=AMP_PHASES_CAP_S)
 
 
+# renderer_phases: the remaining renderers.  kernel_dense_composite holds
+# K7 / K8 in both modes at the decoded cloud of the image->3DGS path (5 476
+# Gaussians) against their plain versions at 256^2 and at the path's 512^2
+# (the plain backward over bands of rows, each no larger than 256^2, where
+# it fits, its gradients summed over the bands); renderers drives
+# make_renderer("dense" | "simplified" | "asm" | "fourier_true") at the
+# path's full width (512^2) forward and through the backward of a mean
+# loss, and logs dense against render_tiled(hard_cutoff=False) (K1);
+# renderers_reference holds each renderer and both diffractive layers on
+# the card against the CPU on a small cloud; depth_sorts holds the
+# quantised sorts bit for bit against the CPU's on the render path's
+# clouds, and renders one of them with each.
+RENDERER_PHASES_CAP_S = 60.0
+# K7 against its plain version, per output relative to its largest plain
+# value: a sequential product against the chunked cumprod over the
+# decoded cloud's 5 476 Gaussians (the depth channel sums w depth over
+# them all).  K8 is held at KERNEL_BWD_TOL per field.
+COMPOSITE_TOL = 5e-5
+COMPOSITE_SIZES = (256, 512)
+# The plain backward's pixels per band: ~21 GB of autograd state at the
+# decoded cloud on the H100.
+COMPOSITE_BAND_PIXELS = 256 * 256
+# Operations per pixel-Gaussian pair within reach (DENSE, SIMPLE): K7's
+# alpha (offsets, the quadratic form or the boxed distance, the exp, the
+# clip), the weight, the colour (and DENSE's depth) sums and the
+# transmittance; K8's recomputed alpha and transmittance, dalpha, the
+# clip's chain to opacity, mean and conic (or sigma), the colours and the
+# reverse recurrence.
+OPS_PER_COMPOSITE = {0: 28, 1: 27}
+OPS_PER_COMPOSITE_BWD = {0: 60, 1: 52}
+RENDERER_NAMES = ("dense", "simplified", "asm", "fourier_true")
+RENDERER_LAUNCHES = {"dense": dict(k7=1, k8=1),
+                     "simplified": dict(k7=1, k8=1),
+                     "asm": dict(k5=1, k6=1), "fourier_true": {}}
+RENDERER_TIMED = 3
+RENDERERS_REF = dict(n=300, size=96, seed=23)
+DEPTH_SORT_N = {"counting": RENDER["n"], "packed": 1 << 20}
+
+
+def renderer_counts(raster, binning, stream_binning, splat, dcomp):
+    """Every kernel's launches, K7 and K8 with them."""
+    return dict(read_all_counts(raster, binning, stream_binning, splat),
+                k7=dcomp.launches, k8=dcomp.launches_bwd)
+
+
+def decoded_cloud(torch, models, image):
+    """The image->3DGS path's decoded cloud of one image: its five fields
+    (N, ...) in float32 on the card."""
+    from fresnel_tpu_torch import pipeline
+
+    with torch.no_grad():
+        x = pipeline.resize_to_model(image)
+        out = models.decoder(models.dino(x), models.depth(x))
+    return [out[k][0].float().contiguous() for k in FIELDS]
+
+
+def composite_pairs(torch, params, H, W, mode):
+    """The pixel-Gaussian pairs within each Gaussian's reach
+    (csrc/dense_composite_common.cuh): DENSE the ellipse's bounding box
+    past which exp(-m / 2) is exactly 0, SIMPLE its box, one pixel more
+    on each side; the Gaussians K7 and K8 walk."""
+    if mode == 0:
+        a, b, c = params[:, 2], params[:, 3], params[:, 4]
+        det = a * c - b * b
+        rx = torch.sqrt(220.0 * c / det) + 1.0
+        ry = torch.sqrt(220.0 * a / det) + 1.0
+    else:
+        rx = ry = params[:, 5] + 2.0
+
+    def span(m, r, n):
+        lo = torch.clamp(torch.ceil(m - r), min=0)
+        hi = torch.clamp(torch.floor(m + r), max=n - 1)
+        return torch.clamp(hi - lo + 1, min=0)
+
+    n = (span(params[:, 0], rx, W) * span(params[:, 1], ry, H)).double()
+    return int(torch.nan_to_num(n, nan=float(H * W)).sum().item())
+
+
+def composite_bounds(torch, dcomp, params, H, W, mode):
+    """K7's and K8's bounds at one launch: the bytes each must move (the
+    inputs once, the outputs once, the checkpoints K7 leaves and K8
+    reads) and the operations on the pairs within reach."""
+    N = params.shape[0]
+    pairs = composite_pairs(torch, params, H, W, mode)
+    io = N * (8 + 3) * 4
+    img = H * W * (4 + 1) * 4
+    ck = math.prod(dcomp.checkpoint_shape(N, H, W)) * 4 \
+        + (H * W * 12 if mode == 1 else 0)
+    k7 = bound(io + img + ck, pairs * OPS_PER_COMPOSITE[mode])
+    k8 = bound(io + img + ck + img + io, pairs * OPS_PER_COMPOSITE_BWD[mode])
+    return (dict(k7=dict(**k7[2], bound_ms=k7[0], bound_by=k7[1]),
+                 k8=dict(**k8[2], bound_ms=k8[0], bound_by=k8[1])),
+            dict(pairs=pairs, all_pairs=N * H * W))
+
+
+def composite_check(torch, dcomp, params, cols, H, W, mode, dev):
+    """K7 / K8 at one launch's inputs: device times and bounds, and each
+    against its plain version on the same inputs (K7's colour and depth
+    channels relative to the largest plain value, the depth channel's +inf
+    where nothing passes equal; K8 per field, the plain backward over
+    bands of COMPOSITE_BAND_PIXELS pixels summed), the plain versions' ms
+    (CUDA events, one call each after a warm-up; K8's over all its bands)
+    and the plain backward's peak memory."""
+    chunk = dcomp.CHUNK[mode]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    with torch.no_grad():
+        out, trans, ck, aux = dcomp._launch_fwd(params, cols, H, W, mode,
+                                                chunk)
+        g_out = torch.randn((H, W, 4), device=dev, generator=gen)
+        g_t = torch.randn((H, W), device=dev, generator=gen)
+        if mode == 1:
+            g_out[..., 3] = torch.where(torch.isinf(out[..., 3]), 0.0,
+                                        g_out[..., 3])
+        k7 = kernel_times(torch, lambda: dcomp._launch_fwd(
+            params, cols, H, W, mode, chunk), n=10)
+        k8 = kernel_times(torch, lambda: dcomp._launch_bwd(
+            params, cols, out, ck, aux, g_out, g_t, mode, chunk), n=10)
+    bounds, pairs = composite_bounds(torch, dcomp, params, H, W, mode)
+    res = dict(H=H, W=W, n=params.shape[0], chunk=chunk,
+               mode="dense" if mode == 0 else "simple",
+               k7=dict(**k7, **bounds["k7"]), k8=dict(**k8, **bounds["k8"]),
+               **pairs)
+    gp, gc = dcomp._launch_bwd(params, cols, out, ck, aux, g_out, g_t, mode,
+                               chunk)
+    band = max(1, COMPOSITE_BAND_PIXELS // W)
+    # Warm-ups: the plain forward, and the backward of one band, which
+    # grows the allocator's pool to the band's ~21 GB (in a fresh process
+    # the first band's cudaMallocs took seconds).
+    with torch.no_grad():
+        dcomp.dense_composite_plain(params, cols, H, W, mode)
+    h0 = min(band, H)
+    dcomp.dense_composite_bwd_plain(params, cols, h0, W, mode, chunk,
+                                    g_out[:h0].contiguous(),
+                                    g_t[:h0].contiguous())
+
+    def plain_bwd():
+        rp, rc = torch.zeros_like(params), torch.zeros_like(cols)
+        for y0 in range(0, H, band):
+            h = min(band, H - y0)
+            bp, bc = dcomp.dense_composite_bwd_plain(
+                params, cols, h, W, mode, chunk,
+                g_out[y0:y0 + h].contiguous(), g_t[y0:y0 + h].contiguous(),
+                row0=y0)
+            rp, rc = rp + bp, rc + bc
+        return rp, rc
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    with torch.no_grad():
+        ref, ref_t = dcomp.dense_composite_plain(params, cols, H, W, mode)
+    ev[1].record()
+    ev[2].record()
+    rp, rc = plain_bwd()
+    ev[3].record()
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref)
+    f_err = {}
+    for name, g_, r_ in (("color", out[..., :3], ref[..., :3]),
+                         ("depth", out[..., 3], ref[..., 3]),
+                         ("trans", trans, ref_t)):
+        f = torch.isfinite(r_)
+        scale = r_[f].abs().max().item() if f.any() else 1.0
+        f_err[name] = ((g_[f] - r_[f]).abs().max().item()
+                       / max(scale, 1e-30) if f.any() else 0.0)
+    b_err, b_abs = {}, 0.0
+    for key, g_, r_ in (("params", gp, rp), ("colors", gc, rc)):
+        for f in range(g_.shape[-1]):
+            e = (g_[:, f] - r_[:, f]).abs().max().item()
+            s = r_[:, f].abs().max().item()
+            b_err[f"{key}{f}"] = e / s if s else e
+            b_abs = max(b_abs, e)
+    res["k7"].update(rel_err=f_err, abs_err=max(
+        (out[fin] - ref[fin]).abs().max().item(), (trans - ref_t).abs().max()
+        .item()), inf_equal=bool(torch.equal(fin, torch.isfinite(out))),
+        plain_ms=ev[0].elapsed_time(ev[1]))
+    res["k8"].update(rel_err=b_err, abs_err=b_abs, plain_bands=-(-H // band),
+                     plain_ms=ev[2].elapsed_time(ev[3]),
+                     plain_peak_mem_gb=torch.cuda.max_memory_allocated()
+                     / 1e9)
+    return res
+
+
+def composite_ok(r):
+    """Whether composite_check found K7 / K8 within their tolerances."""
+    return (max(r["k7"]["rel_err"].values()) <= COMPOSITE_TOL
+            and r["k7"]["inf_equal"]
+            and max(r["k8"]["rel_err"].values()) <= KERNEL_BWD_TOL)
+
+
+def renderer_phases(torch, dev, path_launches, cloud):
+    """Phases 67-70: the remaining renderers on the card (K7 / K8 in
+    dense and simplified, K5 / K6 in asm, cuBLAS and cuFFT in
+    fourier_true).  `cloud` is the decoded cloud of the image->3DGS path.
+    Returns K7's and K8's numbers for the kernels line."""
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.core.gaussians import GaussianCloud
+    from fresnel_tpu_torch.physics import (
+        DiffractiveLayer, MultiscaleDiffractiveLayer)
+    from fresnel_tpu_torch.render import (
+        binning, dense_composite as dcomp, projection, raster, splat,
+        stream_binning, tile)
+    from fresnel_tpu_torch.render.dense import dense_inputs
+    from fresnel_tpu_torch.render.factory import make_renderer
+    from fresnel_tpu_torch.render.simplified import simplified_inputs
+
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+
+    def counts():
+        return renderer_counts(raster, binning, stream_binning, splat, dcomp)
+
+    # 67. kernel_dense_composite
+    checks = {}
+    for size in COMPOSITE_SIZES:
+        cam = Camera.default_training(size).to(dev)
+        with torch.no_grad():
+            ins = {0: dense_inputs(*cloud, cam),
+                   1: simplified_inputs(cloud[0], cloud[1], cloud[3],
+                                        cloud[4], cam)}
+        for mode, (p, c) in ins.items():
+            r = composite_check(torch, dcomp, p.contiguous(), c.contiguous(),
+                                size, size, mode, dev)
+            checks[f"{r['mode']}_{size}"] = r
+        del ins
+    cmp_ok = all(composite_ok(r) for r in checks.values())
+    log("kernel_dense_composite", checks=checks, tol=COMPOSITE_TOL,
+        bwd_tol=KERNEL_BWD_TOL, ops_per_pair=OPS_PER_COMPOSITE,
+        ops_per_pair_bwd=OPS_PER_COMPOSITE_BWD,
+        phase_seconds=lap("kernel_dense_composite"))
+    if not cmp_ok:
+        fail("K7 / K8 disagree with their plain versions")
+
+    # 68. renderers: each at full width, forward and backward
+    from fresnel_tpu_torch.pipeline import RENDER_SIZE as size
+    cam = Camera.default_training(size).to(dev)
+    phases = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 2 * np.pi, cloud[0].shape[0]).astype(np.float32)).to(dev)
+    runs = {}
+    for name in RENDERER_NAMES:
+        r = make_renderer(name)
+        args = [t.clone().requires_grad_() for t in cloud]
+
+        def step():
+            img, depth = r(*args, cam, phases=phases, return_depth=True)
+            loss = img.mean() + depth.mean()
+            grads = torch.autograd.grad(loss, args, allow_unused=True)
+            return img, depth, grads
+
+        step()                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(raster, binning, stream_binning)
+        events, outs = [], []
+        t0 = time.perf_counter()
+        for _ in range(RENDERER_TIMED):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            outs.append(step())
+            ev[1].record()
+            events.append(ev)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / RENDERER_TIMED
+        launched = counts()
+        path_launches[f"renderer_{name}"] = launched
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        img, depth, grads = outs[-1]
+        finite = (bool(torch.isfinite(img).all())
+                  and bool(torch.isfinite(depth).all())
+                  and all(bool(torch.isfinite(g).all())
+                          for g in grads if g is not None))
+        prof = profile_ms(torch, lambda: [step() for _ in range(2)], 2)
+        want = {k: 0 for k in launched}
+        want.update({k: v * RENDERER_TIMED
+                     for k, v in RENDERER_LAUNCHES[name].items()})
+        run = dict(ms_per_render=statistics.median(
+            s.elapsed_time(e) for s, e in events), host_ms=host_ms,
+            device_ms=prof["device_ms"],
+            device_busy_share=prof["device_busy_share"],
+            kernels_per_render=prof["kernels"],
+            top_kernels_ms=prof["top_kernels_ms"], peak_mem_gb=peak,
+            launches=launched, expected_launches=want, finite=finite,
+            image_mean=img.mean().item(), image_max=img.max().item(),
+            grad_abs_max=[None if g is None else g.abs().max().item()
+                          for g in grads])
+        if name == "dense":
+            with torch.no_grad():
+                tiled = tile.render_tiled(
+                    *cloud, cam, config=tile.TileRendererConfig(
+                        hard_cutoff=False))
+                run["vs_render_tiled_hard_cutoff_false"] = dict(
+                    max_abs=(tiled - img).abs().max().item(),
+                    mean_abs=(tiled - img).abs().mean().item())
+        runs[name] = run
+        if not (finite and launched == want
+                and tuple(img.shape) == (3, size, size)):
+            fail(f"renderer {name} at full width: {run}")
+        del outs, img, depth, grads, args
+    log("renderers", n_gaussians=cloud[0].shape[0], size=size,
+        timed=RENDERER_TIMED, runs=runs, phase_seconds=lap("renderers"))
+
+    # 69. renderers_reference: card against CPU on a small cloud
+    ref = {}
+    rng = np.random.default_rng(RENDERERS_REF["seed"])
+    n, rs = RENDERERS_REF["n"], RENDERERS_REF["size"]
+    small = GaussianCloud.test_cloud(n, seed=RENDERERS_REF["seed"],
+                                     spread=0.6, z_offset=-2.0, scale=0.08)
+    ph = torch.from_numpy(rng.uniform(0, 2 * np.pi, n).astype(np.float32))
+    w_img = torch.from_numpy(rng.normal(size=(3, rs, rs)).astype(np.float32))
+    for name in RENDERER_NAMES:
+        res = {}
+        for d in (cpu, dev):
+            args = [t.to(d).requires_grad_() for t in fields(small)]
+            phs = ph.to(d).requires_grad_()
+            img, depth = make_renderer(name)(
+                *args, Camera.default_training(rs).to(d), phases=phs,
+                return_depth=True)
+            loss = (img * w_img.to(d)).sum() + depth.sum()
+            gs = torch.autograd.grad(loss, args + [phs], allow_unused=True)
+            res[d.type] = [img.detach().cpu(), depth.detach().cpu()] + [
+                None if g is None else g.cpu() for g in gs]
+        errs = []
+        for i, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
+            if b is None:
+                errs.append(0.0 if a is None else float("inf"))
+                continue
+            s = b.abs().max().item()
+            errs.append((a - b).abs().max().item() / s if s else
+                        (a - b).abs().max().item())
+        ref[name] = dict(image=errs[0], depth=errs[1], grads=errs[2:])
+    field = torch.from_numpy((rng.normal(size=(2, 3, 64, 48))
+                              + 1j * rng.normal(size=(2, 3, 64, 48))
+                              ).astype(np.complex64))
+    for cls in (DiffractiveLayer, MultiscaleDiffractiveLayer):
+        m = cls(64, 48, generator=torch.Generator().manual_seed(0))
+        res = {}
+        for d in (cpu, dev):
+            md = m.to(d)
+            f = field.to(d).requires_grad_()
+            o = md(f)
+            # A loss that reads the phase (|o| alone does not depend on it).
+            loss = (o.real - 0.5 * o.imag).sum()
+            if cls is DiffractiveLayer:
+                loss = loss + md.regularization_loss()
+            gs = torch.autograd.grad(loss, [f] + list(md.parameters()))
+            res[d.type] = [o.detach().cpu()] + [g.cpu() for g in gs]
+        errs = [(a - b).abs().max().item() / b.abs().max().item()
+                for a, b in zip(res["cuda"], res["cpu"])]
+        ref[cls.__name__] = dict(output=errs[0], grads=errs[1:])
+    worst_img = max(max(v.get("image", 0.0), v.get("depth", 0.0),
+                        v.get("output", 0.0)) for v in ref.values())
+    worst_grad = max(max(v["grads"]) for v in ref.values())
+    log("renderers_reference", n=n, size=rs, errors=ref,
+        image_tol=KERNEL_TOL, grad_tol=KERNEL_BWD_TOL,
+        worst_image=worst_img, worst_grad=worst_grad,
+        phase_seconds=lap("renderers_reference"))
+    if not (worst_img <= KERNEL_TOL and worst_grad <= KERNEL_BWD_TOL):
+        fail("a renderer or diffractive layer on the card disagrees with "
+             "the CPU")
+
+    # 70. depth_sorts: the quantised sorts bit for bit, then a render each
+    sorts = {}
+    rcam = Camera.default_training(RENDER["res"])
+    for method, count in DEPTH_SORT_N.items():
+        big = render_cloud(1, count)
+        proj = projection.project_gaussians(big.positions, big.scales,
+                                            big.rotations, rcam)
+        want = projection.depth_sort_indices(proj, method=method)
+        on_card = proj.replace(depths=proj.depths.to(dev),
+                               visible=proj.visible.to(dev))
+        got = projection.depth_sort_indices(on_card, method=method)
+        torch.cuda.synchronize()
+        t_ms = cuda_median_ms(torch, lambda: projection.depth_sort_indices(
+            on_card, method=method), n=5)
+        exact_ms = cuda_median_ms(torch, lambda: projection.depth_sort_indices(
+            on_card), n=5)
+        equal = bool(torch.equal(got.cpu(), want))
+        cfg = tile.TileRendererConfig(max_per_tile=RENDER["max_per_tile"],
+                                      depth_sort=method)
+        args = [t.to(dev) for t in fields(big)]
+        with torch.no_grad():
+            img = tile.render_tiled(*args, rcam.to(dev), config=cfg)
+            ref_img = tile.render_tiled(*args, rcam.to(dev),
+                                        config=tile.TileRendererConfig(
+                                            max_per_tile=RENDER[
+                                                "max_per_tile"]))
+            render_ms = cuda_median_ms(torch, lambda: tile.render_tiled(
+                *args, rcam.to(dev), config=cfg), n=3)
+        sorts[method] = dict(
+            n=count, permutation_equal=equal, sort_ms=t_ms,
+            exact_sort_ms=exact_ms, render_ms=render_ms,
+            render_finite=bool(torch.isfinite(img).all()),
+            vs_exact_max_abs=(img - ref_img).abs().max().item(),
+            vs_exact_mean_abs=(img - ref_img).abs().mean().item())
+        if not (equal and sorts[method]["render_finite"]):
+            fail(f"depth sort {method}: {sorts[method]}")
+        del big, proj, on_card, args, img, ref_img
+    log("depth_sorts", sorts=sorts, phase_seconds=lap("depth_sorts"))
+    log("renderer_phases", seconds=phase_s,
+        total_seconds=sum(phase_s.values()), cap_seconds=RENDERER_PHASES_CAP_S)
+
+    def row(kk):
+        head = checks[f"dense_{size}"][kk]
+        return dict(
+            max_abs_err=max(r[kk]["abs_err"] for r in checks.values()),
+            max_rel_err=max(max(r[kk]["rel_err"].values())
+                            for r in checks.values()),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            at=f"the decoded cloud, DENSE, {size}^2 (the renderers' "
+               "launch); every mode and size in by_check",
+            by_check={k: dict(ms=r[kk]["ms"], bound_ms=r[kk]["bound_ms"],
+                              bound_by=r[kk]["bound_by"],
+                              plain_ms=r[kk]["plain_ms"],
+                              max_abs_err=r[kk]["abs_err"],
+                              max_rel_err=max(r[kk]["rel_err"].values()))
+                      for k, r in checks.items()},
+            rel_err_is=("relative to each output's largest plain value"
+                        if kk == "k7" else
+                        "relative to each field's largest plain value"))
+
+    return dict(k7=row("k7"), k8=row("k8"))
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
     """K1 (and with `backward` K2, cotangents from a seed) against their
     plain versions on one pack: errors, times and bounds."""
@@ -5191,6 +5642,7 @@ def main():
     camera = Camera.default_training(pipeline.RENDER_SIZE)
     models = pipeline.build_models(seed=0, device=dev)
     tp, n_decoded = decoded_pack(torch, models, images[0])
+    dec_cloud = decoded_cloud(torch, models, images[0])
     pack, counts = tp.pack, tp.counts
     T, M, _ = pack.shape
     with torch.no_grad():
@@ -5539,6 +5991,9 @@ def main():
     # K2-phi on phase blending)
     amp_phases(torch, dev, path_launches, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
+    # 67-70. the remaining renderers (K7 + K8 in dense and simplified, K5 +
+    # K6 in asm), the diffractive layers and the quantised depth sorts
+    k_render = renderer_phases(torch, dev, path_launches, dec_cloud)
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k_saag["k1"]["k1_max_abs_err"])
     k1["at_saag_render_pack"] = dict(k_saag["k1"]["k1"], T=k_saag["k1"]["T"],
@@ -5595,7 +6050,13 @@ def main():
                    also_replaces="fresnel_tpu/render/fourier.py:85")),
         entry("k6", "dense_bwd", "fresnel_tpu/render/wave.py:63",
               dict(k_wave["k6"],
-                   also_replaces="fresnel_tpu/render/fourier.py:85"))]}),
+                   also_replaces="fresnel_tpu/render/fourier.py:85")),
+        entry("k7", "dense_composite_fwd", "fresnel_tpu/render/dense.py:84",
+              dict(k_render["k7"],
+                   also_replaces="fresnel_tpu/render/simplified.py:61")),
+        entry("k8", "dense_composite_bwd", "fresnel_tpu/render/dense.py:84",
+              dict(k_render["k8"],
+                   also_replaces="fresnel_tpu/render/simplified.py:61"))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5763,7 +6224,66 @@ def ab_measure(root):
         wall_ms_per_step=prof["wall_ms"], kernels_per_step=prof["kernels"],
         indexing_backward_ms_per_step=prof["indexing_backward_ms"],
         top_kernels_ms_per_step=prof["top_kernels_ms"])
+    result["train_sh_full_step"] = train_route_times(
+        torch, dev, WAVE_PATHS[0][2])
     return result
+
+
+def train_route_times(torch, dev, flags):
+    """One training route's step, built as wave_phases builds it (a seeded
+    corpus of WAVE_SCENES at 256^2, lpips off): ms per step (CUDA events
+    around AB_TRAIN_STEPS steps after WAVE_WARMUP), host ms per step, and
+    device ms, busy share and kernels per step (torch.profiler over
+    WAVE_PROFILED steps)."""
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+    from fresnel_tpu_torch.train.harness import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ab_train_")
+    try:
+        data_dir = os.path.join(tmp, "corpus")
+        synthetic_corpus.generate_corpus(data_dir, n_images=WAVE_SCENES,
+                                         image_size=256, seed=0)
+        cfg, phys, hfgs, hfts = tcli.configs_from_args(
+            tcli.build_parser().parse_args(
+                ["--output_dir", os.path.join(tmp, "cfg")] + flags))
+        cfg = dataclasses.replace(cfg, lpips_weight=0.0)
+        tr = Trainer(cfg, phys, hfgs, hfts, device=dev)
+        state = tr.init_state()
+        ds = ImageDataset(data_dir, image_size=256, feature_dim=384,
+                          use_augmentation="--no_augmentation" not in flags,
+                          device=dev)
+        batches = [tr.device_batch(b) for b in train_batches(
+            ds, cfg.batch_size, WAVE_WARMUP + AB_TRAIN_STEPS)]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        K = cfg.gaussians_per_patch
+        for b in batches[:WAVE_WARMUP]:
+            state, _ = tr.train_step(state, b, K, None, gen)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        start.record()
+        for b in batches[WAVE_WARMUP:]:
+            state, _ = tr.train_step(state, b, K, None, gen)
+        end.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+
+        def profiled():
+            st_ = state
+            for b in batches[-WAVE_PROFILED:]:
+                st_, _ = tr.train_step(st_, b, K, None, gen)
+        prof = profile_ms(torch, profiled, WAVE_PROFILED, top=5, cpu=False)
+        return dict(flags=flags, steps=AB_TRAIN_STEPS,
+                    ms_per_step=start.elapsed_time(end) / AB_TRAIN_STEPS,
+                    host_ms_per_step=host_s * 1e3 / AB_TRAIN_STEPS,
+                    device_ms_per_step=prof["device_ms"],
+                    device_busy_share=prof["device_busy_share"],
+                    kernels_per_step=prof["kernels"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def ab(roots):

@@ -24,9 +24,11 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 # K1, K2 (render/raster.py), K3 (render/binning.py), K4
 # (render/stream_binning.py); K1-phi, K2-phi (render/raster.py, phase
 # blending), K5, K6 (render/splat.py, the dense splat of the wave-field
-# and Fourier renderers).
+# and Fourier renderers), K7, K8 (render/dense_composite.py, the dense and
+# simplified renderers' compositing).
 KERNELS = ("raster_fwd", "raster_bwd", "bin_table", "bin_stream",
-           "raster_phase_fwd", "raster_phase_bwd", "dense_fwd", "dense_bwd")
+           "raster_phase_fwd", "raster_phase_bwd", "dense_fwd", "dense_bwd",
+           "dense_composite_fwd", "dense_composite_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

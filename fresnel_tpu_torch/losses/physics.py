@@ -21,6 +21,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from fresnel_tpu_torch.core.ops import fftfreq
+
 HFGS_DEFAULT_WAVELENGTHS = (0.0635, 0.05, 0.041)  # R, G, B
 
 
@@ -60,10 +62,14 @@ def phase_retrieval_loss(rendered: torch.Tensor, target: torch.Tensor,
 
 def _radial_masks(h: int, w: int, cutoff: float, device
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    u = torch.fft.fftfreq(w, device=device)
-    v = torch.fft.fftfreq(h, device=device)
+    # The grids in the jitted JAX function's bits (core.ops.fftfreq) and
+    # the radius rounded once, so that no frequency changes sides of the
+    # cutoff.
+    u = fftfreq(w, device=device)
+    v = fftfreq(h, device=device)
     V, U = torch.meshgrid(v, u, indexing="ij")
-    low = (torch.sqrt(U * U + V * V) < cutoff).to(torch.float32)
+    radius = torch.sqrt((U * U + V * V).double()).float()
+    low = (radius < cutoff).to(torch.float32)
     return low, 1.0 - low
 
 

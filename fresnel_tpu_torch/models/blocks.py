@@ -6,7 +6,8 @@ Counterpart of fresnel_tpu/models/blocks.py (`MLP` with dropout,
 `rotate_positions_for_pose`, `tensegrity_loss`,
 `fibonacci_spiral_positions`), plus the layers every
 model of the port uses to run in a compute dtype with float32 parameters,
-as the Flax modules do with `dtype=bfloat16`.
+as the Flax modules do with `dtype=bfloat16` (`Conv2d` lives in core/ops.py,
+below the physics package, which uses it too).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fresnel_tpu_torch.core.ops import Conv2d, resize_linear
+
 
 class Linear(nn.Linear):
     """nn.Linear whose float32 parameters are cast to the input's dtype."""
@@ -29,24 +32,6 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
-
-
-class Conv2d(nn.Conv2d):
-    """nn.Conv2d (NCHW) whose float32 parameters are cast to the input's
-    dtype.  With bf16 parameters (`use_amp`, which casts them) the bias is
-    added after the convolution is rounded to bf16, as Flax's Conv adds
-    it: the fused bias rounds once, and the port's bf16 rotations and edge
-    gradients then leave twice JAX's own bf16 gap
-    (tests/test_torch_amp.py).  Layers that compute in bf16 on float32
-    parameters (CVS, the ViTs) keep the fused bias."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        if self.weight.dtype == torch.bfloat16 and self.bias is not None:
-            return (self._conv_forward(x, w, None)
-                    + self.bias.to(x.dtype).reshape(-1, 1, 1))
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, w, b)
 
 
 def _f32(p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -135,8 +120,6 @@ def adaptive_average_pool(x: torch.Tensor, out_hw: Tuple[int, int]
     """(B, H, W, C) -> (B, out_h, out_w, C) by jax.image.resize's linear
     resize, antialiased when shrinking: the JAX package's smooth stand-in
     for adaptive_avg_pool2d."""
-    from fresnel_tpu_torch.models.encoders import resize_linear
-
     return resize_linear(x.permute(0, 3, 1, 2), *out_hw).permute(0, 2, 3, 1)
 
 

@@ -39,10 +39,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from fresnel_tpu_torch.core.gaussians import rotation_6d_to_quaternion
+from fresnel_tpu_torch.core.ops import (
+    _resize_weights, resize_linear, wrap_phase)
 from fresnel_tpu_torch.models.blocks import (
     MLP, Conv2d, DepthEncoder, Linear, PoseEncoder,
     rotate_positions_for_pose)
-from fresnel_tpu_torch.models.encoders import _resize_weights, resize_linear
 from fresnel_tpu_torch.physics.edge_detector import FresnelEdgeDetector
 from fresnel_tpu_torch.physics.diffraction import FresnelDiffraction
 from fresnel_tpu_torch.physics.fresnel_zones import (
@@ -322,14 +323,6 @@ class DirectPatchDecoder(nn.Module):
         if return_raw:
             result["raw"] = out
         return result
-
-
-def wrap_phase(phi: torch.Tensor) -> torch.Tensor:
-    """phi mod 2 pi with the sign of the divisor, as jnp.mod: fmod, then 2
-    pi added where the remainder is negative (its gradient is 1)."""
-    two_pi = torch.tensor(TWO_PI, dtype=phi.dtype, device=phi.device)
-    r = torch.fmod(phi, two_pi)
-    return torch.where((r != 0) & (r < 0), r + two_pi, r)
 
 
 class PhysicsDirectPatchDecoder(nn.Module):

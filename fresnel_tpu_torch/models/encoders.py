@@ -17,7 +17,6 @@ that is found but does not load raises.
 
 from __future__ import annotations
 
-import functools
 import math
 import os
 from typing import Optional
@@ -26,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fresnel_tpu_torch.core.ops import resize_linear
 from fresnel_tpu_torch.physics.fresnel_zones import sobel_gradients
 
 _DEPTH_CANDIDATES = ("depth_anything_v2_small.pth",
@@ -34,52 +34,6 @@ _DEPTH_CANDIDATES = ("depth_anything_v2_small.pth",
                      "depth_anything_v2_small.bin",
                      "depth_anything.pth", "depth_anything.safetensors")
 _LUMA = (0.299, 0.587, 0.114)
-
-
-def _resize_weights(n_in: int, n_out: int, antialias: bool = True
-                    ) -> np.ndarray:
-    """(n_in, n_out) float32 weights of a linear resize along one axis,
-    antialiased when downsampling (if `antialias`), computed in float32 in
-    the order of jax.image.scale_and_translate's weight matrix."""
-    f = np.float32
-    inv = f(1.0 / (n_out / n_in))
-    kscale = max(inv, f(1.0)) if antialias else f(1.0)
-    sample = (np.arange(n_out, dtype=f) + f(0.5)) * inv - f(0.0) * inv - f(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f)[:, None]) / kscale
-    w = np.maximum(f(0.0), f(1.0) - np.abs(x))
-    tot = w.sum(axis=0, keepdims=True, dtype=f)
-    w = np.where(np.abs(tot) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(tot != 0, tot, f(1.0)), f(0.0))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, f(0.0)).astype(f)
-
-
-@functools.lru_cache(maxsize=None)
-def _resize_matrix(n_in: int, n_out: int, antialias: bool,
-                   device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """`_resize_weights` on `device` in `dtype`, made once: a fresh copy
-    from the host each call would wait for the stream on the card."""
-    return torch.from_numpy(_resize_weights(n_in, n_out, antialias)).to(
-        device=device, dtype=dtype)
-
-
-def resize_linear(x: torch.Tensor, out_h: int, out_w: int,
-                  antialias: bool = True) -> torch.Tensor:
-    """(..., H, W) -> (..., out_h, out_w) bilinear with half-pixel centres,
-    antialiased when downsampling (unless `antialias` is False): what
-    jax.image.resize(..., "linear") does to the last two axes, as two
-    products with its weight matrices, rows first, the weights rounded as
-    JAX rounds them and cast to x's dtype (in bf16 each product rounds to
-    bf16, as XLA:CPU's does; F.interpolate places samples up to ~1e-5 px
-    apart, which moves an upsampled image by ~4e-6)."""
-    H, W = x.shape[-2:]
-    if H != out_h:
-        wh = _resize_matrix(H, out_h, antialias, x.device, x.dtype)
-        x = torch.einsum("...hw,hH->...Hw", x, wh)
-    if W != out_w:
-        ww = _resize_matrix(W, out_w, antialias, x.device, x.dtype)
-        x = torch.einsum("...hw,wW->...hW", x, ww)
-    return x
 
 
 def _box_blur(img: torch.Tensor, k: int = 5) -> torch.Tensor:

@@ -10,19 +10,29 @@ Rounded as XLA:CPU rounds the JAX functions: the table index is `w`
 times the folded constant (lut_size - 1) / lut_max_w, truncated, the
 interpolation and the profile end in one fused multiply-add, and square
 roots round once, so the values are bit for bit the JAX package's.
-`DiffractiveLayer` and `MultiscaleDiffractiveLayer` are not ported
-(ROADMAP Queue 1, item 5).
+
+`DiffractiveLayer` (a learnable complex transmission surface, D^2NN: t =
+sigmoid(amplitude_raw) exp(i (phase mod 2 pi)) multiplying a (C, H, W) or
+(B, C, H, W) complex64 field, with its total-variation and centring
+regulariser) and `MultiscaleDiffractiveLayer` (children `scale_s`, each
+modulating the running field resized to (H >> s, W >> s), its real and
+imaginary parts resized as jax.image.resize's "linear" resizes them,
+antialiased when downsampling, and back) are the Flax modules of the same
+names as torch modules; `weights.diffractive_state_dict` converts their
+flat Flax params.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from fresnel_tpu_torch.core.ops import resize_linear, wrap_phase
 from fresnel_tpu_torch.physics.fresnel_zones import sqrt_rn
 
 
@@ -109,3 +119,89 @@ class FresnelDiffraction:
     def __call__(self, depth, edge_mask, distance_from_edge):
         return self.compute_edge_density(depth, edge_mask,
                                          distance_from_edge)
+
+
+class DiffractiveLayer(nn.Module):
+    """Learnable complex transmission surface (D^2NN): parameters
+    `amplitude_raw` (C, H, W), initialised to `init_amplitude`, and
+    `phase`, normal times `init_phase_scale` drawn from `generator`."""
+
+    def __init__(self, height: int, width: int, num_channels: int = 3,
+                 init_amplitude: float = 0.5,
+                 init_phase_scale: float = 0.1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.height, self.width = height, width
+        shape = (num_channels, height, width)
+        self.amplitude_raw = nn.Parameter(
+            torch.full(shape, float(init_amplitude)))
+        self.phase = nn.Parameter(
+            torch.randn(shape, generator=generator) * init_phase_scale)
+
+    def transmission(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(amplitude in (0, 1), phase in [0, 2 pi)), phase taken mod 2 pi
+        as jnp.mod takes it."""
+        return torch.sigmoid(self.amplitude_raw), wrap_phase(self.phase)
+
+    def forward(self, wave_field: torch.Tensor) -> torch.Tensor:
+        """U_in t with t = A e^{i phi}; wave_field complex64 (C, H, W) or
+        (B, C, H, W)."""
+        amplitude, phase = self.transmission()
+        t = torch.polar(amplitude, phase)
+        if wave_field.dim() == 4:
+            t = t[None]
+        return wave_field * t
+
+    def regularization_loss(self) -> torch.Tensor:
+        """Total variation of amplitude and phase (0.01 each) plus the
+        amplitude's mean squared distance from 0.5 (0.001)."""
+        amplitude, phase = self.transmission()
+
+        def jabs(x):
+            # |x| with jax.grad's derivative at 0, +1 (torch's is 0): a
+            # fresh layer's amplitude is constant, so every difference is 0.
+            return torch.where(x >= 0, x, -x)
+
+        def tv(x):
+            return (torch.mean(jabs(x[:, 1:] - x[:, :-1]))
+                    + torch.mean(jabs(x[:, :, 1:] - x[:, :, :-1])))
+
+        amp_center = torch.mean((amplitude - 0.5) ** 2)
+        return 0.01 * tv(amplitude) + 0.01 * tv(phase) + 0.001 * amp_center
+
+
+def _resize_complex(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """A complex field's real and imaginary parts resized apart (bilinear,
+    antialiased when downsampling, as jax.image.resize "linear")."""
+    return torch.complex(resize_linear(x.real, h, w),
+                         resize_linear(x.imag, h, w))
+
+
+class MultiscaleDiffractiveLayer(nn.Module):
+    """Pyramid of diffractive layers: child `scale_s` modulates the running
+    field resized to (max(H >> s, 1), max(W >> s, 1)), which is then
+    resized back."""
+
+    def __init__(self, height: int, width: int, num_channels: int = 3,
+                 num_scales: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.height, self.width = height, width
+        self.num_scales = num_scales
+        for s in range(num_scales):
+            self.add_module(f"scale_{s}", DiffractiveLayer(
+                max(height >> s, 1), max(width >> s, 1), num_channels,
+                generator=generator))
+
+    def forward(self, wave_field: torch.Tensor) -> torch.Tensor:
+        batched = wave_field.dim() == 4
+        out = wave_field if batched else wave_field[None]
+        H, W = out.shape[-2:]
+        if (H, W) != (self.height, self.width):
+            raise ValueError(f"field is {H}x{W}, the layer "
+                             f"{self.height}x{self.width}")
+        for s in range(self.num_scales):
+            layer = getattr(self, f"scale_{s}")
+            small = _resize_complex(out, layer.height, layer.width)
+            out = _resize_complex(layer(small), H, W)
+        return out if batched else out[0]

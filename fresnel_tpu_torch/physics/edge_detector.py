@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fresnel_tpu_torch.models.blocks import Conv2d
+from fresnel_tpu_torch.core.ops import Conv2d
 from fresnel_tpu_torch.physics.fresnel_zones import sobel_gradients
 
 

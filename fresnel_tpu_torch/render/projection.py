@@ -139,13 +139,43 @@ def batch_cameras(cameras, B: int):
 
 def depth_sort_indices(proj: GaussianProjection, method: str = "exact"
                        ) -> torch.Tensor:
-    """Front-to-back order with invisible Gaussians pushed to the end.
+    """Front-to-back order with invisible Gaussians pushed to the end, as
+    fresnel_tpu/render/projection.py::depth_sort_indices orders them.
 
-    Only method="exact" is ported: a stable argsort of the depth with
-    invisible Gaussians keyed +inf, as jnp.argsort (stable) orders them."""
-    if method != "exact":
-        raise NotImplementedError(
-            f"depth_sort method {method!r} is not ported; use 'exact'")
+    "exact": a stable argsort of the depth, invisible Gaussians keyed +inf
+    (jnp.argsort is stable).  "counting": the depth quantised to 16 bits
+    over the visible range (invisible keys 0xFFFF), stably sorted.
+    "packed": 12 bits over the visible range (invisible keys 4095), sorted
+    by (key, index); at most 2^20 Gaussians.  The JAX package sorts the
+    quantised keys with an MXU counting sort and a packed uint32 sort;
+    both are stable sorts by key, so one stable sort of the same keys gives
+    the same permutation.  Any other method sorts "exact", as there."""
+    if method == "counting":
+        return torch.sort(_quantized_depth(proj.depths, proj.visible, 65534,
+                                           0xFFFF), stable=True).indices
+    if method == "packed":
+        if proj.depths.shape[0] > (1 << 20):
+            raise ValueError(
+                "packed depth sort supports at most 2^20 Gaussians")
+        return torch.sort(_quantized_depth(proj.depths, proj.visible, 4094,
+                                           4095), stable=True).indices
     key = torch.where(proj.visible, proj.depths,
                       torch.full_like(proj.depths, float("inf")))
     return torch.argsort(key, stable=True)
+
+
+def _quantized_depth(depths: torch.Tensor, visible: torch.Tensor,
+                     levels: int, invisible: int) -> torch.Tensor:
+    """int32 keys: the visible depths mapped to [0, levels] over their
+    range and truncated, invisible Gaussians `invisible`; in float32 op by
+    op, as the JAX package computes them."""
+    big = torch.tensor(3.4e38, dtype=torch.float32, device=depths.device)
+    dmin = torch.amin(torch.where(visible, depths, big))
+    dmax = torch.amax(torch.where(visible, depths, -big))
+    scale = (torch.tensor(float(levels), dtype=torch.float32,
+                          device=depths.device)
+             / torch.clamp(dmax - dmin, min=1e-12))
+    q = torch.clamp((depths - dmin) * scale, 0.0, float(levels))
+    return torch.where(visible, q.to(torch.int32),
+                       torch.tensor(invisible, dtype=torch.int32,
+                                    device=depths.device))

@@ -2,7 +2,8 @@
 
 Counterpart of fresnel_tpu/render/tile.py:
   1. project every Gaussian and take its 3-sigma radius;
-  2. stable front-to-back depth sort;
+  2. stable front-to-back depth sort ("exact"; `depth_sort` "counting"
+     or "packed" sort quantised depths, as the JAX package's do);
   3. binning: each 16x16 tile keeps up to M nearest intersecting Gaussians
      in depth order.  Five binnings build the same tables, bit for bit
      (and bit-identical to the JAX package's):
@@ -38,8 +39,8 @@ given no phases, phase blending is off, as in the JAX package.
 `hard_cutoff=False` drops the 3-sigma box test, as the JAX package's XLA
 scan does (its TPU kernel keeps the box whatever the option says).
 
-Options of the JAX renderer that are not ported raise NotImplementedError:
-depth sorts other than "exact" and tile sizes other than 16.
+The one option of the JAX renderer that is not ported, a tile size other
+than 16, raises NotImplementedError (ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -625,14 +626,12 @@ def _composite_tiles_phase(px, py, g_mean, g_conic, g_color, g_op, g_depth,
 def _check_supported(cfg: TileRendererConfig) -> None:
     if cfg.tile_size != raster.TS:
         raise NotImplementedError(
-            f"tile_size {cfg.tile_size} is not ported (only {raster.TS})")
+            f"tile_size {cfg.tile_size} is not ported (only {raster.TS}; "
+            "ROADMAP Queue 1, item 5)")
     if cfg.binning not in BINNINGS:
         raise ValueError(f"unknown binning {cfg.binning!r}")
     if cfg.table_build not in TABLE_BUILDS:
         raise ValueError(f"unknown table_build {cfg.table_build!r}")
-    if cfg.depth_sort not in ("auto", "exact"):
-        raise NotImplementedError(
-            f"depth_sort {cfg.depth_sort!r} is not ported (only 'exact')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -673,7 +672,10 @@ def project_sorted(positions, scales, rotations, colors, opacities,
                              max_radius=eff_max_radius)
     # Zero-opacity Gaussians take no per-tile capacity.
     proj = proj.replace(visible=proj.visible & (opacities > 0.0))
-    order = depth_sort_indices(proj, method="exact")
+    # "auto" is "exact" (the JAX package measured both quantised sorts
+    # no faster, fresnel_tpu/render/tile.py:778-784).
+    order = depth_sort_indices(
+        proj, method="exact" if cfg.depth_sort == "auto" else cfg.depth_sort)
     visible = proj.visible[order]
     return SortedProjection(
         means2d=proj.means2d[order], conic=proj.conic[order],

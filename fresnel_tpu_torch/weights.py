@@ -78,6 +78,15 @@ def _convert(flat: Mapping[str, np.ndarray], renames=()) -> Dict[str, torch.Tens
 _BLOCKS = (r"(^|\.)block_(\d+)\.", r"\1blocks.\2.")
 
 
+def diffractive_state_dict(flat: Mapping[str, np.ndarray]
+                           ) -> Dict[str, torch.Tensor]:
+    """Flat params of a DiffractiveLayer (`amplitude_raw`, `phase`) or a
+    MultiscaleDiffractiveLayer (`scale_s/amplitude_raw`, `scale_s/phase`)
+    -> state dict of physics.diffraction's module of the same name (the
+    (C, H, W) arrays as they are)."""
+    return _convert(flat)
+
+
 def dinov2_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat DINOv2 params -> state dict of models.vit.DINOv2."""
     return _convert(flat, renames=(_BLOCKS,))

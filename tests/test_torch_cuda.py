@@ -21,7 +21,10 @@ the same tolerances, K2-phi, K5 and K6 bit for bit from run to run;
 K1-phi / K2-phi also on the edges of their per-warp cull (every tile at
 the cap, boxes inside one warp strip or with edges on strip boundaries,
 counts on and one past a checkpoint boundary, the box off with radian
-phases).
+phases).  The dense compositing pair K7 / K8 (both modes) at the same
+tolerances, around their stages and back-walk runs, with alpha on its
+clip and SIMPLE's depth ties; the four renderers K5-K8 serve, the
+diffractive layers and the quantised depth sorts, card against CPU.
 """
 
 import numpy as np
@@ -38,6 +41,10 @@ from fresnel_tpu_torch.render import tile
 
 pytestmark = pytest.mark.cuda
 BWD_TOL = 1e-4
+# K7 against its plain version, per output (colour, depth channel,
+# transmittance) relative to its largest plain value: a sequential product
+# against the chunked cumprod, over up to thousands of Gaussians.
+COMPOSITE_TOL = 5e-5
 
 
 @pytest.fixture
@@ -1398,3 +1405,175 @@ def test_wave_route_step_on_card_matches_cpu(cuda, over, physics, hfgs,
     assert set(out["cpu"]) == set(out["cuda"])
     for k, v in out["cpu"].items():
         assert abs(out["cuda"][k] - v) <= 1e-4 * max(abs(v), 1e-6), k
+
+
+def _composite_inputs(N, size, mode, seed, ties=False, top=False):
+    """Depth-sorted (N, 8) params and (N, 3) colours of the dense
+    compositing kernels: DENSE conics of sigma 1-12 px (reaching past one
+    stage of tiles), SIMPLE sigmas and radii as render_simplified makes
+    them; `ties` gives runs of Gaussians one depth; `top` puts opacity at
+    the clip on a few centred on pixels."""
+    rng = np.random.default_rng(seed)
+    p = np.zeros((N, 8), np.float32)
+    p[:, 0] = rng.uniform(-10, size + 10, N)
+    p[:, 1] = rng.uniform(-10, size + 10, N)
+    if mode == 0:
+        s = rng.uniform(1.0, 12.0, (N, 2))
+        th = rng.uniform(0, np.pi, N)
+        c, sn = np.cos(th), np.sin(th)
+        a = c * c / s[:, 0] ** 2 + sn * sn / s[:, 1] ** 2
+        b = c * sn * (1 / s[:, 0] ** 2 - 1 / s[:, 1] ** 2)
+        d = sn * sn / s[:, 0] ** 2 + c * c / s[:, 1] ** 2
+        p[:, 2], p[:, 3], p[:, 4] = a, b, d
+    else:
+        r = rng.uniform(1.0, 20.0, N)
+        p[:, 2] = np.maximum(r / 2, 1.0)
+        p[:, 5] = r
+    p[:, 6] = rng.uniform(0.05, 0.95, N)
+    p[::17, 6] = 0.0
+    p[:, 7] = np.sort(rng.uniform(0.5, 3.0, N))
+    if ties:
+        for s0 in range(0, N, 23):
+            p[s0:s0 + 9, 7] = p[s0, 7]
+    if top:
+        k = slice(3, None, 41)
+        p[k, 0] = np.round(p[k, 0])
+        p[k, 1] = np.round(p[k, 1])
+        p[k, 6] = 0.99 if mode == 0 else 1.0
+    col = rng.uniform(0, 1, (N, 3)).astype(np.float32)
+    return torch.from_numpy(p), torch.from_numpy(col)
+
+
+# K7 / K8 cull 256 Gaussians at a time and K8 walks runs of 16 back to
+# front: N = 1, 255, 257 and 700 around those, H and W not multiples of
+# 16, alpha on its clip (0.99 DENSE, 1 SIMPLE: T reaches exactly 0),
+# opacities of 0, SIMPLE depth ties within and across chunks of 16 and 128.
+@pytest.mark.parametrize("N,H,W,mode,chunk,ties,top", [
+    (1, 48, 48, 0, 256, False, False), (255, 40, 56, 0, 256, False, True),
+    (700, 64, 64, 0, 256, False, True), (257, 33, 47, 0, 64, False, False),
+    (1, 48, 48, 1, 128, False, False), (300, 40, 56, 1, 128, True, True),
+    (700, 64, 64, 1, 16, True, True), (257, 33, 47, 1, 128, True, False)])
+def test_dense_composite_kernels_match_plain(cuda, N, H, W, mode, chunk,
+                                             ties, top):
+    from fresnel_tpu_torch.render import dense_composite as dc
+
+    params, col = _composite_inputs(N, max(H, W), mode, N + mode, ties, top)
+    params, col = params.to(cuda), col.to(cuda)
+    before = (dc.launches, dc.launches_bwd)
+    pg = params.clone().requires_grad_()
+    cg = col.clone().requires_grad_()
+    out, trans = dc.dense_composite(pg, cg, H, W, mode, chunk)
+    ref, ref_t = dc.dense_composite_plain(params, col, H, W, mode, chunk)
+    assert (dc.launches, dc.launches_bwd) == (before[0] + 1, before[1])
+    fin = torch.isfinite(ref)
+    assert torch.equal(fin, torch.isfinite(out))
+    for got_f, ref_f in ((out[..., :3], ref[..., :3]),
+                         (out[..., 3][fin[..., 3]], ref[..., 3][fin[..., 3]]),
+                         (trans, ref_t)):
+        if ref_f.numel() == 0:
+            continue                  # no Gaussian passes anywhere
+        s = ref_f.abs().max().item()
+        assert (got_f - ref_f).abs().max().item() <= \
+            COMPOSITE_TOL * max(s, 1e-30)
+    rng = np.random.default_rng(7)
+    g_out = torch.from_numpy(rng.normal(size=(H, W, 4)).astype(
+        np.float32)).to(cuda)
+    g_t = torch.from_numpy(rng.normal(size=(H, W)).astype(
+        np.float32)).to(cuda)
+    if mode == 1:
+        g_out[..., 3] = torch.where(torch.isinf(out[..., 3]).detach(), 0.0,
+                                    g_out[..., 3])
+    gp, gc = torch.autograd.grad((out, trans), (pg, cg), (g_out, g_t))
+    assert dc.launches_bwd == before[1] + 1
+    rp, rc = dc.dense_composite_bwd_plain(params, col, H, W, mode, chunk,
+                                          g_out, g_t)
+    for got_g, ref_g in ((gp, rp), (gc, rc)):
+        for f in range(got_g.shape[-1]):
+            s = ref_g[..., f].abs().max().item()
+            e = (got_g[..., f] - ref_g[..., f]).abs().max().item()
+            assert e <= BWD_TOL * max(s, 1e-30), (f, e, s)
+    assert not rp[:, 5].any() and not gp[:, 5].any()
+
+
+def _render_cloud(n, seed):
+    rng = np.random.default_rng(seed)
+    pos = np.c_[rng.uniform(-0.8, 0.8, (n, 2)),
+                rng.uniform(-2.5, -1.5, n)].astype(np.float32)
+    sc = rng.uniform(0.03, 0.3, (n, 3)).astype(np.float32)
+    rot = rng.normal(size=(n, 4)).astype(np.float32)
+    rot /= np.linalg.norm(rot, axis=1, keepdims=True)
+    col = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    op = rng.uniform(0.1, 0.9, n).astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
+    return [torch.from_numpy(a) for a in (pos, sc, rot, col, op)], \
+        torch.from_numpy(ph)
+
+
+@pytest.mark.parametrize("name", ["dense", "simplified", "asm",
+                                  "fourier_true"])
+def test_renderers_on_card_match_cpu(cuda, name):
+    from fresnel_tpu_torch.render.factory import make_renderer
+
+    arrays, ph = _render_cloud(300, 11)
+    size = 64
+    out = {}
+    for dev in ("cpu", cuda):
+        args = [a.to(dev).requires_grad_() for a in arrays]
+        phs = ph.to(dev).requires_grad_()
+        img, depth = make_renderer(name)(*args, Camera.default_training(
+            size).to(dev), phases=phs, return_depth=True)
+        w = torch.from_numpy(np.random.default_rng(2).normal(
+            size=(3, size, size)).astype(np.float32)).to(dev)
+        loss = (img * w).sum() + depth.sum()
+        grads = torch.autograd.grad(loss, args + [phs], allow_unused=True)
+        out[str(dev)] = [img.detach().cpu(), depth.detach().cpu()] + [
+            None if g is None else g.cpu() for g in grads]
+    cpu, card = out["cpu"], out[str(cuda)]
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if b is None:
+            assert a is None
+            continue
+        s = b.abs().max().item()
+        tol = 1e-5 if i < 2 else BWD_TOL
+        assert (a - b).abs().max().item() <= tol * max(s, 1e-30), (i, s)
+
+
+@pytest.mark.parametrize("multiscale", [False, True])
+def test_diffractive_layers_on_card_match_cpu(cuda, multiscale):
+    from fresnel_tpu_torch.physics import (
+        DiffractiveLayer, MultiscaleDiffractiveLayer)
+
+    cls = MultiscaleDiffractiveLayer if multiscale else DiffractiveLayer
+    m = cls(32, 24, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    field = torch.from_numpy((rng.normal(size=(2, 3, 32, 24))
+                              + 1j * rng.normal(size=(2, 3, 32, 24))
+                              ).astype(np.complex64))
+    res = {}
+    for dev in ("cpu", cuda):
+        md = m.to(dev)
+        f = field.to(dev).requires_grad_()
+        o = md(f)
+        # A loss that reads the phase (|o| alone does not depend on it).
+        g = torch.autograd.grad((o.real - 0.5 * o.imag).sum(),
+                                [f] + list(md.parameters()))
+        res[str(dev)] = [o.detach().cpu()] + [x.cpu() for x in g]
+    for a, b in zip(res[str(cuda)], res["cpu"]):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("method", ["counting", "packed"])
+def test_quantized_depth_sorts_on_card_equal_cpu(cuda, method):
+    from fresnel_tpu_torch.render import projection
+
+    cloud = GaussianCloud.test_cloud(50_000, seed=3, spread=0.8,
+                                     z_offset=-2.0)
+    cam = Camera.default_training(256)
+    proj = projection.project_gaussians(cloud.positions, cloud.scales,
+                                        cloud.rotations, cam)
+    # The same depths on both devices: the sort alone is held.
+    got = projection.depth_sort_indices(
+        proj.replace(depths=proj.depths.to(cuda),
+                     visible=proj.visible.to(cuda)), method=method)
+    want = projection.depth_sort_indices(proj, method=method)
+    assert torch.equal(got.cpu(), want)

@@ -180,8 +180,16 @@ class TestProjection:
             np.asarray(jp.depth_sort_indices(pj, method="exact")))
 
     def test_other_sorts_not_ported(self):
+        """The quantised sorts are ported (tests/test_torch_dense_render.py
+        holds them against JAX's); the case keeps its name and checks that
+        "counting" now sorts, and that an unknown method sorts "exact", as
+        the JAX package's does."""
+        jc, tc = _cameras(32)
         pos, scales, rots = _cloud(8, 7)
-        _, tc = _cameras(32)
+        pj = jp.project_gaussians(jnp.asarray(pos), jnp.asarray(scales),
+                                  jnp.asarray(rots), jc)
         pt = tp.project_gaussians(_t(pos), _t(scales), _t(rots), tc)
-        with pytest.raises(NotImplementedError):
-            tp.depth_sort_indices(pt, method="counting")
+        for method in ("counting", "unknown"):
+            np.testing.assert_array_equal(
+                tp.depth_sort_indices(pt, method=method).numpy(),
+                np.asarray(jp.depth_sort_indices(pj, method=method)))

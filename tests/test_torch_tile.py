@@ -172,24 +172,30 @@ class TestCompositor:
 
 
 class TestNotPorted:
+    # The depth sorts "counting" and "packed" and hard_cutoff=False are
+    # ported (tests/test_torch_dense_render.py, test_torch_wave_render.py);
+    # the cases keep their ids with tile sizes, which still raise.
     @pytest.mark.parametrize("cfg", [
-        tt.TileRendererConfig(depth_sort="counting"),
+        tt.TileRendererConfig(tile_size=32),
         tt.TileRendererConfig(tile_size=8),
-        # hard_cutoff=False is ported (tests/test_torch_wave_render.py);
-        # the case keeps its id with a depth sort that still raises.
-        tt.TileRendererConfig(depth_sort="packed"),
+        tt.TileRendererConfig(tile_size=4),
     ])
     def test_options_raise(self, cfg):
         arrs = _cloud_arrays(5, seed=0)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="item 5"):
             tt.render_tiled(*[_t(a) for a in arrs],
                             TCamera.default_training(32), config=cfg)
 
     def test_phase_blending_raises(self):
-        """Phase blending is ported (tests/test_torch_wave_render.py); the
-        case keeps its name with the renderers that still raise."""
+        """Phase blending (tests/test_torch_wave_render.py) and the four
+        renderers this case held raising are ported: the case keeps its
+        name and checks that each renderer now builds and renders."""
         from fresnel_tpu_torch.render.factory import make_renderer
 
+        arrs = [_t(a) for a in _cloud_arrays(20, seed=0)]
+        phases = torch.linspace(0.0, 6.0, 20)
         for name in ("asm", "fourier_true", "dense", "simplified"):
-            with pytest.raises(NotImplementedError):
-                make_renderer(name)
+            img = make_renderer(name)(*arrs, TCamera.default_training(32),
+                                      phases=phases)
+            assert img.shape == (3, 32, 32), name
+            assert torch.isfinite(img).all(), name

@@ -19,7 +19,9 @@ CPU.
 * `render_wave_field` (scalar and per-RGB phases) and `render_fourier`
   "spatial": images and depth within 1e-5, gradients within 1e-4; their
   batched entries equal one render per cloud bit for bit.
-* The renderer factory's routes and the renderers that still raise.
+* The renderer factory's routes, and the four renderers that raised
+  until they were ported (tests/test_torch_dense_render.py,
+  test_torch_asm_fourier.py) through it.
 """
 
 import numpy as np
@@ -259,12 +261,24 @@ def test_training_renderer_routes_follow_jax(over, physics, hfgs, route):
 @pytest.mark.parametrize("name", ["dense", "asm", "simplified",
                                   "fourier_true"])
 def test_unported_renderers_raise(name):
+    """The four renderers these cases held raising are ported
+    (tests/test_torch_dense_render.py, test_torch_asm_fourier.py): each
+    case keeps its id and checks that its renderer now renders through
+    make_renderer, and that the one option of item 5 left, a tile size
+    other than 16, still raises naming it."""
+    arrays, ph = _cloud(0, n=4)
+    targs = [torch.from_numpy(a) for a in arrays]
+    cam = TCamera.default_training(16)
+    img, depth = factory.make_renderer(name)(
+        *targs, cam, phases=torch.from_numpy(ph[:, 0]), return_depth=True)
+    assert img.shape == (3, 16, 16) and depth.shape == (16, 16)
+    assert torch.isfinite(img).all() and torch.isfinite(depth).all()
+    if name == "fourier_true":
+        assert torch.equal(img, fourier.render_fourier(
+            *targs, cam, phases=torch.from_numpy(ph[:, 0]), mode="fourier"))
     with pytest.raises(NotImplementedError, match="item 5"):
-        factory.make_renderer(name)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        fourier.render_fourier(*[torch.from_numpy(a) for a in
-                                 _cloud(0, n=4)[0]],
-                               TCamera.default_training(16), mode="fourier")
+        tt.render_tiled(*targs, cam,
+                        config=tt.TileRendererConfig(tile_size=8))
 
 
 def test_wave_renderer_needs_phases():
