@@ -26,8 +26,10 @@ its 3DGS fit), the geometric SAAG path (`cli infer --saag` / `--no_model` /
 training with its Fresnel-zone and edge-aware decoder, the viewer) with
 the remaining decoder options, and the wave-optics training routes
 (`cli train` with phase blending, the wave-field renderer, QSR, the
-physics decoder and experiment 4's Fourier route), and bf16 decoder
-training (`use_amp`) on every decoder route.  Phases,
+physics decoder and experiment 4's Fourier route), bf16 decoder
+training (`use_amp`) on every decoder route, the remaining renderers,
+and the LPIPS term of decoder training (`cli train --lpips_weights`) with
+ms_ssim and the matching loss.  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
@@ -479,6 +481,35 @@ non-zero:
                   card against the CPU's permutation, bit for bit, and a
                   render_tiled with each; then the seconds of 67-70
                   beside a 60 s cap.
+  71. lpips_module  lpips-alex files at the published shapes, random from
+                  a seed (models/backbone_files.py), in the lpips
+                  package's naming, torchvision's and as an .npz of Flax
+                  names, each loaded by losses.lpips.load_lpips onto the
+                  card (float32, frozen; the three equal); the distance
+                  and its gradients with respect to both images at 128^2,
+                  batch 8, against the CPU: within 1e-5 relative and 1e-4
+                  of the largest gradient entry; ms forward and forward +
+                  backward, device ms and kernels;
+  72. lpips_train  cli train at the flagship flags over an 8-scene corpus
+                  with --lpips_weights (weight 0.1), 2 epochs, in float32
+                  and with --use_amp: the CLI's message, one K1 and one K2
+                  per step, the term in the history and the sidecar;
+                  train_reference's small config with the term, 2 steps
+                  from one init, card against CPU: lpips and total within
+                  1e-4 relative in float32 at both steps, and in bf16 at
+                  step 1 within 2 x the CPU's own bf16 gap (step 2's
+                  ratio logged); the flagship step with the term on
+                  and off, float32 and bf16, in turns (off, on, on, off)
+                  on the same batches: ms per step, host ms, device ms,
+                  busy share, kernels per step and K1 / K2 launches per
+                  step (one each, on and off);
+  73. ms_ssim_matching  ms_ssim at 256^2 and 128^2 (batch 8) within 1e-5
+                  of the CPU's, with its ms; gaussian_matching_loss at
+                  its default max_match_points (batch 4, 5 476 predictions
+                  and 16 384 targets, padded and masked, subsampled to
+                  4 096 and 8 192), every output within 1e-5 relative of
+                  the CPU's, its ms and peak memory;
+  74. lpips_phases  the seconds of 71-73 beside a 75 s cap.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -1464,16 +1495,17 @@ def kernel_small_m(torch, dev):
         r["k2_max_abs_err"] for r in out)
 
 
-def train_setup(torch, dev, cfg_kw, tmp, dropout=None):
+def train_setup(torch, dev, cfg_kw, tmp, dropout=None, lpips=None):
     """A Trainer of config `cfg_kw` on `dev` (decoder dropout 0 when
-    `dropout` is 0) and its init state with depth_offset_init applied."""
+    `dropout` is 0; the LPIPS module `lpips`, if any) and its init state
+    with depth_offset_init applied."""
     from fresnel_tpu_torch.train import config as tconfig
     from fresnel_tpu_torch.train.harness import Trainer, build_decoder
 
     cfg = tconfig.TrainingConfig(output_dir=tmp, **cfg_kw)
     trainer = Trainer(cfg, tconfig.PhysicsConfig(),
                       tconfig.HFGSConfig(**TRAIN_HFGS), tconfig.HFTSConfig(),
-                      device=dev)
+                      lpips=lpips, device=dev)
     if dropout is not None:
         trainer.model = build_decoder(cfg, trainer.physics_config,
                                       dropout=dropout)
@@ -5548,6 +5580,389 @@ def renderer_phases(torch, dev, path_launches, cloud):
     return dict(k7=row("k7"), k8=row("k8"))
 
 
+# lpips_phases: the LPIPS term of decoder training, ms_ssim and the Chamfer
+# matching loss (no kernel of their own; the term's backward runs through
+# K2).  lpips_module writes random lpips-alex files at the published
+# shapes (models/backbone_files.py) in both torch namings and as an .npz,
+# loads each onto the card and holds the distance and its gradients with
+# respect to both images against the CPU at the term's shape (the
+# flagship batch of 8 at 128^2); lpips_train drives `cli train` at the
+# flagship flags with --lpips_weights, in float32 and with --use_amp,
+# holds two steps of a small config card against CPU with the term on,
+# and times the flagship step with the term on and off in one call;
+# ms_ssim_matching holds ms_ssim at 256^2 and 128^2 and
+# gaussian_matching_loss at its default max_match_points card against
+# CPU, with the matching loss's ms and peak memory.
+LPIPS_PHASES_CAP_S = 75.0
+LPIPS_B, LPIPS_SIZE = 8, 128
+# Distance within 1e-5 relative, gradients within 1e-4 of their largest
+# entry (cuDNN's float32 convolutions, TF32 off, against the CPU's).
+LPIPS_TOL, LPIPS_GRAD_TOL = 1e-5, 1e-4
+LPIPS_WEIGHT = 0.1            # TrainingConfig's and the CLI's default
+LPIPS_SCENES, LPIPS_CLI_EPOCHS = 8, 2
+LPIPS_WARMUP, LPIPS_TIMED, LPIPS_PROFILED = 2, 8, 3
+LPIPS_REF_STEPS = 2
+MS_SSIM_SIZES, MS_SSIM_TOL = (256, 128), 1e-5
+# The matching loss at its default max_match_points: a batch of 4, 5 476
+# predictions (K 4 over a 37^2 grid) and 16 384 targets, the last 300 and
+# 1 000 of each zero-padded, subsampled to 4 096 and 8 192.
+MATCH = dict(B=4, n_pred=5476, n_target=16384, pad_pred=300,
+             pad_target=1000)
+MATCH_RTOL, MATCH_TIMED = 1e-5, 5
+
+
+def match_inputs(seed):
+    """(pred, target, target_mask) float32 / bool numpy for MATCH."""
+    rng = np.random.default_rng(seed)
+
+    def rows(n, pad):
+        g = np.concatenate([
+            rng.uniform(-1, 1, (MATCH["B"], n, 3)),
+            rng.uniform(-4, -1, (MATCH["B"], n, 3)),
+            rng.normal(size=(MATCH["B"], n, 4)),
+            rng.uniform(0, 1, (MATCH["B"], n, 4))], -1).astype(np.float32)
+        g[:, n - pad:] = 0.0
+        return g
+
+    pred = rows(MATCH["n_pred"], MATCH["pad_pred"])
+    target = rows(MATCH["n_target"], MATCH["pad_target"])
+    return pred, target, rng.uniform(size=target.shape[:2]) > 0.1
+
+
+def lpips_phases(torch, dev, path_launches):
+    """Phases 71-74: the LPIPS term in decoder training, ms_ssim and the
+    matching loss."""
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+    from fresnel_tpu_torch.losses import lpips as tlp
+    from fresnel_tpu_torch.losses.matching import gaussian_matching_loss
+    from fresnel_tpu_torch.losses.ssim import ms_ssim
+    from fresnel_tpu_torch.models.backbone_files import (
+        lpips_checkpoint, save_checkpoint)
+    from fresnel_tpu_torch.render import (
+        binning, raster, splat, stream_binning)
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lpips_")
+
+    def read():
+        return read_all_counts(raster, binning, stream_binning, splat)
+
+    def per_step(launches, n):
+        return {k: v / n for k, v in launches.items() if v}
+
+    # 71. lpips_module: the three files, loaded onto the card.
+    files = {n: os.path.join(tmp, f"lpips_alex_{n}.pth")
+             for n in ("lpips", "torchvision")}
+    for naming, path in files.items():
+        save_checkpoint(path, lpips_checkpoint(naming, seed=0))
+    files["npz"] = os.path.join(tmp, "lpips_alex.npz")
+    np.savez(files["npz"], **tlp.convert_torch_lpips(files["lpips"]))
+    mods, load_s = {}, {}
+    for name, path in files.items():
+        t0 = time.perf_counter()
+        mods[name] = tlp.load_lpips(path, device=dev)
+        torch.cuda.synchronize()
+        load_s[name] = time.perf_counter() - t0
+    want_sd = mods["lpips"].state_dict()
+    same = all(torch.equal(m.state_dict()[k], v) for m in mods.values()
+               for k, v in want_sd.items())
+    on_card = all(p.device.type == "cuda" and p.dtype == torch.float32
+                  and not p.requires_grad
+                  for m in mods.values() for p in m.parameters())
+    m_cpu = tlp.load_lpips(files["lpips"], device=cpu)
+    imgs = np.stack([smooth_image(LPIPS_SIZE, s)
+                     for s in range(2 * LPIPS_B)]) * 2 - 1
+    a, b = imgs[:LPIPS_B], imgs[LPIPS_B:]
+
+    def dist_grads(m, d):
+        x = torch.from_numpy(a).to(d).requires_grad_()
+        y = torch.from_numpy(b).to(d).requires_grad_()
+        dist = m(x, y)
+        gx, gy = torch.autograd.grad(dist.sum(), (x, y))
+        return dist.detach().cpu(), gx.cpu(), gy.cpu()
+
+    want = dist_grads(m_cpu, cpu)
+    errs = {}
+    for name, m in mods.items():
+        got = dist_grads(m, dev)
+        errs[name] = dict(
+            dist_rel=((got[0] - want[0]).abs() / want[0].abs()).max().item(),
+            grad1_rel=((got[1] - want[1]).abs().max()
+                       / want[1].abs().max()).item(),
+            grad2_rel=((got[2] - want[2]).abs().max()
+                       / want[2].abs().max()).item())
+    x = torch.from_numpy(a).to(dev).requires_grad_()
+    y = torch.from_numpy(b).to(dev)
+    m = mods["lpips"]
+    with torch.no_grad():
+        fwd_ms = cuda_median_ms(torch, lambda: m(x, y), n=10)
+    fwd_bwd_ms = cuda_median_ms(
+        torch, lambda: torch.autograd.grad(m(x, y).sum(), x), n=10)
+    prof = profile_ms(torch, lambda: [torch.autograd.grad(
+        m(x, y).sum(), x) for _ in range(3)], 3, top=6, cpu=False)
+    log("lpips_module", files={n: os.path.getsize(p)
+                               for n, p in files.items()},
+        load_seconds=load_s, tensors=len(want_sd),
+        params=sum(v.numel() for v in want_sd.values()),
+        loads_equal=same, float32_frozen_on_card=on_card,
+        batch=LPIPS_B, size=LPIPS_SIZE, dist_cpu=want[0].tolist(),
+        errors=errs, dist_rtol=LPIPS_TOL, grad_tol=LPIPS_GRAD_TOL,
+        allow_tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                        cudnn=torch.backends.cudnn.allow_tf32),
+        fwd_ms=fwd_ms, fwd_bwd_ms=fwd_bwd_ms,
+        fwd_bwd_device_ms=prof["device_ms"],
+        fwd_bwd_kernels=prof["kernels"],
+        top_kernels_ms=prof["top_kernels_ms"],
+        phase_seconds=lap("lpips_module"))
+    if not (same and on_card and all(
+            e["dist_rel"] <= LPIPS_TOL and e["grad1_rel"] <= LPIPS_GRAD_TOL
+            and e["grad2_rel"] <= LPIPS_GRAD_TOL for e in errs.values())):
+        fail(f"LPIPS on the card disagrees with the CPU: {errs}")
+
+    # 72. lpips_train: cli train with --lpips_weights, then the step.
+    data_dir = os.path.join(tmp, "corpus")
+    synthetic_corpus.generate_corpus(data_dir, n_images=LPIPS_SCENES,
+                                     image_size=TRAIN["image_size"], seed=0)
+    B, K = TRAIN["batch_size"], TRAIN["gaussians_per_patch"]
+    steps = LPIPS_CLI_EPOCHS * max(1, LPIPS_SCENES // B)
+    cli_runs = {}
+    for name, extra in (("float32", []), ("bf16", ["--use_amp"])):
+        out_dir = os.path.join(tmp, f"cli_{name}")
+        argv = ["--data_dir", data_dir, "--output_dir", out_dir, "--epochs",
+                str(LPIPS_CLI_EPOCHS), "--batch_size", str(B), "--lr",
+                str(TRAIN["lr"]), "--image_size", str(TRAIN["image_size"]),
+                "--gaussians_per_patch", str(K), "--surface_init",
+                "--depth_offset_init", str(TRAIN["depth_offset_init"]),
+                "--train_encoder", "--feature_size",
+                str(TRAIN["feature_size"]), "--encoder_width",
+                str(TRAIN["encoder_width"]), "--max_per_tile",
+                str(TRAIN["max_per_tile"]), "--no_augmentation",
+                "--lpips_weights", files["lpips"], "--lpips_weight",
+                str(LPIPS_WEIGHT), "--device", dev.type] + extra
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        (trainer, _), printed = quiet(tcli.main, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read()
+        path_launches[f"lpips_cli_{name}"] = launches
+        with open(os.path.join(out_dir, "final_model.pt.json")) as f:
+            meta = json.load(f)
+        hist = trainer.history
+        cli_runs[name] = dict(
+            seconds=seconds, launches=launches,
+            lpips_loaded=trainer.lpips is not None,
+            lpips_device=str(next(trainer.lpips.parameters()).device),
+            lpips_dtype=str(next(trainer.lpips.parameters()).dtype),
+            history_lpips=hist.get("lpips"), history_total=hist["total"],
+            sidecar=dict(lpips_weight=meta["config"]["lpips_weight"],
+                         use_amp=meta["config"]["use_amp"]))
+        cli_runs[name]["said"] = [ln for ln in printed.splitlines()
+                                  if "LPIPS" in ln]
+        ok = (trainer.lpips is not None and "lpips" in hist
+              and f"LPIPS weights loaded from {files['lpips']}" in printed
+              and np.all(np.isfinite(hist["lpips"] + hist["total"]))
+              and meta["config"]["lpips_weight"] == LPIPS_WEIGHT
+              and meta["config"]["use_amp"] == (name == "bf16")
+              and cli_runs[name]["lpips_dtype"] == "torch.float32"
+              and launches == dict(k1=steps, k2=steps, k3=0, k4=0,
+                                   k1phi=0, k2phi=0, k5=0, k6=0))
+        if not ok:
+            fail(f"cli train --lpips_weights ({name}): {cli_runs[name]}")
+        del trainer
+    lap("lpips_cli")
+
+    # Card against CPU: TRAIN_REF with the term, 2 steps from one init.
+    small = ImageDataset(data_dir, image_size=TRAIN_REF["image_size"],
+                         feature_dim=384, use_augmentation=False, device=dev)
+    ref_batches = train_batches(small, TRAIN_REF["batch_size"],
+                                LPIPS_REF_STEPS)
+    runs = {}
+    for name, d, amp in (("card", dev, False), ("cpu", cpu, False),
+                         ("card_bf16", dev, True), ("cpu_bf16", cpu, True)):
+        trainer, state = train_setup(
+            torch, d, dict(TRAIN_REF, lpips_weight=LPIPS_WEIGHT,
+                           use_amp=amp),
+            os.path.join(tmp, f"ref_{name}"), dropout=0.0,
+            lpips=tlp.load_lpips(files["lpips"], device=d))
+        trainer._make_optimizer(LPIPS_REF_STEPS)
+        gen = torch.Generator(device=d).manual_seed(1)
+        losses = []
+        for batch in ref_batches:
+            state, ld = trainer.train_step(
+                state, trainer.device_batch(batch),
+                TRAIN_REF["gaussians_per_patch"], None, gen)
+            losses.append({k: float(v) for k, v in ld.items()})
+        runs[name] = losses
+    rel = {k: max(abs(g[k] - w[k]) / abs(w[k])
+                  for g, w in zip(runs["card"], runs["cpu"]))
+           for k in ("lpips", "total")}
+    # bf16: the first step's losses (the same init on both sides) within
+    # AMP_GAP x the CPU's own bf16 gap; the second step's ratio is logged
+    # (a bf16 update parts the trajectories by about that gap again).
+    amp_ok, amp_worst, amp_at = amp_gap_ok(
+        runs["card_bf16"][:1], runs["cpu_bf16"][:1], runs["cpu"][:1],
+        keys=("lpips", "total"))
+    _, amp_worst_2, amp_at_2 = amp_gap_ok(
+        runs["card_bf16"][1:], runs["cpu_bf16"][1:], runs["cpu"][1:],
+        keys=("lpips", "total"))
+    reference = dict(
+        steps=LPIPS_REF_STEPS, lpips_card=[r["lpips"] for r in runs["card"]],
+        lpips_cpu=[r["lpips"] for r in runs["cpu"]],
+        total_card=[r["total"] for r in runs["card"]],
+        total_cpu=[r["total"] for r in runs["cpu"]], rel_err=rel,
+        rtol=REF_LOSS_RTOL,
+        bf16=dict(lpips_card=[r["lpips"] for r in runs["card_bf16"]],
+                  lpips_cpu=[r["lpips"] for r in runs["cpu_bf16"]],
+                  total_card=[r["total"] for r in runs["card_bf16"]],
+                  total_cpu=[r["total"] for r in runs["cpu_bf16"]],
+                  worst_ratio_step1=amp_worst, worst_term_step1=amp_at,
+                  worst_ratio_step2=amp_worst_2,
+                  worst_term_step2=amp_at_2, gap_factor=AMP_GAP))
+    if not (max(rel.values()) <= REF_LOSS_RTOL and amp_ok):
+        fail(f"lpips_train: the card's steps disagree with the CPU's: "
+             f"{reference}")
+    lap("lpips_reference")
+
+    # The flagship step with the term on and off, float32 and bf16, in
+    # turns (off, on, on, off) on the same batches.
+    big = ImageDataset(data_dir, image_size=TRAIN["image_size"],
+                       feature_dim=TRAIN["feature_dim"],
+                       use_augmentation=False, device=dev)
+    host_batches = train_batches(big, B, LPIPS_WARMUP + LPIPS_TIMED)
+    half = LPIPS_TIMED // 2
+    timing = {}
+    for precision, amp in (("float32", False), ("bf16", True)):
+        live = {}
+        for term in ("off", "on"):
+            trainer, state = train_setup(
+                torch, dev, dict(TRAIN, use_amp=amp, lpips_weight=(
+                    LPIPS_WEIGHT if term == "on" else 0.0)),
+                os.path.join(tmp, f"{precision}_{term}"),
+                lpips=mods["lpips"] if term == "on" else None)
+            trainer._make_optimizer(TRAIN["epochs"])
+            batches = [trainer.device_batch(hb) for hb in host_batches]
+            gen = torch.Generator(device=dev).manual_seed(1)
+            for hb in batches[:LPIPS_WARMUP]:
+                state, _ = trainer.train_step(state, hb, K, None, gen)
+            live[term] = dict(trainer=trainer, state=state, batches=batches,
+                              gen=gen, ms=[], host_ms=[], losses=[],
+                              launches={})
+        for turn, term in enumerate(("off", "on", "on", "off")):
+            r = live[term]
+            first = LPIPS_WARMUP + half * (turn in (2, 3))
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            events = []
+            t0 = time.perf_counter()
+            for hb in r["batches"][first:first + half]:
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                r["state"], ld = r["trainer"].train_step(
+                    r["state"], hb, K, None, r["gen"])
+                end.record()
+                events.append((start, end))
+                r["losses"].append(ld)
+            torch.cuda.synchronize()
+            r["host_ms"].append((time.perf_counter() - t0) / half * 1e3)
+            r["ms"].extend(s_.elapsed_time(e_) for s_, e_ in events)
+            for k, v in read().items():
+                r["launches"][k] = r["launches"].get(k, 0) + v
+        out = {}
+        for term in ("off", "on"):
+            r = live.pop(term)
+
+            def run_steps():
+                for hb in r["batches"][:LPIPS_PROFILED]:
+                    r["state"], _ = r["trainer"].train_step(
+                        r["state"], hb, K, None, r["gen"])
+
+            prof = profile_ms(torch, run_steps, LPIPS_PROFILED, top=6,
+                              cpu=False)
+            lpips_seen = all("lpips" in ld for ld in r["losses"])
+            totals = [float(ld["total"]) for ld in r["losses"]]
+            path_launches[f"lpips_train_{precision}_{term}"] = r["launches"]
+            out[term] = dict(
+                ms_per_step_median=statistics.median(r["ms"]),
+                ms_per_step=r["ms"],
+                host_ms_per_step=statistics.mean(r["host_ms"]),
+                device_ms_per_step=prof["device_ms"],
+                device_busy_share=prof["device_busy_share"],
+                kernels_per_step=prof["kernels"],
+                top_kernels_ms_per_step=prof["top_kernels_ms"],
+                launches_per_step=per_step(r["launches"], LPIPS_TIMED),
+                lpips_in_loss=lpips_seen, losses=totals)
+            if not (per_step(r["launches"], LPIPS_TIMED)
+                    == dict(k1=1.0, k2=1.0)
+                    and lpips_seen == (term == "on")
+                    and np.all(np.isfinite(totals))):
+                fail(f"lpips_train {precision} term {term}: {out[term]}")
+            del r
+        out["on_minus_off"] = {
+            k: out["on"][k] - out["off"][k] for k in (
+                "ms_per_step_median", "host_ms_per_step",
+                "device_ms_per_step", "kernels_per_step")}
+        timing[precision] = out
+    log("lpips_train", config=TRAIN, lpips_weight=LPIPS_WEIGHT,
+        scenes=LPIPS_SCENES, cli=cli_runs, reference=reference,
+        warmup_steps=LPIPS_WARMUP, steps=LPIPS_TIMED,
+        turns=["off", "on", "on", "off"], profiled_steps=LPIPS_PROFILED,
+        **timing, phase_seconds=lap("lpips_train"))
+
+    # 73. ms_ssim_matching: ms_ssim and the matching loss, card vs CPU.
+    ms = {}
+    for size in MS_SSIM_SIZES:
+        x = np.stack([smooth_image(size, 100 + s) for s in range(LPIPS_B)])
+        rng = np.random.default_rng(size)
+        y = np.clip(x + rng.normal(scale=0.05, size=x.shape), 0, 1).astype(
+            np.float32)
+        xc, yc = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        card = ms_ssim(xc, yc).item()
+        want = ms_ssim(torch.from_numpy(x), torch.from_numpy(y)).item()
+        ms[size] = dict(card=card, cpu=want, abs_err=abs(card - want),
+                        ms=cuda_median_ms(torch, lambda: ms_ssim(xc, yc),
+                                          n=10))
+    pred, target, tmask = match_inputs(73)
+    args_cpu = (torch.from_numpy(pred), torch.from_numpy(target))
+    args_dev = tuple(t.to(dev) for t in args_cpu)
+    tm_cpu = torch.from_numpy(tmask)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = gaussian_matching_loss(*args_dev, target_mask=tm_cpu.to(dev))
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    match_ms = cuda_median_ms(torch, lambda: gaussian_matching_loss(
+        *args_dev, target_mask=tm_cpu.to(dev)), n=MATCH_TIMED, warmup=1)
+    t0 = time.perf_counter()
+    want = gaussian_matching_loss(*args_cpu, target_mask=tm_cpu)
+    cpu_s = time.perf_counter() - t0
+    match_rel = {k: abs(got[k].item() - v.item()) / abs(v.item())
+                 for k, v in want.items()}
+    log("ms_ssim_matching", ms_ssim={str(k): v for k, v in ms.items()},
+        ms_ssim_batch=LPIPS_B, ms_ssim_tol=MS_SSIM_TOL, matching=dict(
+            MATCH, max_match_points=4096, diff_shape=[MATCH["B"], 4096,
+                                                      8192, 3],
+            card={k: v.item() for k, v in got.items()},
+            cpu={k: v.item() for k, v in want.items()}, rel_err=match_rel,
+            rtol=MATCH_RTOL, ms=match_ms, peak_mem_gb=peak_gb,
+            cpu_seconds=cpu_s),
+        phase_seconds=lap("ms_ssim_matching"))
+    if not (all(v["abs_err"] <= MS_SSIM_TOL for v in ms.values())
+            and max(match_rel.values()) <= MATCH_RTOL):
+        fail("ms_ssim or the matching loss on the card disagrees with the "
+             "CPU")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("lpips_phases", seconds=phase_s, total_seconds=sum(phase_s.values()),
+        cap_seconds=LPIPS_PHASES_CAP_S)
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
     """K1 (and with `backward` K2, cotangents from a seed) against their
     plain versions on one pack: errors, times and bounds."""
@@ -5994,6 +6409,9 @@ def main():
     # 67-70. the remaining renderers (K7 + K8 in dense and simplified, K5 +
     # K6 in asm), the diffractive layers and the quantised depth sorts
     k_render = renderer_phases(torch, dev, path_launches, dec_cloud)
+    # 71-74. the LPIPS term in decoder training (K1 + K2 per step, with the
+    # term on and off), ms_ssim and the Chamfer matching loss
+    lpips_phases(torch, dev, path_launches)
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k_saag["k1"]["k1_max_abs_err"])
     k1["at_saag_render_pack"] = dict(k_saag["k1"]["k1"], T=k_saag["k1"]["T"],

@@ -2,10 +2,12 @@
 
 Counterpart of fresnel_tpu/losses/aggregate.py::compute_losses, term for
 term and key for key: L1 RGB (optionally VLM-density weighted), 1 - SSIM,
-LPIPS (not ported: a given `lpips_fn` raises), normalised depth L1, the
-residual regulariser, the Fresnel boundary term, the Helmholtz residual,
-HFGS phase retrieval and the frequency-domain loss.  Every value of the
-returned dict is a tensor on the inputs' device (no host read).
+LPIPS (with an `lpips_fn`, such as losses.lpips.LPIPS: both images
+resized to 128^2 as jax.image.resize does, antialiased when shrinking,
+and mapped to [-1, 1]), normalised depth L1, the residual regulariser,
+the Fresnel boundary term, the Helmholtz residual, HFGS phase retrieval
+and the frequency-domain loss.  Every value of the returned dict is a
+tensor on the inputs' device (no host read).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from fresnel_tpu_torch.core.ops import resize_linear
 from fresnel_tpu_torch.losses.physics import (
     constrain_learnable_wavelengths,
     frequency_domain_loss,
@@ -22,7 +25,6 @@ from fresnel_tpu_torch.losses.physics import (
     wave_equation_loss,
 )
 from fresnel_tpu_torch.losses.ssim import ssim
-from fresnel_tpu_torch.models.encoders import resize_linear
 from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones
 from fresnel_tpu_torch.train.config import (
     HFGSConfig, PhysicsConfig, TrainingConfig)
@@ -35,8 +37,7 @@ def compute_losses(
     target_depth: Optional[torch.Tensor] = None,     # (B, H, W)
     residuals: Optional[Dict[str, torch.Tensor]] = None,
     config: Optional[TrainingConfig] = None,
-    lpips_fn=None,
-    lpips_params=None,
+    lpips_fn=None,                        # callable(a, b) -> (B,)
     vlm_density: Optional[torch.Tensor] = None,   # (B, 1, h, w)
     physics_config: Optional[PhysicsConfig] = None,
     hfgs_config: Optional[HFGSConfig] = None,
@@ -68,8 +69,11 @@ def compute_losses(
         total = total + config.ssim_weight * ssim_l
 
     if lpips_fn is not None and config.lpips_weight > 0:
-        raise NotImplementedError(
-            "the LPIPS term is not ported (ROADMAP Queue 1, item 6)")
+        r128 = resize_linear(rendered_c, 128, 128) * 2 - 1
+        t128 = resize_linear(target, 128, 128) * 2 - 1
+        lp = lpips_fn(r128, t128).mean()
+        loss_dict["lpips"] = lp
+        total = total + config.lpips_weight * lp
 
     if (rendered_depth is not None and target_depth is not None
             and config.depth_weight > 0):

@@ -1,8 +1,8 @@
 """SSIM (Wang et al.) with an 11-tap Gaussian window, sigma 1.5.
 
-Counterpart of fresnel_tpu/losses/ssim.py (`ssim`, `ssim_loss`), with the
-usual K1 = 0.01, K2 = 0.03 stabilisers and the window shrink for images
-smaller than the window.
+Counterpart of fresnel_tpu/losses/ssim.py (`ssim`, `ssim_loss`,
+`ms_ssim`), with the usual K1 = 0.01, K2 = 0.03 stabilisers and the window
+shrink for images smaller than the window.
 
 The Gaussian window is the outer product of one 1-D tap vector, so the
 valid filter runs as two 1-D passes (rows, then columns) of elementwise
@@ -70,3 +70,54 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,
 def ssim_loss(img1: torch.Tensor, img2: torch.Tensor,
               data_range: float = 1.0) -> torch.Tensor:
     return 1.0 - ssim(img1, img2, data_range=data_range)
+
+
+def _downsample(x: torch.Tensor) -> torch.Tensor:
+    """2 x 2 VALID average pool of the last two axes (an odd last row or
+    column is dropped), summed in the window's row-major order."""
+    H, W = x.shape[-2] // 2 * 2, x.shape[-1] // 2 * 2
+    x = x[..., :H, :W]
+    return (x[..., 0::2, 0::2] + x[..., 0::2, 1::2] + x[..., 1::2, 0::2]
+            + x[..., 1::2, 1::2]) / 4.0
+
+
+def ms_ssim(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,
+            weights=(0.0448, 0.2856, 0.3001, 0.2363, 0.1333),
+            window_size: int = 11) -> torch.Tensor:
+    """Multi-scale SSIM over up to five dyadic scales with the standard
+    weights.  Levels whose side would fall under the window are dropped
+    and the remaining weights renormalised (the window itself shrinks as
+    in `ssim` when level 0 is smaller); each level's value is floored at
+    1e-6 before the weighted product."""
+    if img1.dim() == 3:
+        img1, img2 = img1[None], img2[None]
+    min_side = min(img1.shape[-2], img1.shape[-1])
+    if min_side < window_size:
+        window_size = max(1, min_side - (min_side + 1) % 2)
+    w = _gaussian_window(window_size, 1.5)
+    C1 = (0.01 * data_range) ** 2
+    C2 = (0.03 * data_range) ** 2
+    usable = 1
+    while (usable < len(weights)
+           and min_side // (2 ** usable) >= window_size):
+        usable += 1
+    wts = torch.tensor(weights[:usable], dtype=torch.float32,
+                       device=img1.device)
+    wts = wts / wts.sum()
+
+    vals = []
+    a, b = img1, img2
+    for lvl in range(usable):
+        mu1, mu2 = _filter2d(a, w), _filter2d(b, w)
+        s1 = torch.clamp(_filter2d(a * a, w) - mu1 * mu1, min=0.0)
+        s2 = torch.clamp(_filter2d(b * b, w) - mu2 * mu2, min=0.0)
+        s12 = _filter2d(a * b, w) - mu1 * mu2
+        if lvl < usable - 1:
+            vals.append(((2 * s12 + C2) / (s1 + s2 + C2)).mean())
+            a, b = _downsample(a), _downsample(b)
+        else:
+            vals.append((((2 * mu1 * mu2 + C1) * (2 * s12 + C2))
+                         / ((mu1 * mu1 + mu2 * mu2 + C1) * (s1 + s2 + C2))
+                         ).mean())
+    vals = torch.clamp(torch.stack(vals), min=1e-6)
+    return torch.prod(vals ** wts)

@@ -1,4 +1,5 @@
-"""Random DINOv2 and Depth-Anything checkpoints in the published layouts.
+"""Random DINOv2, Depth-Anything and LPIPS checkpoints in the published
+layouts.
 
 The published files (`facebook/dinov2-small`, the facebook-research
 `dinov2_vits14_pretrain.pth`, `Depth-Anything-V2-Small-hf`) are not in
@@ -15,6 +16,11 @@ real ViT-S/14 trunks end to end:
     HF naming (`backbone.*` as above, `neck.reassemble_stage`,
     `neck.convs`, `neck.fusion_stage` with level 0's dead
     `residual_layer1`, `head.conv1..3`);
+  * `lpips_checkpoint("lpips" | "torchvision", ...)`: an lpips-alex
+    state dict (the AlexNet trunk's five convs and the five 1x1 `lin`
+    heads, non-negative) in the lpips package's naming
+    (`net.slice{s}.{j}`, `lin{i}.model.1.weight`, the scaling layer's
+    buffers) or torchvision's (`features.{j}`, `lins.{i}.model.1.weight`);
   * `save_checkpoint(path, sd)`: `.pth` by torch.save, `.safetensors` by
     the port's own writer.
 
@@ -30,6 +36,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from fresnel_tpu_torch.losses.lpips import _ALEX_CFG, _SCALE, _SHIFT
 from fresnel_tpu_torch.models.vit import (
     DA_FUSION, DA_HEAD_HIDDEN, DA_NECK_CHANNELS)
 
@@ -144,6 +151,38 @@ def depth_anything_checkpoint(width: int = 384, depth: int = 12,
     conv("head.conv2", head_hidden, fusion // 2, 3)
     conv("head.conv3", 1, head_hidden, 1)
     sd["head.conv3.bias"] = np.ones(1, np.float32)
+    return sd
+
+
+# The AlexNet convs' indices in torchvision's `features`; the lpips
+# package holds them in slices 1-5.
+_ALEX_INDICES = (0, 3, 6, 8, 10)
+
+
+def lpips_checkpoint(naming: str = "lpips", seed: int = 0
+                     ) -> Dict[str, np.ndarray]:
+    """An lpips-alex state dict in `naming` ("lpips": the lpips package's
+    `LPIPS(net='alex')`, or "torchvision": `alexnet.features` with the
+    heads as `lins.{i}`), at the published shapes, random from `seed`;
+    the `lin` heads (1, C, 1, 1) are non-negative, as published."""
+    if naming not in ("lpips", "torchvision"):
+        raise ValueError(f"unknown naming {naming!r}")
+    d = _Draw(seed)
+    sd: Dict[str, np.ndarray] = {}
+    if naming == "lpips":
+        sd["scaling_layer.shift"] = _SHIFT.reshape(1, 3, 1, 1)
+        sd["scaling_layer.scale"] = _SCALE.reshape(1, 3, 1, 1)
+    c_in = 3
+    for s, (j, (c, k, _, _)) in enumerate(zip(_ALEX_INDICES, _ALEX_CFG),
+                                          start=1):
+        pre = f"net.slice{s}.{j}." if naming == "lpips" else f"features.{j}."
+        sd[pre + "weight"] = d.weight(c, c_in, k, k, fan_in=c_in * k * k)
+        sd[pre + "bias"] = d.small(c, scale=0.05)
+        c_in = c
+    for i, (c, _, _, _) in enumerate(_ALEX_CFG):
+        key = (f"lin{i}" if naming == "lpips" else f"lins.{i}")
+        sd[key + ".model.1.weight"] = np.abs(d.small(
+            1, c, 1, 1, scale=0.1)).astype(np.float32)
     return sd
 
 

@@ -41,9 +41,12 @@ one batched call.  With `use_amp` the encoder and the decoder run in
 bf16 inside the loss (`utils.precision.amp_apply`: bf16 copies of their
 float32 parameters and positional inputs, float32 outputs), as the JAX
 package's loss_fn runs them; the SAAG prior, the render, the losses,
-`encode` and `decode` stay float32.  Not ported (each raises
-NotImplementedError, queued in ROADMAP.md): LPIPS in the step and more
-than one device.
+`encode` and `decode` stay float32.  With an LPIPS module
+(`Trainer(lpips=losses.lpips.load_lpips(...))`) and `lpips_weight` > 0
+the step adds the LPIPS term of the 128^2 render and target; the module
+moves to the trainer's device, stays float32 under `use_amp`, and is
+neither a parameter nor a checkpoint leaf.  More than one device is not
+ported (NotImplementedError, queued in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ from fresnel_tpu_torch.geometry import (
     AdaptiveDensityParams, SilhouetteWrapParams, SurfaceGaussianParams,
     VolumetricShellParams, pointcloud_from_depth, to_surface_gaussians)
 from fresnel_tpu_torch.losses.aggregate import compute_losses
+from fresnel_tpu_torch.losses.lpips import LPIPS
 from fresnel_tpu_torch.losses.physics import init_learnable_wavelengths
 from fresnel_tpu_torch.losses.ssim import ssim
 from fresnel_tpu_torch.models.blocks import tensegrity_loss
@@ -263,20 +267,17 @@ class Trainer:
         default_factory=PhysicsConfig)
     hfgs_config: HFGSConfig = dataclasses.field(default_factory=HFGSConfig)
     hfts_config: HFTSConfig = dataclasses.field(default_factory=HFTSConfig)
-    lpips: Optional[Any] = None
+    lpips: Optional[LPIPS] = None
     device: Any = None
 
     def __post_init__(self):
         cfg = self.config
-        unported = {
-            "lpips (ROADMAP Queue 1, item 6)": self.lpips is not None,
-            "num_devices > 1 (ROADMAP Queue 1, item 12)":
-                (cfg.num_devices or 1) > 1,
-        }
-        on = [k for k, v in unported.items() if v]
-        if on:
-            raise NotImplementedError(f"not ported: {on}")
+        if (cfg.num_devices or 1) > 1:
+            raise NotImplementedError(
+                "not ported: num_devices > 1 (ROADMAP Queue 1, item 12)")
         self.device = resolve_device(self.device)
+        if self.lpips is not None:
+            self.lpips = self.lpips.to(self.device)
         self.model = build_decoder(cfg, self.physics_config)
         self.encoder = None
         if cfg.train_encoder:
@@ -434,7 +435,7 @@ class Trainer:
         total, ld = compute_losses(
             imgs, target, rendered_depth=rdepth, target_depth=target_depth,
             residuals=out.get("residuals"), config=cfg,
-            vlm_density=batch.get("vlm_density"),
+            lpips_fn=self.lpips, vlm_density=batch.get("vlm_density"),
             physics_config=self.physics_config, hfgs_config=self.hfgs_config,
             learnable_wavelengths_raw=params.get("wavelengths_raw"),
             fresnel_zones=self.fresnel_zones,

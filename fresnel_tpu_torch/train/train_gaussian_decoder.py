@@ -9,9 +9,11 @@ distillation from `fit_teacher` sidecars for 2 and 4 (`--distill_weight`,
 `--distill_decay_epochs`; the dataset reads the sidecars of the
 experiment trained), and bf16 decoder and encoder compute with float32
 master weights (--use_amp, written to the sidecar; a --resume passes it
-again, as in the JAX package).  Flags whose features are not ported
-(--streaming, --lpips_weights or found LPIPS weights, --num_devices > 1)
-raise NotImplementedError.
+again, as in the JAX package), and the LPIPS term from --lpips_weights
+or a file found under $FRESNEL_TPU_MODELS, ./models or ~/models
+(`lpips_alex.pth` / `.pt` / `.npz`, `lpips.pth` / `.npz`; with none, the
+term is dropped, as in the JAX package).  Flags whose features are not
+ported (--streaming, --num_devices > 1) raise NotImplementedError.
 Checkpoints are `.pt` files with the JAX package's JSON sidecars.
 
 Run:  python -m fresnel_tpu_torch.train.train_gaussian_decoder --synthetic \
@@ -317,19 +319,23 @@ def main(argv=None):
     config, physics, hfgs, hfts = configs_from_args(args)
 
     from fresnel_tpu_torch.device import resolve_device
+    from fresnel_tpu_torch.losses.lpips import load_lpips
     from fresnel_tpu_torch.models.encoders import _probe_weights
     from fresnel_tpu_torch.train.harness import Trainer
 
     device = resolve_device(args.device)
-    lpips_path = args.lpips_weights or _probe_weights(
-        ("lpips_alex.pth", "lpips_alex.pt", "lpips_alex.npz",
-         "lpips.pth", "lpips.npz"))
-    if lpips_path is not None:
-        raise NotImplementedError(
-            f"LPIPS weights at {lpips_path}: the LPIPS term is not ported "
-            "(ROADMAP Queue 1, item 6)")
-    if config.lpips_weight > 0:
-        print("LPIPS weights unavailable -> LPIPS term disabled")
+    lpips_path = args.lpips_weights
+    if lpips_path is None:
+        lpips_path = _probe_weights(
+            ("lpips_alex.pth", "lpips_alex.pt", "lpips_alex.npz",
+             "lpips.pth", "lpips.npz"))
+    lpips = load_lpips(lpips_path, device=device)
+    if lpips is not None:
+        print(f"LPIPS weights loaded from {lpips_path}")
+    elif config.lpips_weight > 0:
+        print("LPIPS weights unavailable -> LPIPS term disabled "
+              "(pass --lpips_weights or place lpips_alex.pth under "
+              "$FRESNEL_TPU_MODELS or ./models to enable)")
         config.lpips_weight = 0.0
     if args.streaming:
         raise NotImplementedError(
@@ -350,7 +356,8 @@ def main(argv=None):
             teacher_experiment=config.experiment, device=device)
     print(f"dataset: {len(dataset)} samples")
 
-    trainer = Trainer(config, physics, hfgs, hfts, device=device)
+    trainer = Trainer(config, physics, hfgs, hfts, lpips=lpips,
+                      device=device)
 
     state = None
     start_epoch = 0

@@ -87,6 +87,15 @@ def diffractive_state_dict(flat: Mapping[str, np.ndarray]
     return _convert(flat)
 
 
+def lpips_state_dict(flat: Mapping[str, np.ndarray]
+                     ) -> Dict[str, torch.Tensor]:
+    """Flat LPIPS params (`trunk/conv{i}/kernel` (kH, kW, I, O),
+    `trunk/conv{i}/bias`, `lin{i}`) -> state dict of losses.lpips.LPIPS
+    (`trunk.conv{i}.weight` (O, I, kH, kW), `trunk.conv{i}.bias`,
+    `lin{i}`)."""
+    return _convert(flat)
+
+
 def dinov2_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat DINOv2 params -> state dict of models.vit.DINOv2."""
     return _convert(flat, renames=(_BLOCKS,))

@@ -24,7 +24,9 @@ counts on and one past a checkpoint boundary, the box off with radian
 phases).  The dense compositing pair K7 / K8 (both modes) at the same
 tolerances, around their stages and back-walk runs, with alpha on its
 clip and SIMPLE's depth ties; the four renderers K5-K8 serve, the
-diffractive layers and the quantised depth sorts, card against CPU.
+diffractive layers and the quantised depth sorts, card against CPU; the
+LPIPS distance and its gradients, ms_ssim and the matching loss, card
+against CPU.
 """
 
 import numpy as np
@@ -1577,3 +1579,69 @@ def test_quantized_depth_sorts_on_card_equal_cpu(cuda, method):
                      visible=proj.visible.to(cuda)), method=method)
     want = projection.depth_sort_indices(proj, method=method)
     assert torch.equal(got.cpu(), want)
+
+
+def test_lpips_on_card_matches_cpu(cuda):
+    """LPIPS (random filters, 64^2, batch 2) and its gradients with respect
+    to both images on the card against the CPU, float32 with TF32 off:
+    distance within 1e-5 relative, gradients within 1e-4 of their largest
+    entry; the module stays float32 and frozen on the card."""
+    from fresnel_tpu_torch.losses.lpips import random_lpips
+
+    rng = np.random.default_rng(1)
+    a, b = (rng.uniform(-1, 1, (2, 3, 64, 64)).astype(np.float32)
+            for _ in range(2))
+    res = {}
+    for dev in ("cpu", cuda):
+        m = random_lpips(0, device=dev)
+        assert all(p.device.type == torch.device(dev).type
+                   and p.dtype == torch.float32 and not p.requires_grad
+                   for p in m.parameters())
+        x = torch.from_numpy(a).to(dev).requires_grad_()
+        y = torch.from_numpy(b).to(dev).requires_grad_()
+        d = m(x, y)
+        res[str(dev)] = [d.detach().cpu()] + [
+            g.cpu() for g in torch.autograd.grad(d.sum(), (x, y))]
+    (dg, *gg), (dc, *gc) = res[str(cuda)], res["cpu"]
+    assert ((dg - dc).abs() / dc.abs()).max().item() <= 1e-5
+    for g, c in zip(gg, gc):
+        assert (g - c).abs().max().item() <= 1e-4 * c.abs().max().item()
+
+
+def test_ms_ssim_and_matching_on_card_match_cpu(cuda):
+    """ms_ssim at 128^2 (four levels) within 1e-6 of the CPU's with TF32
+    switched on (its filter avoids cuDNN), and gaussian_matching_loss with
+    subsampling, padding and a mask, every output within 1e-5 relative."""
+    from fresnel_tpu_torch.losses.matching import gaussian_matching_loss
+    from fresnel_tpu_torch.losses.ssim import ms_ssim
+
+    rng = np.random.default_rng(2)
+    a = rng.uniform(size=(2, 3, 128, 128)).astype(np.float32)
+    b = np.clip(a + rng.normal(scale=0.05, size=a.shape), 0, 1).astype(
+        np.float32)
+    want = ms_ssim(torch.from_numpy(a), torch.from_numpy(b)).item()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = ms_ssim(torch.from_numpy(a).to(cuda),
+                      torch.from_numpy(b).to(cuda)).item()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    assert abs(got - want) <= 1e-6, (got, want)
+
+    pred = rng.uniform(-1, 1, (2, 300, 14)).astype(np.float32)
+    target = rng.uniform(-1, 1, (2, 700, 14)).astype(np.float32)
+    pred[:, -20:] = 0.0
+    tmask = torch.from_numpy(rng.uniform(size=(2, 700)) > 0.2)
+    kw = dict(max_match_points=128)
+    want = gaussian_matching_loss(torch.from_numpy(pred),
+                                  torch.from_numpy(target),
+                                  target_mask=tmask, **kw)
+    got = gaussian_matching_loss(torch.from_numpy(pred).to(cuda),
+                                 torch.from_numpy(target).to(cuda),
+                                 target_mask=tmask.to(cuda), **kw)
+    for k, v in want.items():
+        assert abs(got[k].item() - v.item()) <= 1e-5 * abs(v.item()), k

@@ -11,6 +11,10 @@ renders from a seed.
   the frequency loss (`dft2` is an FFT here, a DFT matmul in JAX), and the
   gradient in `rendered` of the total and of each term within 1e-5 of its
   largest entry (measured: 4.8e-7 for the total).
+* The LPIPS term (random lpips-alex weights in both packages) from 256^2
+  renders, which the term shrinks to 128^2 with antialiasing, and from
+  64^2, which it upsamples: the term and the total within 1e-6, the
+  gradient of the total in `rendered` within 1e-5 of its largest entry.
 * `tensegrity_loss` and its gradient within 1e-5 relative;
   `normalized_depth_l1` within 1e-6.
 """
@@ -22,18 +26,22 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from flax.traverse_util import unflatten_dict
 
 from fresnel_tpu.losses import aggregate as jagg
+from fresnel_tpu.losses import lpips as jlpips
 from fresnel_tpu.losses import physics as jphys
 from fresnel_tpu.models.blocks import tensegrity_loss as jtens
 from fresnel_tpu.physics.fresnel_zones import FresnelZones as JZones
 from fresnel_tpu.train import config as jconfig
 
 from fresnel_tpu_torch.losses import aggregate as tagg
+from fresnel_tpu_torch.losses import lpips as tlpips
 from fresnel_tpu_torch.losses import physics as tphys
 from fresnel_tpu_torch.models.blocks import tensegrity_loss as ttens
 from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones as TZones
 from fresnel_tpu_torch.train import config as tconfig
+from fresnel_tpu_torch.weights import lpips_state_dict
 from test_torch_threads import _few_threads  # noqa: F401
 
 
@@ -149,13 +157,58 @@ def test_compute_losses_matches(case):
             np.abs(jgk).max(), 1e-30), k
 
 
-def test_lpips_term_raises():
-    rendered, target, *_ = _inputs()
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        tagg.compute_losses(torch.from_numpy(rendered),
-                            torch.from_numpy(target),
-                            config=tconfig.TrainingConfig(lpips_weight=0.1),
-                            lpips_fn=lambda *a: None)
+def _lpips_pair(seed=0):
+    """The same random lpips-alex weights in both packages: JAX's LPIPS
+    apply with its Flax params, and the port's module."""
+    rng = np.random.default_rng(seed)
+    flat, in_c = {}, 3
+    for i, (c, k, _, _) in enumerate(tlpips._ALEX_CFG):
+        flat[f"trunk/conv{i}/kernel"] = (rng.standard_normal(
+            (k, k, in_c, c)) / np.sqrt(k * k * in_c)).astype(np.float32)
+        flat[f"trunk/conv{i}/bias"] = (rng.standard_normal(c) * 0.05
+                                       ).astype(np.float32)
+        flat[f"lin{i}"] = np.abs(rng.standard_normal(c) * 0.1).astype(
+            np.float32)
+        in_c = c
+    jparams = {"params": unflatten_dict(
+        {tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})}
+    port = tlpips.LPIPS()
+    port.load_state_dict(lpips_state_dict(flat))
+    return jlpips.LPIPS().apply, jparams, port.eval().requires_grad_(False)
+
+
+@pytest.mark.parametrize("size", [256, 64])
+def test_lpips_term_matches(size):
+    """The LPIPS term from 256^2 (antialiased down to 128^2) and from 64^2
+    (upsampled): the term and the total within 1e-6, the gradient of the
+    total in `rendered` within GRAD_TOL of its largest entry."""
+    rng = np.random.default_rng(size)
+    rendered = rng.uniform(-0.05, 1.05, (2, 3, size, size)).astype(
+        np.float32)
+    target = rng.uniform(0, 1, (2, 3, size, size)).astype(np.float32)
+    apply, jparams, port = _lpips_pair()
+    cfg = dict(image_size=size, lpips_weight=0.1)
+
+    @jax.jit
+    def jloss(r):
+        return jagg.compute_losses(
+            r, jnp.asarray(target), config=jconfig.TrainingConfig(**cfg),
+            lpips_fn=apply, lpips_params=jparams)
+
+    (jt, jd), jg = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(rendered))
+    r = torch.from_numpy(rendered).requires_grad_()
+    tt, td = tagg.compute_losses(r, torch.from_numpy(target),
+                                 config=tconfig.TrainingConfig(**cfg),
+                                 lpips_fn=port)
+    assert set(td) == set(jd) == {"rgb", "ssim", "lpips", "total"}
+    for k in ("lpips", "total"):
+        assert abs(td[k].item() - float(jd[k])) <= 1e-6, (
+            k, td[k].item(), float(jd[k]))
+    (tg,) = torch.autograd.grad(tt, r)
+    jg = np.asarray(jg)
+    err = np.abs(tg.numpy() - jg).max()
+    assert err <= GRAD_TOL * np.abs(jg).max(), err
 
 
 def test_tensegrity_and_depth_l1_match():

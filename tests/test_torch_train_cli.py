@@ -11,6 +11,8 @@ width 8, 2 epochs of 2 steps.
 * `encode` gives (B, grid, grid, feature_dim) features.
 * Flags of unported features raise NotImplementedError, and the CLI
   refuses to run without CUDA unless --device cpu is given.
+  `--lpips_weights` with an lpips-alex file trains with the LPIPS term;
+  with a path that does not exist it drops the term, as the JAX CLI does.
 * `--experiment 4` trains the spiral decoder (one Gaussian per point);
   `--experiment 1`, `3` and `5` train the SAAG refinement, the
   feature-guided SAAG and the NCA decoders (one epoch, finite losses,
@@ -29,6 +31,8 @@ import torch
 from fresnel_tpu.train import train_gaussian_decoder as jcli
 
 from fresnel_tpu_torch import cli
+from fresnel_tpu_torch.models.backbone_files import (
+    lpips_checkpoint, save_checkpoint)
 from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
 from test_torch_threads import _few_threads  # noqa: F401
 
@@ -104,14 +108,18 @@ def test_cli_train_subcommand(tmp_path):
     assert (tmp_path / "final_model.pt").exists()
 
 
-# The wave-optics flags and --use_amp (bf16 decoder training) are
-# ported: their cases (same ids) train one epoch on the renderer the JAX
-# package picks.
+# The wave-optics flags, --use_amp (bf16 decoder training) and
+# --lpips_weights are ported: their cases (same ids) train one epoch on
+# the renderer the JAX package picks.  --lpips_weights names a file in
+# tmp_path: lpips.pth is written there (an lpips-alex checkpoint at the
+# published shapes) and trains with the term at weight 0.1; missing.pth
+# is not, and the term is dropped, as the JAX CLI drops it.
 PORTED_FLAGS = {"--use_amp": "TileRenderer",
                 "--use_phase_blending": "TileRenderer",
                 "--use_qsr": "WaveRenderer",
                 "--use_wave_rendering": "WaveRenderer",
-                "--use_fourier_renderer": "TileRenderer"}
+                "--use_fourier_renderer": "TileRenderer",
+                "--lpips_weights": "TileRenderer"}
 
 
 @pytest.mark.parametrize("extra", [["--streaming"], ["--use_amp"],
@@ -120,15 +128,31 @@ PORTED_FLAGS = {"--use_amp": "TileRenderer",
                                    ["--use_qsr"],
                                    ["--use_wave_rendering"],
                                    ["--use_fourier_renderer"],
-                                   ["--lpips_weights", "lpips.pth"]])
+                                   ["--lpips_weights", "lpips.pth"],
+                                   ["--lpips_weights", "missing.pth"]])
 def test_unported_flags_raise(extra, tmp_path):
     argv = FLAGS + ["--output_dir", str(tmp_path), "--device", "cpu",
                     "--synthetic_samples", "2"] + extra
+    if extra[0] == "--lpips_weights":
+        path = tmp_path / extra[1]
+        argv[argv.index(extra[1])] = str(path)
+        argv[argv.index("--lpips_weight") + 1] = "0.1"
+        if extra[1] == "lpips.pth":
+            save_checkpoint(str(path), lpips_checkpoint("lpips", seed=0))
     if extra[0] in PORTED_FLAGS:
         argv[argv.index("--epochs") + 1] = "1"
         trainer, _ = tcli.main(argv)
         assert type(trainer.renderer).__name__ == PORTED_FLAGS[extra[0]]
         assert np.isfinite(trainer.history["total"][0])
+        if extra[0] == "--lpips_weights":
+            found = extra[1] == "lpips.pth"
+            assert (trainer.lpips is not None) == found
+            assert ("lpips" in trainer.history) == found
+            assert trainer.config.lpips_weight == (0.1 if found else 0.0)
+            meta = json.loads((tmp_path / "final_model.pt.json").read_text())
+            assert meta["config"]["lpips_weight"] == (0.1 if found else 0.0)
+            if found:
+                assert trainer.history["lpips"][0] > 0
         return
     with pytest.raises(NotImplementedError):
         tcli.main(argv)
