@@ -510,6 +510,42 @@ non-zero:
                   4 096 and 8 192), every output within 1e-5 relative of
                   the CPU's, its ms and peak memory;
   74. lpips_phases  the seconds of 71-73 beside a 75 s cap.
+  75. overnight   cloud/train_overnight.sh's three steps on a seeded
+                  folder of 16 images: data.preprocess with DINOv2 ViT-S/14
+                  and Depth-Anything-V2-Small files at the published
+                  shapes (random from a seed) at 518^2 on the card, the
+                  caches' names and sizes, 2 images against the CPU
+                  (card bf16 within 2 x the CPU's bf16 gap of its
+                  float32); the launcher's training flags cut to 2 epochs,
+                  with and without --streaming in turns (memory,
+                  streaming, streaming, memory): first-epoch losses within
+                  1e-6 relative, one K1 and one K2 per step; per turn one
+                  profiled epoch: ms per step, device ms, busy share,
+                  kernels per step and the host ms waiting for each batch;
+                  cli eval --max_images 8 on the best checkpoint;
+  76. thin_ckpt   train.thin_ckpt of the run's final_model.pt (its size
+                  ratio), a resume of one epoch from the thin file (fresh
+                  optimizer state, step from the sidecar); a committed
+                  full Flax checkpoint thinned, loaded (bf16 roundings of
+                  the full params) and decoded;
+  77. tuners      auto_tune and hyperparam_search --synthetic at their CLI
+                  defaults, 2 trials of 1 epoch: seconds, scores, K1 / K2
+                  launches;
+  78. depth_train train_depth --synthetic at its defaults (128^2, base 32,
+                  batch 8, 64 samples) for 2 epochs; ms per step; 3 steps
+                  on the card each from the CPU's state (parameters and
+                  Adam's moments): losses within 1e-5 relative, updated
+                  parameters within 1e-6 by mean (the output bias, whose
+                  gradient is rounding noise, within 2 x lr; the
+                  free-running 3 steps from one init logged beside them);
+  79. render_stats  utils.profiling.render_with_stats at the large-cloud
+                  render configuration (10^6 Gaussians, 512^2, M 256) with
+                  "search" and "stream" binning: stage ms, counts, the
+                  overflow integers equal to render_tiled's, K3 / K4 and
+                  K1 launches; `trace` writes a Chrome trace with the
+                  card's kernels;
+  80. item10_phases  the seconds of 75-79 beside a 150 s cap (over it
+                  fails).
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -5963,6 +5999,441 @@ def lpips_phases(torch, dev, path_launches):
         cap_seconds=LPIPS_PHASES_CAP_S)
 
 
+# Phases 75-80: ROADMAP Queue 1, item 10 (the rest of train/, data/ and
+# utils/).
+ITEM10_PHASES_CAP_S = 150.0
+# cloud/train_overnight.sh over a seeded folder of 16 images: its
+# preprocessing (DINOv2 ViT-S/14 and Depth-Anything-V2-Small files at the
+# published shapes, random from a seed, found under FRESNEL_TPU_MODELS),
+# its training flags with the 100 epochs cut to 2 (2 steps each), and its
+# eval of the best checkpoint on 8 images.
+OVERNIGHT_SCENES, OVERNIGHT_REF_IMAGES, OVERNIGHT_EVAL_IMAGES = 16, 2, 8
+OVERNIGHT_FLAGS = ["--experiment", "2", "--batch_size", "8", "--image_size",
+                   "256", "--use_fresnel_zones", "--use_edge_aware",
+                   "--progressive_schedule", "--epochs", "2"]
+OVERNIGHT_TURNS = ("memory", "streaming", "streaming", "memory")
+OVERNIGHT_LOSS_RTOL = 1e-6
+THIN_MSGPACK = "exp2"            # a committed full float32 checkpoint
+TUNER_FLAGS = ["--synthetic", "--trials", "2", "--trial_epochs", "1"]
+# train_depth --synthetic at its defaults (128^2, base 32, batch 8, 64
+# samples), 2 epochs; 3 steps card against CPU from one init.
+DEPTH_EPOCHS, DEPTH_TIMED, DEPTH_REF_STEPS, DEPTH_RTOL = 2, 8, 3, 1e-5
+DEPTH_PARAM_MEAN_TOL = 1e-6
+DEPTH_ZERO_GRAD = "convs.13.bias"     # the output conv's bias
+
+
+def item10_phases(torch, dev, path_launches, tmp):
+    """Phases 75-80: the overnight launcher's three steps with and without
+    --streaming, thin checkpoints, the two tuners, depth training and the
+    stage-timed render."""
+    import copy
+    from pathlib import Path
+
+    from fresnel_tpu_torch import cli
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.data import depth_dataset, preprocess
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset, _load_image
+    from fresnel_tpu_torch.data.streaming import StreamingImageDataset
+    from fresnel_tpu_torch.models import backbone_files as bfiles
+    from fresnel_tpu_torch.models import encoders
+    from fresnel_tpu_torch.render import binning, raster, stream_binning, tile
+    from fresnel_tpu_torch.train import auto_tune, hyperparam_search
+    from fresnel_tpu_torch.train import thin_ckpt, train_depth
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+    from fresnel_tpu_torch.train.harness import (
+        Trainer, trainer_from_checkpoint)
+    from fresnel_tpu_torch.utils import profiling
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+    root = os.path.join(tmp, "item10")
+    env_before = os.environ.get("FRESNEL_TPU_MODELS")
+
+    def run(fn, argv):
+        """fn(argv) on the card, timed and counted: (result, printed,
+        seconds, launches)."""
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        out, printed = quiet(fn, argv)
+        torch.cuda.synchronize()
+        return out, printed, time.perf_counter() - t0, read_counts(*counters)
+
+    # 75. overnight: preprocess, train with and without --streaming, eval.
+    models = os.path.join(root, "models")
+    os.makedirs(models)
+    files = {"dinov2": os.path.join(models, "dinov2_small.safetensors"),
+             "depth": os.path.join(models,
+                                   "depth_anything_v2_small.safetensors")}
+    bfiles.save_checkpoint(files["dinov2"],
+                           bfiles.dinov2_checkpoint("hf", seed=11))
+    bfiles.save_checkpoint(files["depth"],
+                           bfiles.depth_anything_checkpoint(seed=12))
+    os.environ["FRESNEL_TPU_MODELS"] = models
+    try:
+        corpus = os.path.join(root, "corpus")
+        synthetic_corpus.generate_corpus(corpus, n_images=OVERNIGHT_SCENES,
+                                         image_size=256, seed=7)
+        data, ref = os.path.join(root, "images"), os.path.join(root, "ref")
+        os.makedirs(data)
+        os.makedirs(ref)
+        pngs = sorted(Path(corpus).glob("*.png"))
+        for i, png in enumerate(pngs):
+            shutil.copy(png, data)
+            if i < OVERNIGHT_REF_IMAGES:
+                shutil.copy(png, ref)
+        n_card, printed, pre_s, pre_launch = run(preprocess.main, [data])
+        n_cpu, printed_cpu, pre_cpu_s, _ = run(
+            preprocess.main, [ref, "--device", "cpu"])
+        found = ("features: dinov2" in printed
+                 and "depth: depth_anything" in printed)
+        ext32 = encoders.DINOv2FeatureExtractor(
+            files["dinov2"], compute_dtype=torch.float32, device=cpu)
+        est32 = encoders.DepthAnythingEstimator(
+            files["depth"], compute_dtype=torch.float32, device=cpu)
+        cache_errs, sizes_equal = [], True
+        for png in pngs[:OVERNIGHT_REF_IMAGES]:
+            img = torch.from_numpy(_load_image(png, 518))
+            f32 = {"dinov2": ext32(img).float(), "depth": est32(img).float()}
+            for kind, shape in (("dinov2", (37, 37, 384)),
+                                ("depth", (256, 256))):
+                name = f"{png.stem}_{kind}.bin"
+                a, b = Path(data) / name, Path(ref) / name
+                sizes_equal &= a.stat().st_size == b.stat().st_size == (
+                    4 * int(np.prod(shape)))
+                card = torch.from_numpy(np.fromfile(a, np.float32)).reshape(
+                    shape)
+                cpu16 = torch.from_numpy(np.fromfile(b, np.float32)).reshape(
+                    shape)
+                cache_errs.append(dict(
+                    file=name, card_vs_cpu_f32=rel_max(torch, card,
+                                                       f32[kind]),
+                    cpu_bf16_gap=rel_max(torch, cpu16, f32[kind])))
+        del ext32, est32
+        log("overnight_preprocess", images=n_card, seconds=pre_s,
+            ms_per_image=pre_s * 1e3 / max(n_card, 1),
+            backbones_found=found, launches=pre_launch,
+            cpu_reference=dict(images=n_cpu, seconds=pre_cpu_s,
+                               errors=cache_errs,
+                               rule="card bf16 within 2 x the CPU's "
+                               "bf16-vs-f32 gap of the CPU's f32"),
+            sizes_equal=sizes_equal, phase_seconds=lap("overnight"))
+        if not (n_card == OVERNIGHT_SCENES and n_cpu == OVERNIGHT_REF_IMAGES
+                and found and sizes_equal
+                and all(e["card_vs_cpu_f32"] <= 2 * e["cpu_bf16_gap"]
+                        for e in cache_errs)):
+            fail(f"overnight preprocessing failed its checks: {cache_errs}")
+
+        # The launcher's training, in turns with and without --streaming.
+        cfg, phys, hfgs, hfts = tcli.configs_from_args(
+            tcli.build_parser().parse_args(["--data_dir", data]
+                                           + OVERNIGHT_FLAGS))
+        cfg.lpips_weight = 0.0          # no LPIPS file: the CLI drops it
+        steps = OVERNIGHT_SCENES // cfg.batch_size
+        runs = []
+        for i, mode in enumerate(OVERNIGHT_TURNS):
+            out_dir = os.path.join(root, f"train_{i}_{mode}")
+            argv = (["--data_dir", data, "--output_dir", out_dir]
+                    + OVERNIGHT_FLAGS
+                    + (["--streaming"] if mode == "streaming" else []))
+            (trainer, state), _, secs, launches = run(tcli.main, argv)
+            path_launches[f"overnight_train_{i}_{mode}"] = launches
+            runs.append(dict(mode=mode, out_dir=out_dir, seconds=secs,
+                             launches=launches, step=int(state["step"]),
+                             losses=list(trainer.history["total"])))
+            del trainer, state
+        first = runs[0]["losses"][0]
+        loss_rel = max(abs(r["losses"][0] - first) / abs(first)
+                       for r in runs)
+        streamed = len(list(Path(data).glob(
+            f"*_rgb{cfg.image_size}.bin")))
+        # ms per step, device ms, busy share, kernels per step and the
+        # host ms waiting for each batch, one epoch per turn (2 steps).
+        datasets = {
+            "memory": ImageDataset(data, image_size=cfg.image_size,
+                                   device=dev),
+            "streaming": StreamingImageDataset(
+                data, image_size=cfg.image_size, device=dev)}
+        tr = Trainer(cfg, phys, hfgs, hfts, device=dev)
+        K = hfts.get_gaussians_per_patch(0, cfg.epochs,
+                                         cfg.gaussians_per_patch)
+        box = [tr.init_state()]
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def epoch(ds, waits):
+            it = ds.batches(cfg.batch_size, np.random.default_rng(0))
+            while True:
+                t0 = time.perf_counter()
+                b = next(it, None)
+                if b is None:
+                    return
+                waits.append((time.perf_counter() - t0) * 1e3)
+                box[0], _ = tr.train_step(box[0], tr.device_batch(b), K,
+                                          None, gen)
+
+        for ds in datasets.values():                       # warmup
+            epoch(ds, [])
+        turns = []
+        for mode in OVERNIGHT_TURNS:
+            waits = []
+            prof = profile_ms(torch, lambda: epoch(datasets[mode], waits),
+                              steps, top=4, cpu=False)
+            turns.append(dict(mode=mode, ms_per_step=prof["wall_ms"],
+                              device_ms_per_step=prof["device_ms"],
+                              device_busy_share=prof["device_busy_share"],
+                              kernels_per_step=prof["kernels"],
+                              wait_ms_first_batch=waits[0],
+                              wait_ms_next_batches=waits[1:]))
+        del datasets, tr, box
+        best = os.path.join(runs[0]["out_dir"], "best_model.pt")
+        ev_json = os.path.join(root, "eval.json")
+        rc, _, ev_s, ev_launch = run(cli.main, [
+            "eval", best, "--data_dir", data, "--max_images",
+            str(OVERNIGHT_EVAL_IMAGES), "--output_json", ev_json])
+        path_launches["overnight_eval"] = ev_launch
+        with open(ev_json) as f:
+            ev = json.load(f)
+        ev_numbers = [v for v in ev.values() if isinstance(v, float)]
+        log("overnight", flags=OVERNIGHT_FLAGS, scenes=OVERNIGHT_SCENES,
+            runs=[{k: v for k, v in r.items() if k != "out_dir"}
+                  for r in runs],
+            first_epoch_loss_rel_max=loss_rel,
+            loss_rtol=OVERNIGHT_LOSS_RTOL, rgb_caches=streamed,
+            steps=turns, eval=dict(rc=rc, seconds=ev_s, launches=ev_launch,
+                                   results=ev),
+            phase_seconds=lap("overnight"))
+        if not (loss_rel <= OVERNIGHT_LOSS_RTOL
+                and streamed == OVERNIGHT_SCENES
+                and all(r["step"] == 2 * steps
+                        and r["launches"] == dict(k1=2 * steps,
+                                                  k2=2 * steps, k3=0, k4=0)
+                        and np.all(np.isfinite(r["losses"]))
+                        for r in runs)
+                and rc == 0 and ev_launch["k1"] > 0 and ev_launch["k2"] == 0
+                and ev_numbers and np.all(np.isfinite(ev_numbers))):
+            fail("the overnight launcher's training or eval failed its "
+                 "checks")
+
+        # 76. thin_ckpt: the run's final_model.pt thinned and resumed for
+        # one epoch; a committed Flax checkpoint thinned and decoded.
+        src = os.path.join(runs[0]["out_dir"], "final_model.pt")
+        thin = os.path.join(root, "thin_final.pt")
+        rc_thin, thin_line, _, _ = run(thin_ckpt.main, [src, thin])
+        ratio = os.path.getsize(thin) / os.path.getsize(src)
+        argv = (["--data_dir", data, "--output_dir",
+                 os.path.join(root, "resume"), "--resume", thin]
+                + OVERNIGHT_FLAGS[:-1] + ["3"])
+        (trainer, state), printed, res_s, res_launch = run(tcli.main, argv)
+        path_launches["thin_resume"] = res_launch
+        resumed = dict(seconds=res_s, launches=res_launch,
+                       step=int(state["step"]),
+                       losses=list(trainer.history["total"]),
+                       thin_message="thin resume from" in printed)
+        del trainer, state
+        ck = ckpt_path(THIN_MSGPACK)
+        thin_flax = os.path.join(root, f"{THIN_MSGPACK}_thin.pt")
+        run(thin_ckpt.main, [ck, thin_flax])
+        tr = trainer_from_checkpoint(thin_flax, device=dev)
+        st_thin, ep = tr.load_checkpoint(thin_flax)
+        st_full, _ = tr.load_checkpoint(ck)
+        rounded = all(torch.equal(v, st_full["params"][k].to(
+            torch.bfloat16).float()) for k, v in st_thin["params"].items())
+        png = pngs[0]
+        feats = np.fromfile(Path(data) / f"{png.stem}_dinov2.bin",
+                            np.float32).reshape(1, 37, 37, 384)
+        depth = np.fromfile(Path(data) / f"{png.stem}_depth.bin",
+                            np.float32).reshape(1, 256, 256)
+        reset_counts(*counters)
+        out = tr.decode(st_thin["params"], feats, depth)
+        out_full = tr.decode(st_full["params"], feats, depth)
+        path_launches["thin_decode"] = read_counts(*counters)
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+        dec_gap = {k: (out[k] - out_full[k]).abs().max().item()
+                   for k in FIELDS}
+        log("thin_ckpt", thin_line=thin_line.strip(), size_ratio=ratio,
+            resume=resumed, msgpack=dict(
+                source=os.path.basename(ck),
+                size_ratio=os.path.getsize(thin_flax) / os.path.getsize(ck),
+                epoch=ep, params_bf16_rounded=rounded,
+                gaussians=int(out["positions"].shape[1]), finite=finite,
+                max_abs_vs_full=dec_gap),
+            phase_seconds=lap("thin_ckpt"))
+        if not (rc_thin == 0 and ratio < 0.25 and resumed["thin_message"]
+                and resumed["step"] == 2 * steps + steps
+                and len(resumed["losses"]) == 1
+                and np.isfinite(resumed["losses"][0])
+                and res_launch == dict(k1=steps, k2=steps, k3=0, k4=0)
+                and rounded and finite
+                and out["positions"].shape[1] == 37 * 37 * 4):
+            fail("thin checkpoints failed their checks")
+        del tr, st_thin, st_full
+    finally:
+        if env_before is None:
+            os.environ.pop("FRESNEL_TPU_MODELS", None)
+        else:
+            os.environ["FRESNEL_TPU_MODELS"] = env_before
+
+    # 77. tuners at their CLI defaults (64^2, batch 2, K 1, 4 synthetic
+    # scenes), cut to 2 trials of 1 epoch.
+    tuners = {}
+    for name, mod, extra, result in (
+            ("auto_tune", auto_tune, ["--rungs", "2"], "study.json"),
+            ("hyperparam_search", hyperparam_search, [], "results.json")):
+        out_dir = os.path.join(root, name)
+        best_t, _, secs, launches = run(
+            mod.main, TUNER_FLAGS + extra + ["--output_dir", out_dir])
+        path_launches[name] = launches
+        with open(os.path.join(out_dir, result)) as f:
+            trials = json.load(f)["trials"]
+        score = "score" if name == "auto_tune" else "chamfer"
+        tuners[name] = dict(seconds=secs, launches=launches,
+                            scores=[t[score] for t in trials],
+                            lrs=[t["params"]["lr"] for t in trials])
+    log("tuners", flags=TUNER_FLAGS, **tuners,
+        phase_seconds=lap("tuners"))
+    if not all(len(t["scores"]) == 2 and np.all(np.isfinite(t["scores"]))
+               and t["launches"]["k1"] > 0 and t["launches"]["k2"] > 0
+               for t in tuners.values()):
+        fail(f"the tuners failed their checks: {tuners}")
+
+    # 78. depth_train: train_depth --synthetic at its defaults, 2 epochs;
+    # its step timed; 3 steps against the CPU from one init.
+    (model, hist), _, depth_s, _ = run(train_depth.main, [
+        "--synthetic", "--epochs", str(DEPTH_EPOCHS), "--output_dir",
+        os.path.join(root, "depth")])
+    dcfg = train_depth.DepthTrainConfig()
+    dds = depth_dataset.SyntheticDepthDataset(
+        n_samples=64, image_size=dcfg.image_size, seed=dcfg.seed)
+    dbatches = list(dds.batches(dcfg.batch_size, np.random.default_rng(0)))
+
+    def depth_steps(device, batches, model=None):
+        model = model or train_depth.build_depth_net(
+            dcfg.base_channels, dcfg.seed).to(device)
+        opt = train_depth.make_optimizer(model, dcfg.lr)
+        return model, [float(train_depth.train_step(
+            model, opt, torch.from_numpy(b["image"]).to(device),
+            torch.from_numpy(b["depth"]).to(device))[0]) for b in batches]
+
+    card_model, _ = depth_steps(dev, dbatches[:2])          # warmup
+    opt = train_depth.make_optimizer(card_model, dcfg.lr)
+    imgs = [torch.from_numpy(b["image"]).to(dev) for b in dbatches]
+    deps = [torch.from_numpy(b["depth"]).to(dev) for b in dbatches]
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for i in range(DEPTH_TIMED):
+        train_depth.train_step(card_model, opt, imgs[i], deps[i])
+    end.record()
+    torch.cuda.synchronize()
+    depth_ms = start.elapsed_time(end) / DEPTH_TIMED
+    # Free-running, each side from one init: Adam's first steps are about
+    # lr * sign(g), so an entry whose gradient sits at rounding level
+    # steps either way and later losses part by more than rounding; that
+    # trajectory is logged.  The gate starts the card's every step from
+    # the CPU's state (parameters and Adam's moments): its loss within
+    # DEPTH_RTOL relative, its updated parameters within
+    # DEPTH_PARAM_MEAN_TOL of the CPU's by mean absolute difference, but
+    # the output conv's bias: the min-max normalisation removes any
+    # constant, so its gradient is rounding noise of either sign and Adam
+    # steps it by up to lr either way (held within 2 * lr).
+    _, free_card = depth_steps(dev, dbatches[:DEPTH_REF_STEPS])
+    cpu_model = train_depth.build_depth_net(dcfg.base_channels, dcfg.seed)
+    cpu_opt = train_depth.make_optimizer(cpu_model, dcfg.lr)
+    card_model = train_depth.build_depth_net(dcfg.base_channels,
+                                             dcfg.seed).to(dev)
+    card_opt = train_depth.make_optimizer(card_model, dcfg.lr)
+    forced = []
+    for b in dbatches[:DEPTH_REF_STEPS]:
+        card_model.load_state_dict(cpu_model.state_dict())
+        card_opt.load_state_dict(copy.deepcopy(cpu_opt.state_dict()))
+        img, dep = torch.from_numpy(b["image"]), torch.from_numpy(b["depth"])
+        lg = float(train_depth.train_step(card_model, card_opt, img.to(dev),
+                                          dep.to(dev))[0])
+        lc = float(train_depth.train_step(cpu_model, cpu_opt, img, dep)[0])
+        got = card_model.state_dict()
+        means = {k: (got[k].cpu() - v).abs().mean().item()
+                 for k, v in cpu_model.state_dict().items()}
+        worst = max((k for k in means if k != DEPTH_ZERO_GRAD),
+                    key=means.get)
+        forced.append(dict(
+            loss_card=lg, loss_cpu=lc, loss_rel=abs(lg - lc) / abs(lc),
+            param_mean_abs_max=means[worst], worst_leaf=worst,
+            zero_grad_leaf_abs=means[DEPTH_ZERO_GRAD]))
+    free_cpu = [f["loss_cpu"] for f in forced]
+    depth_rel = max(f["loss_rel"] for f in forced)
+    log("depth_train", config=dataclasses.asdict(dcfg), epochs=DEPTH_EPOCHS,
+        seconds=depth_s, history=hist["total"], ms_per_step=depth_ms,
+        timed_steps=DEPTH_TIMED, free_losses_card=free_card,
+        free_losses_cpu=free_cpu, free_loss_rel_max=max(
+            abs(a - b) / abs(b) for a, b in zip(free_card, free_cpu)),
+        from_cpu_state=forced, loss_rtol=DEPTH_RTOL,
+        param_mean_tol=DEPTH_PARAM_MEAN_TOL,
+        phase_seconds=lap("depth_train"))
+    if not (len(hist["total"]) == DEPTH_EPOCHS
+            and np.all(np.isfinite(hist["total"]))
+            and depth_rel <= DEPTH_RTOL
+            and all(f["param_mean_abs_max"] <= DEPTH_PARAM_MEAN_TOL
+                    and f["zero_grad_leaf_abs"] <= 2 * dcfg.lr
+                    for f in forced)):
+        fail("depth training failed its checks")
+    del model, card_model, cpu_model, imgs, deps
+
+    # 79. render_stats at the large-cloud render configuration.
+    cloud = render_cloud(79).to(dev)
+    cam = Camera.default_training(RENDER["res"])
+    stats = {}
+    for b in ("search", "stream"):
+        cfg = tile.TileRendererConfig(max_per_tile=RENDER["max_per_tile"],
+                                      binning=b)
+        profiling.render_with_stats(*fields(cloud), cam, config=cfg)
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        img, st = profiling.render_with_stats(*fields(cloud), cam,
+                                              config=cfg)
+        path_launches[f"render_stats_{b}"] = launches = read_counts(
+            *counters)
+        _, ovf = tile.render_tiled(*fields(cloud), cam, config=cfg,
+                                   return_overflow=True)
+        stats[b] = dict(
+            dataclasses.asdict(st), launches=launches,
+            overflow_equal=ovf.tolist() == [
+                st.dropped_pairs, st.total_pairs, st.overflow_tiles,
+                st.max_tile_hits],
+            finite=bool(torch.isfinite(img).all()))
+    trace_dir = os.path.join(root, "trace")
+    with profiling.trace(trace_dir):
+        profiling.render_with_stats(*fields(cloud), cam,
+                                    config=tile.TileRendererConfig(
+                                        max_per_tile=RENDER["max_per_tile"]))
+    traces = list(Path(trace_dir).glob("*.json"))
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    device_events = sum(1 for e in events if e.get("cat") == "kernel")
+    log("render_stats", config=RENDER, stats=stats, trace_files=len(traces),
+        trace_kernel_events=device_events,
+        phase_seconds=lap("render_stats"))
+    if not (all(s["overflow_equal"] and s["finite"]
+                and s["num_gaussians"] == RENDER["n"]
+                and s["launches"]["k1"] == 1 for s in stats.values())
+            and stats["search"]["launches"]["k3"] > 0
+            and stats["stream"]["launches"]["k4"] > 0
+            and len(traces) == 1 and device_events > 0):
+        fail(f"render_with_stats failed its checks: {stats}")
+    del cloud
+    shutil.rmtree(root, ignore_errors=True)
+
+    # 80. item10_phases
+    total = sum(phase_s.values())
+    log("item10_phases", seconds=phase_s, total_seconds=total,
+        cap_seconds=ITEM10_PHASES_CAP_S)
+    if total > ITEM10_PHASES_CAP_S:
+        fail(f"phases 75-79 took {total:.1f} s, over their "
+             f"{ITEM10_PHASES_CAP_S} s cap")
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
     """K1 (and with `backward` K2, cotangents from a seed) against their
     plain versions on one pack: errors, times and bounds."""
@@ -6412,6 +6883,13 @@ def main():
     # 71-74. the LPIPS term in decoder training (K1 + K2 per step, with the
     # term on and off), ms_ssim and the Chamfer matching loss
     lpips_phases(torch, dev, path_launches)
+    # 75-80. the overnight launcher (preprocessing, training with and
+    # without --streaming, eval; K1 + K2 per step, K1 in eval), thin
+    # checkpoints, the tuners (K1 + K2), depth training and the
+    # stage-timed render (K3 or K4, K1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_item10_")
+    item10_phases(torch, dev, path_launches, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k_saag["k1"]["k1_max_abs_err"])
     k1["at_saag_render_pack"] = dict(k_saag["k1"]["k1"], T=k_saag["k1"]["T"],

@@ -19,10 +19,11 @@ Parameters live in the state as a flat {name: tensor} dict ("model.<key>",
 "encoder.<key>", "wavelengths_raw", "boundary_emphasis"); the modules are
 templates run with `torch.func.functional_call`.  A checkpoint is
 `torch.save` of {params, opt_state, step} (`.pt`) with the JAX package's
-JSON sidecar keys beside it.  `load_checkpoint` also reads the JAX
-package's Flax msgpack checkpoints, full (params, Adam moments, count and
-step) and thin (bf16 params; a fresh optimizer state), through
-`train.flax_msgpack`, which needs neither msgpack nor ml_dtypes.
+JSON sidecar keys beside it.  `load_checkpoint` also reads thin files
+(bf16 params, `train.thin_ckpt`: a port `.pt` or a Flax msgpack; a fresh
+optimizer state) and the JAX package's full Flax msgpack checkpoints
+(params, Adam moments, count and step), through `train.flax_msgpack`,
+which needs neither msgpack nor ml_dtypes.
 
 Experiments 1 (SAAGRefinementNet on a SAAG prior), 2
 (DirectPatchDecoder, or PhysicsDirectPatchDecoder under wave rendering
@@ -718,11 +719,12 @@ class Trainer:
 
     def load_checkpoint(self, path, sample_batch=None) -> Tuple[Dict, int]:
         """(state, epoch) from a checkpoint: a `.pt` of `save_checkpoint`,
-        or the JAX package's Flax msgpack, full (params, Adam moments,
-        count and step carried over exactly) or thin (`"thin": true` in
-        the sidecar: bf16 params cast to float32, a fresh optimizer state
-        whose count is 0, so the cosine schedule restarts at its peak as
-        in the JAX trainer, and `step` from the sidecar).  Its parameter
+        the JAX package's full Flax msgpack (params, Adam moments, count
+        and step carried over exactly), or a thin file, `.pt` or Flax
+        msgpack (`"thin": true` in the sidecar: bf16 params cast to
+        float32, a fresh optimizer state whose count is 0, so the cosine
+        schedule restarts at its peak as in the JAX trainer, and `step`
+        from the sidecar).  Its parameter
         names and shapes must be this trainer's."""
         meta_path = Path(str(path) + ".json")
         meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}

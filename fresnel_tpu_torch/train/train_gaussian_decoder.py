@@ -12,9 +12,12 @@ master weights (--use_amp, written to the sidecar; a --resume passes it
 again, as in the JAX package), and the LPIPS term from --lpips_weights
 or a file found under $FRESNEL_TPU_MODELS, ./models or ~/models
 (`lpips_alex.pth` / `.pt` / `.npz`, `lpips.pth` / `.npz`; with none, the
-term is dropped, as in the JAX package).  Flags whose features are not
-ported (--streaming, --num_devices > 1) raise NotImplementedError.
-Checkpoints are `.pt` files with the JAX package's JSON sidecars.
+term is dropped, as in the JAX package).  --streaming reads batches from
+disk caches through `data.streaming.StreamingImageDataset` (after
+--synthetic, which takes precedence, as in the JAX package).
+--num_devices > 1 is not ported and raises NotImplementedError.
+Checkpoints are `.pt` files with the JAX package's JSON sidecars; a
+thin one (`train.thin_ckpt`) resumes with a fresh optimizer state.
 
 Run:  python -m fresnel_tpu_torch.train.train_gaussian_decoder --synthetic \
           --epochs 1 --image_size 32 --feature_size 5 --feature_dim 384 \
@@ -127,7 +130,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "ported)")
     p.add_argument("--streaming", action="store_true",
                    help="Stream batches from disk caches instead of "
-                        "holding the dataset in memory; not ported")
+                        "holding the dataset in memory")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--use_amp", action="store_true",
                    help="bf16 decoder compute (fp32 master weights)")
@@ -337,15 +340,19 @@ def main(argv=None):
               "(pass --lpips_weights or place lpips_alex.pth under "
               "$FRESNEL_TPU_MODELS or ./models to enable)")
         config.lpips_weight = 0.0
-    if args.streaming:
-        raise NotImplementedError(
-            "--streaming is not ported (ROADMAP Queue 1, item 10)")
 
     if args.synthetic:
         from fresnel_tpu_torch.data.dataset import SyntheticGaussianDataset
         dataset = SyntheticGaussianDataset(
             n_samples=args.synthetic_samples, image_size=config.image_size,
             feature_dim=config.feature_dim, seed=config.seed, device=device)
+    elif args.streaming:
+        from fresnel_tpu_torch.data.streaming import StreamingImageDataset
+        dataset = StreamingImageDataset(
+            config.data_dir, image_size=config.image_size,
+            feature_dim=config.feature_dim,
+            use_augmentation=config.use_augmentation,
+            max_images=config.max_images, device=device)
     else:
         from fresnel_tpu_torch.data.dataset import ImageDataset
         dataset = ImageDataset(

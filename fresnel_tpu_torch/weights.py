@@ -96,6 +96,14 @@ def lpips_state_dict(flat: Mapping[str, np.ndarray]
     return _convert(flat)
 
 
+def depth_net_state_dict(flat: Mapping[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """Flat params of train_depth's TinyDepthNet (`Conv_i/kernel`,
+    `Conv_i/bias`, Flax's creation order) -> state dict of the port's
+    `train.train_depth.TinyDepthNet` (`convs.i.weight`, `convs.i.bias`)."""
+    return _convert(flat, renames=((r"^Conv_(\d+)\.", r"convs.\1."),))
+
+
 def dinov2_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat DINOv2 params -> state dict of models.vit.DINOv2."""
     return _convert(flat, renames=(_BLOCKS,))

@@ -17,6 +17,13 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fresnel_tpu", "msgpack",
              "ml_dtypes", "safetensors", "transformers"}
 PORT_FILES = sorted((ROOT / "fresnel_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+# The modules of ROADMAP Queue 1, item 10 (the rest of train/, data/ and
+# utils/): each is one of PORT_FILES, so the import checks cover it.
+ITEM10 = ("utils/image.py", "utils/profiling.py", "train/thin_ckpt.py",
+          "train/reconstruct_sidecar.py", "data/preprocess.py",
+          "data/streaming.py", "data/depth_dataset.py",
+          "train/train_depth.py", "train/auto_tune.py",
+          "train/hyperparam_search.py")
 
 
 def _imported_roots(path):
@@ -32,6 +39,13 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_forbidden_import(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize("rel", ITEM10)
+def test_item10_module_checked(rel):
+    path = ROOT / "fresnel_tpu_torch" / rel
+    assert path in PORT_FILES
     assert not _imported_roots(path) & FORBIDDEN
 
 
@@ -106,6 +120,20 @@ class TestDevice:
                      ["eval", ckpt, "--synthetic", "--max_images", "1"]):
             with pytest.raises(RuntimeError, match="CUDA"):
                 cli.main(argv)
+
+    @pytest.mark.parametrize("entry", [
+        "data.preprocess", "data.streaming", "data.depth_dataset",
+        "train.train_depth", "train.auto_tune", "train.hyperparam_search"])
+    def test_item10_entries_raise_without_cuda(self, entry, tmp_path):
+        import importlib
+        mod = importlib.import_module(f"fresnel_tpu_torch.{entry}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            if entry == "data.streaming":
+                mod.StreamingImageDataset(str(tmp_path))
+            elif entry.startswith("data."):
+                mod.main([str(tmp_path)])
+            else:
+                mod.main(["--synthetic", "--output_dir", str(tmp_path)])
 
     def test_cvs_raises_without_cuda(self, tmp_path):
         import numpy as np

@@ -11,6 +11,9 @@ width 8, 2 epochs of 2 steps.
 * `encode` gives (B, grid, grid, feature_dim) features.
 * Flags of unported features raise NotImplementedError, and the CLI
   refuses to run without CUDA unless --device cpu is given.
+  `--streaming` trains: with --synthetic on the synthetic scenes (which
+  take precedence in both packages), with --data_dir over a 2-image
+  corpus through the streaming dataset (its `_rgb32.bin` caches).
   `--lpips_weights` with an lpips-alex file trains with the LPIPS term;
   with a path that does not exist it drops the term, as the JAX CLI does.
 * `--experiment 4` trains the spiral decoder (one Gaussian per point);
@@ -31,6 +34,7 @@ import torch
 from fresnel_tpu.train import train_gaussian_decoder as jcli
 
 from fresnel_tpu_torch import cli
+from fresnel_tpu_torch.data import synthetic_corpus
 from fresnel_tpu_torch.models.backbone_files import (
     lpips_checkpoint, save_checkpoint)
 from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
@@ -108,13 +112,16 @@ def test_cli_train_subcommand(tmp_path):
     assert (tmp_path / "final_model.pt").exists()
 
 
-# The wave-optics flags, --use_amp (bf16 decoder training) and
-# --lpips_weights are ported: their cases (same ids) train one epoch on
-# the renderer the JAX package picks.  --lpips_weights names a file in
-# tmp_path: lpips.pth is written there (an lpips-alex checkpoint at the
-# published shapes) and trains with the term at weight 0.1; missing.pth
-# is not, and the term is dropped, as the JAX CLI drops it.
+# The wave-optics flags, --use_amp (bf16 decoder training),
+# --lpips_weights and --streaming are ported: their cases (same ids) train
+# one epoch on the renderer the JAX package picks.  --lpips_weights names
+# a file in tmp_path: lpips.pth is written there (an lpips-alex checkpoint
+# at the published shapes) and trains with the term at weight 0.1;
+# missing.pth is not, and the term is dropped, as the JAX CLI drops it.
+# --streaming with --synthetic trains on the synthetic scenes; with
+# --data_dir (the last case) over a 2-image corpus in tmp_path.
 PORTED_FLAGS = {"--use_amp": "TileRenderer",
+                "--streaming": "TileRenderer",
                 "--use_phase_blending": "TileRenderer",
                 "--use_qsr": "WaveRenderer",
                 "--use_wave_rendering": "WaveRenderer",
@@ -129,10 +136,17 @@ PORTED_FLAGS = {"--use_amp": "TileRenderer",
                                    ["--use_wave_rendering"],
                                    ["--use_fourier_renderer"],
                                    ["--lpips_weights", "lpips.pth"],
-                                   ["--lpips_weights", "missing.pth"]])
+                                   ["--lpips_weights", "missing.pth"],
+                                   ["--streaming", "--data_dir", "corpus"]])
 def test_unported_flags_raise(extra, tmp_path):
     argv = FLAGS + ["--output_dir", str(tmp_path), "--device", "cpu",
                     "--synthetic_samples", "2"] + extra
+    if "--data_dir" in extra:
+        corpus = tmp_path / extra[2]
+        synthetic_corpus.generate_corpus(str(corpus), n_images=2,
+                                         image_size=32, seed=1)
+        argv.remove("--synthetic")
+        argv[argv.index(extra[2])] = str(corpus)
     if extra[0] == "--lpips_weights":
         path = tmp_path / extra[1]
         argv[argv.index(extra[1])] = str(path)
@@ -153,6 +167,8 @@ def test_unported_flags_raise(extra, tmp_path):
             assert meta["config"]["lpips_weight"] == (0.1 if found else 0.0)
             if found:
                 assert trainer.history["lpips"][0] > 0
+        if "--data_dir" in extra:
+            assert len(list(corpus.glob("*_rgb32.bin"))) == 2
         return
     with pytest.raises(NotImplementedError):
         tcli.main(argv)
