@@ -28,8 +28,11 @@ the remaining decoder options, and the wave-optics training routes
 (`cli train` with phase blending, the wave-field renderer, QSR, the
 physics decoder and experiment 4's Fourier route), bf16 decoder
 training (`use_amp`) on every decoder route, the remaining renderers,
-and the LPIPS term of decoder training (`cli train --lpips_weights`) with
-ms_ssim and the matching loss.  Phases,
+the LPIPS term of decoder training (`cli train --lpips_weights`) with
+ms_ssim and the matching loss, the overnight launcher's preprocessing,
+streamed training, thin checkpoints, the tuners and depth training, and
+Fresnel v2 distillation (`train.train_direct_decoder`: the sparse-voxel
+decoders on TRELLIS-layout files, with the render loss).  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
@@ -546,6 +549,42 @@ non-zero:
                   card's kernels;
   80. item10_phases  the seconds of 75-79 beside a 150 s cap (over it
                   fails).
+  81. slat_reference  the v2 models at V2Config's full width (features
+                  1 024 over 1 369 patches, hidden 512, 6 blocks of 8
+                  heads, 8 Gaussians per voxel, 4 096 voxels, batch 2;
+                  random weights from a seed): DirectSLatDecoder in
+                  float32 with TF32 off, MLPSLatDecoder, and
+                  DirectStructurePredictor at resolution 64, hidden 256,
+                  on the card against the same weights on the CPU, one
+                  cloud (within 1e-4); DirectSLatDecoder in bf16 on one
+                  cloud of 2 048 voxels within 2 x the CPU's own bf16 gap;
+                  occupancy_to_coords equal on both devices, also with
+                  saturated ties; forward ms;
+  82. v2_train   V2Trainer at full width (max_gaussians 16 384,
+                  max_match_points 4 096) on two samples written in the
+                  TRELLIS layout (features.pt, coords.pt, gaussians.ply,
+                  filling max_coords and max_gaussians) and read by
+                  TrellisDistillationDataset: float32 and bf16, each with
+                  and without the render loss, and the two render routes
+                  with use_checkpoint; per route 1 warmup and 3 timed
+                  steps (ms, host ms, peak memory above the resident, K1
+                  / K2 launches per step: 2 / 1 with the render loss, 0 /
+                  0 without), 2 under torch.profiler for the four routes
+                  without the checkpoint (device ms, busy share,
+                  kernels); every loss finite; then K1 / K2 against
+                  their plain versions at the step's two render packs
+                  (T 128, M 256: the predictions with K2, the teachers);
+  83. v2_cli     train_direct_decoder.main --synthetic --epochs 2, and
+                  --data_dir on those files with --use_checkpoint
+                  --use_render_loss: the checkpoints, sidecars and
+                  history written, K1 / K2 launches; final_v2.pt loaded
+                  and one more step taken;
+  84. v2_reference  two render-loss steps at a small config (features
+                  64, hidden 64, 2 blocks, K 4, 256 voxels, 1 024
+                  Gaussians, dropout 0) on the card and on the CPU from
+                  one init: losses within 1e-4 relative, params within
+                  1e-5 by mean, K1 / K2 2 / 1 per step; then the seconds
+                  of 81-84 beside a 90 s cap.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -6434,6 +6473,389 @@ def item10_phases(torch, dev, path_launches, tmp):
              f"{ITEM10_PHASES_CAP_S} s cap")
 
 
+# Phases 81-84: ROADMAP Queue 1, item 9 (Fresnel v2 distillation).
+V2_PHASES_CAP_S = 90.0
+# V2Config's defaults: DirectSLatDecoder 1 024 -> 512, 6 blocks of 8 heads,
+# 8 Gaussians per voxel; max_coords 4 096, max_gaussians 16 384, batch 2,
+# max_match_points 4 096; the render loss at 128^2, M 256.  The samples:
+# SyntheticTrellisDataset with 16 384 Gaussians each (so every sample fills
+# max_coords and max_gaussians), written in the TRELLIS layout and read
+# back by TrellisDistillationDataset.
+V2_FULL = dict(feature_dim=1024, hidden_dim=512, num_layers=6, num_heads=8,
+               num_gaussians_per_voxel=8, max_coords=4096,
+               max_gaussians=16384, batch_size=2, max_match_points=4096)
+V2_SAMPLES, V2_PATCHES = 2, 1369
+V2_ROUTES = (("float32", {}), ("float32_render", dict(use_render_loss=True)),
+             ("bf16", dict(use_amp=True)),
+             ("bf16_render", dict(use_amp=True, use_render_loss=True)),
+             ("float32_render_ckpt", dict(use_render_loss=True,
+                                          use_checkpoint=True)),
+             ("bf16_render_ckpt", dict(use_amp=True, use_render_loss=True,
+                                       use_checkpoint=True)))
+V2_WARMUP, V2_TIMED, V2_PROFILED = 1, 3, 2
+# Card against CPU at full width (phase 81): float32 with TF32 off within
+# 1e-4 abs of the CPU's outputs (positions in [-1, 1], logits), bf16
+# within AMP_GAP x the CPU's own bf16-against-float32 difference.  The
+# structure predictor at resolution 64, hidden 256, one image.
+V2_REF_TOL = 1e-4
+V2_REF_VOXELS = 2048          # the CPU's bf16 reference: one cloud of these
+# Phase 84: two steps with the render loss, card against CPU, dropout 0.
+V2_SMALL = dict(feature_dim=64, hidden_dim=64, num_layers=2, num_heads=4,
+                num_gaussians_per_voxel=4, max_coords=256, max_gaussians=1024,
+                batch_size=2, max_match_points=512, use_render_loss=True)
+V2_SMALL_DATA = dict(max_coords=256, max_gaussians=1024, n_gaussians=1024,
+                     feature_dim=64, num_patches=49)
+V2_REF_STEPS = 2
+
+
+def v2_phases(torch, dev, path_launches, tmp):
+    """Phases 81-84: the v2 decoders and the structure predictor against
+    the CPU, V2Trainer at full width on TRELLIS-layout files (four routes,
+    and the render routes under use_checkpoint), its CLI, and two
+    render-loss steps card against CPU.  Returns K1 / K2 at the v2 render
+    packs."""
+    from fresnel_tpu_torch.data.trellis import (
+        SyntheticTrellisDataset, TrellisDistillationDataset)
+    from fresnel_tpu_torch.models import slat
+    from fresnel_tpu_torch.render import (
+        binning, raster, splat, stream_binning, tile)
+    from fresnel_tpu_torch.train import train_direct_decoder as v2
+    from fresnel_tpu_torch.weights import init_flax_like_
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+    root = os.path.join(tmp, "v2")
+
+    def read():
+        return read_all_counts(raster, binning, stream_binning, splat)
+
+    def per_step(launches, n):
+        return {k: v / n for k, v in launches.items() if v}
+
+    def init(module, seed=0):
+        init_flax_like_(module, torch.Generator().manual_seed(seed))
+        return module.eval()
+
+    def twin(module, kw, device, dtype=None):
+        """`module` (built with `kw`) as a new module on `device`, the same
+        weights (the transformer's stack computing in `dtype`, if given)."""
+        m = type(module)(**kw, **({} if dtype is None else dict(dtype=dtype)))
+        m.load_state_dict(module.state_dict())
+        return m.to(device).eval()
+
+    # 81. slat_reference: the models at full width, card against CPU.
+    rng = np.random.default_rng(81)
+    full = V2_FULL
+    feats = rng.normal(size=(2, V2_PATCHES, full["feature_dim"])).astype(
+        np.float32)
+    coords = np.concatenate([np.zeros((2, full["max_coords"], 1)),
+                             rng.integers(0, 64, (2, full["max_coords"], 3))],
+                            -1).astype(np.int32)
+    cmask = np.ones((2, full["max_coords"]), bool)
+    cmask[1, 3000:] = False
+    dkw = dict(feature_dim=full["feature_dim"], hidden_dim=full["hidden_dim"],
+               num_layers=full["num_layers"], num_heads=full["num_heads"],
+               num_gaussians_per_voxel=full["num_gaussians_per_voxel"])
+    mkw = dict(feature_dim=full["feature_dim"], hidden_dim=full["hidden_dim"],
+               num_gaussians_per_voxel=full["num_gaussians_per_voxel"])
+    spkw = dict(feature_dim=full["feature_dim"])
+    dec = init(slat.DirectSLatDecoder(**dkw))
+    mlp = init(slat.MLPSLatDecoder(**mkw))
+    sp = init(slat.DirectStructurePredictor(**spkw))
+
+    def run_model(m, device, args, kw=None):
+        with torch.no_grad():
+            out = m(*[torch.from_numpy(a).to(device) for a in args],
+                    **{k: torch.from_numpy(v).to(device)
+                       for k, v in (kw or {}).items()})
+        if not isinstance(out, dict):
+            out = dict(zip(("occupancy", "logits"), out))
+        return {k: v.float().cpu() for k, v in out.items()}
+
+    ref = {}
+    t0 = time.perf_counter()
+    # Card against CPU on the second cloud (4 096 voxels, the last 1 096
+    # masked); the card's forward is timed at batch 2.
+    dargs, dkw_in = (feats, coords), dict(coord_mask=cmask)
+    one, one_kw = (feats[1:], coords[1:]), dict(coord_mask=cmask[1:])
+    card = run_model(twin(dec, dkw, dev), dev, one, one_kw)
+    want = run_model(dec, cpu, one, one_kw)
+    ref["direct_float32"] = {k: (card[k] - want[k]).abs().max().item()
+                             for k in want}
+    ms_fwd = {}
+    for name, dt in (("float32", None), ("bf16", torch.bfloat16)):
+        m = twin(dec, dkw, dev, dt)
+        a = [torch.from_numpy(x).to(dev) for x in dargs]
+        mk = torch.from_numpy(cmask).to(dev)
+        with torch.no_grad():
+            ms_fwd[name] = cuda_median_ms(
+                torch, lambda: m(*a, coord_mask=mk), n=5, warmup=1)
+    # bf16: one cloud of V2_REF_VOXELS (the CPU's bf16 matmuls are slow).
+    n = V2_REF_VOXELS
+    bargs, bkw = (feats[:1], coords[:1, :n]), dict(coord_mask=cmask[:1, :n])
+    b_card = run_model(twin(dec, dkw, dev, torch.bfloat16), dev, bargs, bkw)
+    b_cpu = run_model(twin(dec, dkw, cpu, torch.bfloat16), cpu, bargs, bkw)
+    f_cpu = run_model(dec, cpu, bargs, bkw)
+    # Each output within AMP_GAP x the larger of the CPU's own bf16 gap
+    # and one bf16 ulp of its largest float32 value.
+    ratios = {}
+    for k, v in b_cpu.items():
+        gap = max((v - f_cpu[k]).abs().max().item(),
+                  2.0 ** -7 * f_cpu[k].abs().max().item())
+        ratios[k] = (b_card[k] - v).abs().max().item() / (AMP_GAP * gap)
+    bf16_ok = max(ratios.values()) <= 1.0
+    ref["direct_bf16"] = dict(ratio_to_bound=ratios, voxels=n,
+                              gap_factor=AMP_GAP)
+    card = run_model(twin(mlp, mkw, dev), dev, one)
+    want = run_model(mlp, cpu, one)
+    ref["mlp_float32"] = {k: (card[k] - want[k]).abs().max().item()
+                          for k in want}
+    t_sp = time.perf_counter()
+    card = run_model(twin(sp, spkw, dev), dev, (feats[:1],))
+    want = run_model(sp, cpu, (feats[:1],))
+    sp_cpu_s = time.perf_counter() - t_sp
+    ref["structure_float32"] = {k: (card[k] - want[k]).abs().max().item()
+                                for k in want}
+    spm = twin(sp, spkw, dev)
+    x1 = torch.from_numpy(feats[:1]).to(dev)
+    with torch.no_grad():
+        sp_ms = cuda_median_ms(torch, lambda: spm(x1), n=5, warmup=1)
+    # occupancy_to_coords on the same grid on both devices, as it is and
+    # with a tenth of it saturated at exactly 1.0 (ties).
+    occ = want["occupancy"][0]
+    sat = occ.clone()
+    sat.view(-1)[::10] = 1.0
+    otc = {}
+    for name, grid in (("as_is", occ), ("saturated", sat)):
+        c_card, v_card = slat.occupancy_to_coords(grid.to(dev),
+                                                  full["max_coords"])
+        c_cpu, v_cpu = slat.occupancy_to_coords(grid, full["max_coords"])
+        otc[name] = bool(torch.equal(c_card.cpu(), c_cpu)
+                         and torch.equal(v_card.cpu(), v_cpu))
+    f32_errs = [v for k in ("direct_float32", "mlp_float32",
+                            "structure_float32") for v in ref[k].values()]
+    log("slat_reference", config=dkw, batch=1, voxels=full["max_coords"],
+        patches=V2_PATCHES, errors=ref, tol=V2_REF_TOL,
+        occupancy_to_coords_equal=otc,
+        allow_tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                        cudnn=torch.backends.cudnn.allow_tf32),
+        direct_fwd_ms=ms_fwd, structure=dict(resolution=64, hidden=256,
+                                             fwd_ms=sp_ms,
+                                             cpu_seconds=sp_cpu_s),
+        reference_seconds=time.perf_counter() - t0,
+        phase_seconds=lap("slat_reference"))
+    if not (max(f32_errs) <= V2_REF_TOL and bf16_ok and all(otc.values())):
+        fail(f"slat_reference: the card disagrees with the CPU: {ref} {otc}")
+    del dec, mlp, sp, spm
+
+    # 82. v2_train: V2Trainer at full width on TRELLIS-layout files.
+    data_dir = os.path.join(root, "trellis")
+    t0 = time.perf_counter()
+    SyntheticTrellisDataset(
+        n_samples=V2_SAMPLES, max_coords=full["max_coords"],
+        max_gaussians=full["max_gaussians"],
+        n_gaussians=full["max_gaussians"], feature_dim=full["feature_dim"],
+        num_patches=V2_PATCHES, seed=0).write(data_dir)
+    ds = TrellisDistillationDataset(data_dir,
+                                    max_coords=full["max_coords"],
+                                    max_gaussians=full["max_gaussians"])
+    data_s = time.perf_counter() - t0
+    host_batch = next(iter(ds.batches(full["batch_size"],
+                                      np.random.default_rng(0))))
+    fill = dict(coords=int(host_batch["coord_mask"].sum()),
+                gaussians=int(host_batch["gaussian_mask"].sum()))
+    routes, packs = {}, {}
+    for name, over in V2_ROUTES:
+        trainer = v2.V2Trainer(v2.V2Config(output_dir=os.path.join(
+            root, name), **full, **over), device=dev)
+        state = trainer.init_state()
+        batch = trainer.device_batch(host_batch)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for _ in range(V2_WARMUP):
+            state, _ = trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*counters)
+        events, losses = [], []
+        t1 = time.perf_counter()
+        for _ in range(V2_TIMED):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            state, ld = trainer.train_step(state, batch, gen)
+            end.record()
+            events.append((start, end))
+            losses.append(ld)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t1) / V2_TIMED * 1e3
+        launches = read()
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        path_launches[f"v2_train_{name}"] = launches
+
+        def steps():
+            nonlocal state
+            for _ in range(V2_PROFILED):
+                state, _ = trainer.train_step(state, batch, gen)
+
+        # The checkpointed routes are there for their memory and step
+        # time; the profile of the others reads the device.
+        ckpt = over.get("use_checkpoint", False)
+        prof = (dict(device_ms=None, device_busy_share=None, kernels=None,
+                     top_kernels_ms=None) if ckpt else
+                profile_ms(torch, steps, V2_PROFILED, top=6, cpu=False))
+        totals = [float(ld["total"]) for ld in losses]
+        ms = [s_.elapsed_time(e_) for s_, e_ in events]
+        render = over.get("use_render_loss", False)
+        routes[name] = dict(
+            ms_per_step=ms, ms_per_step_median=statistics.median(ms),
+            host_ms_per_step=host_ms,
+            device_ms_per_step=prof["device_ms"],
+            device_busy_share=prof["device_busy_share"],
+            kernels_per_step=prof["kernels"],
+            top_kernels_ms_per_step=prof["top_kernels_ms"],
+            peak_mem_gb_above_resident=peak,
+            launches_per_step=per_step(launches, V2_TIMED), losses=totals,
+            render_terms=[float(losses[-1].get(k, float("nan")))
+                          for k in ("render_rgb", "render_ssim")])
+        want_l = dict(k1=2.0, k2=1.0) if render else {}
+        if not (per_step(launches, V2_TIMED) == want_l
+                and np.all(np.isfinite(totals))):
+            fail(f"v2_train {name}: {routes[name]}")
+        if name == "float32_render":
+            # The step's two render packs at this state.
+            with torch.no_grad():
+                out = trainer.model(batch["features"], batch["coords"],
+                                    coord_mask=batch["coord_mask"])
+                pm = torch.repeat_interleave(
+                    batch["coord_mask"], full["num_gaussians_per_voxel"], 1)
+                for key, g, m in (("pred", out["gaussians"], pm),
+                                  ("teacher", batch["gaussians"],
+                                   batch["gaussian_mask"])):
+                    op = torch.where(m, g[..., 13], torch.zeros_like(
+                        g[..., 13]))
+                    packs[key] = tile.pack_tiles_batched(
+                        g[..., 0:3], g[..., 3:6], g[..., 6:10],
+                        g[..., 10:13], op, trainer.camera,
+                        trainer.render_config)
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+    log("v2_train", config=full, samples=V2_SAMPLES, fill=fill,
+        data_seconds=data_s, warmup_steps=V2_WARMUP, steps=V2_TIMED,
+        profiled_steps=V2_PROFILED, routes=routes,
+        phase_seconds=lap("v2_train"))
+
+    # K1 / K2 at the v2 render packs (the prediction's with K2).
+    k12 = {}
+    for key in ("pred", "teacher"):
+        bp = packs[key]
+        k12[key] = pack_kernels(torch, raster, bp.pack, bp.counts,
+                                bp.n_tiles_x, bp.tiles_per_image,
+                                backward=key == "pred")
+    lap("v2_kernels")
+
+    # 83. v2_cli: --synthetic, then --data_dir with the checkpoint and the
+    # render loss; then one more step from a written .pt.
+    cli = {}
+    for name, argv in (
+            ("synthetic", ["--synthetic", "--epochs", "2"]),
+            ("data_dir", ["--data_dir", data_dir, "--epochs", "1",
+                          "--use_checkpoint", "--use_render_loss"])):
+        out_dir = os.path.join(root, f"cli_{name}")
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        t1 = time.perf_counter()
+        (trainer, state), printed = quiet(
+            v2.main, argv + ["--output_dir", out_dir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launches = read()
+        path_launches[f"v2_cli_{name}"] = launches
+        files = sorted(os.listdir(out_dir))
+        with open(os.path.join(out_dir, "final_v2.pt.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(out_dir, "loss_history.json")) as f:
+            hist = json.load(f)
+        steps_run = int(state["step"])
+        cli[name] = dict(seconds=seconds, files=files, steps=steps_run,
+                         launches=launches, epoch=meta["epoch"],
+                         history_total=hist["total"],
+                         said=printed.strip().splitlines()[-1])
+        render = "--use_render_loss" in argv
+        ok = ({"best_v2.pt", "best_v2.pt.json", "final_v2.pt",
+               "final_v2.pt.json", "loss_history.json"} <= set(files)
+              and np.all(np.isfinite(hist["total"]))
+              and meta["config"]["use_render_loss"] == render
+              and launches == dict(k1=2 * steps_run if render else 0,
+                                   k2=steps_run if render else 0, k3=0,
+                                   k4=0, k1phi=0, k2phi=0, k5=0, k6=0))
+        if name == "data_dir":
+            state2, epoch = trainer.load_checkpoint(
+                os.path.join(out_dir, "final_v2.pt"))
+            batch = trainer.device_batch(host_batch)
+            state2, ld = trainer.train_step(state2, batch)
+            cli[name]["resumed"] = dict(epoch=epoch,
+                                        step=int(state2["step"]),
+                                        total=float(ld["total"]))
+            ok = ok and epoch == 0 and int(state2["step"]) == steps_run + 1 \
+                and math.isfinite(float(ld["total"]))
+        if not ok:
+            fail(f"v2_cli {name}: {cli[name]}")
+        del trainer, state
+        torch.cuda.empty_cache()
+    log("v2_cli", runs=cli, phase_seconds=lap("v2_cli"))
+
+    # 84. v2_reference: two render-loss steps at a small config, card
+    # against CPU, from one init (dropout 0).
+    small = SyntheticTrellisDataset(n_samples=2 * V2_REF_STEPS, seed=84,
+                                    **V2_SMALL_DATA)
+    sb = list(small.batches(2, np.random.default_rng(0)))
+    runs = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        trainer = v2.V2Trainer(v2.V2Config(output_dir=os.path.join(
+            root, f"ref_{name}"), **V2_SMALL), device=d)
+        trainer.model.dropout = 0.0
+        state = trainer.init_state()
+        reset_counts(*counters)
+        losses = []
+        for b in sb:
+            state, ld = trainer.train_step(state, trainer.device_batch(b))
+            losses.append({k: float(v) for k, v in ld.items()})
+        runs[name] = dict(losses=losses, launches=read(),
+                          params={k: v.cpu() for k, v in
+                                  state["params"].items()})
+    rel = {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(
+        runs["card"]["losses"], runs["cpu"]["losses"]))
+        for k in runs["cpu"]["losses"][0]}
+    pmean = max((runs["card"]["params"][k] - v).abs().mean().item()
+                for k, v in runs["cpu"]["params"].items())
+    card_l = runs["card"]["launches"]
+    log("v2_reference", config=V2_SMALL, steps=V2_REF_STEPS,
+        losses_card=[r["total"] for r in runs["card"]["losses"]],
+        losses_cpu=[r["total"] for r in runs["cpu"]["losses"]],
+        rel_err=rel, rtol=REF_LOSS_RTOL, param_mean_abs_max=pmean,
+        param_mean_tol=REF_PARAM_MEAN_TOL, launches_card=card_l,
+        kernels_at_v2_packs=k12, phase_seconds=lap("v2_reference"))
+    if not (max(rel.values()) <= REF_LOSS_RTOL
+            and pmean <= REF_PARAM_MEAN_TOL
+            and card_l["k1"] == 2 * V2_REF_STEPS
+            and card_l["k2"] == V2_REF_STEPS
+            and k12["pred"]["k1_max_abs_err"] <= KERNEL_TOL
+            and k12["teacher"]["k1_max_abs_err"] <= KERNEL_TOL
+            and k12["pred"]["k2_rel_err"] <= KERNEL_BWD_TOL):
+        fail(f"v2_reference: the card disagrees with the CPU or K1 / K2 "
+             f"with their plain versions: {rel} {pmean} {card_l}")
+    shutil.rmtree(root, ignore_errors=True)
+    total = sum(phase_s.values())
+    log("v2_phases", seconds=phase_s, total_seconds=total,
+        cap_seconds=V2_PHASES_CAP_S)
+    if total > V2_PHASES_CAP_S:
+        fail(f"phases 81-84 took {total:.1f} s, over their "
+             f"{V2_PHASES_CAP_S} s cap")
+    return k12
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
     """K1 (and with `backward` K2, cotangents from a seed) against their
     plain versions on one pack: errors, times and bounds."""
@@ -6890,6 +7312,20 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_item10_")
     item10_phases(torch, dev, path_launches, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
+    # 81-84. Fresnel v2 distillation: the decoders and the structure
+    # predictor, V2Trainer at full width (K1 twice and K2 once per
+    # render-loss step), its CLI, card against CPU
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_v2_")
+    k_v2 = v2_phases(torch, dev, path_launches, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    for key, pack in (("at_v2_pred_pack", k_v2["pred"]),
+                      ("at_v2_teacher_pack", k_v2["teacher"])):
+        k1["max_abs_err"] = max(k1["max_abs_err"], pack["k1_max_abs_err"])
+        k1[key] = dict(pack["k1"], T=pack["T"], M=pack["M"])
+        if "k2" in pack:
+            k2["max_abs_err"] = max(k2["max_abs_err"],
+                                    pack["k2_max_abs_err"])
+            k2[key] = dict(pack["k2"], T=pack["T"], M=pack["M"])
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             k_saag["k1"]["k1_max_abs_err"])
     k1["at_saag_render_pack"] = dict(k_saag["k1"]["k1"], T=k_saag["k1"]["T"],

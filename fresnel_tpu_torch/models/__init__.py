@@ -10,6 +10,8 @@ from fresnel_tpu_torch.models.encoders import (
 from fresnel_tpu_torch.models.nca import NCAGaussianDecoder
 from fresnel_tpu_torch.models.saag_refine import (
     FeatureGuidedSAAG, SAAGRefinementNet)
+from fresnel_tpu_torch.models.slat import (
+    DirectSLatDecoder, DirectStructurePredictor, MLPSLatDecoder)
 from fresnel_tpu_torch.models.vit import (
     DINOv2,
     DepthAnything,
@@ -21,10 +23,13 @@ __all__ = [
     "DINOv2",
     "DepthAnything",
     "DirectPatchDecoder",
+    "DirectSLatDecoder",
+    "DirectStructurePredictor",
     "FallbackDepthEstimator",
     "FeatureGuidedSAAG",
     "FeatureInterpolator",
     "MLP",
+    "MLPSLatDecoder",
     "NCAGaussianDecoder",
     "PhysicsDirectPatchDecoder",
     "SAAGRefinementNet",

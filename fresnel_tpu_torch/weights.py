@@ -6,8 +6,11 @@ params["params"], sep="/")` gives them), and return the port's state dicts.
 They import nothing of the JAX package: the layouts are rules on arrays.
   * Dense `kernel` (in, out)            -> Linear.weight (out, in)
   * Conv `kernel` (kh, kw, in, out)     -> Conv2d.weight (out, in, kh, kw)
+  * 3-D Conv `kernel` (kd, kh, kw, in, out) -> Conv3d.weight (out, in, kd,
+    kh, kw)
   * PatchUpsample `kernel` (k, k, C, O) -> ConvTranspose2d layout (C, O, k, k)
   * LayerNorm / GroupNorm `scale`       -> weight
+  * Embed `embedding`                   -> Embedding.weight
   * attention DenseGeneral kernels (C, heads, head_dim) and (heads,
     head_dim, C), biases (heads, head_dim) -> Linear(C, C)
   * biases, LayerScale `gamma`, cls / pos tokens and the decoder's scalar
@@ -21,6 +24,10 @@ ConsistencyViewSynthesizer's (or the CVS trainer's perceptual stack's)
 params, whose port modules carry the Flax names, and `cvs_state` a whole
 JAX `CVSTrainer` checkpoint (params, EMA params, the perceptual stack,
 `clip_by_global_norm` + constant-rate `adamw` moments and count, step).
+`slat_params` carries the v2 decoders' and the structure predictor's
+params (models/slat.py, Flax names), and `v2_state` a whole JAX
+`V2Trainer` checkpoint (params, the same optimizer chain's moments and
+count, step).
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ from fresnel_tpu_torch.models.decoders import (
     DirectPatchDecoder, PhysicsDirectPatchDecoder, ZeroInitConv2d)
 from fresnel_tpu_torch.models.fibonacci import FibonacciPatchDecoder
 from fresnel_tpu_torch.models.image_encoder import GroupNorm, ImageEncoder
+from fresnel_tpu_torch.models.slat import (
+    Conv3d, DirectSLatDecoder, GaussianHead, SmallInitDense)
 from fresnel_tpu_torch.models.vit import (
     DINOv2,
     LayerScale,
@@ -63,10 +72,12 @@ def _convert(flat: Mapping[str, np.ndarray], renames=()) -> Dict[str, torch.Tens
                 arr = arr.T
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 5:
+                arr = arr.transpose(4, 3, 0, 1, 2)
             else:
                 raise ValueError(f"unexpected kernel rank at {path}")
             parts[-1] = "weight"
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             parts[-1] = "weight"
         key = ".".join(parts)
         for pattern, repl in renames:
@@ -275,36 +286,71 @@ def cvs_params(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 CVS_GROUPS = ("params", "ema_params", "perc_params")
 
 
-def cvs_state(flat: Mapping[str, np.ndarray]) -> Dict:
-    """A JAX CVSTrainer checkpoint flat with "/" (`train.flax_msgpack.
-    read_flat`: "params/params/unet/...", "ema_params/params/...",
-    "perc_params/params/...", "opt_state/1/0/{count,mu,nu}/params/...",
-    "step") -> the port's CVS state {"params", "ema_params",
-    "perc_params", "opt_state": {"count", "mu", "nu"}, "step"}.  optax's
-    chain is (clip: empty, (Adam's count, mu, nu; the weight decay: empty;
-    the constant rate: empty)): one count."""
-    out: Dict = {}
-    for g in CVS_GROUPS:
-        pre = f"{g}/"
-        out[g] = cvs_params({k[len(pre):]: v for k, v in flat.items()
-                             if k.startswith(pre)})
+def _adam_chain(flat: Mapping[str, np.ndarray], convert) -> Dict:
+    """The Adam state of optax's `chain(clip_by_global_norm, adamw(lr))` at
+    a constant rate in a checkpoint flat with "/": the chain is (clip:
+    empty, (Adam's count, mu, nu; the weight decay: empty; the rate:
+    empty)), one count.  -> {"count", "mu", "nu"}, each moment through
+    `convert`."""
     adam = "opt_state/1/0/"
     if adam + "count" not in flat:
         raise ValueError(f"no Adam count at {adam}count")
     counts = [k for k in flat if k.startswith("opt_state/")
               and k.endswith("/count")]
     if counts != [adam + "count"]:
-        raise ValueError(f"optax counts {counts}: the port's CVS optimizer "
+        raise ValueError(f"optax counts {counts}: the port's optimizer "
                          "keeps Adam's alone")
-    out["opt_state"] = {"count": torch.tensor(
-        int(np.asarray(flat[adam + "count"])), dtype=torch.int32)}
+    out = {"count": torch.tensor(int(np.asarray(flat[adam + "count"])),
+                                 dtype=torch.int32)}
     for m in ("mu", "nu"):
         pre = f"{adam}{m}/"
-        out["opt_state"][m] = cvs_params(
-            {k[len(pre):]: v for k, v in flat.items() if k.startswith(pre)})
-    out["step"] = torch.tensor(int(np.asarray(flat["step"])),
-                               dtype=torch.int32)
+        out[m] = convert({k[len(pre):]: v for k, v in flat.items()
+                          if k.startswith(pre)})
     return out
+
+
+def _step(flat: Mapping[str, np.ndarray]) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(flat["step"])), dtype=torch.int32)
+
+
+def cvs_state(flat: Mapping[str, np.ndarray]) -> Dict:
+    """A JAX CVSTrainer checkpoint flat with "/" (`train.flax_msgpack.
+    read_flat`: "params/params/unet/...", "ema_params/params/...",
+    "perc_params/params/...", "opt_state/1/0/{count,mu,nu}/params/...",
+    "step") -> the port's CVS state {"params", "ema_params",
+    "perc_params", "opt_state": {"count", "mu", "nu"}, "step"}."""
+    out: Dict = {}
+    for g in CVS_GROUPS:
+        pre = f"{g}/"
+        out[g] = cvs_params({k[len(pre):]: v for k, v in flat.items()
+                             if k.startswith(pre)})
+    out["opt_state"] = _adam_chain(flat, cvs_params)
+    out["step"] = _step(flat)
+    return out
+
+
+def slat_params(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat params of a DirectSLatDecoder, MLPSLatDecoder or
+    DirectStructurePredictor ("block_0/SelfAttention_0/qkv/kernel",
+    "PositionalEncoding3D_0/pos_embed_x/embedding", "voxel_embed", ...; a
+    leading "params/" is dropped) -> the state dict of the port's module
+    of the same name (models/slat.py): the paths with ".", Dense kernels
+    transposed, 2-D and 3-D conv kernels (..., in, out) -> (out, in, ...),
+    embeddings and 0-d leaves (`position_offset_scale`, `scale_factor`) as
+    they are."""
+    return _convert({(k[len("params/"):] if k.startswith("params/") else k):
+                     v for k, v in flat.items()})
+
+
+def v2_state(flat: Mapping[str, np.ndarray]) -> Dict:
+    """A JAX V2Trainer checkpoint flat with "/" ("params/params/...",
+    "opt_state/1/0/{count,mu,nu}/params/...", "step") -> the port's v2
+    state {"params", "opt_state": {"count", "mu", "nu"}, "step"}."""
+    pre = "params/"
+    return {"params": slat_params({k[len(pre):]: v for k, v in flat.items()
+                                   if k.startswith(pre)}),
+            "opt_state": _adam_chain(flat, slat_params),
+            "step": _step(flat)}
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
@@ -324,13 +370,18 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     `upsample_refine` conv and output Dense layers (FeatureGuidedSAAG's,
     the NCA's update) 0; in CVS the adapter's `pos_embed` and
     `compress_queries` and the pose encoder's `pose_queries` normal(0.02),
-    each `wavelength` 0.1.  Draws from `generator`, so it is
-    reproducible."""
+    each `wavelength` 0.1; in the v2 decoders the embeddings and
+    `voxel_embed` normal(0.02), the heads' output layers normal(0.01),
+    `position_offset_scale` its initial value and `scale_factor` 0.01.
+    Draws from `generator`, so it is reproducible."""
     for m in model.modules():
         if isinstance(m, (ZeroInitConv2d, ZeroInitLinear)):
             m.weight.zero_()
             m.bias.zero_()
-        elif isinstance(m, (Linear, Conv2d)):
+        elif isinstance(m, SmallInitDense):
+            m.weight.normal_(0.0, m.init_std, generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, (Linear, Conv2d, Conv3d)):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 m.bias.zero_()
@@ -360,4 +411,11 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.pose_queries.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, FresnelWaveAttention):
             m.wavelength.fill_(0.1)
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, DirectSLatDecoder):
+            m.voxel_embed.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, GaussianHead):
+            m.position_offset_scale.fill_(m.init_offset_scale)
+            m.scale_factor.fill_(0.01)
     return model

@@ -26,7 +26,8 @@ tolerances, around their stages and back-walk runs, with alpha on its
 clip and SIMPLE's depth ties; the four renderers K5-K8 serve, the
 diffractive layers and the quantised depth sorts, card against CPU; the
 LPIPS distance and its gradients, ms_ssim and the matching loss, card
-against CPU.
+against CPU; the v2 decoders, the structure predictor and a render-loss
+V2Trainer step (K1 twice, K2 once), card against CPU.
 """
 
 import numpy as np
@@ -1645,3 +1646,73 @@ def test_ms_ssim_and_matching_on_card_match_cpu(cuda):
                                  target_mask=tmask.to(cuda), **kw)
     for k, v in want.items():
         assert abs(got[k].item() - v.item()) <= 1e-5 * abs(v.item()), k
+
+
+def test_slat_models_on_card_match_cpu(cuda):
+    """The v2 decoders (float32, TF32 off) and the structure predictor on
+    the card against the CPU, same weights: outputs within 1e-5 abs;
+    occupancy_to_coords on one grid with saturated ties equal on both."""
+    from fresnel_tpu_torch.models import slat
+    from fresnel_tpu_torch.weights import init_flax_like_
+
+    rng = np.random.default_rng(3)
+    feats = torch.from_numpy(rng.normal(size=(2, 49, 32)).astype(np.float32))
+    coords = torch.from_numpy(np.concatenate(
+        [np.zeros((2, 40, 1)), rng.integers(0, 64, (2, 40, 3))],
+        -1).astype(np.int32))
+    mask = torch.ones(2, 40, dtype=torch.bool)
+    mask[1, 25:] = False
+    models = (slat.DirectSLatDecoder(feature_dim=32, hidden_dim=48,
+                                     num_layers=2, num_heads=4,
+                                     num_gaussians_per_voxel=2),
+              slat.MLPSLatDecoder(feature_dim=32, hidden_dim=48,
+                                  num_gaussians_per_voxel=2),
+              slat.DirectStructurePredictor(feature_dim=32, hidden_dim=32,
+                                            resolution=16))
+    for m in models:
+        init_flax_like_(m, torch.Generator().manual_seed(0))
+        args = ((feats,) if isinstance(m, slat.DirectStructurePredictor)
+                else (feats, coords))
+        kw = ({"coord_mask": mask}
+              if isinstance(m, slat.DirectSLatDecoder) else {})
+        with torch.no_grad():
+            want = m(*args, **kw)
+            got = m.to(cuda)(*[a.to(cuda) for a in args],
+                             **{k: v.to(cuda) for k, v in kw.items()})
+        if not isinstance(want, dict):
+            want, got = dict(enumerate(want)), dict(enumerate(got))
+        for k, v in want.items():
+            assert (got[k].cpu() - v).abs().max().item() <= 1e-5, (m, k)
+    occ = want[0][0].clone()
+    occ.view(-1)[::7] = 1.0
+    c_cpu, v_cpu = slat.occupancy_to_coords(occ, 300)
+    c_gpu, v_gpu = slat.occupancy_to_coords(occ.to(cuda), 300)
+    assert torch.equal(c_gpu.cpu(), c_cpu) and torch.equal(v_gpu.cpu(), v_cpu)
+
+
+def test_v2_render_step_on_card_matches_cpu(cuda):
+    """One V2Trainer step with the render loss (dropout 0) on the card and
+    on the CPU from one init: every loss term within 1e-4 relative; the
+    card's step launches K1 twice (predictions, teachers) and K2 once."""
+    from fresnel_tpu_torch.data.trellis import SyntheticTrellisDataset
+    from fresnel_tpu_torch.train import train_direct_decoder as v2
+
+    ds = SyntheticTrellisDataset(n_samples=2, max_coords=64,
+                                 max_gaussians=256, n_gaussians=256,
+                                 feature_dim=32, num_patches=16, seed=4)
+    batch = next(iter(ds.batches(2, np.random.default_rng(0))))
+    cfg = dict(feature_dim=32, hidden_dim=48, num_layers=2, num_heads=4,
+               num_gaussians_per_voxel=2, max_coords=64, max_gaussians=256,
+               max_match_points=64, use_render_loss=True)
+    res = {}
+    for dev in ("cpu", cuda):
+        t = v2.V2Trainer(v2.V2Config(**cfg), device=dev)
+        t.model.dropout = 0.0
+        raster.launches = raster.launches_bwd = 0
+        _, ld = t.train_step(t.init_state(), t.device_batch(batch))
+        res[str(dev)] = ({k: float(v) for k, v in ld.items()},
+                         (raster.launches, raster.launches_bwd))
+    (got, launches), (want, _) = res[str(cuda)], res["cpu"]
+    assert launches == (2, 1)
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-4 * abs(v), k

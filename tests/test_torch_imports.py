@@ -24,6 +24,9 @@ ITEM10 = ("utils/image.py", "utils/profiling.py", "train/thin_ckpt.py",
           "data/streaming.py", "data/depth_dataset.py",
           "train/train_depth.py", "train/auto_tune.py",
           "train/hyperparam_search.py")
+# The modules of ROADMAP Queue 1, item 9 (Fresnel v2 distillation).
+ITEM9 = ("models/slat.py", "data/trellis.py", "train/train_direct_decoder.py",
+         "weights.py")
 
 
 def _imported_roots(path):
@@ -44,6 +47,13 @@ def test_no_forbidden_import(path):
 
 @pytest.mark.parametrize("rel", ITEM10)
 def test_item10_module_checked(rel):
+    path = ROOT / "fresnel_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize("rel", ITEM9)
+def test_item9_module_checked(rel):
     path = ROOT / "fresnel_tpu_torch" / rel
     assert path in PORT_FILES
     assert not _imported_roots(path) & FORBIDDEN
@@ -160,6 +170,20 @@ class TestDevice:
         with pytest.raises(RuntimeError, match="CUDA"):
             cvs_multiview.main([str(tmp_path / "x.png"), "--checkpoint",
                                 str(ckpt)])
+
+    def test_v2_raises_without_cuda(self, tmp_path):
+        from fresnel_tpu_torch.data.trellis import SyntheticTrellisDataset
+        from fresnel_tpu_torch.train import train_direct_decoder as v2
+        with pytest.raises(RuntimeError, match="CUDA"):
+            v2.V2Trainer(v2.V2Config())
+        for argv in (["--synthetic", "--epochs", "1"],
+                     ["--data_dir", str(tmp_path), "--epochs", "1"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                v2.main(argv + ["--output_dir", str(tmp_path / "o")])
+        assert not (tmp_path / "o").exists()
+        # The datasets are host numpy: they need no device.
+        assert len(SyntheticTrellisDataset(n_samples=1, feature_dim=4,
+                                           num_patches=4)) == 1
 
     def test_render_and_orbit_raise_without_cuda(self):
         from fresnel_tpu_torch.cli import orbit, render
