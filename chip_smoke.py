@@ -32,11 +32,12 @@ the LPIPS term of decoder training (`cli train --lpips_weights`) with
 ms_ssim and the matching loss, the overnight launcher's preprocessing,
 streamed training, thin checkpoints, the tuners and depth training, and
 Fresnel v2 distillation (`train.train_direct_decoder`: the sparse-voxel
-decoders on TRELLIS-layout files, with the render loss).  Phases,
+decoders on TRELLIS-layout files, with the render loss), `fresnel-torch
+smoke`, the binary-protocol bridges and decoder export.  Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
-   2. build       compile the eight kernels from fresnel_tpu_torch/csrc/
+   2. build       compile the ten kernels from fresnel_tpu_torch/csrc/
                   into build/ (one nvcc each, run together, sm_90a), with
                   ptxas's registers, shared memory and spills;
    3. kernel      K1 against its plain PyTorch version at the image->3DGS
@@ -179,10 +180,10 @@ non-zero:
                   launch counts reset just before and read just after (8
                   K1 per scene and 8 for the grid); every metric and its
                   difference to results/eval_<name>_eval.json; the card
-                  against the CPU on the first 2 scenes: frontal and
+                  against the CPU on the first scene: frontal and
                   per-view SSIM within 1e-4, PSNR within 1e-3 dB, coverage
                   within 2 / S^2 per view;
-  28. eval_v2     v2combo over corpus_v2_eval (24 scenes, seed 21,
+  28. eval_v2     v2combo over corpus_v2_eval's first 8 scenes (seed 21,
                   raytraced by up to 8 parallel processes) with their GT
                   views: per-view, side-view and novel-view SSIM beside
                   results/eval_v2combo_eval.json; card against CPU as in
@@ -225,7 +226,7 @@ non-zero:
                   256^2, M 1024; 8 K1 per scene), frontal SSIM within
                   1e-3 and PSNR within 0.05 dB of the committed
                   results/eval_<name>_eval.json, card against CPU on the
-                  first 2 scenes as in 27;
+                  first scene as in 27;
   33. upsample_ckpt  the same for exp2_g74zi (feature_upsample 2: 74^2 x
                   K 2, 10 952 Gaussians), and cli eval of exp2_e74 (a
                   74^2 encoder grid);
@@ -256,8 +257,8 @@ non-zero:
       exp4_phases  the seconds of each of 32-37 and their total, beside
                   the 60 s they are meant to keep to.
   38. cvs_data    the experiment-2 teachers of the 256^2 training corpus's
-                  first 4 scenes (fit_teacher.main, 50 Adam steps of 800:
-                  51 K1 and 50 K2 each), then the three CVS datasets at
+                  first 4 scenes (fit_teacher.main, 25 Adam steps of 800:
+                  26 K1 and 25 K2 each), then the three CVS datasets at
                   256^2, 4 scenes each: bootstrap clouds (16 K1 at M 256),
                   the teacher clouds' orbit renders (16 K1 at M 1 024) and
                   corpus_v2_eval's raytraced views (no render); seconds
@@ -270,7 +271,7 @@ non-zero:
                   value;
   39. cvs_reference  the JAX trainer's defaults (64^2, base 64: attention at
                   16 and 8), fp32, quality-aware, concat_input_view, batch
-                  2, card against CPU from one init, 3 steps with the same
+                  2, card against CPU from one init, 2 steps with the same
                   draws: losses within 1e-4 relative, each params and EMA
                   leaf's mean absolute difference within 1e-6 (the
                   attention key bias, whose gradient is zero in exact
@@ -287,7 +288,7 @@ non-zero:
                   --resume from its cvs.pt: epochs 2-3 follow with the
                   ramp's weights 0.2 and 0.3;
   42. cvs_generate  one- and 4-step generation at 256^2, batch 1, bf16 and
-                  fp32, from the resumed state (median ms of 10); the
+                  fp32, from the resumed state (median ms of 5); the
                   one-step SSIM / PSNR against the 12 teacher pairs'
                   targets (a sanity number, not a quality claim);
   43. cvs_multiview  cvs_multiview.main with the resumed state: 8 orbit
@@ -295,7 +296,7 @@ non-zero:
                   steps; all 8 views in one pack: one K1 and one K2 per
                   step); the PLY read back (2 000 finite rows); the fit's
                   ms per step (host clock over the fit and the PLY write);
-                  card against CPU over 2 steps: losses within 1e-4
+                  card against CPU over 1 step: losses within 1e-4
                   relative;
       kernel_cvs_packs  K1 at the teacher render pack (T 256, M 1 024) and
                   K1 + K2 at the 3DGS fit's pack (8 x 256 tiles, M 256)
@@ -429,8 +430,8 @@ non-zero:
                   Each of 57-61: cli train for one epoch over an 8-scene
                   corpus at the TrainingConfig defaults (256^2, batch 4,
                   37^2 x 384 features, K 4, M 256) unless a flag says
-                  otherwise, then 5 steps timed by CUDA events after 2
-                  warmup steps and 3 under torch.profiler; the expected
+                  otherwise, then 3 steps timed by CUDA events after 2
+                  warmup steps and 2 under torch.profiler; the expected
                   launches of all eight kernels per step, every loss
                   finite; the card against the CPU at 64^2, batch 2,
                   dropout 0, 2 steps: every loss term within 1e-4
@@ -585,6 +586,29 @@ non-zero:
                   one init: losses within 1e-4 relative, params within
                   1e-5 by mean, K1 / K2 2 / 1 per step; then the seconds
                   of 81-84 beside a 90 s cap.
+  85. smoke      `fresnel-torch smoke` (cli.main): the devices, the two
+                  compute round trips and K1 once against its plain
+                  version; exit 0, one K1 launch;
+  86. bridges    the four bridge commands as the C++ viewer runs them, a
+                  `python -m fresnel_tpu_torch.inference.bridges` process
+                  each on the card, five at once (dinov2, depth, decoder
+                  with results/exp2_model.msgpack and without a
+                  checkpoint, test_novel_views with exp2_k8 at 8 views of
+                  256^2), against the same commands on the CPU in this
+                  process: features within 3e-5, depth 1e-6, Gaussians
+                  1e-5 of each field's largest value (quaternions up to
+                  sign), each view's mean and coverage 1e-4, the same
+                  lines, verdict and PNG names; test_novel_views again in
+                  this process on the card for its K1 launches (one a
+                  view); seconds per command on each side;
+  87. export     export_decoder.main on the card for the seven committed
+                  decoders (npz and the traced module, each verified
+                  against its eager decoder), each file loaded with
+                  map_location="cpu" and held against the CPU's eager
+                  decoder within 1e-5 of each field's largest value;
+                  seconds per checkpoint;
+  88. item11_phases  the seconds of 85-87 beside a 45 s cap (over it
+                  fails).
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -1865,11 +1889,14 @@ INFER_TIMED = 3
 INFER_RTOL = 1e-5
 # corpus_v1_eval and corpus_v2_eval as cloud/make_corpus.sh makes them
 # (24 scenes each, seeds 1 and 21); view-aware training takes the first 4
-# corpus_v2 scenes.
+# corpus_v2 scenes.  corpus_v2_eval is cut to its first 8 scenes (its 24
+# took 35 s to raytrace on the card's host): v2combo's eval is logged
+# beside the committed TPU JSON over those 8.
 EVAL_SCENES, EVAL_SEED, EVAL_SIZE = 24, 1, 256
-EVAL_V2_SCENES, EVAL_V2_SEED, VIEW_SCENES = 24, 21, 4
-# Card against the port's CPU on the first scenes of each eval.
-EVAL_REF_SCENES = 2
+EVAL_V2_SCENES, EVAL_V2_SEED, VIEW_SCENES = 8, 21, 4
+# Card against the port's CPU on the first scene of each eval (the CPU's
+# renders of 2 scenes took 11-15 s an eval).
+EVAL_REF_SCENES = 1
 EVAL_SSIM_TOL, EVAL_PSNR_TOL = 1e-4, 1e-3
 # exp2's sidecar says epoch 300 of 300 and a resume starts at epoch + 1:
 # epochs 301-303 of 16 scenes at batch 8 are 6 steps.
@@ -2678,13 +2705,13 @@ CVS_SIZE = 256
 CVS_FULL = dict(image_size=CVS_SIZE, base_channels=128, batch_size=4,
                 use_amp=True, concat_input_view=True, epochs=3,
                 save_interval=100)
-CVS_SCENES, CVS_TEACHER_STEPS = 4, 50
+CVS_SCENES, CVS_TEACHER_STEPS = 4, 25
 CVS_WARMUP, CVS_TIMED, CVS_F32_TIMED, CVS_PROFILED = 2, 12, 3, 3
 # cvs_reference: the JAX trainer's defaults (64^2, base 64: attention at
-# the 16 and 8 levels), fp32, batch 2, 3 steps with the same draws.
+# the 16 and 8 levels), fp32, batch 2, 2 steps with the same draws.
 CVS_REF = dict(image_size=64, base_channels=64, batch_size=2,
                use_quality_aware=True, concat_input_view=True)
-CVS_REF_STEPS = 3
+CVS_REF_STEPS = 2
 CVS_PARAM_MEAN_TOL = 1e-6
 CVS_GEN_TOL = 1e-4
 # The attention key bias has no gradient in exact arithmetic (the softmax
@@ -2697,10 +2724,11 @@ CVS_ZERO_GRAD = r"key\.bias$"
 # H100), as in the render slice's box-edge flips; the number of values
 # beyond the tolerance is logged.
 CVS_VIEW_TOL = 1e-5
-CVS_GEN_TIMED = 10
+CVS_GEN_TIMED = 5
 # cvs_multiview: 8 orbit views, the 3DGS fit of 2 000 Gaussians cut from
-# 300 Adam steps to 50; card against CPU over 2 steps.
-CVS_VIEWS, CVS_FIT_STEPS, CVS_FIT_REF_STEPS = 8, 50, 2
+# 300 Adam steps to 50; card against CPU over 1 step (each CPU step of
+# the 8-view pack took ~20 s).
+CVS_VIEWS, CVS_FIT_STEPS, CVS_FIT_REF_STEPS = 8, 50, 1
 # The new phases' time on the card, which they are meant to keep to.
 CVS_PHASES_CAP_S = 90.0
 
@@ -3005,7 +3033,7 @@ def cvs_phases(torch, dev, path_launches, tmp):
 
     # 43. cvs_multiview: cvs_multiview.main with the resumed state, 8 orbit
     # views, then the 3DGS fit (K1 + K2 once per step, all 8 views in one
-    # pack); the fit timed; the card against the CPU over 2 steps.
+    # pack); the fit timed; the card against the CPU over 1 step.
     img = os.path.join(teach, "scene_0000.png")
     ply = os.path.join(tmp, "cvs_fit.ply")
     reset_counts(*counters)
@@ -4116,7 +4144,7 @@ WAVE_PATHS = (
 # The routes that launch K5 / K6, held against the plain versions at
 # their own launches (kernel_dense).
 DENSE_ROUTES = ("qsr", "physics", "exp4_fourier")
-WAVE_SCENES, WAVE_WARMUP, WAVE_TIMED, WAVE_PROFILED = 8, 2, 5, 3
+WAVE_SCENES, WAVE_WARMUP, WAVE_TIMED, WAVE_PROFILED = 8, 2, 3, 2
 # The --ab mode's steps of the train_sh_full route (the corpus's batches
 # repeat, epoch after epoch).
 AB_TRAIN_STEPS = 20
@@ -6856,6 +6884,283 @@ def v2_phases(torch, dev, path_launches, tmp):
     return k12
 
 
+# `fresnel-torch smoke`, the binary-protocol bridges and decoder export
+# (phases 85-88).  The bridges as the C++ viewer runs them (a process per
+# command) on the card, against the same commands on the CPU in this
+# process at the CPU tests' tolerances (tests/test_torch_bridges.py):
+# features 3e-5, depth 1e-6, Gaussians 1e-5 of each field's largest value
+# (quaternions up to sign), the views' mean and coverage 1e-4.  The
+# seed-0 decoder (no checkpoint) has no JAX tolerance; its quaternions
+# come out of a badly conditioned 6D -> quaternion step at that random
+# init (the CPU's own float32 sits 1.3e-5 from float64 there), so they
+# are held within 2 x the CPU's float32-vs-float64 gap on the same inputs,
+# its other fields at 1e-5.  The processes get NVIDIA_TF32_OVERRIDE=0:
+# the encoder-trained checkpoint's convolutions would otherwise run in
+# TF32 (cuDNN's default), as this script turns off for itself.
+BRIDGE_VIEWS, BRIDGE_SIZE = 8, 256
+BRIDGE_FEAT_TOL, BRIDGE_DEPTH_TOL = 3e-5, 1e-6
+BRIDGE_FIELD_RTOL, BRIDGE_VIEW_TOL = 1e-5, 1e-4
+BRIDGE_FIELDS = {"positions": (0, 3), "scales": (3, 6), "rotations": (6, 10),
+                 "colors": (10, 13), "opacities": (13, 14)}
+# Each exported file, traced on the card, loaded on the CPU against the
+# CPU's eager decoder: 1e-5 of each field's largest value.
+EXPORT_CPU_RTOL = 1e-5
+ITEM11_PHASES_CAP_S = 45.0
+
+
+def bridge_fields_err(got, want):
+    """Each Gaussian field's largest error between two (N, 14) arrays,
+    relative to the field's largest value, quaternions up to sign."""
+    got = got.copy()
+    got[:, 6:10] *= np.where(np.sum(got[:, 6:10] * want[:, 6:10], -1) < 0,
+                             -1, 1)[:, None]
+    return {k: float(np.abs(got[:, a:b] - want[:, a:b]).max()
+                     / max(np.abs(want[:, a:b]).max(), 1e-12))
+            for k, (a, b) in BRIDGE_FIELDS.items()}
+
+
+def seed0_rotation_gap(torch, feats, depth):
+    """The bridge's seed-0 DirectPatchDecoder on the CPU: its rotations in
+    float32 against float64 on the same inputs, relative to their largest
+    value, up to sign."""
+    from fresnel_tpu_torch.models.decoders import DirectPatchDecoder
+    from fresnel_tpu_torch.weights import init_flax_like_
+
+    m = DirectPatchDecoder(feature_dim=feats.shape[-1], gaussians_per_patch=4)
+    init_flax_like_(m, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        q32 = m(feats, depth)["rotations"].double()
+        q64 = m.double()(feats.double(), depth.double())["rotations"]
+    q32 = q32 * torch.sign((q32 * q64).sum(-1, keepdim=True))
+    return float((q32 - q64).abs().max() / q64.abs().max())
+
+
+def bridge_views(text):
+    """[(azimuth, mean, coverage)], verdict of test_novel_views' lines (a
+    thin checkpoint's load prints its own line first, as in JAX)."""
+    lines = text.strip().splitlines()
+    rows = [re.fullmatch(r"az=(\d+) mean=([\d.]+) coverage=([\d.]+)", ln)
+            for ln in lines if ln.startswith("az=")]
+    if len(rows) != BRIDGE_VIEWS or not all(rows) \
+            or lines[-1] not in ("PASS", "DARK"):
+        fail(f"test_novel_views printed {lines}")
+    return [(int(r[1]), float(r[2]), float(r[3])) for r in rows], lines[-1]
+
+
+def item11_phases(torch, dev, path_launches, tmp):
+    """Phases 85-88: `fresnel-torch smoke`, the four bridge commands on the
+    card against the CPU, and the seven committed decoders exported on the
+    card and run on the CPU.  The bridge processes start first and run
+    while this process runs smoke, the CPU's commands and the export."""
+    import concurrent.futures
+
+    from fresnel_tpu_torch import cli
+    from fresnel_tpu_torch.export import export_decoder
+    from fresnel_tpu_torch.inference import bridges
+    from fresnel_tpu_torch.render import binning, raster, stream_binning
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+
+    def quiet_call(fn, *a, **k):
+        t0 = time.perf_counter()
+        rc, out = quiet(fn, *a, **k)
+        return rc, out, time.perf_counter() - t0
+
+    # The bridges' inputs: the image, and the CPU's features and depth,
+    # which the decoder reads on both devices.
+    img = infer_image(tmp)
+    d = os.path.join(tmp, "bridges")
+    card_dir, cpu_dir = os.path.join(d, "card"), os.path.join(d, "cpu")
+    for p in (card_dir, cpu_dir):
+        os.makedirs(p, exist_ok=True)
+    f_cpu, d_cpu = os.path.join(cpu_dir, "f.bin"), os.path.join(cpu_dir,
+                                                                "d.bin")
+    nv = [str(BRIDGE_VIEWS), str(BRIDGE_SIZE)]
+    jobs = {
+        "dinov2": [img, "{}/f.bin"],
+        "depth": [img, "{}/d.bin"],
+        "decoder": [f_cpu, d_cpu, "{}/g.bin", ckpt_path("exp2")],
+        "decoder_random": [f_cpu, d_cpu, "{}/g0.bin"],
+        "test_novel_views": [img, "{}/views", ckpt_path("exp2_k8"), *nv],
+    }
+    cpu_runs = {}
+
+    def on_cpu(name):
+        fn = getattr(bridges, "cmd_" + name.replace("_random", ""))
+        argv = [a.format(cpu_dir) for a in jobs[name]]
+        rc, out, secs = quiet_call(fn, argv, device=cpu)
+        cpu_runs[name] = dict(rc=rc, out=out, seconds=secs)
+
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+
+    def on_card(name):
+        argv = [sys.executable, "-m", "fresnel_tpu_torch.inference.bridges",
+                name.replace("_random", ""),
+                *[a.format(card_dir) for a in jobs[name]]]
+        t0 = time.perf_counter()
+        p = subprocess.run(argv, cwd=HERE, env=env, capture_output=True,
+                           text=True, timeout=300)
+        return dict(rc=p.returncode, out=p.stdout, err=p.stderr[-2000:],
+                    seconds=time.perf_counter() - t0)
+
+    on_cpu("dinov2")
+    on_cpu("depth")
+    t_card = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(len(jobs))
+    futures = {n: pool.submit(on_card, n) for n in jobs}
+    lap("bridges")
+
+    # 85. smoke: the subcommand on the card (the kernels are built by now,
+    # so `_build.build()` loads them), while the bridge processes start.
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    rc, out, secs = quiet_call(cli.main, ["smoke"])
+    path_launches["smoke"] = read_counts(*counters)
+    log("smoke", rc=rc, lines=out.splitlines(), seconds=secs,
+        launches=path_launches["smoke"], beside_bridge_processes=len(jobs),
+        phase_seconds=lap("smoke"))
+    if rc != 0 or path_launches["smoke"] != dict(k1=1, k2=0, k3=0, k4=0) \
+            or out.count(": OK") < 2 or " OK; " not in out:
+        fail(f"smoke exited {rc} or launched {path_launches['smoke']}")
+
+    # 86. bridges: the CPU's commands while the card's processes run.
+    for name in ("decoder", "decoder_random", "test_novel_views"):
+        on_cpu(name)
+    lap("bridges")
+
+    # 87. export, while the bridge processes run on: each committed decoder
+    # traced and verified on the card (`export_decoder.main`), the file
+    # loaded on the CPU and run against the CPU's eager decoder on a third
+    # draw.
+    out_dir = os.path.join(tmp, "export")
+    os.makedirs(out_dir, exist_ok=True)
+    exports = {}
+    for name in CKPTS:
+        npz = os.path.join(out_dir, f"{name}.npz")
+        onnx = os.path.join(out_dir, f"{name}.onnx")
+        rc, out, secs = quiet_call(export_decoder.main, [
+            ckpt_path(name), "--npz", npz, "--onnx", onnx])
+        t0 = time.perf_counter()
+        meta = json.loads(open(ckpt_path(name) + ".json").read())
+        trainer, _, dec_cpu = export_decoder.load_decoder(ckpt_path(name),
+                                                          device=cpu)
+        exp = int(meta["config"].get("experiment", 2))
+        x = export_decoder._dummy_inputs(meta["config"],
+                                         trainer.config.feature_dim, seed=3)
+        written = onnx + ".pt"
+        if not os.path.exists(written):     # an ONNX file: the trace again
+            _, _, dec = export_decoder.load_decoder(ckpt_path(name), dev)
+            export_decoder.trace(export_decoder.ExportWrapper(dec, exp),
+                                 [t.to(dev) for t in x]).save(written)
+        loaded = torch.jit.load(written, map_location="cpu")
+        with torch.no_grad():
+            err = export_decoder.field_errors(
+                loaded(*x), export_decoder.ExportWrapper(dec_cpu, exp)(*x))
+        with np.load(npz) as z:
+            arrays = len(z.files)
+        exports[name] = dict(rc=rc, seconds=secs, lines=out.splitlines(),
+                             onnx_written=os.path.exists(onnx),
+                             bytes=os.path.getsize(written), arrays=arrays,
+                             cpu_err=err,
+                             cpu_check_seconds=time.perf_counter() - t0)
+    log("export", checkpoints=exports, cpu_rtol=EXPORT_CPU_RTOL,
+        phase_seconds=lap("export"))
+    if not all(e["rc"] == 0 and any(ln.startswith("ONNX export verified")
+                                    for ln in e["lines"])
+               and e["cpu_err"] <= EXPORT_CPU_RTOL
+               for e in exports.values()):
+        fail(f"an export was not verified or its file disagrees on the "
+             f"CPU: {exports}")
+
+    # 86. bridges, continued: the card's processes joined, then
+    # test_novel_views once more in this process on the card for its K1
+    # launches.
+    card_runs = {n: f.result() for n, f in futures.items()}
+    card_wall = time.perf_counter() - t_card
+    pool.shutdown()
+    torch.cuda.synchronize()
+    reset_counts(*counters)
+    rc_ip, out_ip, secs_ip = quiet_call(
+        bridges.main, ["test_novel_views", img, os.path.join(d, "in_process"),
+                       ckpt_path("exp2_k8"), *nv])
+    torch.cuda.synchronize()
+    path_launches["bridges"] = read_counts(*counters)
+
+    bad = {n: r for n, r in card_runs.items()
+           if r["rc"] != cpu_runs[n]["rc"]
+           or r["rc"] != 0 and n != "test_novel_views"}
+    if bad:
+        fail(f"bridge commands failed on the card: {bad}")
+    errs, n_out = {}, {}
+    for name, fn in (("dinov2", "f.bin"), ("depth", "d.bin")):
+        a, b = (np.fromfile(os.path.join(p, fn), np.float32)
+                for p in (card_dir, cpu_dir))
+        errs[name] = float(np.abs(a - b).max())
+    for name, fn in (("decoder", "g.bin"), ("decoder_random", "g0.bin")):
+        n = n_out[name] = int(card_runs[name]["out"])
+        a, b = (np.fromfile(os.path.join(p, fn), np.float32).reshape(n, 14)
+                for p in (card_dir, cpu_dir))
+        errs[name] = bridge_fields_err(a, b)
+    gap = seed0_rotation_gap(
+        torch, torch.from_numpy(np.fromfile(f_cpu, np.float32).reshape(
+            1, 37, 37, -1)),
+        torch.from_numpy(np.fromfile(d_cpu, np.float32).reshape(1, 256, 256)))
+    rot_tol = max(BRIDGE_FIELD_RTOL, 2 * gap)
+    rows_card, verdict_card = bridge_views(
+        card_runs["test_novel_views"]["out"])
+    rows_cpu, verdict_cpu = bridge_views(cpu_runs["test_novel_views"]["out"])
+    rows_ip, verdict_ip = bridge_views(out_ip)
+    errs["test_novel_views"] = max(max(abs(a[1] - b[1]), abs(a[2] - b[2]))
+                                   for a, b in zip(rows_card, rows_cpu))
+    errs["test_novel_views_in_process"] = max(
+        max(abs(a[1] - b[1]), abs(a[2] - b[2]))
+        for a, b in zip(rows_ip, rows_cpu))
+    pngs = [sorted(os.listdir(os.path.join(p, "views")))
+            for p in (card_dir, cpu_dir)]
+    log("bridges", image=img, views=BRIDGE_VIEWS, size=BRIDGE_SIZE,
+        card_seconds={n: r["seconds"] for n, r in card_runs.items()},
+        card_wall_seconds=card_wall, card_processes_at_once=len(jobs),
+        cpu_seconds={n: r["seconds"] for n, r in cpu_runs.items()},
+        card_in_process_seconds=secs_ip,
+        lines={n: r["out"].strip().splitlines()[-1]
+               for n, r in card_runs.items() if r["out"].strip()},
+        n=n_out, max_err=errs, seed0_rotation_f32_gap=gap,
+        tol=dict(dinov2=BRIDGE_FEAT_TOL, depth=BRIDGE_DEPTH_TOL,
+                 decoder=BRIDGE_FIELD_RTOL, seed0_rotations=rot_tol,
+                 test_novel_views=BRIDGE_VIEW_TOL),
+        views_card=rows_card, views_cpu=rows_cpu, verdict=verdict_card,
+        pngs=pngs[0], launches=path_launches["bridges"],
+        phase_seconds=lap("bridges"))
+    rnd = errs["decoder_random"]
+    if not (card_runs["dinov2"]["out"] == cpu_runs["dinov2"]["out"]
+            == "37 37 384\n"
+            and errs["dinov2"] <= BRIDGE_FEAT_TOL
+            and errs["depth"] <= BRIDGE_DEPTH_TOL
+            and n_out["decoder"] == int(cpu_runs["decoder"]["out"])
+            and n_out["decoder_random"] == 5476
+            and max(errs["decoder"].values()) <= BRIDGE_FIELD_RTOL
+            and max(v for k, v in rnd.items() if k != "rotations")
+            <= BRIDGE_FIELD_RTOL and rnd["rotations"] <= rot_tol
+            and errs["test_novel_views"] <= BRIDGE_VIEW_TOL
+            and errs["test_novel_views_in_process"] <= BRIDGE_VIEW_TOL
+            and verdict_card == verdict_cpu == verdict_ip
+            and rc_ip == card_runs["test_novel_views"]["rc"]
+            and [r[0] for r in rows_card] == [r[0] for r in rows_cpu]
+            and pngs[0] == pngs[1] and len(pngs[0]) == BRIDGE_VIEWS):
+        fail(f"the card's bridge outputs disagree with the CPU's: {errs}")
+    if path_launches["bridges"] != dict(k1=BRIDGE_VIEWS, k2=0, k3=0, k4=0):
+        fail(f"test_novel_views launched {path_launches['bridges']}")
+
+    total = sum(phase_s.values())
+    log("item11_phases", seconds=phase_s, total_seconds=total,
+        cap_seconds=ITEM11_PHASES_CAP_S)
+    if total > ITEM11_PHASES_CAP_S:
+        fail(f"phases 85-87 took {total:.1f} s, over their "
+             f"{ITEM11_PHASES_CAP_S} s cap")
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
     """K1 (and with `backward` K2, cotangents from a seed) against their
     plain versions on one pack: errors, times and bounds."""
@@ -7317,6 +7622,11 @@ def main():
     # render-loss step), its CLI, card against CPU
     tmp = tempfile.mkdtemp(prefix="chip_smoke_v2_")
     k_v2 = v2_phases(torch, dev, path_launches, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    # 85-88. `fresnel-torch smoke` (K1 once), the bridges (K1 per orbit
+    # view of test_novel_views) and decoder export
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_item11_")
+    item11_phases(torch, dev, path_launches, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
     for key, pack in (("at_v2_pred_pack", k_v2["pred"]),
                       ("at_v2_teacher_pack", k_v2["teacher"])):

@@ -1,6 +1,7 @@
-"""Command-line interface of the port: `infer`, `refine`, `render`, `orbit`,
-`view`, `train`, `eval`.
+"""Command-line interface of the port: `smoke`, `infer`, `refine`, `render`,
+`orbit`, `view`, `train`, `eval`.
 
+    python -m fresnel_tpu_torch.cli smoke
     python -m fresnel_tpu_torch.cli infer IMG OUT.ply [--checkpoint CKPT]
     python -m fresnel_tpu_torch.cli infer IMG OUT.ply --saag [--html V.html]
     python -m fresnel_tpu_torch.cli refine IMG OUT.ply [--device cpu]
@@ -12,10 +13,16 @@
     python -m fresnel_tpu_torch.cli eval CKPT [--data_dir DIR] [--device cpu]
 
 Counterparts of fresnel_tpu/cli.py's subcommands of the same names, with
-the same flags and defaults.  `infer`: image -> 3D Gaussian cloud.  With
-`--saag` (or `--no_model` and no checkpoint) the geometric pipeline: the
-depth at 256^2 (its `--depth_exponent` curve), a point cloud over the
-256^2 image scaled by `--depth_scale` and normalised, and
+the same flags and defaults.  `smoke`: the card's devices (with
+nvidia-smi's name and power limit), a compute round trip of 1 024 and of
+10^6 elements, and a kernel-build round trip (`_build.build()` builds or
+loads the kernels; K1 on a small seeded pack against its plain version
+within 1e-5); exit 1 on any mismatch, and without a card (it checks the
+card, so it has nothing to run on the CPU).  `infer`: image -> 3D
+Gaussian cloud.  With `--saag` (or `--no_model` and no checkpoint) the
+geometric pipeline: the depth at 256^2 (its `--depth_exponent` curve),
+a point cloud over the 256^2 image scaled by `--depth_scale` and
+normalised, and
 `geometry.to_surface_gaussians` with the `--saag_*`, wrap, shell and
 density flags (65 536 points x 12 static blocks at the defaults);
 otherwise through a trained checkpoint (its `.json` sidecar rebuilds the
@@ -39,8 +46,7 @@ server over an image (viewer.serve).  `train`: decoder training, the
 flags of `train.train_gaussian_decoder` (the JAX package's `fresnel
 train`).  `eval`: novel-view evaluation of a checkpoint over a corpus (8
 orbit views per scene, `evaluation.novel_view_eval`).  Everything runs on
-the card unless `--device cpu` is given.  The `smoke` subcommand is not
-ported.
+the card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -76,6 +82,58 @@ from fresnel_tpu_torch.viewer.html_viewer import export_html, saag_categories
 from fresnel_tpu_torch.weights import init_flax_like_
 
 SAAG_GRID = 256     # the SAAG path's depth and image side
+SMOKE_TOL = 1e-5    # K1 against its plain version (chip_smoke.py's bound)
+
+
+def cmd_smoke(args) -> int:
+    if not torch.cuda.is_available():
+        print("smoke: CUDA is not available - this command checks the card "
+              "and runs nothing on the CPU")
+        return 1
+    import subprocess
+
+    from fresnel_tpu_torch import _build
+    from fresnel_tpu_torch.render import raster, tile
+
+    print("devices:")
+    for i in range(torch.cuda.device_count()):
+        print(f"  cuda:{i} {torch.cuda.get_device_name(i)}")
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        smi = [f"unavailable ({e})"]
+    for line in smi:
+        print(f"  nvidia-smi: {line}")
+    dev = torch.device("cuda")
+    x = torch.arange(1024, dtype=torch.float32, device=dev)
+    ok = bool(torch.all((x * 2.0).cpu() == torch.arange(0.0, 2048.0, 2.0)))
+    print(f"compute roundtrip (1024 elements x2): {'OK' if ok else 'FAILED'}")
+    big = torch.ones(1_000_000, dtype=torch.float32, device=dev) * 2.0
+    ok2 = bool(torch.all(big == 2.0))
+    print(f"large dispatch (1M elements): {'OK' if ok2 else 'FAILED'}")
+
+    t0 = time.perf_counter()
+    built = _build.build()
+    c = GaussianCloud.test_cloud(300, seed=0, spread=0.5, z_offset=0.0,
+                                 scale=0.05).to(dev)
+    tp = tile.pack_tiles(c.positions, c.scales, c.rotations, c.colors,
+                         c.opacities, Camera.default_training(64))
+    with torch.no_grad():
+        got = raster.composite_tiles_packed(tp.pack, tp.counts,
+                                            tp.n_tiles_x)
+    ref = raster.composite_tiles_plain(tp.pack, tp.counts, tp.n_tiles_x)
+    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    ok3 = err <= SMOKE_TOL
+    T, M, _ = tp.pack.shape
+    print(f"kernel round trip (K1 raster_fwd on a {T} x {M} pack against its "
+          f"plain version): max abs err {err:.2e} (tol {SMOKE_TOL:.0e}) "
+          f"{'OK' if ok3 else 'FAILED'}; {len(built)} kernels built or "
+          f"loaded in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(p.name for p, _ in built.values()))
+    return 0 if ok and ok2 and ok3 else 1
 
 
 def _load_image(path: str, size: int = 512) -> np.ndarray:
@@ -550,6 +608,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="fresnel-torch",
                                  description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
+    sub.add_parser("smoke", help="device, compute and kernel-build smoke "
+                                 "test (needs the card)")
     p = sub.add_parser("infer", help="image -> 3D Gaussian cloud")
     p.add_argument("image")
     p.add_argument("output", help=".ply or .bin")
@@ -666,8 +726,8 @@ def main(argv=None) -> int:
         train_gaussian_decoder.main(argv[1:])
         return 0
     args = build_parser().parse_args(argv)
-    return {"infer": cmd_infer, "refine": cmd_refine, "render": cmd_render,
-            "orbit": cmd_orbit, "eval": cmd_eval,
+    return {"smoke": cmd_smoke, "infer": cmd_infer, "refine": cmd_refine,
+            "render": cmd_render, "orbit": cmd_orbit, "eval": cmd_eval,
             "view": cmd_view}[args.cmd](args)
 
 

@@ -88,7 +88,7 @@ def resize_linear(x: torch.Tensor, out_h: int, out_w: int,
     JAX rounds them and cast to x's dtype (in bf16 each product rounds to
     bf16, as XLA:CPU's does; F.interpolate places samples up to ~1e-5 px
     apart, which moves an upsampled image by ~4e-6)."""
-    H, W = x.shape[-2:]
+    H, W = (int(n) for n in x.shape[-2:])     # ints also under tracing
     if H != out_h:
         wh = _resize_matrix(H, out_h, antialias, x.device, x.dtype)
         x = torch.einsum("...hw,hH->...Hw", x, wh)

@@ -93,7 +93,7 @@ def _resize_depth_to_grid(depth: torch.Tensor, h: int, w: int) -> torch.Tensor:
         depth = depth[..., 0]
     if depth.dtype == torch.bfloat16:
         return resize_linear(depth, h, w, antialias=False)
-    H, W = depth.shape[-2:]
+    H, W = (int(n) for n in depth.shape[-2:])  # ints also under tracing
     if H != h:
         i, a = _taps(H, h, depth.device)
         depth = _fma(depth[:, i[1]], a[1][:, None],

@@ -92,7 +92,7 @@ def fib_head_transform(raw: torch.Tensor, depth: Optional[torch.Tensor],
     `use_phase_output` adds "phases" (B, N * K, 3), sigmoid * 2 pi of raw
     channels 16-18.  Shared by the decoder and the experiment-4 teacher
     fit."""
-    B, N, K = raw.shape[:3]
+    B, N, K = (int(n) for n in raw.shape[:3])   # ints also under tracing
     raw_pos, raw_scale = raw[..., 0:3], raw[..., 3:6]
     rot_6d, raw_color, raw_op = raw[..., 6:12], raw[..., 12:15], raw[..., 15]
 

@@ -27,7 +27,8 @@ JAX `CVSTrainer` checkpoint (params, EMA params, the perceptual stack,
 `slat_params` carries the v2 decoders' and the structure predictor's
 params (models/slat.py, Flax names), and `v2_state` a whole JAX
 `V2Trainer` checkpoint (params, the same optimizer chain's moments and
-count, step).
+count, step).  `decoder_flax_flat` goes the other way for the decoders:
+a port state dict -> Flax names and layouts (decoder export's `.npz`).
 """
 
 from __future__ import annotations
@@ -158,6 +159,42 @@ def decoder_state_dict(flat: Mapping[str, np.ndarray]
         (r"^MLP_0\.Dense_(\d+)\.", r"mlp.layers.\1."),
         (r"\.layers_(\d+)\.", r".\1."), *_OPTION_RENAMES,
         *(_OPACITY_HEAD if pose else ())))
+
+
+# `decoder_state_dict`'s renames undone, `mlp.layers.i` before the other
+# Sequentials' `.i.`.
+_DECODER_UNRENAMES = (
+    (r"^mlp\.layers\.(\d+)\.", r"MLP_0.Dense_\1."),
+    (r"\.(\d+)\.", r".layers_\1."),
+    (r"^edge_detector\.conv(\d)\.", r"FresnelEdgeDetector_0.Conv_\1."),
+    (r"^depth_encoder\.conv(\d)\.", r"DepthEncoder_0.Conv_\1."),
+    (r"^pose_encoder\.dense(\d)\.", r"PoseEncoder_0.Dense_\1."),
+    (r"^opacity_out\.", "Dense_0."), (r"^opacity_hidden\.", "Dense_1."),
+)
+
+
+def decoder_flax_flat(state_dict: Mapping[str, torch.Tensor]
+                      ) -> Dict[str, np.ndarray]:
+    """The inverse of `decoder_state_dict`: a port decoder's state dict ->
+    its Flax params, flat with "/" and in Flax layouts (a `weight` of rank
+    2 or 4 -> `kernel` (in, out) or (kh, kw, in, out)), so that
+    `decoder_state_dict(decoder_flax_flat(sd))` gives `sd` back."""
+    out = {}
+    for key, val in state_dict.items():
+        arr = val.detach().float().cpu().numpy()
+        for pattern, repl in _DECODER_UNRENAMES:
+            key = re.sub(pattern, repl, key)
+        parts = key.split(".")
+        if parts[-1] == "weight":
+            if arr.ndim == 2:
+                arr = arr.T
+            elif arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+            else:
+                raise ValueError(f"unexpected weight rank at {key}")
+            parts[-1] = "kernel"
+        out["/".join(parts)] = np.array(arr, order="C")     # keeps 0-d
+    return out
 
 
 _ENCODER_RENAMES = (

@@ -1716,3 +1716,91 @@ def test_v2_render_step_on_card_matches_cpu(cuda):
     assert launches == (2, 1)
     for k, v in want.items():
         assert abs(got[k] - v) <= 1e-4 * abs(v), k
+
+
+def test_smoke_exits_zero_on_card(cuda, capsys):
+    """`fresnel-torch smoke`: the device lines, both round trips OK, and K1
+    launched once against its plain version."""
+    from fresnel_tpu_torch import cli
+
+    raster.launches = 0
+    assert cli.main(["smoke"]) == 0
+    out = capsys.readouterr().out
+    assert "compute roundtrip (1024 elements x2): OK" in out
+    assert "large dispatch (1M elements): OK" in out
+    assert "kernel round trip" in out and " OK; " in out
+    assert raster.launches == 1
+
+
+def _seed0_rotation_gap(feats, depth):
+    """The bridge's seed-0 decoder on the CPU: its rotations in float32
+    against float64, relative to their largest value, up to sign."""
+    from fresnel_tpu_torch.models.decoders import DirectPatchDecoder
+    from fresnel_tpu_torch.weights import init_flax_like_
+
+    m = DirectPatchDecoder(feature_dim=feats.shape[-1], gaussians_per_patch=4)
+    init_flax_like_(m, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        q32 = m(feats, depth)["rotations"].double()
+        q64 = m.double()(feats.double(), depth.double())["rotations"]
+    q32 = q32 * torch.sign((q32 * q64).sum(-1, keepdim=True))
+    return float((q32 - q64).abs().max() / q64.abs().max())
+
+
+def test_bridge_decoder_on_card_matches_cpu(cuda, tmp_path):
+    """The `decoder` bridge with the committed exp2 checkpoint and without
+    one, card against CPU: N x 14 within 1e-5 of each field's largest
+    value, quaternions up to sign; the seed-0 decoder's quaternions (a
+    badly conditioned 6D -> quaternion step at a random init) within 2 x
+    the CPU's own float32-vs-float64 gap on the same inputs."""
+    from fresnel_tpu_torch.inference import bridges
+
+    rng = np.random.default_rng(11)
+    f = rng.standard_normal((37, 37, 384)).astype(np.float32)
+    dm = rng.uniform(size=(256, 256)).astype(np.float32)
+    feats, depth = tmp_path / "f.bin", tmp_path / "d.bin"
+    f.tofile(feats)
+    dm.tofile(depth)
+    gap = _seed0_rotation_gap(torch.from_numpy(f)[None],
+                              torch.from_numpy(dm)[None])
+    for ckpt in ([str(RESULTS / "exp2_model.msgpack")], []):
+        out = {}
+        for dev in (cuda, "cpu"):
+            path = tmp_path / f"g_{dev}.bin"
+            assert bridges.cmd_decoder([str(feats), str(depth), str(path),
+                                        *ckpt], device=dev) == 0
+            out[str(dev)] = np.fromfile(path, np.float32).reshape(-1, 14)
+        got, want = out[str(cuda)], out["cpu"]
+        assert got.shape == want.shape
+        got[:, 6:10] *= np.where(
+            np.sum(got[:, 6:10] * want[:, 6:10], -1) < 0, -1, 1)[:, None]
+        for a, b in ((0, 3), (3, 6), (6, 10), (10, 13), (13, 14)):
+            tol = max(1e-5, 2 * gap) if a == 6 and not ckpt else 1e-5
+            assert np.abs(got[:, a:b] - want[:, a:b]).max() \
+                <= tol * np.abs(want[:, a:b]).max(), (ckpt, a)
+
+
+@pytest.mark.parametrize("name", ["exp4", "exp2_g74zi"])
+def test_module_traced_on_card_runs_on_cpu(cuda, name, tmp_path):
+    """A committed decoder exported on the card (traced and verified
+    there) loads with map_location="cpu" and matches the CPU's eager
+    decoder within 1e-5 of each field's largest value."""
+    import json
+    from fresnel_tpu_torch.export import export_decoder as ex
+
+    ckpt = str(RESULTS / f"{name}_model.msgpack")
+    out = str(tmp_path / f"{name}.onnx")
+    assert ex.main([ckpt, "--onnx", out]) == 0
+    config = json.loads(open(ckpt + ".json").read())["config"]
+    trainer, _, dec = ex.load_decoder(ckpt, device="cpu")
+    x = ex._dummy_inputs(config, trainer.config.feature_dim, seed=5)
+    path = out + ".pt"
+    if not __import__("os").path.exists(path):   # an ONNX file was written
+        _, _, dec_card = ex.load_decoder(ckpt, device=cuda)
+        ex.trace(ex.ExportWrapper(dec_card, config["experiment"]),
+                 [t.to(cuda) for t in x]).save(path)
+    loaded = torch.jit.load(path, map_location="cpu")
+    with torch.no_grad():
+        err = ex.field_errors(loaded(*x),
+                              ex.ExportWrapper(dec, config["experiment"])(*x))
+    assert err <= 1e-5

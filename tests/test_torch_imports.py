@@ -27,6 +27,9 @@ ITEM10 = ("utils/image.py", "utils/profiling.py", "train/thin_ckpt.py",
 # The modules of ROADMAP Queue 1, item 9 (Fresnel v2 distillation).
 ITEM9 = ("models/slat.py", "data/trellis.py", "train/train_direct_decoder.py",
          "weights.py")
+# The modules of ROADMAP Queue 1, item 11 (`smoke`, the bridges, export).
+ITEM11 = ("cli.py", "inference/bridges.py", "export/__init__.py",
+          "export/export_decoder.py")
 
 
 def _imported_roots(path):
@@ -54,6 +57,13 @@ def test_item10_module_checked(rel):
 
 @pytest.mark.parametrize("rel", ITEM9)
 def test_item9_module_checked(rel):
+    path = ROOT / "fresnel_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize("rel", ITEM11)
+def test_item11_module_checked(rel):
     path = ROOT / "fresnel_tpu_torch" / rel
     assert path in PORT_FILES
     assert not _imported_roots(path) & FORBIDDEN
@@ -184,6 +194,22 @@ class TestDevice:
         # The datasets are host numpy: they need no device.
         assert len(SyntheticTrellisDataset(n_samples=1, feature_dim=4,
                                            num_patches=4)) == 1
+
+    def test_item11_entries_raise_without_cuda(self, tmp_path):
+        from PIL import Image
+        from fresnel_tpu_torch.export import export_decoder
+        from fresnel_tpu_torch.inference import bridges
+        img = tmp_path / "img.png"
+        Image.new("RGB", (16, 16)).save(img)
+        ckpt = str(ROOT / "results" / "exp2_model.msgpack")
+        for argv in (["dinov2", str(img), str(tmp_path / "f.bin")],
+                     ["depth", str(img), str(tmp_path / "d.bin")],
+                     ["test_novel_views", str(img), str(tmp_path / "v")]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                bridges.main(argv)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            export_decoder.main([ckpt, "--onnx", str(tmp_path / "m.onnx")])
+        assert sorted(p.name for p in tmp_path.iterdir()) == ["img.png"]
 
     def test_render_and_orbit_raise_without_cuda(self):
         from fresnel_tpu_torch.cli import orbit, render
