@@ -472,7 +472,10 @@ non-zero:
                   256^2 and 512^2 (the renderers' launch) against their
                   plain versions (K8's over bands of rows of at most
                   256^2 pixels, summed): errors, device ms, bounds, plain
-                  ms and peak memory;
+                  ms and peak memory, the (tile, Gaussian) entries the
+                  lists hold and the bytes of K7's checkpoints and
+                  scratch, both kernels' registers, local (spill) bytes
+                  and blocks per SM (ptxas's lines are in phase 2);
   68. renderers   make_renderer("dense" | "simplified" | "asm" |
                   "fourier_true") on that cloud at 512^2, forward and the
                   backward of a mean loss: finite outputs and gradients,
@@ -616,7 +619,7 @@ With `--ab`, each ROOT is a checkout of this repository (a parent commit
 unpacked with `git archive` into a git-ignored directory, or `.`), given
 in turns (`.archive/parent . . .archive/parent`) so that drift on the card
 shows.  For each root in order, a subprocess imports that checkout's
-`fresnel_tpu_torch` (building its eight kernels into its `build/`),
+`fresnel_tpu_torch` (building its ten kernels into its `build/`),
 builds this script's image, refine and render packs with it, and times
 through the functions every version has: K1 at all three, K2 with
 cotangents from a seed and K1 + K2 through autograd (a refine step's pair)
@@ -632,10 +635,14 @@ of the phase kernels has) on a seeded synthetic pack at the
 phase-blended training pack's shape and near its statistics (PHASE_AB:
 T 1 024, M 256, 103.4 slots per tile, median 15, 334 tiles at the cap,
 radian phases), with their bounds, the sha256 of their outputs and,
-where the checkout has it, their residency.  Each as `ms` on the
-device, `call_ms` per call and the device ms of each kernel by name
-(torch.profiler), with ptxas's registers and spills of those eight
-kernels;
+where the checkout has it, their residency; K7 and K8
+(`dense_composite._launch_fwd` / `_launch_bwd`, whose signatures every
+version keeps) on the image's decoded cloud in DENSE and SIMPLE mode at
+256^2 and 512^2 with cotangents from a seed, with their bounds, the
+sha256 of K7's outputs and, where the checkout has it, their residency.
+Each as `ms` on the device, `call_ms` per call and the device ms of each
+kernel by name (torch.profiler; not for K7 / K8), with ptxas's
+registers and spills of those ten kernels;
 and the refine step at full width (`fit_scene`: ms per step over 20
 steps, device ms per step and top kernels over 5); and the
 train_sh_full route's step (its flags, corpus and batch as phase 57
@@ -797,6 +804,18 @@ def device_ms(torch, fn, n=50, reps=5):
         hidden &= host_ms < ev[0].elapsed_time(ev[1])
         per_call.append(ev[1].elapsed_time(ev[2]) / n)
     return statistics.median(per_call), hidden
+
+
+def ptxas_lines(log_text):
+    """ptxas's registers and spill lines, one per kernel entry, from nvcc's
+    -Xptxas -v output (the entry's mangled name beside them)."""
+    out, entry = [], ""
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "registers" in ln or "spill" in ln:
+            out.append(f"{entry}: {ln.split('info    : ')[-1].strip()}")
+    return out
 
 
 def kernel_times(torch, fn, n=50):
@@ -5335,18 +5354,20 @@ def composite_pairs(torch, params, H, W, mode):
     return int(torch.nan_to_num(n, nan=float(H * W)).sum().item())
 
 
-def composite_bounds(torch, dcomp, params, H, W, mode):
-    """K7's and K8's bounds at one launch: the bytes each must move (the
-    inputs once, the outputs once, the checkpoints K7 leaves and K8
-    reads) and the operations on the pairs within reach."""
+def composite_bounds(torch, params, H, W, mode):
+    """K7's and K8's bounds at one launch: the bytes the function must move
+    (K7 reads params and colours and writes out and trans; K8 reads
+    params, colours, g_out, g_trans and SIMPLE's least depth and writes
+    g_params and g_colors; the checkpoints and lists K7 leaves for K8 are
+    the design's, not the function's) and the operations on the pairs
+    within reach."""
     N = params.shape[0]
     pairs = composite_pairs(torch, params, H, W, mode)
     io = N * (8 + 3) * 4
     img = H * W * (4 + 1) * 4
-    ck = math.prod(dcomp.checkpoint_shape(N, H, W)) * 4 \
-        + (H * W * 12 if mode == 1 else 0)
-    k7 = bound(io + img + ck, pairs * OPS_PER_COMPOSITE[mode])
-    k8 = bound(io + img + ck + img + io, pairs * OPS_PER_COMPOSITE_BWD[mode])
+    k7 = bound(io + img, pairs * OPS_PER_COMPOSITE[mode])
+    k8 = bound(io + img + (H * W * 4 if mode == 1 else 0) + io,
+               pairs * OPS_PER_COMPOSITE_BWD[mode])
     return (dict(k7=dict(**k7[2], bound_ms=k7[0], bound_by=k7[1]),
                  k8=dict(**k8[2], bound_ms=k8[0], bound_by=k8[1])),
             dict(pairs=pairs, all_pairs=N * H * W))
@@ -5374,11 +5395,14 @@ def composite_check(torch, dcomp, params, cols, H, W, mode, dev):
             params, cols, H, W, mode, chunk), n=10)
         k8 = kernel_times(torch, lambda: dcomp._launch_bwd(
             params, cols, out, ck, aux, g_out, g_t, mode, chunk), n=10)
-    bounds, pairs = composite_bounds(torch, dcomp, params, H, W, mode)
-    res = dict(H=H, W=W, n=params.shape[0], chunk=chunk,
+    bounds, pairs = composite_bounds(torch, params, H, W, mode)
+    N = params.shape[0]
+    res = dict(H=H, W=W, n=N, chunk=chunk,
                mode="dense" if mode == 0 else "simple",
                k7=dict(**k7, **bounds["k7"]), k8=dict(**k8, **bounds["k8"]),
-               **pairs)
+               checkpoint_bytes=ck.numel() * 4, aux_bytes=aux.numel() * 4,
+               listed=int(aux[2 * N:2 * N + dcomp.n_tiles(H, W)].sum()
+                          .item()), **pairs)
     gp, gc = dcomp._launch_bwd(params, cols, out, ck, aux, g_out, g_t, mode,
                                chunk)
     band = max(1, COMPOSITE_BAND_PIXELS // W)
@@ -5487,6 +5511,7 @@ def renderer_phases(torch, dev, path_launches, cloud):
     log("kernel_dense_composite", checks=checks, tol=COMPOSITE_TOL,
         bwd_tol=KERNEL_BWD_TOL, ops_per_pair=OPS_PER_COMPOSITE,
         ops_per_pair_bwd=OPS_PER_COMPOSITE_BWD,
+        residency=dcomp.residency(dev),
         phase_seconds=lap("kernel_dense_composite"))
     if not cmp_ok:
         fail("K7 / K8 disagree with their plain versions")
@@ -7244,9 +7269,7 @@ def main():
     built = _build.build()
     log("build", seconds=time.perf_counter() - t0,
         libraries={k: os.path.relpath(p, HERE) for k, (p, _) in built.items()},
-        ptxas={k: [ln.strip() for ln in out.splitlines()
-                   if "registers" in ln or "spill" in ln]
-               for k, (_, out) in built.items()})
+        ptxas={k: ptxas_lines(out) for k, (_, out) in built.items()})
 
     # 3. kernel (K1), at the image->3DGS path's shapes
     rng = np.random.default_rng(0)
@@ -7717,14 +7740,15 @@ def ab_measure(root):
     from fresnel_tpu_torch import _build, pipeline
     from fresnel_tpu_torch.core.camera import Camera
     from fresnel_tpu_torch.render import (
-        binning, raster, splat, stream_binning, tile)
+        binning, dense_composite, raster, splat, stream_binning, tile)
     from fresnel_tpu_torch.train import fit_teacher
 
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     built = _build.build(["raster_fwd", "raster_bwd", "bin_table",
                           "bin_stream", "dense_fwd", "dense_bwd",
-                          "raster_phase_fwd", "raster_phase_bwd"])
+                          "raster_phase_fwd", "raster_phase_bwd",
+                          "dense_composite_fwd", "dense_composite_bwd"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -7732,6 +7756,7 @@ def ab_measure(root):
         size=(512, 512, 3)).astype(np.float32)).to(dev)
     models = pipeline.build_models(seed=0, device=dev)
     packs = dict(image=decoded_pack(torch, models, image)[0])
+    dec_cloud = decoded_cloud(torch, models, image)
     del models
     scene, depth, *_, packs["refine"] = refine_init(torch, dev)
     cam = Camera.default_training(RENDER["res"])
@@ -7846,6 +7871,10 @@ def ab_measure(root):
     if hasattr(raster, "phase_residency"):
         result["phase_residency"] = raster.phase_residency(dev)
     del pack, counts, fwd, cots, grad
+    result["kernels"].update(composite_times(torch, dev, dec_cloud))
+    if hasattr(dense_composite, "residency"):
+        result["composite_residency"] = dense_composite.residency(dev)
+    del dec_cloud
     # The refine step at full width: fit_scene's ms per step (CUDA events
     # around one call of 20 steps, after a warmup call) and its device ms
     # per step (torch.profiler over 5 steps).
@@ -7869,6 +7898,58 @@ def ab_measure(root):
     result["train_sh_full_step"] = train_route_times(
         torch, dev, WAVE_PATHS[0][2])
     return result
+
+
+def composite_times(torch, dev, cloud):
+    """K7 / K8 on the decoded cloud in DENSE and SIMPLE mode at each of
+    COMPOSITE_SIZES, through `_launch_fwd` / `_launch_bwd` (every version
+    of the kernels takes them), the cotangents from a seed: device ms, call
+    ms, bounds, and the sha256 of K7's outputs (the same between runs of
+    one version)."""
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.render import dense_composite as dcomp
+    from fresnel_tpu_torch.render.dense import dense_inputs
+    from fresnel_tpu_torch.render.simplified import simplified_inputs
+
+    res = {}
+    for size in COMPOSITE_SIZES:
+        cam = Camera.default_training(size).to(dev)
+        with torch.no_grad():
+            ins = {0: dense_inputs(*cloud, cam),
+                   1: simplified_inputs(cloud[0], cloud[1], cloud[3],
+                                        cloud[4], cam)}
+        for mode, (p, c) in ins.items():
+            p, c = p.contiguous(), c.contiguous()
+            chunk = dcomp.CHUNK[mode]
+            with torch.no_grad():
+                out, trans, ck, aux = dcomp._launch_fwd(p, c, size, size,
+                                                        mode, chunk)
+            rng = np.random.default_rng(13)
+            g_out = torch.from_numpy(rng.normal(size=(size, size, 4)).astype(
+                np.float32)).to(dev)
+            g_t = torch.from_numpy(rng.normal(size=(size, size)).astype(
+                np.float32)).to(dev)
+            if mode == 1:
+                g_out[..., 3] = torch.where(torch.isinf(out[..., 3]), 0.0,
+                                            g_out[..., 3])
+            bounds, pairs = composite_bounds(torch, p, size, size, mode)
+            sha = hashlib.sha256(out.cpu().numpy().tobytes()
+                                 + trans.cpu().numpy().tobytes()).hexdigest()
+            name = f"{'dense' if mode == 0 else 'simple'}_{size}"
+            with torch.no_grad():
+                res[f"k7_{name}"] = dict(
+                    **kernel_times(torch, lambda: dcomp._launch_fwd(
+                        p, c, size, size, mode, chunk), n=20),
+                    bound_ms=bounds["k7"]["bound_ms"],
+                    bound_by=bounds["k7"]["bound_by"],
+                    output_sha256=sha[:16], **pairs)
+                res[f"k8_{name}"] = dict(
+                    **kernel_times(torch, lambda: dcomp._launch_bwd(
+                        p, c, out, ck, aux, g_out, g_t, mode, chunk), n=20),
+                    bound_ms=bounds["k8"]["bound_ms"],
+                    bound_by=bounds["k8"]["bound_by"])
+            del out, trans, ck, aux
+    return res
 
 
 def train_route_times(torch, dev, flags):

@@ -109,17 +109,18 @@ RESIDENCY_KEYS = ("registers", "shared_bytes", "local_bytes", "threads",
                   "blocks_per_sm")
 
 
-def residency(name: str, device) -> Dict[str, int]:
+def residency(name: str, device, *ints: int) -> Dict[str, int]:
     """Registers per thread, static shared and local (spill) bytes,
     threads per block and blocks per SM of kernel `name` on `device`, as
     the CUDA runtime reports them, for a kernel whose source exports
-    `<name>_residency`.  Raises on a CUDA error."""
+    `<name>_residency` (taking `ints` first, such as a mode).  Raises on a
+    CUDA error."""
     fn = getattr(_library_of(name), f"{name}_residency")
-    fn.argtypes = [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(RESIDENCY_KEYS))()
     with torch.cuda.device(device):
-        err = fn(out)
+        err = fn(*ints, out)
     if err != 0:
         raise RuntimeError(f"{name}_residency failed with CUDA error {err}")
     return dict(zip(RESIDENCY_KEYS, out))

@@ -33,6 +33,26 @@ least depth is shared by several Gaussians it sets how the depth's
 gradient splits among them (jnp.min over a chunk splits it evenly,
 jnp.minimum between the running minimum and a chunk's in halves), which
 K8 follows.
+
+The kernels' design (the sources' notes say more).  A block owns a tile
+of 32 x 16 pixels, two pixels a thread.  K7 first lists, per tile and in
+index order, the Gaussians whose exact reach (past it the weight is 0
+bit for bit) meets the tile, and walks only its list; K8 walks the same
+lists back to front in runs of SUB = 16, each from a transmittance K7
+checkpointed at the run's start, so every pair's alpha is evaluated once
+in each kernel (with the same folded constants and intrinsics, so K8's
+transmittances are K7's bits).  What K7 leaves for K8 (`_launch_fwd`'s
+`ck` and `aux`) is sized for the most every tile could list:
+  ck   4 * 512 * tiles * ceil(N / 16) bytes, 64 bytes per (16 x 16
+       pixels, Gaussian): 359 MB at 512^2 with N = 5 476, 90 MB at 256^2;
+  aux  4 * (tiles * N + 2 N + tiles + 3 H W) bytes: the lists (11 MB at
+       512^2, N = 5 476), the tile boxes, the lists' lengths and SIMPLE's
+       tie record;
+with tiles = ceil(W / 32) ceil(H / 16): ck is about H W N / 4 bytes
+(6.55 GB for 10^5 Gaussians at 512^2).  Sizing them to the lists' real
+lengths would need those lengths on the host, a synchronisation inside
+every launch.  They live from the forward to the backward.  An
+allocation that does not fit raises as torch raises.
 """
 
 from __future__ import annotations
@@ -49,7 +69,8 @@ from fresnel_tpu_torch.render.wave import jclip
 DENSE, SIMPLE = 0, 1
 NP = 8          # parameters per Gaussian
 CHUNK = {DENSE: 256, SIMPLE: 128}   # the JAX scans' steps
-STAGE = 256     # Gaussians K7 / K8 cull at once; one checkpoint per stage
+TILE = (32, 16)     # K7 / K8's tile, (width, height) in pixels
+SUB = 16            # a tile's listed Gaussians per K8 run; a checkpoint each
 ALPHA_MAX = {DENSE: 0.99, SIMPLE: 1.0}
 HIT_ALPHA = 0.1     # SIMPLE: the depth channel takes alpha above this
 
@@ -148,16 +169,42 @@ def _check(params: torch.Tensor, colors: torch.Tensor, mode: int) -> None:
         raise ValueError("params and colors must be (N, ...) on one device")
 
 
-def checkpoint_shape(n: int, height: int, width: int) -> Tuple[int, int]:
-    """K7's transmittance checkpoints: one per pixel at the start of each
-    stage of STAGE Gaussians."""
-    return (max(1, -(-n // STAGE)), height * width)
+def n_tiles(height: int, width: int) -> int:
+    """K7 / K8's tiles (blocks) for an image."""
+    return -(-width // TILE[0]) * -(-height // TILE[1])
+
+
+def checkpoint_shape(n: int, height: int, width: int
+                     ) -> Tuple[int, int, int]:
+    """K7's transmittance checkpoints: per tile, one per pixel at the start
+    of each run of SUB entries of its list (room for n listed)."""
+    return (n_tiles(height, width), -(-n // SUB), TILE[0] * TILE[1])
+
+
+def aux_numel(n: int, height: int, width: int) -> int:
+    """int32s of K7's scratch for K8: the tile lists (n per tile), the
+    tile boxes (2 per Gaussian), the lists' lengths and SIMPLE's tie
+    record (3 per pixel); laid out as `Scratch` in
+    csrc/dense_composite_common.cuh."""
+    tiles = n_tiles(height, width)
+    return tiles * n + 2 * n + tiles + 3 * height * width
+
+
+def residency(device) -> dict:
+    """Registers, shared and local (spill) bytes, threads and blocks per SM
+    of K7's and K8's compositing kernels in each mode on a CUDA
+    `device`."""
+    return {f"{key}_{mname}": _build.residency(name, device, mode)
+            for key, name in (("k7", "dense_composite_fwd"),
+                              ("k8", "dense_composite_bwd"))
+            for mode, mname in ((DENSE, "dense"), (SIMPLE, "simple"))}
 
 
 def _launch_fwd(params: torch.Tensor, colors: torch.Tensor, height: int,
                 width: int, mode: int, chunk: int):
     """K7 on CUDA tensors: (out (H, W, 4), transmittance (H, W), the
-    checkpoints (stages, H * W), SIMPLE's tie record (H * W, 3) int32)."""
+    checkpoints (`checkpoint_shape`), the int32 scratch K8 reads (the tile
+    lists and SIMPLE's tie record, `aux_numel`))."""
     global launches
     _check(params, colors, mode)
     N = params.shape[0]
@@ -166,7 +213,8 @@ def _launch_fwd(params: torch.Tensor, colors: torch.Tensor, height: int,
     trans = torch.empty((height, width), dtype=torch.float32, device=dev)
     ck = torch.empty(checkpoint_shape(N, height, width), dtype=torch.float32,
                      device=dev)
-    aux = torch.empty((height * width, 3), dtype=torch.int32, device=dev)
+    aux = torch.empty(aux_numel(N, height, width), dtype=torch.int32,
+                      device=dev)
     if height * width == 0:
         return out, trans, ck, aux
     _build.launch("dense_composite_fwd", dev,

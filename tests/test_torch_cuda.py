@@ -22,9 +22,11 @@ K1-phi / K2-phi also on the edges of their per-warp cull (every tile at
 the cap, boxes inside one warp strip or with edges on strip boundaries,
 counts on and one past a checkpoint boundary, the box off with radian
 phases).  The dense compositing pair K7 / K8 (both modes) at the same
-tolerances, around their stages and back-walk runs, with alpha on its
-clip and SIMPLE's depth ties; the four renderers K5-K8 serve, the
-diffractive layers and the quantised depth sorts, card against CPU; the
+tolerances, around their stages and back-walk runs, on lists of every
+Gaussian and of none and where the transmittance underflows, with alpha
+on its clip and SIMPLE's depth ties, K7 bit for bit from run to run;
+the four renderers K5-K8 serve, the diffractive layers and the
+quantised depth sorts, card against CPU; the
 LPIPS distance and its gradients, ms_ssim and the matching loss, card
 against CPU; the v2 decoders, the structure predictor and a render-loss
 V2Trainer step (K1 twice, K2 once), card against CPU.
@@ -1410,18 +1412,34 @@ def test_wave_route_step_on_card_matches_cpu(cuda, over, physics, hfgs,
         assert abs(out["cuda"][k] - v) <= 1e-4 * max(abs(v), 1e-6), k
 
 
-def _composite_inputs(N, size, mode, seed, ties=False, top=False):
+# Sigma ranges (px) of _composite_inputs' DENSE layouts.
+_COMPOSITE_SIGMAS = dict(spread=(1.0, 12.0), wide=(8.0, 40.0),
+                         cluster=(0.12, 0.15), outside=(1.0, 12.0))
+
+
+def _composite_inputs(N, size, mode, seed, ties=False, top=False,
+                      layout="spread"):
     """Depth-sorted (N, 8) params and (N, 3) colours of the dense
     compositing kernels: DENSE conics of sigma 1-12 px (reaching past one
-    stage of tiles), SIMPLE sigmas and radii as render_simplified makes
-    them; `ties` gives runs of Gaussians one depth; `top` puts opacity at
-    the clip on a few centred on pixels."""
+    tile), SIMPLE sigmas and radii as render_simplified makes them; `ties`
+    gives runs of Gaussians one depth; `top` puts opacity at the clip on a
+    few centred on pixels.  `layout` "wide": DENSE sigmas of 8-40 px and
+    opacities of 0.5-0.95, so the transmittance underflows to 0; "cluster":
+    every mean in x 40-55, y 19.3-19.7 with a reach under 3.3 px (DENSE
+    sigma 0.12-0.15, SIMPLE radius 1), all in the 32 x 16 tile from (32,
+    16), so that tile lists all N; "outside": every mean 100-200 px left
+    of the image, so no tile lists any."""
     rng = np.random.default_rng(seed)
     p = np.zeros((N, 8), np.float32)
     p[:, 0] = rng.uniform(-10, size + 10, N)
     p[:, 1] = rng.uniform(-10, size + 10, N)
+    if layout == "cluster":
+        p[:, 0] = rng.uniform(40, 55, N)
+        p[:, 1] = rng.uniform(19.3, 19.7, N)
+    elif layout == "outside":
+        p[:, 0] = rng.uniform(-200, -100, N)
     if mode == 0:
-        s = rng.uniform(1.0, 12.0, (N, 2))
+        s = rng.uniform(*_COMPOSITE_SIGMAS[layout], (N, 2))
         th = rng.uniform(0, np.pi, N)
         c, sn = np.cos(th), np.sin(th)
         a = c * c / s[:, 0] ** 2 + sn * sn / s[:, 1] ** 2
@@ -1429,10 +1447,10 @@ def _composite_inputs(N, size, mode, seed, ties=False, top=False):
         d = sn * sn / s[:, 0] ** 2 + c * c / s[:, 1] ** 2
         p[:, 2], p[:, 3], p[:, 4] = a, b, d
     else:
-        r = rng.uniform(1.0, 20.0, N)
+        r = rng.uniform(1.0, 1.0 if layout == "cluster" else 20.0, N)
         p[:, 2] = np.maximum(r / 2, 1.0)
         p[:, 5] = r
-    p[:, 6] = rng.uniform(0.05, 0.95, N)
+    p[:, 6] = rng.uniform(0.5 if layout == "wide" else 0.05, 0.95, N)
     p[::17, 6] = 0.0
     p[:, 7] = np.sort(rng.uniform(0.5, 3.0, N))
     if ties:
@@ -1447,20 +1465,36 @@ def _composite_inputs(N, size, mode, seed, ties=False, top=False):
     return torch.from_numpy(p), torch.from_numpy(col)
 
 
-# K7 / K8 cull 256 Gaussians at a time and K8 walks runs of 16 back to
-# front: N = 1, 255, 257 and 700 around those, H and W not multiples of
-# 16, alpha on its clip (0.99 DENSE, 1 SIMPLE: T reaches exactly 0),
-# opacities of 0, SIMPLE depth ties within and across chunks of 16 and 128.
-@pytest.mark.parametrize("N,H,W,mode,chunk,ties,top", [
-    (1, 48, 48, 0, 256, False, False), (255, 40, 56, 0, 256, False, True),
-    (700, 64, 64, 0, 256, False, True), (257, 33, 47, 0, 64, False, False),
-    (1, 48, 48, 1, 128, False, False), (300, 40, 56, 1, 128, True, True),
-    (700, 64, 64, 1, 16, True, True), (257, 33, 47, 1, 128, True, False)])
+# K7 / K8 take 32 x 16 tiles, stage 256 listed Gaussians at a time and K8
+# walks runs of 16 back to front: N = 1, 255, 257 and 700 around those, H
+# and W not multiples of the tile, alpha on its clip (0.99 DENSE, 1
+# SIMPLE: T reaches exactly 0), opacities of 0, SIMPLE depth ties within
+# and across chunks of 16, 64 and 128; a DENSE cloud over which T
+# underflows to 0 at most pixels ("wide"), one tile listing every Gaussian
+# ("cluster": lists of 47 and 49, one under and one over a run boundary,
+# 257 and 300 over stage boundaries) and no tile listing any ("outside").
+# K7 repeats bit for bit.
+@pytest.mark.parametrize("N,H,W,mode,chunk,ties,top,layout", [
+    (1, 48, 48, 0, 256, False, False, "spread"),
+    (255, 40, 56, 0, 256, False, True, "spread"),
+    (700, 64, 64, 0, 256, False, True, "spread"),
+    (257, 33, 47, 0, 64, False, False, "spread"),
+    (1, 48, 48, 1, 128, False, False, "spread"),
+    (300, 40, 56, 1, 128, True, True, "spread"),
+    (700, 64, 64, 1, 16, True, True, "spread"),
+    (257, 33, 47, 1, 128, True, False, "spread"),
+    (2000, 128, 128, 0, 256, False, False, "wide"),
+    (300, 48, 80, 1, 128, True, False, "cluster"),
+    (300, 40, 56, 1, 128, False, False, "outside"),
+    (47, 48, 80, 0, 256, False, True, "cluster"),
+    (49, 48, 80, 1, 16, True, True, "cluster"),
+    (257, 48, 80, 0, 64, False, True, "cluster")])
 def test_dense_composite_kernels_match_plain(cuda, N, H, W, mode, chunk,
-                                             ties, top):
+                                             ties, top, layout):
     from fresnel_tpu_torch.render import dense_composite as dc
 
-    params, col = _composite_inputs(N, max(H, W), mode, N + mode, ties, top)
+    params, col = _composite_inputs(N, max(H, W), mode, N + mode, ties, top,
+                                    layout)
     params, col = params.to(cuda), col.to(cuda)
     before = (dc.launches, dc.launches_bwd)
     pg = params.clone().requires_grad_()
@@ -1468,6 +1502,17 @@ def test_dense_composite_kernels_match_plain(cuda, N, H, W, mode, chunk,
     out, trans = dc.dense_composite(pg, cg, H, W, mode, chunk)
     ref, ref_t = dc.dense_composite_plain(params, col, H, W, mode, chunk)
     assert (dc.launches, dc.launches_bwd) == (before[0] + 1, before[1])
+    with torch.no_grad():
+        again = dc._launch_fwd(params, col, H, W, mode, chunk)
+    assert torch.equal(again[0], out) and torch.equal(again[1], trans)
+    listed = again[3][2 * N:2 * N + dc.n_tiles(H, W)]   # each tile's list
+    if layout == "wide":
+        assert (trans == 0).float().mean().item() > 0.5
+    if layout == "cluster":
+        assert listed.max().item() == N and (listed > 0).sum().item() == 1
+    if layout == "outside":
+        assert listed.max().item() == 0
+        assert not (out[..., :3] != 0).any() and bool((trans == 1).all())
     fin = torch.isfinite(ref)
     assert torch.equal(fin, torch.isfinite(out))
     for got_f, ref_f in ((out[..., :3], ref[..., :3]),

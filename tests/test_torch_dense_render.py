@@ -293,6 +293,22 @@ def _sort_case(seed, n):
     return pj, pt
 
 
+def test_kernel_scratch_sizes():
+    """What K7 leaves for K8, as the module's docstring sizes it: per 32 x
+    16 tile a run of 512 transmittances for every 16 Gaussians it could
+    list (359 MB at 512^2 with the decoded cloud's 5 476), and one int32
+    buffer of the lists, the tile boxes, the lists' lengths and the tie
+    record."""
+    assert dc.n_tiles(512, 512) == 512 and dc.n_tiles(33, 47) == 2 * 3
+    assert dc.checkpoint_shape(5476, 512, 512) == (512, 343, 512)
+    assert 4 * int(np.prod(dc.checkpoint_shape(5476, 512, 512))) \
+        == 359_661_568
+    assert dc.checkpoint_shape(0, 33, 47) == (6, 0, 512)
+    assert dc.aux_numel(5476, 512, 512) == \
+        512 * 5476 + 2 * 5476 + 512 + 3 * 512 * 512
+    assert dc.aux_numel(1, 33, 47) == 6 + 2 + 6 + 3 * 33 * 47
+
+
 @pytest.mark.parametrize("method", ["counting", "packed"])
 @pytest.mark.parametrize("n", [300, 700])
 def test_quantized_depth_sorts_match_jax(method, n):
