@@ -33,8 +33,10 @@ ms_ssim and the matching loss, the overnight launcher's preprocessing,
 streamed training, thin checkpoints, the tuners and depth training, and
 Fresnel v2 distillation (`train.train_direct_decoder`: the sparse-voxel
 decoders on TRELLIS-layout files, with the render loss), `fresnel-torch
-smoke`, the binary-protocol bridges and decoder export.  Phases,
-each printing one JSON line; any failure raises and the script exits
+smoke`, the binary-protocol bridges and decoder export, and tile sizes
+other than 16 (`TileRendererConfig.tile_size` 8 and 32) on the image,
+refine, phase-blended and large-cloud render paths.  Phases, each
+printing one JSON line; any failure raises and the script exits
 non-zero:
    1. device      the card, torch and CUDA versions (CUDA must be present);
    2. build       compile the ten kernels from fresnel_tpu_torch/csrc/
@@ -183,7 +185,7 @@ non-zero:
                   against the CPU on the first scene: frontal and
                   per-view SSIM within 1e-4, PSNR within 1e-3 dB, coverage
                   within 2 / S^2 per view;
-  28. eval_v2     v2combo over corpus_v2_eval's first 8 scenes (seed 21,
+  28. eval_v2     v2combo over corpus_v2_eval's first 4 scenes (seed 21,
                   raytraced by up to 8 parallel processes) with their GT
                   views: per-view, side-view and novel-view SSIM beside
                   results/eval_v2combo_eval.json; card against CPU as in
@@ -612,6 +614,36 @@ non-zero:
                   seconds per checkpoint;
   88. item11_phases  the seconds of 85-87 beside a 45 s cap (over it
                   fails).
+  89. tile_size_image  the image->3DGS path's decoded cloud (5 476
+                  Gaussians) through render_tiled at 512^2 with tile_size
+                  8 and 32, the launch counts reset just before and read
+                  just after: a render without a gradient, one with its
+                  gradient (K1 2, K2 1) and a phase-blended one with
+                  phases from a seed and its gradient (K1-phi 1, K2-phi
+                  1); every output finite, the image within a mean
+                  absolute difference of 1e-5 of the CPU's render at the
+                  same size; K1 against its plain version at the image's
+                  pack of that size (1e-5), device ms, plain ms, bound;
+  90. tile_size_refine  a refine step at full width (render_raw at the
+                  REFINE init, photometric_loss, backward) at 8 and 32 on
+                  the card (K1 1, K2 1) and on the CPU: losses within 1e-5
+                  relative; K1 / K2 against their plain versions at the
+                  init's pack (K2 per field 1e-4, bit for bit run to run),
+                  times and bounds;
+  91. tile_size_phase  K1-phi / K2-phi against their plain versions on
+                  PHASE_AB binned into tiles of 8 and 32 (1e-5 / 1e-4
+                  per field, K2-phi bit for bit run to run), device ms,
+                  plain ms, bounds, residency;
+  92. tile_size_render  render_tiled on a million Gaussians at 512^2, M
+                  256, with binning "search" (K3 once per tile-row group,
+                  K1) and "stream" (K4, K1) at 8 and 32, the counts reset
+                  just before and read just after; K3's tables (every
+                  group) and K4's against their plain versions bit for
+                  bit; K3 / K4 device ms (one group; K4's launch alone),
+                  plain ms, bounds; K1 / K2 at the render pack of each
+                  size against their plain versions;
+  93. item5_phases  the seconds of 89-92 beside a 45 s cap (over it
+                  fails).
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -623,7 +655,8 @@ shows.  For each root in order, a subprocess imports that checkout's
 builds this script's image, refine and render packs with it, and times
 through the functions every version has: K1 at all three, K2 with
 cotangents from a seed and K1 + K2 through autograd (a refine step's pair)
-at the refine and render packs; K3 (`build_rank_table`), K4
+at the refine and render packs, with the sha256 of K1's and K2's outputs
+(the same bits in every version); K3 (`build_rank_table`), K4
 (`bin_gaussians_stream`) and K4's launch alone (`_launch`) on the render
 path's million depth-sorted Gaussians; K5 and K6 (`splat._launch_fwd` /
 `_launch_bwd`, whose signatures every version of the dense splat keeps)
@@ -643,6 +676,8 @@ sha256 of K7's outputs and, where the checkout has it, their residency.
 Each as `ms` on the device, `call_ms` per call and the device ms of each
 kernel by name (torch.profiler; not for K7 / K8), with ptxas's
 registers and spills of those ten kernels;
+K1 (image pack), K2 (refine pack), K1-phi and K2-phi (PHASE_AB) at tile
+sizes 8 and 32, where the checkout's kernels take a tile size;
 and the refine step at full width (`fit_scene`: ms per step over 20
 steps, device ms per step and top kernels over 5); and the
 train_sh_full route's step (its flags, corpus and batch as phase 57
@@ -654,6 +689,7 @@ Imports torch, numpy and fresnel_tpu_torch only.
 
 import dataclasses
 import hashlib
+import inspect
 import json
 import math
 import os
@@ -914,26 +950,30 @@ def max_abs_diff(torch, a, b, rows=64):
     return worst
 
 
-def pack_stats(torch, raster, pack, counts, ntx, tiles_per_image=None):
+def pack_stats(torch, raster, pack, counts, ntx, tiles_per_image=None,
+               tile_size=16):
     """A pack's count distribution, the (tile, segment) units K1 and K2 run
     for it (the segment length L they choose, the units, the blocks
     launched, the tiles that need a fold, the heaviest unit's slots, the
     scratch bytes) and the pixel-slot pairs inside the slots' boxes (the
-    rest K1 skips, and K2 where a whole warp is outside)."""
+    rest K1 skips, and K2 where a whole warp is outside), at tile size
+    `tile_size` (a checkout before it took one is asked at 16 only)."""
     T, M = pack.shape[:2]
+    ts, P = tile_size, tile_size * tile_size
     ti = T if tiles_per_image is None else tiles_per_image
-    resident = raster.resident_blocks(pack.device.index)
+    size_arg = () if ts == 16 else (ts,)
+    resident = raster.resident_blocks(pack.device.index, *size_arg)
     L = raster.segment_length(counts, M, resident)
     c = counts.long()
-    pix = torch.arange(raster.PIX, device=pack.device)
+    pix = torch.arange(P, device=pack.device)
     pairs_in = warps_in = 0
     for t0 in range(0, T, 64):
         t = torch.arange(t0, min(T, t0 + 64),
                          device=pack.device)[:, None] % ti
         g = pack[t0:t0 + 64]
         r = g[..., 5, None]
-        px = (t % ntx * 16 + pix % 16).float()[:, None, :]
-        py = (t // ntx * 16 + pix // 16).float()[:, None, :]
+        px = (t % ntx * ts + pix % ts).float()[:, None, :]
+        py = (t // ntx * ts + pix // ts).float()[:, None, :]
         inside = (((px - g[..., 0, None]).abs() <= r)
                   & ((py - g[..., 1, None]).abs() <= r)
                   & (torch.arange(M, device=pack.device)
@@ -952,19 +992,19 @@ def pack_stats(torch, raster, pack, counts, ntx, tiles_per_image=None):
                                     T * max(1, -(-M // raster.SEG))),
                 merged_tiles=int((n_seg > 1).sum().item()),
                 heaviest_unit_slots=min(int(c.max().item()), L),
-                scratch_bytes=(math.prod(raster.scratch_shape(T, M)) * 4
-                               + T * 4),
+                scratch_bytes=(math.prod(raster.scratch_shape(
+                    T, M, *size_arg)) * 4 + T * 4),
                 box_pixel_pairs=pairs_in,
-                box_pixel_share=pairs_in / (occupied * raster.PIX),
-                box_warp_share=warps_in / (occupied * raster.PIX // 32))
+                box_pixel_share=pairs_in / (occupied * P),
+                box_warp_share=warps_in / (occupied * P / 32))
 
 
 def compositing_bounds(stats, T, M, occupied, names=("k1", "k2"),
                        ops=(OPS_PER_EVAL, OPS_PER_EVAL_BWD), bwd_pix=10,
-                       carry_bytes=0):
-    """The bounds of K1 and K2 on a pack (or, with their `names`, `ops`
-    per pair, the backward's floats read per pixel and the bytes of the
-    carry between them, K1-phi and K2-phi):
+                       carry_bytes=0, pix=PIX_F):
+    """The bounds of K1 and K2 on a pack of `pix` pixels a tile (or, with
+    their `names`, `ops` per pair, the backward's floats read per pixel
+    and the bytes of the carry between them, K1-phi and K2-phi):
     the bytes the function moves and the operations it does on the
     pixel-slot pairs inside the slots' boxes (plus each slot's box),
     beside the count over all pairs (`all_pairs_ops`: every pair, as if no
@@ -973,14 +1013,14 @@ def compositing_bounds(stats, T, M, occupied, names=("k1", "k2"),
     out = {}
     for name, per_pair, bytes_moved in (
             (names[0], ops[0],
-             occupied * PACK_BYTES + T * 4 + T * PIX_F * 5 * 4
+             occupied * PACK_BYTES + T * 4 + T * pix * 5 * 4
              + carry_bytes),
             (names[1], ops[1],
-             occupied * PACK_BYTES + T * 4 + T * PIX_F * bwd_pix * 4
+             occupied * PACK_BYTES + T * 4 + T * pix * bwd_pix * 4
              + T * M * PACK_BYTES + carry_bytes)):
         ms, by, work = bound(bytes_moved,
                              stats["box_pixel_pairs"] * per_pair + box_ops)
-        all_pairs = occupied * PIX_F * per_pair
+        all_pairs = occupied * pix * per_pair
         out[name] = dict(**work, bound_ms=ms, bound_by=by,
                          all_pairs_ops=all_pairs,
                          all_pairs_bound_ms=bound(bytes_moved, all_pairs)[0])
@@ -1908,11 +1948,12 @@ INFER_TIMED = 3
 INFER_RTOL = 1e-5
 # corpus_v1_eval and corpus_v2_eval as cloud/make_corpus.sh makes them
 # (24 scenes each, seeds 1 and 21); view-aware training takes the first 4
-# corpus_v2 scenes.  corpus_v2_eval is cut to its first 8 scenes (its 24
-# took 35 s to raytrace on the card's host): v2combo's eval is logged
-# beside the committed TPU JSON over those 8.
+# corpus_v2 scenes.  corpus_v2_eval is cut to its first 4 scenes (its 24
+# took 35 s to raytrace on the card's host, 8 of them 23 s): v2combo's
+# eval is logged beside the committed TPU JSON over those 4, the scenes
+# view-aware training takes.
 EVAL_SCENES, EVAL_SEED, EVAL_SIZE = 24, 1, 256
-EVAL_V2_SCENES, EVAL_V2_SEED, VIEW_SCENES = 8, 21, 4
+EVAL_V2_SCENES, EVAL_V2_SEED, VIEW_SCENES = 4, 21, 4
 # Card against the port's CPU on the first scene of each eval (the CPU's
 # renders of 2 scenes took 11-15 s an eval).
 EVAL_REF_SCENES = 1
@@ -4345,17 +4386,18 @@ PHASE_AB = dict(images=4, size=256, M=256, n=5476, disc_share=0.99,
                 amplitude=0.25, seed=3)
 
 
-def phase_synthetic(torch, dev):
-    """(pack, counts, n_tiles_x, tiles_per_image) of PHASE_AB."""
+def phase_synthetic(torch, dev, ts=16):
+    """(pack, counts, n_tiles_x, tiles_per_image) of PHASE_AB, binned into
+    tiles of ts x ts pixels."""
     cfg = PHASE_AB
     rng = np.random.default_rng(cfg["seed"])
     S, M, n = cfg["size"], cfg["M"], cfg["n"]
-    ntx = S // 16
+    ntx = S // ts
     ti = ntx * ntx
     pack = np.zeros((cfg["images"] * ti, M, 12), np.float32)
     pack[..., 5] = -1.0
     counts = np.zeros(cfg["images"] * ti, np.int32)
-    edge = np.arange(ntx) * 16
+    edge = np.arange(ntx) * ts
     for im in range(cfg["images"]):
         nd = int(n * cfg["disc_share"])
         rad = cfg["disc"] * np.sqrt(rng.uniform(0, 1, nd))
@@ -4374,8 +4416,8 @@ def phase_synthetic(torch, dev):
         rows = rows[rng.permutation(n)].astype(np.float32)
         rows[:, 10] = np.sort(rows[:, 10])
         mx, my, r = rows[:, 0:1], rows[:, 1:2], rows[:, 5:6]
-        hit_x = (mx + r >= edge) & (mx - r <= edge + 15)
-        hit_y = (my + r >= edge) & (my - r <= edge + 15)
+        hit_x = (mx + r >= edge) & (mx - r <= edge + ts - 1)
+        hit_y = (my + r >= edge) & (my - r <= edge + ts - 1)
         for t in range(ti):
             idx = np.nonzero(hit_x[:, t % ntx] & hit_y[:, t // ntx])[0][:M]
             counts[im * ti + t] = len(idx)
@@ -7186,30 +7228,359 @@ def item11_phases(torch, dev, path_launches, tmp):
              f"{ITEM11_PHASES_CAP_S} s cap")
 
 
-def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
-    """K1 (and with `backward` K2, cotangents from a seed) against their
-    plain versions on one pack: errors, times and bounds."""
+# item5_phases: tile sizes other than 16 (TileRendererConfig.tile_size)
+# through K1 / K2 and K1-phi / K2-phi, and K3 / K4 binning for them, on the
+# slice's full-width packs: the image->3DGS path's decoded cloud at 512^2,
+# the refine init (256^2, M 1 024), PHASE_AB and the large-cloud render
+# (10^6 Gaussians at 512^2, M 256), each at ITEM5_TILE_SIZES.
+ITEM5_TILE_SIZES = (8, 32)
+ITEM5_PHASES_CAP_S = 45.0
+# The card's render of the decoded cloud against the CPU's at the same tile
+# size, by mean absolute difference (test_render_on_card_matches_cpu's
+# bound: projection rounds differently on the card).
+ITEM5_IMAGE_MEAN_TOL = 1e-5
+
+
+def phase_pack_kernels(torch, raster, pack, counts, ntx, ti, amp, ts):
+    """K1-phi and K2-phi against their plain versions on one pack of tile
+    size ts, the cotangents from a seed: K1-phi's error relative to each
+    output's largest plain value, K2-phi's per field, K2-phi's repeat from
+    run to run, times and bounds."""
+    kw = dict(tiles_per_image=ti, tile_size=ts)
+    T, M = pack.shape[:2]
     with torch.no_grad():
-        fwd = raster.composite_tiles_packed(pack, counts, ntx,
-                                            tiles_per_image=ti)
+        got = raster._launch_fwd_phase(pack, counts, ntx, amp,
+                                       keep_ckpt=True, **kw)
         ref = raster.composite_tiles_plain(pack, counts, ntx,
-                                           tiles_per_image=ti)
+                                           phase_amplitude=amp, **kw)
+    fwd_abs = max((g - r).abs().max().item() for g, r in zip(got[:3], ref))
+    fwd_rel = max((g - r).abs().max().item() / max(r.abs().max().item(),
+                                                   1e-30)
+                  for g, r in zip(got[:3], ref))
+    crng = np.random.default_rng(12)
+    cots = [torch.from_numpy(crng.normal(size=tuple(o.shape)).astype(
+        np.float32)).to(pack.device) for o in ref]
+    with torch.no_grad():
+        g1 = raster._launch_bwd_phase(pack, counts, ntx, amp, *cots,
+                                      ckpt=got[3], **kw)
+        g2 = raster._launch_bwd_phase(pack, counts, ntx, amp, *cots,
+                                      ckpt=got[3], **kw)
+    gref = raster.composite_tiles_phase_bwd_plain(pack, counts, ntx, amp,
+                                                  *cots, **kw)
+    fields_ = [i for i in range(12) if i != 5]
+    babs = max((g1[..., i] - gref[..., i]).abs().max().item()
+               for i in fields_)
+    brel = max((g1[..., i] - gref[..., i]).abs().max().item()
+               / max(gref[..., i].abs().max().item(), 1e-30) for i in fields_)
+    with torch.no_grad():
+        k1p_t = kernel_times(torch, lambda: raster._launch_fwd_phase(
+            pack, counts, ntx, amp, keep_ckpt=True, **kw))
+        k2p_t = kernel_times(torch, lambda: raster._launch_bwd_phase(
+            pack, counts, ntx, amp, *cots, ckpt=got[3], **kw))
+        k1p_plain = cuda_median_ms(torch, lambda: raster.composite_tiles_plain(
+            pack, counts, ntx, phase_amplitude=amp, **kw), n=1, warmup=0)
+    k2p_plain = cuda_median_ms(
+        torch, lambda: raster.composite_tiles_phase_bwd_plain(
+            pack, counts, ntx, amp, *cots, **kw), n=1, warmup=0)
+    occupied = int(counts.sum().item())
+    stats = pack_stats(torch, raster, pack, counts, ntx, tiles_per_image=ti,
+                       tile_size=ts)
+    pb = compositing_bounds(
+        stats, T, M, occupied, names=("k1phi", "k2phi"),
+        ops=(OPS_PER_EVAL_PHASE, OPS_PER_EVAL_PHASE_BWD), bwd_pix=5,
+        carry_bytes=math.prod(raster.checkpoint_shape(T, M, ts)) * 4,
+        pix=ts * ts)
+    return dict(T=T, M=M, tile_size=ts, tiles_per_image=ti,
+                occupied_slots=occupied, counts_max=stats["counts_max"],
+                tiles_at_cap=stats["tiles_at_cap"],
+                box_pixel_share=stats["box_pixel_share"],
+                k1phi=dict(max_abs_err=fwd_abs, max_rel_err=fwd_rel, **k1p_t,
+                           plain_ms=k1p_plain, **pb["k1phi"]),
+                k2phi=dict(max_abs_err=babs, max_rel_err=brel,
+                           repeat_bitwise_equal=bool(torch.equal(g1, g2)),
+                           **k2p_t, plain_ms=k2p_plain, **pb["k2phi"]),
+                residency=raster.phase_residency(pack.device, ts))
+
+
+def item5_phases(torch, dev, path_launches, dec_cloud):
+    """Phases 89-93: tile sizes 8 and 32 on the slice's path at full width.
+    Returns {kernel: {"at_ts<size>_<pack>_pack": numbers}} for K1, K2,
+    K1-phi, K2-phi, K3 and K4, and each kernel's largest error there."""
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.models.decoders import head_transform
+    from fresnel_tpu_torch.render import (binning, raster, splat,
+                                          stream_binning, tile)
+    from fresnel_tpu_torch.train import fit_teacher
+
+    counters = (raster, binning, stream_binning)
+    cpu = torch.device("cpu")
+    phase_s, lap = lap_timer()
+    res = {k: {} for k in ("k1", "k2", "k1phi", "k2phi", "k3", "k4")}
+    errs = {k: 0.0 for k in res}
+
+    def keep(kernel, key, numbers, err):
+        res[kernel][key] = numbers
+        errs[kernel] = max(errs[kernel], err)
+
+    # 89. tile_size_image: the decoded cloud at 512^2 through render_tiled,
+    # plain and phase-blended (phases from a seed), each with a gradient.
+    cam = Camera.default_training(512)
+    n_dec = dec_cloud[0].shape[0]
+    phases = torch.from_numpy(np.random.default_rng(89).uniform(
+        0, 1, n_dec).astype(np.float32)).to(dev)
+    rows = {}
+    for ts in ITEM5_TILE_SIZES:
+        cfg = tile.TileRendererConfig(tile_size=ts)
+        cfg_p = dataclasses.replace(cfg, use_phase_blending=True)
+        torch.cuda.synchronize()
+        reset_counts(*counters)
+        with torch.no_grad():
+            img = tile.render_tiled(*dec_cloud, cam, config=cfg)
+        leaves = [f.detach().requires_grad_() for f in dec_cloud]
+        img_g = tile.render_tiled(*leaves, cam, config=cfg)
+        grads = torch.autograd.grad(img_g.square().sum(), leaves)
+        img_p = tile.render_tiled(*leaves, cam, phases=phases, config=cfg_p)
+        grads_p = torch.autograd.grad(img_p.square().sum(), leaves)
+        torch.cuda.synchronize()
+        launches = read_all_counts(raster, binning, stream_binning, splat)
+        path_launches[f"image_ts{ts}"] = launches
+        img_cpu = tile.render_tiled(*[f.cpu() for f in dec_cloud], cam,
+                                    config=cfg)
+        mean_err = (img.cpu() - img_cpu).abs().mean().item()
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (img, img_p, *grads, *grads_p))
+        with torch.no_grad():
+            tp = tile.pack_tiles(*dec_cloud, cam, cfg)
+        kp = pack_kernels(torch, raster, tp.pack, tp.counts, tp.n_tiles_x,
+                          None, backward=False, tile_size=ts)
+        keep("k1", f"at_ts{ts}_image_pack",
+             dict(kp["k1"], T=kp["T"], M=kp["M"]), kp["k1_max_abs_err"])
+        rows[ts] = dict(launches=launches, image_mean_abs_err_vs_cpu=mean_err,
+                        phase_image_mean=img_p.mean().item(), finite=finite,
+                        pack=kp)
+        want = dict(k1=2, k2=1, k3=0, k4=0, k1phi=1, k2phi=1, k5=0, k6=0)
+        if not (launches == want and finite
+                and tuple(img.shape) == (3, 512, 512)
+                and mean_err <= ITEM5_IMAGE_MEAN_TOL
+                and kp["k1_max_abs_err"] <= KERNEL_TOL):
+            fail(f"the decoded cloud at tile size {ts}: {rows[ts]}")
+    log("tile_size_image", n_gaussians=n_dec, size=512, by_tile_size=rows,
+        tol=dict(image_mean=ITEM5_IMAGE_MEAN_TOL, k1=KERNEL_TOL),
+        phase_seconds=lap("tile_size_image"))
+
+    # 90. tile_size_refine: a refine step's forward and backward at full
+    # width (render_raw + photometric_loss), card against the CPU's loss;
+    # K1 / K2 against their plain versions at the init's pack.
+    scene, depth, cam_r, cfg_r, raw0, _ = refine_init(torch, dev)
+    rows = {}
+    for ts in ITEM5_TILE_SIZES:
+        cfg = dataclasses.replace(cfg_r, tile_size=ts)
+        losses = {}
+        for d in (dev, cpu):
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            raw = torch.from_numpy(raw0.copy()).to(d).requires_grad_()
+            do = torch.tensor(REFINE["depth_offset_init"],
+                              device=d).requires_grad_()
+            img = fit_teacher.render_raw(
+                raw, torch.from_numpy(depth).to(d)[None], do, cam_r.to(d),
+                cfg)
+            loss = fit_teacher.photometric_loss(
+                img, torch.from_numpy(scene).to(d))
+            loss.backward()
+            losses[d.type] = (loss.item(), bool(torch.isfinite(
+                raw.grad).all()))
+            if d == dev:
+                torch.cuda.synchronize()
+                launches = read_counts(*counters)
+                path_launches[f"refine_ts{ts}"] = launches
+        with torch.no_grad():
+            head = head_transform(torch.from_numpy(raw0).to(dev),
+                                  torch.from_numpy(depth).to(dev)[None],
+                                  torch.tensor(REFINE["depth_offset_init"],
+                                               device=dev))
+            tp = tile.pack_tiles(*[head[k][0] for k in FIELDS], cam_r.to(dev),
+                                 cfg)
+        kp = pack_kernels(torch, raster, tp.pack, tp.counts, tp.n_tiles_x,
+                          None, backward=True, tile_size=ts)
+        keep("k1", f"at_ts{ts}_refine_pack",
+             dict(kp["k1"], T=kp["T"], M=kp["M"]), kp["k1_max_abs_err"])
+        keep("k2", f"at_ts{ts}_refine_pack",
+             dict(kp["k2"], T=kp["T"], M=kp["M"],
+                  max_rel_err=kp["k2_rel_err"]), kp["k2_max_abs_err"])
+        loss_rel = abs(losses["cuda"][0] - losses["cpu"][0]) / abs(
+            losses["cpu"][0])
+        rows[ts] = dict(launches=launches, loss_card=losses["cuda"][0],
+                        loss_cpu=losses["cpu"][0], loss_rel=loss_rel,
+                        pack=kp)
+        if not (launches == dict(k1=1, k2=1, k3=0, k4=0)
+                and losses["cuda"][1] and losses["cpu"][1]
+                and loss_rel <= REFINE_LOSS_RTOL
+                and kp["k1_max_abs_err"] <= KERNEL_TOL
+                and kp["k2_rel_err"] <= KERNEL_BWD_TOL
+                and kp["k2_repeat_bitwise_equal"]):
+            fail(f"the refine step at tile size {ts}: {rows[ts]}")
+    log("tile_size_refine", config=REFINE, by_tile_size=rows,
+        tol=dict(loss_rel=REFINE_LOSS_RTOL, k1=KERNEL_TOL,
+                 k2=KERNEL_BWD_TOL), phase_seconds=lap("tile_size_refine"))
+
+    # 91. tile_size_phase: K1-phi / K2-phi on PHASE_AB binned at each size.
+    rows = {}
+    for ts in ITEM5_TILE_SIZES:
+        pack, counts, ntx, ti = phase_synthetic(torch, dev, ts)
+        kp = phase_pack_kernels(torch, raster, pack, counts, ntx, ti,
+                                PHASE_AB["amplitude"], ts)
+        for kk in ("k1phi", "k2phi"):
+            keep(kk, f"at_ts{ts}_phase_ab_pack",
+                 dict(kp[kk], T=kp["T"], M=kp["M"],
+                      residency=kp["residency"][kk]), kp[kk]["max_abs_err"])
+        rows[ts] = kp
+        if not (kp["k1phi"]["max_rel_err"] <= KERNEL_TOL
+                and kp["k2phi"]["max_rel_err"] <= KERNEL_BWD_TOL
+                and kp["k2phi"]["repeat_bitwise_equal"]):
+            fail(f"K1-phi / K2-phi at tile size {ts}: {kp}")
+        del pack, counts
+    log("tile_size_phase", pack=PHASE_AB, by_tile_size=rows,
+        tol=dict(k1phi=KERNEL_TOL, k2phi=KERNEL_BWD_TOL),
+        phase_seconds=lap("tile_size_phase"))
+
+    # 92. tile_size_render: the large-cloud render under the search (K3)
+    # and stream (K4) binnings; K3 / K4 tables against their plain
+    # versions, K1 / K2 at the render pack.
+    cloud = render_cloud(10).to(dev)
+    cam = Camera.default_training(RENDER["res"])
+    M = RENDER["max_per_tile"]
+    n = RENDER["n"]
+    rows = {}
+    for ts in ITEM5_TILE_SIZES:
+        ntx = nty = RENDER["res"] // ts
+        groups = tile.search_groups(n, ntx, nty)
+        row = {}
+        for b in ("search", "stream"):
+            cfg = tile.TileRendererConfig(max_per_tile=M, tile_size=ts,
+                                          binning=b)
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            with torch.no_grad():
+                img = tile.render_tiled(*fields(cloud), cam, config=cfg)
+            torch.cuda.synchronize()
+            launches = read_counts(*counters)
+            path_launches[f"render_{b}_ts{ts}"] = launches
+            want = dict(k1=1, k2=0, k3=groups if b == "search" else 0,
+                        k4=int(b == "stream"))
+            row[b] = dict(launches=launches, image_mean=img.mean().item())
+            if launches != want or not bool(torch.isfinite(img).all()):
+                fail(f"the render at tile size {ts}, {b}: {row[b]}")
+        cfg = tile.TileRendererConfig(max_per_tile=M, tile_size=ts)
+        with torch.no_grad():
+            sp = tile.project_sorted(*fields(cloud), cam, cfg)
+            xlo, xhi, ylo, yhi, vis, n2 = tile._padded_intervals(
+                sp.means2d, sp.radii, sp.visible, ts)
+            bnd = (xlo, torch.where(vis, xhi, -1), ylo,
+                   torch.where(vis, yhi, -1))
+            nty_g = -(-nty // groups)
+            k3_equal = True
+            for g in range(groups):
+                got = binning.build_rank_table(*bnd, ntx, nty_g, n2,
+                                               y_offset=g * nty_g)
+                ref = binning.build_rank_table_plain(*bnd, ntx, nty_g, n2,
+                                                     y_offset=g * nty_g)
+                k3_equal &= bool(torch.equal(got[0], ref[0])
+                                 and torch.equal(got[1], ref[1]))
+                del got, ref
+            k3_t = kernel_times(torch, lambda: binning.build_rank_table(
+                *bnd, ntx, nty_g, n2) and None, n=20)
+            k3_plain = cuda_median_ms(
+                torch, lambda: binning.build_rank_table_plain(
+                    *bnd, ntx, nty_g, n2) and None, n=3, warmup=1)
+            Tg = ntx * nty_g
+            k3_bound, k3_by, _ = bound(
+                Tg * n2 * 2 + Tg * (n2 // 256) * 4 + 4 * n2 * 4,
+                Tg * n2 * OPS_PER_TEST)
+            sorted_in = (sp.means2d, sp.radii, sp.visible)
+            k4_got = stream_binning.bin_gaussians_stream(*sorted_in, ntx,
+                                                         nty, ts, M)
+            k4_ref = stream_binning.bin_gaussians_stream_plain(
+                *sorted_in, ntx, nty, ts, M)
+            k4_equal = tables_equal(torch, k4_got, k4_ref)
+            iv = stream_binning.stream_intervals(*sorted_in, ntx, nty, ts)
+            k4_t = kernel_times(torch, lambda: stream_binning._launch(
+                iv, ntx, nty, M), n=20)
+            k4_plain = cuda_median_ms(
+                torch, lambda: stream_binning.bin_gaussians_stream_plain(
+                    *sorted_in, ntx, nty, ts, M), n=3, warmup=1)
+            kept = int(k4_ref[1].sum().item())
+            k4_bound, k4_by, _ = bound(
+                n * (2 * 4 + 4 + 1) + ntx * nty * M * (4 + 1),
+                (n + kept) * OPS_PER_TEST)
+            del k4_got, k4_ref, iv
+            tp = tile.pack_tiles(*fields(cloud), cam, cfg)
+        keep("k3", f"at_ts{ts}_render",
+             dict(**k3_t, plain_ms=k3_plain, bound_ms=k3_bound,
+                  bound_by=k3_by, groups=groups, T_group=Tg, n2=n2),
+             0.0 if k3_equal else float("inf"))
+        keep("k4", f"at_ts{ts}_render",
+             dict(**k4_t, plain_ms=k4_plain, bound_ms=k4_bound,
+                  bound_by=k4_by, T=ntx * nty), 0.0 if k4_equal
+             else float("inf"))
+        kp = pack_kernels(torch, raster, tp.pack, tp.counts, tp.n_tiles_x,
+                          None, backward=True, tile_size=ts)
+        keep("k1", f"at_ts{ts}_render_pack",
+             dict(kp["k1"], T=kp["T"], M=kp["M"]), kp["k1_max_abs_err"])
+        keep("k2", f"at_ts{ts}_render_pack",
+             dict(kp["k2"], T=kp["T"], M=kp["M"],
+                  max_rel_err=kp["k2_rel_err"]), kp["k2_max_abs_err"])
+        rows[ts] = dict(row, groups=groups, k3_bitwise_equal=k3_equal,
+                        k4_bitwise_equal=k4_equal, pack=kp,
+                        k3=res["k3"][f"at_ts{ts}_render"],
+                        k4=res["k4"][f"at_ts{ts}_render"])
+        del tp, sp, bnd, sorted_in
+        if not (k3_equal and k4_equal and kp["k1_max_abs_err"] <= KERNEL_TOL
+                and kp["k2_rel_err"] <= KERNEL_BWD_TOL
+                and kp["k2_repeat_bitwise_equal"]):
+            fail(f"K3 / K4 / K1 / K2 at the render, tile size {ts}: "
+                 f"{rows[ts]}")
+    del cloud
+    log("tile_size_render", n_gaussians=n, size=RENDER["res"], M=M,
+        by_tile_size=rows, phase_seconds=lap("tile_size_render"))
+
+    # 93. item5_phases
+    total = sum(phase_s.values())
+    log("item5_phases", seconds=phase_s, total_seconds=total,
+        cap_seconds=ITEM5_PHASES_CAP_S)
+    if total > ITEM5_PHASES_CAP_S:
+        fail(f"phases 89-92 took {total:.1f} s, over their "
+             f"{ITEM5_PHASES_CAP_S} s cap")
+    return res, errs
+
+
+def pack_kernels(torch, raster, pack, counts, ntx, ti, backward,
+                 tile_size=16):
+    """K1 (and with `backward` K2, cotangents from a seed) against their
+    plain versions on one pack of tile size `tile_size`: errors, K2's
+    repeat from run to run, times and bounds."""
+    kw = dict(tiles_per_image=ti, tile_size=tile_size)
+    with torch.no_grad():
+        fwd = raster.composite_tiles_packed(pack, counts, ntx, **kw)
+        ref = raster.composite_tiles_plain(pack, counts, ntx, **kw)
         ferr = max((g - r).abs().max().item() for g, r in zip(fwd, ref))
         k1_t = kernel_times(torch, lambda: raster._launch_fwd(
-            pack, counts, ntx, keep_prefix=backward, tiles_per_image=ti))
+            pack, counts, ntx, keep_prefix=backward, **kw))
         k1_plain = cuda_median_ms(torch, lambda: raster.composite_tiles_plain(
-            pack, counts, ntx, tiles_per_image=ti), n=5, warmup=1)
+            pack, counts, ntx, **kw), n=5, warmup=1)
         T, M = pack.shape[:2]
         occupied = int(counts.sum().item())
         stats = pack_stats(torch, raster, pack, counts, ntx,
-                           tiles_per_image=ti)
-        bnds = compositing_bounds(stats, T, M, occupied)
-        out = dict(T=T, M=M, tiles_per_image=ti or T,
+                           tiles_per_image=ti, tile_size=tile_size)
+        bnds = compositing_bounds(stats, T, M, occupied,
+                                  pix=tile_size * tile_size)
+        out = dict(T=T, M=M, tiles_per_image=ti or T, tile_size=tile_size,
                    occupied_slots=occupied, k1_max_abs_err=ferr,
                    k1=dict(**k1_t, plain_ms=k1_plain, **bnds["k1"]),
                    counts_max=stats["counts_max"],
                    counts_median=stats["counts_median"],
                    tiles_at_cap=stats["tiles_at_cap"],
+                   segment_length=stats["segment_length"],
                    box_pixel_share=stats["box_pixel_share"])
         if not backward:
             return out
@@ -7217,20 +7588,22 @@ def pack_kernels(torch, raster, pack, counts, ntx, ti, backward):
         cots = [torch.from_numpy(crng.normal(size=tuple(o.shape)).astype(
             np.float32)).to(pack.device) for o in fwd]
         prefix = raster._launch_fwd(pack, counts, ntx, keep_prefix=True,
-                                    tiles_per_image=ti)[3]
+                                    **kw)[3]
         got = raster._launch_bwd(pack, counts, ntx, *fwd, *cots,
-                                 prefix=prefix, tiles_per_image=ti)
+                                 prefix=prefix, **kw)
+        again = raster._launch_bwd(pack, counts, ntx, *fwd, *cots,
+                                   prefix=prefix, **kw)
         bref = raster.composite_tiles_bwd_plain(pack, counts, ntx, *fwd,
-                                                *cots, tiles_per_image=ti)
+                                                *cots, **kw)
         berr, _, rel = bwd_errors(got, bref)
         k2_t = kernel_times(torch, lambda: raster._launch_bwd(
-            pack, counts, ntx, *fwd, *cots, prefix=prefix,
-            tiles_per_image=ti))
+            pack, counts, ntx, *fwd, *cots, prefix=prefix, **kw))
         k2_plain = cuda_median_ms(
             torch, lambda: raster.composite_tiles_bwd_plain(
-                pack, counts, ntx, *fwd, *cots, tiles_per_image=ti),
+                pack, counts, ntx, *fwd, *cots, **kw),
             n=3, warmup=1)
     out.update(k2_max_abs_err=max(berr.values()), k2_rel_err=max(rel.values()),
+               k2_repeat_bitwise_equal=bool(torch.equal(got, again)),
                k2=dict(**k2_t, plain_ms=k2_plain, **bnds["k2"]))
     return out
 
@@ -7651,6 +8024,14 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_item11_")
     item11_phases(torch, dev, path_launches, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
+    # 89-93. tile sizes 8 and 32: the decoded cloud (K1, K2, K1-phi,
+    # K2-phi), the refine step (K1 + K2), PHASE_AB (K1-phi, K2-phi) and the
+    # large-cloud render (K3 or K4, K1)
+    k_ts, ts_err = item5_phases(torch, dev, path_launches, dec_cloud)
+    for kk, row in (("k1", k1), ("k2", k2), ("k3", k3), ("k4", k4),
+                    ("k1phi", k_wave["k1phi"]), ("k2phi", k_wave["k2phi"])):
+        row.update(k_ts[kk])
+        row["max_abs_err"] = max(row["max_abs_err"], ts_err[kk])
     for key, pack in (("at_v2_pred_pack", k_v2["pred"]),
                       ("at_v2_teacher_pack", k_v2["teacher"])):
         k1["max_abs_err"] = max(k1["max_abs_err"], pack["k1_max_abs_err"])
@@ -7758,7 +8139,7 @@ def ab_measure(root):
     packs = dict(image=decoded_pack(torch, models, image)[0])
     dec_cloud = decoded_cloud(torch, models, image)
     del models
-    scene, depth, *_, packs["refine"] = refine_init(torch, dev)
+    scene, depth, cam_r, _, raw0, packs["refine"] = refine_init(torch, dev)
     cam = Camera.default_training(RENDER["res"])
     cfg = tile.TileRendererConfig(max_per_tile=RENDER["max_per_tile"])
     with torch.no_grad():
@@ -7806,10 +8187,16 @@ def ab_measure(root):
 
             calls.update(k2=k2, k1_k2_autograd=k1_k2)
         for kernel, fn in calls.items():
+            # K1's and K2's outputs are the same bits in every version.
+            out = fn()
+            sha = None if out is None else hashlib.sha256(b"".join(
+                t.detach().cpu().numpy().tobytes() for t in (
+                    out if isinstance(out, tuple) else (out,)))).hexdigest()
             prof = profile_ms(torch, lambda: [fn() for _ in range(10)], 10)
             result["kernels"][f"{kernel}_{name}"] = dict(
                 **kernel_times(torch, fn),
                 occupied_slots=int(counts.sum().item()),
+                output_sha256=None if sha is None else sha[:16],
                 device_ms_by_kernel=prof["top_kernels_ms"])
     with torch.no_grad():
         calls = dict(
@@ -7871,6 +8258,11 @@ def ab_measure(root):
     if hasattr(raster, "phase_residency"):
         result["phase_residency"] = raster.phase_residency(dev)
     del pack, counts, fwd, cots, grad
+    # K1, K2, K1-phi and K2-phi at tile sizes 8 and 32, where the
+    # checkout's kernels take a tile size.
+    if "tile_size" in inspect.signature(raster._launch_fwd).parameters:
+        result["kernels"].update(tile_size_times(torch, dev, dec_cloud,
+                                                 cam_r, raw0, depth))
     result["kernels"].update(composite_times(torch, dev, dec_cloud))
     if hasattr(dense_composite, "residency"):
         result["composite_residency"] = dense_composite.residency(dev)
@@ -7898,6 +8290,58 @@ def ab_measure(root):
     result["train_sh_full_step"] = train_route_times(
         torch, dev, WAVE_PATHS[0][2])
     return result
+
+
+def tile_size_times(torch, dev, cloud, cam_r, raw0, depth):
+    """K1 on the decoded cloud's pack, K2 on the refine init's (handed
+    K1's prefixes, cotangents from a seed) and K1-phi / K2-phi on
+    PHASE_AB, at each of ITEM5_TILE_SIZES: device ms and call ms."""
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.models.decoders import head_transform
+    from fresnel_tpu_torch.render import raster, tile
+
+    with torch.no_grad():
+        head = head_transform(torch.from_numpy(raw0).to(dev),
+                              torch.from_numpy(depth).to(dev)[None],
+                              torch.tensor(REFINE["depth_offset_init"],
+                                           device=dev))
+    amp = PHASE_AB["amplitude"]
+    res = {}
+    for ts in ITEM5_TILE_SIZES:
+        kw = dict(tile_size=ts)
+        rng = np.random.default_rng(ts)
+        with torch.no_grad():
+            ip = tile.pack_tiles(*cloud, Camera.default_training(512),
+                                 tile.TileRendererConfig(tile_size=ts))
+            rp = tile.pack_tiles(
+                *[head[k][0] for k in FIELDS], cam_r.to(dev),
+                tile.TileRendererConfig(max_per_tile=REFINE["max_per_tile"],
+                                        tile_size=ts))
+            fwd = raster._launch_fwd(rp.pack, rp.counts, rp.n_tiles_x,
+                                     keep_prefix=True, **kw)
+            cots = [torch.from_numpy(rng.normal(size=tuple(o.shape)).astype(
+                np.float32)).to(dev) for o in fwd[:3]]
+            pack, counts, ntx, ti = phase_synthetic(torch, dev, ts)
+            pf = raster._launch_fwd_phase(pack, counts, ntx, amp,
+                                          keep_ckpt=True, tiles_per_image=ti,
+                                          **kw)
+            pcots = [torch.from_numpy(rng.normal(size=tuple(o.shape)).astype(
+                np.float32)).to(dev) for o in pf[:3]]
+            calls = {
+                f"k1_image_ts{ts}": lambda: raster._launch_fwd(
+                    ip.pack, ip.counts, ip.n_tiles_x, **kw),
+                f"k2_refine_ts{ts}": lambda: raster._launch_bwd(
+                    rp.pack, rp.counts, rp.n_tiles_x, *fwd[:3], *cots,
+                    prefix=fwd[3], **kw),
+                f"k1phi_phase_ts{ts}": lambda: raster._launch_fwd_phase(
+                    pack, counts, ntx, amp, keep_ckpt=True,
+                    tiles_per_image=ti, **kw),
+                f"k2phi_phase_ts{ts}": lambda: raster._launch_bwd_phase(
+                    pack, counts, ntx, amp, *pcots, ckpt=pf[3],
+                    tiles_per_image=ti, **kw)}
+            for name, fn in calls.items():
+                res[name] = kernel_times(torch, fn)
+    return res
 
 
 def composite_times(torch, dev, cloud):

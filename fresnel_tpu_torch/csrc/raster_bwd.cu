@@ -6,16 +6,18 @@
 // _run_backward and attached to the forward by composite_pallas.defvjp.
 //
 // Input:  pack    (T, M, 12) float32 and counts (T,) int32, as the forward;
-//         color   (T, 256, 3), depth (T, 256): the forward's premultiplied
+//         color   (T, P, 3), depth (T, P): the forward's premultiplied
 //                 sums, BEFORE any background is added;
-//         trans   (T, 256): the forward's final transmittance T_fin;
-//         g_color (T, 256, 3), g_depth (T, 256), g_trans (T, 256): the
+//         trans   (T, P): the forward's final transmittance T_fin;
+//         g_color (T, P, 3), g_depth (T, P), g_trans (T, P): the
 //                 cotangents of the three outputs;
-//         part    (ceil(M / 64), T, 5, 256) float32: the forward's segment
+//         part    (ceil(M / 64), T, 5, P) float32: the forward's segment
 //                 prefixes (raster_common.cuh) when `prefix_ready`, else
 //                 scratch that the forward's kernel fills first;
 //         tickets (T,) int32, zero, as the forward's;
-//         resident  as the forward's: it sets the segment length.
+//         resident  as the forward's: it sets the segment length;
+//         tile_size  ts >= 1, as the forward's (P = ts^2 pixels a tile),
+//                 and plan, scratch as the forward's.
 // Output: grad    (T, M, 12) float32, the gradient of the pack.  Columns 5
 //                 (radius) and 11 (pad) and every slot >= count are 0.
 //
@@ -60,7 +62,11 @@
 //     shuffles; after each staged chunk a fixed-order sum of the 8 warp
 //     partials gives each (slot, field), written with coalesced stores, and
 //     the unit that ends a tile writes the slots past its count as 0 (an
-//     empty tile's first block zeroes its row).
+//     empty tile's first block zeroes its row);
+//   * at a tile size other than 16 a block holds one pixel group
+//     (raster_common.cuh) and walks its unit once for each group, adding
+//     each group's sums to the row in group order (the same bits from run
+//     to run); lanes that own no pixel add zero terms.
 // It uses expf (not __expf) and no fast math.
 
 #include "raster_common.cuh"
@@ -115,8 +121,8 @@ __device__ __forceinline__ int reduced_term(int lane) {
   return (lane & 1) == 0 && idx >= 0 ? 5 * (lane >> 4) + idx : -1;
 }
 
-template <bool BOX>
-__global__ void __launch_bounds__(PIX)
+template <int TSC, bool BOX>
+__global__ void __launch_bounds__(GROUP)
 raster_bwd_segments(const float* __restrict__ pack,
                     const int* __restrict__ counts,
                     const float* __restrict__ color,
@@ -126,18 +132,20 @@ raster_bwd_segments(const float* __restrict__ pack,
                     const float* __restrict__ g_depth,
                     const float* __restrict__ g_trans,
                     const float* __restrict__ part,
-                    float* __restrict__ grad,
+                    float* __restrict__ grad, const int* __restrict__ plan,
                     int n_tiles, int max_per_tile, int n_tiles_x,
-                    int tiles_per_image, int resident) {
+                    int tiles_per_image, int resident, int tile_size) {
   __shared__ float sh[SEG * PACK];
-  __shared__ float sums[NWARP][SEG][NGRAD];
+  __shared__ float sums[MAX_WARPS][SEG][NGRAD];
   __shared__ BlockUnits bu;
 
-  const int p = threadIdx.x;
-  const int warp = p / 32;
-  const int lane = p % 32;
+  const Tile<TSC> geo(tile_size);
+  const int P = geo.pix(), NT = geo.threads();
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int term = reduced_term(lane);
-  plan_block(counts, n_tiles, max_per_tile, resident, bu);
+  block_units<TSC>(counts, n_tiles, max_per_tile, resident, NT, plan, bu);
 
   for (int l = 0; l < bu.n; ++l) {
     const int tile = bu.tile[l];
@@ -147,86 +155,98 @@ raster_bwd_segments(const float* __restrict__ pack,
     const int end = min(n, (seg + 1) * bu.L);
     float* row = grad + static_cast<size_t>(tile) * max_per_tile * PACK;
 
-    float px, py;
-    pixel_coords(tile, p, n_tiles_x, tiles_per_image, &px, &py);
-    const size_t o = static_cast<size_t>(tile) * PIX + p;
-    const float gR = g_color[o * 3 + 0];
-    const float gG = g_color[o * 3 + 1];
-    const float gB = g_color[o * 3 + 2];
-    const float gD = g_depth[o];
-    const float gT_fin = g_trans[o] * trans[o];
-    float SR = color[o * 3 + 0];
-    float SG = color[o * 3 + 1];
-    float SB = color[o * 3 + 2];
-    float SD = depth[o];
-    float T = 1.0f;
-    if (nseg > 1) {
-      const float* q = part + part_at(seg, tile, n_tiles, 0) + p;
-      SR -= q[0 * PIX];
-      SG -= q[1 * PIX];
-      SB -= q[2 * PIX];
-      SD -= q[3 * PIX];
-      T = q[4 * PIX];
-    }
-
-    for (int first = seg * bu.L; first < end; first += SEG) {
-      const int cnt = min(SEG, end - first);
-      __syncthreads();   // the previous chunk's slots and sums are consumed
-      stage_slots(sh, pack + (static_cast<size_t>(tile) * max_per_tile +
-                              first) * PACK, cnt, p);
-      __syncthreads();
-      for (int j = 0; j < cnt; ++j) {
-        const float* g = sh + j * PACK;
-        const Alpha a = eval_alpha<BOX>(g, px, py);
-        if (BOX && !__any_sync(FULL, in_box(g, a.dx, a.dy))) {
-          if (term >= 0) sums[warp][j][term] = 0.0f;
-          continue;
-        }
-        const float w = a.alpha * T;
-        SR -= w * g[R];
-        SG -= w * g[G];
-        SB -= w * g[B];
-        SD -= w * g[DEPTH];
-        const float inv = __frcp_rn(fmaxf(1.0f - a.alpha, 1e-6f));
-        // sum_c g_c (T c - S_c inv) - g_T T_fin inv, regrouped.
-        const float gc = gR * g[R] + gG * g[G] + gB * g[B] + gD * g[DEPTH];
-        const float gs = gR * SR + gG * SG + gB * SB + gD * SD;
-        float dalpha = T * gc - inv * (gs + gT_fin);
-        if (!(a.alpha_raw < ALPHA_MAX)) dalpha = 0.0f;
-        // dm = d loss / d m, m the quadratic form; the conic is staged as
-        // qa = -a / 2, qb = -b, qc = -c / 2.
-        const float dm = dalpha * a.alpha_raw * -0.5f;
-        const float dmx = dm * a.dx;
-        const float v[NGRAD] = {
-            dm * 2.0f * (2.0f * g[QA] * a.dx + g[QB] * a.dy),
-            dm * 2.0f * (g[QB] * a.dx + 2.0f * g[QC] * a.dy),
-            dmx * a.dx,
-            2.0f * dmx * a.dy,
-            dm * a.dy * a.dy,
-            w * gR,
-            w * gG,
-            w * gB,
-            dalpha * a.e,
-            w * gD};
-        const float s = warp_sum10(v, lane);
-        if (term >= 0) sums[warp][j][term] = s;
-        T *= 1.0f - a.alpha;
+    // Each pixel group in turn; the groups' sums add into `row` in order.
+    for (int grp = 0; grp < geo.groups(); ++grp) {
+      const int p = grp * NT + tid;
+      const bool own = geo.full() || p < P;
+      float px, py;
+      pixel_coords(geo, tile, p, n_tiles_x, tiles_per_image, &px, &py);
+      // A lane that owns no pixel reads pixel 0's values; its terms are 0.
+      const int pp = own ? p : 0;
+      const size_t o = static_cast<size_t>(tile) * P + pp;
+      const float gR = g_color[o * 3 + 0];
+      const float gG = g_color[o * 3 + 1];
+      const float gB = g_color[o * 3 + 2];
+      const float gD = g_depth[o];
+      const float gT_fin = g_trans[o] * trans[o];
+      float SR = color[o * 3 + 0];
+      float SG = color[o * 3 + 1];
+      float SB = color[o * 3 + 2];
+      float SD = depth[o];
+      float T = 1.0f;
+      if (nseg > 1) {
+        const float* q = part + part_at(seg, tile, n_tiles, 0, P) + pp;
+        SR -= q[0 * P];
+        SG -= q[1 * P];
+        SB -= q[2 * P];
+        SD -= q[3 * P];
+        T = q[4 * P];
       }
-      __syncthreads();
-      for (int i = p; i < cnt * PACK; i += PIX) {
-        const int k = grad_term(i % PACK);
-        float s = 0.0f;
-        if (k >= 0) {
-  #pragma unroll
-          for (int q = 0; q < NWARP; ++q) s += sums[q][i / PACK][k];
+
+      for (int first = seg * bu.L; first < end; first += SEG) {
+        const int cnt = min(SEG, end - first);
+        __syncthreads();   // the previous chunk's slots and sums are consumed
+        stage_slots(sh, pack + (static_cast<size_t>(tile) * max_per_tile +
+                                first) * PACK, cnt, tid, NT);
+        __syncthreads();
+        for (int j = 0; j < cnt; ++j) {
+          const float* g = sh + j * PACK;
+          const Alpha a = eval_alpha<BOX>(g, px, py);
+          if (BOX && !__any_sync(FULL, own & in_box(g, a.dx, a.dy))) {
+            if (term >= 0) sums[warp][j][term] = 0.0f;
+            continue;
+          }
+          const float w = a.alpha * T;
+          SR -= w * g[R];
+          SG -= w * g[G];
+          SB -= w * g[B];
+          SD -= w * g[DEPTH];
+          const float inv = __frcp_rn(fmaxf(1.0f - a.alpha, 1e-6f));
+          // sum_c g_c (T c - S_c inv) - g_T T_fin inv, regrouped.
+          const float gc = gR * g[R] + gG * g[G] + gB * g[B] + gD * g[DEPTH];
+          const float gs = gR * SR + gG * SG + gB * SB + gD * SD;
+          float dalpha = T * gc - inv * (gs + gT_fin);
+          if (!(a.alpha_raw < ALPHA_MAX)) dalpha = 0.0f;
+          // dm = d loss / d m, m the quadratic form; the conic is staged as
+          // qa = -a / 2, qb = -b, qc = -c / 2.
+          const float dm = dalpha * a.alpha_raw * -0.5f;
+          const float dmx = dm * a.dx;
+          float v[NGRAD] = {
+              dm * 2.0f * (2.0f * g[QA] * a.dx + g[QB] * a.dy),
+              dm * 2.0f * (g[QB] * a.dx + 2.0f * g[QC] * a.dy),
+              dmx * a.dx,
+              2.0f * dmx * a.dy,
+              dm * a.dy * a.dy,
+              w * gR,
+              w * gG,
+              w * gB,
+              dalpha * a.e,
+              w * gD};
+          if (!own) {
+#pragma unroll
+            for (int k = 0; k < NGRAD; ++k) v[k] = 0.0f;
+          }
+          const float s = warp_sum10(v, lane);
+          if (term >= 0) sums[warp][j][term] = s;
+          T *= 1.0f - a.alpha;
         }
-        row[first * PACK + i] = s;
+        __syncthreads();
+        for (int i = tid; i < cnt * PACK; i += NT) {
+          const int k = grad_term(i % PACK);
+          float s = 0.0f;
+          if (k >= 0) {
+  #pragma unroll
+            for (int q = 0; q < NT / 32; ++q) s += sums[q][i / PACK][k];
+          }
+          // This thread wrote the same element for the groups before.
+          row[first * PACK + i] = grp == 0 ? s : row[first * PACK + i] + s;
+        }
       }
     }
     // The unit that ends the tile (or an empty tile's, in the whole-tile
     // walk) zeroes its slots past the count.
     if (seg >= nseg - 1) {
-      for (int i = n * PACK + p; i < max_per_tile * PACK; i += PIX)
+      for (int i = n * PACK + tid; i < max_per_tile * PACK; i += NT)
         row[i] = 0.0f;
     }
   }
@@ -234,8 +254,37 @@ raster_bwd_segments(const float* __restrict__ pack,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     if (tile_count(counts, tile, max_per_tile) > 0) continue;
     float* row = grad + static_cast<size_t>(tile) * max_per_tile * PACK;
-    for (int i = p; i < max_per_tile * PACK; i += PIX) row[i] = 0.0f;
+    for (int i = tid; i < max_per_tile * PACK; i += NT) row[i] = 0.0f;
   }
+}
+
+template <int TSC>
+cudaError_t launch_bwd_as(const float* pack, const int* counts,
+                          const float* color, const float* depth,
+                          const float* trans, const float* g_color,
+                          const float* g_depth, const float* g_trans,
+                          const float* part, float* grad, int* plan,
+                          int n_tiles, int max_per_tile, int n_tiles_x,
+                          int tiles_per_image, int resident, int box,
+                          int tile_size, cudaStream_t s) {
+  const int grid = grid_size(n_tiles, max_per_tile, resident);
+  const int nt = Tile<TSC>(tile_size).threads();
+  if (TSC == 0 && plan_first(n_tiles, nt))
+    plan_units<<<1, PLAN_THREADS, 0, s>>>(counts, n_tiles, max_per_tile,
+                                          resident, plan);
+  else
+    plan = nullptr;
+  if (box)
+    raster_bwd_segments<TSC, true><<<grid, nt, 0, s>>>(
+        pack, counts, color, depth, trans, g_color, g_depth, g_trans, part,
+        grad, plan, n_tiles, max_per_tile, n_tiles_x, tiles_per_image,
+        resident, tile_size);
+  else
+    raster_bwd_segments<TSC, false><<<grid, nt, 0, s>>>(
+        pack, counts, color, depth, trans, g_color, g_depth, g_trans, part,
+        grad, plan, n_tiles, max_per_tile, n_tiles_x, tiles_per_image,
+        resident, tile_size);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -244,32 +293,32 @@ raster_bwd_segments(const float* __restrict__ pack,
 // on success).  When `prefix_ready`, part holds the forward's prefixes for
 // the same pack, counts and `resident`; else the forward's kernel fills it
 // first (tickets as the forward's).  `box` 0 drops the box test, as the
-// forward's.  The caller allocates every buffer (grad need not be zeroed:
-// the kernel writes every element); nothing is synchronised here.
+// forward's; `tile_size` as the forward's.  The caller allocates every
+// buffer (grad need not be zeroed: the kernel writes every element);
+// nothing is synchronised here.
 extern "C" int raster_bwd(const float* pack, const int* counts,
                           const float* color, const float* depth,
                           const float* trans, const float* g_color,
                           const float* g_depth, const float* g_trans,
-                          float* part, int* tickets, float* grad,
+                          float* part, int* tickets, int* plan, float* grad,
                           int n_tiles, int max_per_tile, int n_tiles_x,
                           int tiles_per_image, int resident, int prefix_ready,
-                          int box, void* stream) {
+                          int box, int tile_size, void* stream) {
   if (n_tiles <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   if (!prefix_ready) {
     const cudaError_t err = raster::launch_composite(
-        pack, counts, nullptr, nullptr, nullptr, part, tickets, n_tiles,
-        max_per_tile, n_tiles_x, tiles_per_image, resident, 1, box, s);
+        pack, counts, nullptr, nullptr, nullptr, part, tickets, plan,
+        n_tiles, max_per_tile, n_tiles_x, tiles_per_image, resident, 1, box,
+        tile_size, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int grid = raster::grid_size(n_tiles, max_per_tile, resident);
-  if (box)
-    raster_bwd_segments<true><<<grid, raster::PIX, 0, s>>>(
-        pack, counts, color, depth, trans, g_color, g_depth, g_trans, part,
-        grad, n_tiles, max_per_tile, n_tiles_x, tiles_per_image, resident);
-  else
-    raster_bwd_segments<false><<<grid, raster::PIX, 0, s>>>(
-        pack, counts, color, depth, trans, g_color, g_depth, g_trans, part,
-        grad, n_tiles, max_per_tile, n_tiles_x, tiles_per_image, resident);
-  return static_cast<int>(cudaGetLastError());
+  if (tile_size < 1 || (tile_size != raster::TS && plan == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch =
+      tile_size == raster::TS ? launch_bwd_as<raster::TS> : launch_bwd_as<0>;
+  return static_cast<int>(launch(pack, counts, color, depth, trans, g_color,
+                                 g_depth, g_trans, part, grad, plan, n_tiles,
+                                 max_per_tile, n_tiles_x, tiles_per_image,
+                                 resident, box, tile_size, s));
 }

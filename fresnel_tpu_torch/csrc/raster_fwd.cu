@@ -4,23 +4,28 @@
 // (:135, launched at :288 by _run_forward through
 // composite_tiles_pallas_packed): front-to-back alpha compositing of each
 // 16x16 tile's depth-ordered binned Gaussians into premultiplied RGB, depth
-// and final transmittance.
+// and final transmittance; and, at any other tile size ts, what the JAX
+// package's XLA scan fresnel_tpu/render/tile.py::_composite_tiles
+// (:614-670) computes there.
 //
 // Input:  pack    (T, M, 12) float32, per slot [mx, my, conic a, b, c,
 //                 radius, R, G, B, opacity, depth, pad]; dead slots carry
 //                 opacity 0 and radius -1, so they contribute nothing.
 //         counts  (T,) int32, occupied slots per tile (slots >= count are
 //                 never read).
-//         part    (ceil(M / 64), T, 5, 256) float32 scratch and tickets
+//         part    (ceil(M / 64), T, 5, P) float32 scratch and tickets
 //                 (T,) int32, zero (raster_common.cuh).  With `keep_prefix`
 //                 part is left holding each segment's prefix, which the
 //                 backward takes instead of rerunning this pass.
 //         resident  blocks of this kernel the card holds at once; it sets
 //                 the segment length, so the backward must be given the
 //                 same.
-// Output: color (T, 256, 3), depth (T, 256), trans (T, 256), float32, pixel
-//         p = ly * 16 + lx of tile t = ty * n_tiles_x + tx at integer pixel
-//         coordinates (tx * 16 + lx, ty * 16 + ly), t counted within its
+//         tile_size  ts >= 1, P = ts^2 pixels a tile (16 compiled in);
+//         plan    int32 scratch of 3 + 2 (resident + T) for a size other
+//                 than 16 (raster_common.cuh, plan_units), else unused.
+// Output: color (T, P, 3), depth (T, P), trans (T, P), float32, pixel
+//         p = ly * ts + lx of tile t = ty * n_tiles_x + tx at integer pixel
+//         coordinates (tx * ts + lx, ty * ts + ly), t counted within its
 //         image: a pack of B images holds each one's tiles_per_image
 //         tiles in turn (one launch for a batch).
 //
@@ -37,7 +42,11 @@
 //     pack's total work by every block alike: heavy tiles of a light pack
 //     are cut into 64-slot segments that run in parallel, a pack that fills
 //     the card keeps whole tiles and pays no fold;
-//   * one launch, one block of 256 threads per unit, one thread per pixel:
+//   * one launch, one block of 256 threads per unit, one thread per pixel
+//     (at another tile size, a block of one pixel group that walks the
+//     unit once for each group, and, where the tiles are many, a one-block
+//     pre-pass that writes the plan every block would else derive:
+//     raster_common.cuh):
 //     max(resident, T) blocks, each deriving the plan from `counts` (two
 //     units per block at most, every unit in one wave where the card holds
 //     them; no block launched for nothing, which cost 4-10 µs at the
@@ -62,12 +71,13 @@
 // `box` 0 drops the 3-sigma box test (hard_cutoff=False).
 extern "C" int raster_fwd(const float* pack, const int* counts, float* color,
                           float* depth, float* trans, float* part,
-                          int* tickets, int n_tiles, int max_per_tile,
-                          int n_tiles_x, int tiles_per_image, int resident,
-                          int keep_prefix, int box, void* stream) {
+                          int* tickets, int* plan, int n_tiles,
+                          int max_per_tile, int n_tiles_x,
+                          int tiles_per_image, int resident, int keep_prefix,
+                          int box, int tile_size, void* stream) {
   if (n_tiles <= 0) return 0;
   return static_cast<int>(raster::launch_composite(
-      pack, counts, color, depth, trans, part, tickets, n_tiles,
+      pack, counts, color, depth, trans, part, tickets, plan, n_tiles,
       max_per_tile, n_tiles_x, tiles_per_image, resident, keep_prefix, box,
-      static_cast<cudaStream_t>(stream)));
+      tile_size, static_cast<cudaStream_t>(stream)));
 }

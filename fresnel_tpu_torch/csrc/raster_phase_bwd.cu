@@ -6,10 +6,11 @@
 // takes that path, so this kernel has no Pallas counterpart.
 //
 // Input:  pack (T, M, 12) float32 with the phases in column 11, counts
-//         (T,) int32, the amplitude A and 1 - A and box as the forward's;
-//         g_color (T, 256, 3), g_depth (T, 256), g_trans (T, 256): the
+//         (T,) int32, the amplitude A and 1 - A, box and tile_size as the
+//         forward's (P = ts^2 pixels a tile);
+//         g_color (T, P, 3), g_depth (T, P), g_trans (T, P): the
 //         cotangents of the forward's outputs;
-//         ckpt (T, ceil(M / 16), 2, 256): the forward's checkpoints of
+//         ckpt (T, ceil(M / 16), 2, P): the forward's checkpoints of
 //         (T, acc_phase) before every 16th slot.
 // Output: grad (T, M, 12) float32, the gradient of the pack: mean, conic,
 //         RGB, opacity, depth and phase (column 11); the radius column
@@ -70,7 +71,13 @@
 //   * the recompute keeps only the state (T, acc_phase) of each listed
 //     slot in shared memory, 32 KB per tile at 16 slots: keeping alpha_raw
 //     and the interference factor as well would double that and halve the
-//     blocks an SM holds, so the reverse pass evaluates expf and cos again.
+//     blocks an SM holds, so the reverse pass evaluates expf and cos again;
+//   * at a tile size other than 16 (one runtime instantiation) a block
+//     walks each pixel group of its tile in turn, with K1-phi's pixels
+//     and warp boxes, and adds each group's sums to the gradient row in
+//     group order; pixels a thread does not own add zero terms.
+// At another tile size the states and sums are sized to the block's warps
+// at launch (8.5 KB a warp: one warp's at 8, where a block is one warp).
 // Residency: 128 threads and 35.5 KB of shared memory per block, at most
 // 80 registers a thread (__launch_bounds__(128, 6)): an SM holds 6 tiles,
 // the card 792, so T = 1 024 takes 1.29 waves, the second of the lightest
@@ -85,8 +92,6 @@ namespace {
 
 using namespace raster;
 
-constexpr int NT = PHASE_THREADS;
-constexpr int NW = NT / 32;
 // Gradient terms per slot: mx, my, conic a, b, c, R, G, B, opacity, depth,
 // phase.
 constexpr int NG = 11;
@@ -145,9 +150,9 @@ __device__ __forceinline__ int reduced_term(int lane) {
 // 0 nothing changes.  As in phase_step_set, every value is computed for
 // every pixel and committed by a select, and sin, cos and the divisions
 // take their fast paths, so the pixels' chains interleave.
-template <bool BOX>
+template <bool BOX, int TSC>
 __device__ __forceinline__ void phase_adjoint_set(
-    const float* g, const PixelSet& q, const float (*st)[32], int lane,
+    const float* g, const PixelSet<TSC>& q, const float (*st)[32], int lane,
     Amplitude amp, const float (&gR)[PPT], const float (&gG)[PPT],
     const float (&gB)[PPT], const float (&gD)[PPT], float (&lT)[PPT],
     float (&lP)[PPT], float (&v)[NG]) {
@@ -217,7 +222,7 @@ __device__ __forceinline__ void phase_adjoint_set(
         da * a[k].e,
         w[k] * gD[k],
         dphase};
-    const bool live = a[k].alpha_raw != 0.0f;
+    const bool live = q.owns(k) & (a[k].alpha_raw != 0.0f);
     lT[k] = live ? lT_new : lT[k];
     lP[k] = live ? lP_new : lP[k];
 #pragma unroll
@@ -225,23 +230,42 @@ __device__ __forceinline__ void phase_adjoint_set(
   }
 }
 
-template <bool BOX>
-__global__ void __launch_bounds__(NT, 6)
+template <int TSC, bool BOX>
+__global__ void __launch_bounds__(PHASE_MAX_THREADS, TSC > 0 ? 6 : 4)
 composite_phase_bwd(const float* __restrict__ pack,
                     const int* __restrict__ counts,
                     const float* __restrict__ g_color,
                     const float* __restrict__ g_depth,
                     const float* __restrict__ g_trans,
                     const float* __restrict__ ckpt,
-                    float* __restrict__ grad, int max_per_tile,
-                    int n_tiles_x, int tiles_per_image, Amplitude amp) {
+                    float* __restrict__ grad, int n_tiles, int max_per_tile,
+                    int n_tiles_x, int tiles_per_image, Amplitude amp,
+                    int tile_size) {
+  // The threads of a block: compiled in for the 16-pixel tile.
+  constexpr int NTC = TSC == TS ? PHASE_THREADS : 0;
   __shared__ __align__(16) float sh[CKPT * PACK];
-  // Per warp and slot of the segment, the state before it: T and
-  // acc_phase of the thread's pixels, lane by lane.
-  __shared__ float state[NW][CKPT][2 * PPT][32];
-  __shared__ float sums[NW][CKPT][NG];
+  const Tile<TSC> geo(tile_size);
+  const int P = geo.pix();
+  const int NT = NTC > 0 ? NTC : phase_threads(geo);
+  // Per warp and slot of the segment, the state before it (T and
+  // acc_phase of the thread's pixels, lane by lane) and the warp's sums:
+  // static for the 16-pixel tile, else sized to the block's warps at
+  // launch (phase_bwd_shared), so a block of one warp holds one warp's.
+  float (*state)[CKPT][2 * PPT][32];
+  float (*sums)[CKPT][NG];
+  if constexpr (NTC > 0) {
+    __shared__ float state_s[NTC / 32][CKPT][2 * PPT][32];
+    __shared__ float sums_s[NTC / 32][CKPT][NG];
+    state = state_s;
+    sums = sums_s;
+  } else {
+    extern __shared__ float dyn[];
+    state = reinterpret_cast<float (*)[CKPT][2 * PPT][32]>(dyn);
+    sums = reinterpret_cast<float (*)[CKPT][NG]>(
+        dyn + (NT / 32) * CKPT * 2 * PPT * 32);
+  }
   const int tile =
-      tile_by_weight<NT>(counts, gridDim.x, max_per_tile, blockIdx.x);
+      tile_by_weight<NTC>(counts, n_tiles, max_per_tile, blockIdx.x);
   const int t = threadIdx.x;
   const int lane = t % 32;
   const int warp = t / 32;
@@ -249,100 +273,138 @@ composite_phase_bwd(const float* __restrict__ pack,
   const int n = tile_count(counts, tile, max_per_tile);
   const int nck = n_checkpoints(max_per_tile);
   float* row = grad + static_cast<size_t>(tile) * max_per_tile * PACK;
-  const PixelSet q = pixel_set(tile, t, n_tiles_x, tiles_per_image);
-  float gR[PPT], gG[PPT], gB[PPT], gD[PPT], lT[PPT], lP[PPT];
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const size_t o = static_cast<size_t>(tile) * PIX + q.p + i * 32;
-    gR[i] = g_color[o * 3 + 0];
-    gG[i] = g_color[o * 3 + 1];
-    gB[i] = g_color[o * 3 + 2];
-    gD[i] = g_depth[o];
-    lT[i] = g_trans[o];
-    lP[i] = 0.0f;
-  }
   float (*st)[2 * PPT][32] = state[warp];
-
-  // Segment k's pack values (the thread's elements t, t + NT, ... of its
-  // cnt * PACK) and checkpoints, loaded one segment ahead.
   const float* tile_pack =
       pack + static_cast<size_t>(tile) * max_per_tile * PACK;
-  constexpr int PF = (CKPT * PACK + NT - 1) / NT;   // loads a thread
-  float pf[PF], ck[2 * PPT];
-  auto prefetch = [&](int k) {
-    const int first = k * CKPT, cnt = min(CKPT, n - first);
-#pragma unroll
-    for (int h = 0; h < PF; ++h) {
-      const int i = t + h * NT;
-      pf[h] = i < cnt * PACK ? tile_pack[first * PACK + i] : 0.0f;
-    }
-    const float* c =
-        ckpt + (static_cast<size_t>(tile) * nck + k) * 2 * PIX + q.p;
-#pragma unroll
-    for (int i = 0; i < PPT; ++i) {
-      ck[2 * i] = c[i * 32];
-      ck[2 * i + 1] = c[PIX + i * 32];
-    }
-  };
-  if (n > 0) prefetch(n_segments(n, CKPT) - 1);
-  for (int k = n_segments(n, CKPT) - 1; k >= 0; --k) {
-    const int first = k * CKPT;
-    const int cnt = min(CKPT, n - first);
-    __syncthreads();   // the previous segment's slots and sums are consumed
-#pragma unroll
-    for (int h = 0; h < PF; ++h) {
-      const int i = t + h * NT;
-      if (i < cnt * PACK) sh[i] = staged(pf[h], i % PACK);
-    }
-    float T[PPT], acc_phase[PPT];
+  // Loads a thread of a segment's pack values: CKPT * PACK over the
+  // fewest threads a block has.
+  constexpr int PF = (CKPT * PACK + (NTC > 0 ? NTC : 32) - 1) /
+                     (NTC > 0 ? NTC : 32);
+
+  // Each pixel group in turn; the groups' sums add into `row` in order.
+  for (int grp = 0; grp < phase_groups(geo); ++grp) {
+    const PixelSet<TSC> q =
+        pixel_set(geo, tile, grp, t, n_tiles_x, tiles_per_image);
+    // Pixel i of the thread in its tile (pixel 0 for one it does not own,
+    // whose terms are 0).
+    auto pix = [&](int i) { return q.owns(i) ? q.p + i * 32 : 0; };
+    float gR[PPT], gG[PPT], gB[PPT], gD[PPT], lT[PPT], lP[PPT];
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
-      T[i] = ck[2 * i];
-      acc_phase[i] = ck[2 * i + 1];
+      const size_t o = static_cast<size_t>(tile) * P + pix(i);
+      gR[i] = g_color[o * 3 + 0];
+      gG[i] = g_color[o * 3 + 1];
+      gB[i] = g_color[o * 3 + 2];
+      gD[i] = g_depth[o];
+      lT[i] = g_trans[o];
+      lP[i] = 0.0f;
     }
-    if (k > 0) prefetch(k - 1);
-    __syncthreads();
-    // The slots whose box reaches this warp's strip; the others' partial
-    // sums are 0.
-    const bool keep = lane < cnt && (!BOX || strip_hit(sh + lane * PACK,
-                                                       q.x0, q.y0));
-    const unsigned live = __ballot_sync(FULL, keep);
-    if (lane < cnt && !keep) {
+
+    // Segment k's pack values (the thread's elements t, t + NT, ... of its
+    // cnt * PACK) and checkpoints, loaded one segment ahead.
+    float pf[PF], ck[2 * PPT];
+    auto prefetch = [&](int k) {
+      const int first = k * CKPT, cnt = min(CKPT, n - first);
 #pragma unroll
-      for (int i = 0; i < NG; ++i) sums[warp][lane][i] = 0.0f;
-    }
-    for (unsigned m = live; m != 0; m &= m - 1) {
-      const int j = __ffs(m) - 1;
+      for (int h = 0; h < PF; ++h) {
+        const int i = t + h * NT;
+        pf[h] = i < cnt * PACK ? tile_pack[first * PACK + i] : 0.0f;
+      }
+      const float* c = ckpt + (static_cast<size_t>(tile) * nck + k) * 2 * P;
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
-        st[j][2 * i][lane] = T[i];
-        st[j][2 * i + 1][lane] = acc_phase[i];
+        ck[2 * i] = c[pix(i)];
+        ck[2 * i + 1] = c[P + pix(i)];
       }
-      phase_step_set<BOX>(sh + j * PACK, q, amp, T, acc_phase, nullptr);
-    }
-    for (unsigned m = live; m != 0;) {
-      const int j = 31 - __clz(m);
-      m ^= 1u << j;
-      float v[NG];
+    };
+    if (n > 0) prefetch(n_segments(n, CKPT) - 1);
+    for (int k = n_segments(n, CKPT) - 1; k >= 0; --k) {
+      const int first = k * CKPT;
+      const int cnt = min(CKPT, n - first);
+      __syncthreads();   // the previous segment's slots and sums are consumed
 #pragma unroll
-      for (int i = 0; i < NG; ++i) v[i] = 0.0f;
-      phase_adjoint_set<BOX>(sh + j * PACK, q, st[j], lane, amp, gR, gG, gB,
-                             gD, lT, lP, v);
-      const float s = warp_sum11(v, lane);
-      if (term >= 0) sums[warp][j][term] = s;
-    }
-    __syncthreads();
-    for (int i = t; i < cnt * PACK; i += NT) {
-      const int f = grad_term(i % PACK);
-      float s = 0.0f;
-      if (f >= 0) {
-#pragma unroll
-        for (int w = 0; w < NW; ++w) s += sums[w][i / PACK][f];
+      for (int h = 0; h < PF; ++h) {
+        const int i = t + h * NT;
+        if (i < cnt * PACK) sh[i] = staged(pf[h], i % PACK);
       }
-      row[first * PACK + i] = s;
+      float T[PPT], acc_phase[PPT];
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        T[i] = ck[2 * i];
+        acc_phase[i] = ck[2 * i + 1];
+      }
+      if (k > 0) prefetch(k - 1);
+      __syncthreads();
+      // The slots whose box reaches this warp's pixels; the others' partial
+      // sums are 0.
+      const bool keep = lane < cnt && q.owns_any() &&
+                        (!BOX || strip_hit(sh + lane * PACK, q));
+      const unsigned live = __ballot_sync(FULL, keep);
+      if (lane < cnt && !keep) {
+#pragma unroll
+        for (int i = 0; i < NG; ++i) sums[warp][lane][i] = 0.0f;
+      }
+      for (unsigned m = live; m != 0; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) {
+          st[j][2 * i][lane] = T[i];
+          st[j][2 * i + 1][lane] = acc_phase[i];
+        }
+        phase_step_set<BOX>(sh + j * PACK, q, amp, T, acc_phase, nullptr);
+      }
+      for (unsigned m = live; m != 0;) {
+        const int j = 31 - __clz(m);
+        m ^= 1u << j;
+        float v[NG];
+#pragma unroll
+        for (int i = 0; i < NG; ++i) v[i] = 0.0f;
+        phase_adjoint_set<BOX>(sh + j * PACK, q, st[j], lane, amp, gR, gG,
+                               gB, gD, lT, lP, v);
+        const float s = warp_sum11(v, lane);
+        if (term >= 0) sums[warp][j][term] = s;
+      }
+      __syncthreads();
+      for (int i = t; i < cnt * PACK; i += NT) {
+        const int f = grad_term(i % PACK);
+        float s = 0.0f;
+        if (f >= 0) {
+#pragma unroll
+          for (int w = 0; w < NT / 32; ++w) s += sums[w][i / PACK][f];
+        }
+        // This thread wrote the same element for the groups before.
+        row[first * PACK + i] = grp == 0 ? s : row[first * PACK + i] + s;
+      }
     }
   }
   for (int i = n * PACK + t; i < max_per_tile * PACK; i += NT) row[i] = 0.0f;
+}
+
+// Dynamic shared bytes of the runtime instantiation for `nt` threads: each
+// warp's states and sums.
+__host__ __forceinline__ size_t phase_bwd_shared(int nt) {
+  return static_cast<size_t>(nt / 32) * CKPT * (2 * PPT * 32 + NG) *
+         sizeof(float);
+}
+
+template <int TSC>
+cudaError_t launch_as(const float* pack, const int* counts,
+                      const float* g_color, const float* g_depth,
+                      const float* g_trans, const float* ckpt, float* grad,
+                      int n_tiles, int max_per_tile, int n_tiles_x,
+                      int tiles_per_image, int box, Amplitude a,
+                      int tile_size, cudaStream_t s) {
+  const int nt = phase_threads(Tile<TSC>(tile_size));
+  const size_t dyn = TSC > 0 ? 0 : phase_bwd_shared(nt);
+  if (box)
+    composite_phase_bwd<TSC, true><<<n_tiles, nt, dyn, s>>>(
+        pack, counts, g_color, g_depth, g_trans, ckpt, grad, n_tiles,
+        max_per_tile, n_tiles_x, tiles_per_image, a, tile_size);
+  else
+    composite_phase_bwd<TSC, false><<<n_tiles, nt, dyn, s>>>(
+        pack, counts, g_color, g_depth, g_trans, ckpt, grad, n_tiles,
+        max_per_tile, n_tiles_x, tiles_per_image, a, tile_size);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -355,26 +417,31 @@ extern "C" int raster_phase_bwd(const float* pack, const int* counts,
                                 const float* g_trans, const float* ckpt,
                                 float* grad, int n_tiles, int max_per_tile,
                                 int n_tiles_x, int tiles_per_image, int box,
-                                float amp, float one_minus_amp,
+                                int tile_size, float amp, float one_minus_amp,
                                 void* stream) {
   if (n_tiles <= 0) return 0;
-  if (tiles_per_image < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles_per_image < 1 || tile_size < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const raster::Amplitude a{amp, one_minus_amp};
-  if (box)
-    composite_phase_bwd<true><<<n_tiles, NT, 0, s>>>(
-        pack, counts, g_color, g_depth, g_trans, ckpt, grad, max_per_tile,
-        n_tiles_x, tiles_per_image, a);
-  else
-    composite_phase_bwd<false><<<n_tiles, NT, 0, s>>>(
-        pack, counts, g_color, g_depth, g_trans, ckpt, grad, max_per_tile,
-        n_tiles_x, tiles_per_image, a);
-  return static_cast<int>(cudaGetLastError());
+  const auto launch =
+      tile_size == raster::TS ? launch_as<raster::TS> : launch_as<0>;
+  return static_cast<int>(launch(pack, counts, g_color, g_depth, g_trans,
+                                 ckpt, grad, n_tiles, max_per_tile,
+                                 n_tiles_x, tiles_per_image, box, a,
+                                 tile_size, s));
 }
 
-// The box-test kernel's residency on the current device (raster_common.cuh,
-// kernel_residency): out[5] = registers per thread, static shared bytes,
-// local bytes, threads per block, blocks per SM.  Returns a CUDA error code.
-extern "C" int raster_phase_bwd_residency(int* out) {
-  return raster::kernel_residency(composite_phase_bwd<true>, NT, out);
+// The box-test kernel's residency on the current device at tile size
+// `tile_size` (raster_common.cuh, kernel_residency): out[5] = registers per
+// thread, static shared bytes, local bytes, threads per block, blocks per
+// SM.  Returns a CUDA error code.
+extern "C" int raster_phase_bwd_residency(int tile_size, int* out) {
+  if (tile_size < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = raster::phase_threads(raster::Tile<0>(tile_size));
+  return tile_size == raster::TS
+             ? raster::kernel_residency(composite_phase_bwd<raster::TS, true>,
+                                        raster::PHASE_THREADS, out)
+             : raster::kernel_residency(composite_phase_bwd<0, true>, nt,
+                                        out, phase_bwd_shared(nt));
 }

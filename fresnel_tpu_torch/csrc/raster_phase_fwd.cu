@@ -13,10 +13,11 @@
 //                 one_minus_amp 1 - A rounded to float32 from double (as
 //                 the plain version's scalar is).
 //         box     0 drops the 3-sigma box test (hard_cutoff=False).
-//         ckpt    (T, ceil(M / 16), 2, 256) float32 or null: with it, every
+//         tile_size  ts >= 1, P = ts^2 pixels a tile (16 compiled in).
+//         ckpt    (T, ceil(M / 16), 2, P) float32 or null: with it, every
 //                 pixel's (T, acc_phase) before slots 0, 16, 32, ... for
 //                 the backward (K2-phi).
-// Output: color (T, 256, 3), depth (T, 256), trans (T, 256), as K1's.
+// Output: color (T, P, 3), depth (T, P), trans (T, P), as K1's.
 //
 // What bounds it on this card: the recurrence (raster_common.cuh,
 // phase_step_set) carries a running phase per pixel that each slot's alpha
@@ -54,7 +55,12 @@
 //   * heaviest tiles first (raster_common.cuh, tile_by_weight): block b
 //     takes the b-th tile by descending count, so the longest chains start
 //     first and each SM gets one of the heaviest 132 (faster than tile
-//     order on the card, PERF.md).
+//     order on the card, PERF.md);
+//   * at a tile size other than 16 (one runtime instantiation) a block
+//     takes one pixel group of at most 256 pixels of a tile (blocks b / NG
+//     by weight, group b % NG), a thread pixels p and p + 32 of the
+//     group's order, and a warp culls against the bounding box of the
+//     pixels it owns (the tile's width where they cross a row).
 // Residency: 128 threads and 6 KB of shared memory per block, at most 64
 // registers a thread (__launch_bounds__(128, 8)): an SM holds 8 tiles, the
 // card 1 056, so the phase-train pack (T = 1 024) runs in one wave.  No
@@ -68,24 +74,29 @@ namespace {
 
 using namespace raster;
 
-constexpr int NT = PHASE_THREADS;
 constexpr int LIST = 32;   // slots a warp tests and lists at a time
 
-template <bool BOX>
-__global__ void __launch_bounds__(NT, 8)
+template <int TSC, bool BOX>
+__global__ void __launch_bounds__(PHASE_MAX_THREADS, TSC > 0 ? 8 : 6)
 composite_phase(const float* __restrict__ pack,
                 const int* __restrict__ counts, float* __restrict__ color,
                 float* __restrict__ depth, float* __restrict__ trans,
-                float* __restrict__ ckpt, int max_per_tile, int n_tiles_x,
-                int tiles_per_image, Amplitude amp) {
-  __shared__ __align__(16) float list[NT / 32][LIST * PACK];
-  const int tile =
-      tile_by_weight<NT>(counts, gridDim.x, max_per_tile, blockIdx.x);
+                float* __restrict__ ckpt, int n_tiles, int max_per_tile,
+                int n_tiles_x, int tiles_per_image, Amplitude amp,
+                int tile_size) {
+  __shared__ __align__(16) float list[PHASE_MAX_THREADS / 32][LIST * PACK];
+  const Tile<TSC> geo(tile_size);
+  const int P = geo.pix();
+  const int NG = phase_groups(geo);
+  // Block b takes pixel group b % NG of the (b / NG)-th heaviest tile.
+  const int tile = tile_by_weight<TSC == TS ? PHASE_THREADS : 0>(
+      counts, n_tiles, max_per_tile, blockIdx.x / NG);
   const int t = threadIdx.x;
   const int lane = t % 32;
   const int n = tile_count(counts, tile, max_per_tile);
   const int nck = n_checkpoints(max_per_tile);
-  const PixelSet q = pixel_set(tile, t, n_tiles_x, tiles_per_image);
+  const PixelSet<TSC> q = pixel_set(geo, tile, blockIdx.x % NG, t,
+                                    n_tiles_x, tiles_per_image);
   const float* src = pack + static_cast<size_t>(tile) * max_per_tile * PACK;
   float* mine = list[t / 32];
   float T[PPT], acc_phase[PPT], acc[PPT][4];
@@ -99,23 +110,24 @@ composite_phase(const float* __restrict__ pack,
   // Writes checkpoint k (the state before slot 16 k) of the thread's pixels.
   auto checkpoint = [&](int k) {
     if (ckpt == nullptr) return;
-    float* c = ckpt + (static_cast<size_t>(tile) * nck + k) * 2 * PIX + q.p;
+    float* c = ckpt + (static_cast<size_t>(tile) * nck + k) * 2 * P + q.p;
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
+      if (!q.owns(i)) continue;
       c[i * 32] = T[i];
-      c[PIX + i * 32] = acc_phase[i];
+      c[P + i * 32] = acc_phase[i];
     }
   };
   for (int first = 0; first < n; first += LIST) {
-    // Lane l tests slot first + l against the warp's strip.
+    // Lane l tests slot first + l against the warp's box.
     const int j = first + lane;
     float v[PACK];
     bool keep = false;
-    if (j < n) {
+    if (j < n && q.owns_any()) {
 #pragma unroll
       for (int c = 0; c < PACK; ++c)
         v[c] = staged(src[static_cast<size_t>(j) * PACK + c], c);
-      keep = !BOX || strip_hit(v, q.x0, q.y0);
+      keep = !BOX || strip_hit(v, q);
     }
     const unsigned live = __ballot_sync(FULL, keep);
     __syncwarp();   // the warp is done with its previous list
@@ -136,13 +148,32 @@ composite_phase(const float* __restrict__ pack,
   }
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
-    const size_t o = static_cast<size_t>(tile) * PIX + q.p + i * 32;
+    if (!q.owns(i)) continue;
+    const size_t o = static_cast<size_t>(tile) * P + q.p + i * 32;
     color[o * 3 + 0] = acc[i][0];
     color[o * 3 + 1] = acc[i][1];
     color[o * 3 + 2] = acc[i][2];
     depth[o] = acc[i][3];
     trans[o] = T[i];
   }
+}
+
+template <int TSC>
+cudaError_t launch_as(const float* pack, const int* counts, float* color,
+                      float* depth, float* trans, float* ckpt, int n_tiles,
+                      int max_per_tile, int n_tiles_x, int tiles_per_image,
+                      int box, Amplitude a, int tile_size, cudaStream_t s) {
+  const Tile<TSC> geo(tile_size);
+  const int grid = n_tiles * phase_groups(geo), nt = phase_threads(geo);
+  if (box)
+    composite_phase<TSC, true><<<grid, nt, 0, s>>>(
+        pack, counts, color, depth, trans, ckpt, n_tiles, max_per_tile,
+        n_tiles_x, tiles_per_image, a, tile_size);
+  else
+    composite_phase<TSC, false><<<grid, nt, 0, s>>>(
+        pack, counts, color, depth, trans, ckpt, n_tiles, max_per_tile,
+        n_tiles_x, tiles_per_image, a, tile_size);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -153,26 +184,30 @@ extern "C" int raster_phase_fwd(const float* pack, const int* counts,
                                 float* color, float* depth, float* trans,
                                 float* ckpt, int n_tiles, int max_per_tile,
                                 int n_tiles_x, int tiles_per_image, int box,
-                                float amp, float one_minus_amp,
+                                int tile_size, float amp, float one_minus_amp,
                                 void* stream) {
   if (n_tiles <= 0) return 0;
-  if (tiles_per_image < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles_per_image < 1 || tile_size < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const raster::Amplitude a{amp, one_minus_amp};
-  if (box)
-    composite_phase<true><<<n_tiles, NT, 0, s>>>(
-        pack, counts, color, depth, trans, ckpt, max_per_tile, n_tiles_x,
-        tiles_per_image, a);
-  else
-    composite_phase<false><<<n_tiles, NT, 0, s>>>(
-        pack, counts, color, depth, trans, ckpt, max_per_tile, n_tiles_x,
-        tiles_per_image, a);
-  return static_cast<int>(cudaGetLastError());
+  const auto launch =
+      tile_size == raster::TS ? launch_as<raster::TS> : launch_as<0>;
+  return static_cast<int>(launch(pack, counts, color, depth, trans, ckpt,
+                                 n_tiles, max_per_tile, n_tiles_x,
+                                 tiles_per_image, box, a, tile_size, s));
 }
 
-// The box-test kernel's residency on the current device (raster_common.cuh,
-// kernel_residency): out[5] = registers per thread, static shared bytes,
-// local bytes, threads per block, blocks per SM.  Returns a CUDA error code.
-extern "C" int raster_phase_fwd_residency(int* out) {
-  return raster::kernel_residency(composite_phase<true>, NT, out);
+// The box-test kernel's residency on the current device at tile size
+// `tile_size` (raster_common.cuh, kernel_residency): out[5] = registers per
+// thread, static shared bytes, local bytes, threads per block, blocks per
+// SM.  Returns a CUDA error code.
+extern "C" int raster_phase_fwd_residency(int tile_size, int* out) {
+  if (tile_size < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const raster::Tile<0> geo(tile_size);
+  return tile_size == raster::TS
+             ? raster::kernel_residency(composite_phase<raster::TS, true>,
+                                        raster::PHASE_THREADS, out)
+             : raster::kernel_residency(composite_phase<0, true>,
+                                        raster::phase_threads(geo), out);
 }

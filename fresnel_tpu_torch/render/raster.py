@@ -38,6 +38,14 @@ SEG slots (csrc/raster_common.cuh).  When the pack needs a gradient, the
 forward leaves each segment's prefix in a scratch tensor, which
 `_Composite` saves for the backward; `composite_tiles_bwd`, called alone,
 has K2 recompute them.
+
+Every function takes the tile size (`tile_size`, default TS = 16; any
+size >= 1): a tile holds P = tile_size^2 pixels, and the per-pixel
+outputs, cotangents, scratch and checkpoints are (..., P).  The kernels
+compile the 16-pixel tile in and take any other size in one runtime
+instantiation, in pixel groups of at most GROUP pixels a block; there K1
+and K2 are handed an int32 scratch for their launch's plan
+(`_plan_buffer`; csrc/raster_common.cuh, plan_units).
 """
 
 from __future__ import annotations
@@ -53,12 +61,13 @@ from fresnel_tpu_torch import _build
 
 TS = 16
 PIX = TS * TS
+GROUP = 256         # the most pixels a block of K1 / K2 takes at a time
 PACK = 12
 ALPHA_MAX = 0.99
 
 SEG = 64            # the shortest segment of K1 and K2 (raster_common.cuh)
 NPART = 5           # floats per pixel and segment in the scratch
-BLOCKS_PER_SM = 8   # of K1's kernel, by its launch bounds
+BLOCKS_PER_SM = 8   # of K1's 16-pixel kernel, by its launch bounds
 CKPT = 16           # slots between K1-phi's checkpoints (raster_common.cuh)
 
 launches = 0        # K1 launches
@@ -67,15 +76,23 @@ launches_phase = 0      # K1-phi launches
 launches_phase_bwd = 0  # K2-phi launches
 
 
+def _tile_size(tile_size) -> int:
+    ts = int(tile_size)
+    if ts < 1:
+        raise ValueError(f"tile_size must be at least 1, got {tile_size}")
+    return ts
+
+
 def _tile_grid(T: int, M: int, counts: torch.Tensor, n_tiles_x: int,
-               device, dtype, tiles_per_image=None):
+               device, dtype, tiles_per_image=None, tile_size: int = TS):
     """Pixel coordinates (T, P) and slot validity (T, M) of a pack; tile
     t lies at t % tiles_per_image of its image (default T: one image)."""
     from fresnel_tpu_torch.render.tile import tile_pixel_coords
 
     ti = T if tiles_per_image is None else tiles_per_image
     n_tiles_y = -(-ti // n_tiles_x)
-    px, py = tile_pixel_coords(n_tiles_x, n_tiles_y, TS, device)
+    px, py = tile_pixel_coords(n_tiles_x, n_tiles_y, _tile_size(tile_size),
+                               device)
     valid = (torch.arange(M, device=device)[None, :]
              < counts.to(device)[:, None])
     px, py = px[:ti].to(dtype), py[:ti].to(dtype)
@@ -88,7 +105,7 @@ def _tile_grid(T: int, M: int, counts: torch.Tensor, n_tiles_x: int,
 def composite_tiles_plain(pack: torch.Tensor, counts: torch.Tensor,
                           n_tiles_x: int, chunk: int = 32,
                           tiles_per_image=None, box: bool = True,
-                          phase_amplitude=None
+                          phase_amplitude=None, tile_size: int = TS
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1 (or, with a `phase_amplitude`, of
     K1-phi: the phases from pack column 11), on any device and float
@@ -101,7 +118,7 @@ def composite_tiles_plain(pack: torch.Tensor, counts: torch.Tensor,
 
     T, M, _ = pack.shape
     px, py, valid = _tile_grid(T, M, counts, n_tiles_x, pack.device,
-                               pack.dtype, tiles_per_image)
+                               pack.dtype, tiles_per_image, tile_size)
     cfg = TileRendererConfig(chunk=chunk, hard_cutoff=box)
     g_phase = None
     if phase_amplitude is not None:
@@ -117,7 +134,8 @@ def composite_tiles_plain(pack: torch.Tensor, counts: torch.Tensor,
 def composite_tiles_phase_bwd_plain(pack, counts, n_tiles_x: int,
                                     phase_amplitude: float, g_color,
                                     g_depth, g_trans, box: bool = True,
-                                    tiles_per_image=None) -> torch.Tensor:
+                                    tiles_per_image=None,
+                                    tile_size: int = TS) -> torch.Tensor:
     """Plain PyTorch version of K2-phi, on any device: the gradient of the
     pack (T, M, 12) by autograd through the plain K1-phi (the radius
     column and slots >= count are 0)."""
@@ -125,7 +143,8 @@ def composite_tiles_phase_bwd_plain(pack, counts, n_tiles_x: int,
         p = pack.detach().requires_grad_()
         out = composite_tiles_plain(p, counts, n_tiles_x,
                                     tiles_per_image=tiles_per_image, box=box,
-                                    phase_amplitude=phase_amplitude)
+                                    phase_amplitude=phase_amplitude,
+                                    tile_size=tile_size)
         (grad,) = torch.autograd.grad(out, p, (g_color, g_depth, g_trans),
                                       allow_unused=True)
     return torch.zeros_like(pack) if grad is None else grad
@@ -134,7 +153,8 @@ def composite_tiles_phase_bwd_plain(pack, counts, n_tiles_x: int,
 def composite_tiles_bwd_plain(pack, counts, n_tiles_x: int, color, depth,
                               trans, g_color, g_depth, g_trans,
                               chunk: int = 32, tiles_per_image=None,
-                              box: bool = True) -> torch.Tensor:
+                              box: bool = True, tile_size: int = TS
+                              ) -> torch.Tensor:
     """Plain PyTorch version of K2, on any device and float dtype.
 
     The formulas of pallas_raster.py's _bwd_chunk_body over (T, C, P)
@@ -147,7 +167,7 @@ def composite_tiles_bwd_plain(pack, counts, n_tiles_x: int, color, depth,
     if M % chunk:
         raise ValueError(f"M={M} is not a multiple of chunk={chunk}")
     px, py, valid = _tile_grid(T, M, counts, n_tiles_x, pack.device,
-                               pack.dtype, tiles_per_image)
+                               pack.dtype, tiles_per_image, tile_size)
     g4 = torch.cat([g_color, g_depth[..., None]], -1)           # (T, P, 4)
     S = torch.cat([color, depth[..., None]], -1)                # (T, P, 4)
     gT_fin = (g_trans * trans)[:, None, :]                      # (T, 1, P)
@@ -215,12 +235,14 @@ def _check_inputs(pack: torch.Tensor, counts: torch.Tensor) -> None:
         raise ValueError("pack and counts must be on one device")
 
 
-def _check_pixels(pack: torch.Tensor, **tensors: torch.Tensor) -> None:
-    """Per-pixel tensors of K2: float32, contiguous, on the pack's device,
-    (T, 256, 3) for colours and (T, 256) otherwise."""
-    T = pack.shape[0]
+def _check_pixels(pack: torch.Tensor, tile_size: int,
+                  **tensors: torch.Tensor) -> None:
+    """Per-pixel tensors of K2 and K2-phi: float32, contiguous, on the
+    pack's device, (T, P, 3) for colours and (T, P) otherwise, P =
+    tile_size^2."""
+    T, P = pack.shape[0], tile_size * tile_size
     for name, t in tensors.items():
-        shape = (T, PIX, 3) if name in ("color", "g_color") else (T, PIX)
+        shape = (T, P, 3) if name in ("color", "g_color") else (T, P)
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if tuple(t.shape) != shape:
@@ -231,19 +253,27 @@ def _check_pixels(pack: torch.Tensor, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be on {pack.device}")
 
 
-def scratch_shape(T: int, M: int) -> Tuple[int, ...]:
+def scratch_shape(T: int, M: int, tile_size: int = TS) -> Tuple[int, ...]:
     """Shape of the kernels' per-segment scratch: (ceil(M / SEG), T, 5,
-    256), with no rows when no tile can have two segments."""
+    P), with no rows when no tile can have two segments."""
     n_seg = -(-M // SEG)
-    return (n_seg if n_seg > 1 else 0, T, NPART, PIX)
+    return (n_seg if n_seg > 1 else 0, T, NPART, tile_size * tile_size)
+
+
+def block_threads(tile_size: int = TS) -> int:
+    """Threads of a K1 / K2 block: one pixel group (at most GROUP
+    pixels) in whole warps."""
+    return -(-min(tile_size * tile_size, GROUP) // 32) * 32
 
 
 @functools.lru_cache(maxsize=None)
-def resident_blocks(index: int) -> int:
-    """Blocks of K1's kernel that CUDA device `index` holds at once; it
-    sets the segment length, so K1 and K2 are given the same."""
+def resident_blocks(index: int, tile_size: int = TS) -> int:
+    """Blocks of K1's kernel that CUDA device `index` holds at once (for
+    a size other than 16, the blocks whose threads fill the SM as the
+    16-pixel kernel's do, at most 32); it sets the segment length, so K1
+    and K2 are given the same."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms * BLOCKS_PER_SM
+    return sms * min(32, BLOCKS_PER_SM * PIX // block_threads(tile_size))
 
 
 def segment_length(counts: torch.Tensor, M: int, resident: int) -> int:
@@ -269,6 +299,16 @@ def _tile_tickets(T: int, device) -> torch.Tensor:
     return buf
 
 
+def _plan_buffer(T: int, resident: int, tile_size: int, device):
+    """The int32 scratch in which K1 / K2 at a tile size other than 16
+    write their launch's plan (csrc/raster_common.cuh, plan_units), or
+    None at 16."""
+    if tile_size == TS:
+        return None
+    return torch.empty(3 + 2 * (resident + T), dtype=torch.int32,
+                       device=device)
+
+
 def _per_image(T: int, tiles_per_image) -> int:
     ti = T if tiles_per_image is None else int(tiles_per_image)
     if T and (ti < 1 or T % ti):
@@ -278,47 +318,53 @@ def _per_image(T: int, tiles_per_image) -> int:
 
 def _launch_fwd(pack: torch.Tensor, counts: torch.Tensor, n_tiles_x: int,
                 keep_prefix: bool = False, tiles_per_image=None,
-                box: bool = True) -> Tuple[torch.Tensor, ...]:
+                box: bool = True, tile_size: int = TS
+                ) -> Tuple[torch.Tensor, ...]:
     """K1 on CUDA tensors: (color, depth, trans, prefix), prefix the
     segment prefixes for K2 when `keep_prefix`, else None."""
     global launches
     _check_inputs(pack, counts)
+    ts = _tile_size(tile_size)
     T, M, _ = pack.shape
+    P = ts * ts
     ti = _per_image(T, tiles_per_image)
-    part = torch.empty(scratch_shape(T, M), dtype=torch.float32,
+    part = torch.empty(scratch_shape(T, M, ts), dtype=torch.float32,
                        device=pack.device)
-    color = torch.empty((T, PIX, 3), dtype=torch.float32, device=pack.device)
-    depth = torch.empty((T, PIX), dtype=torch.float32, device=pack.device)
-    trans = torch.empty((T, PIX), dtype=torch.float32, device=pack.device)
+    color = torch.empty((T, P, 3), dtype=torch.float32, device=pack.device)
+    depth = torch.empty((T, P), dtype=torch.float32, device=pack.device)
+    trans = torch.empty((T, P), dtype=torch.float32, device=pack.device)
     prefix = part if keep_prefix else None
     if T == 0:
         return color, depth, trans, prefix
+    resident = resident_blocks(pack.device.index or 0, ts)
+    plan = _plan_buffer(T, resident, ts, pack.device)
     _build.launch("raster_fwd", pack.device,
                   (pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
                    depth.data_ptr(), trans.data_ptr(), part.data_ptr(),
-                   _tile_tickets(T, pack.device).data_ptr()),
-                  (T, M, n_tiles_x, ti,
-                   resident_blocks(pack.device.index or 0),
-                   int(keep_prefix), int(box)))
+                   _tile_tickets(T, pack.device).data_ptr(),
+                   0 if plan is None else plan.data_ptr()),
+                  (T, M, n_tiles_x, ti, resident, int(keep_prefix), int(box),
+                   ts))
     launches += 1
     return color, depth, trans, prefix
 
 
 def _launch_bwd(pack, counts, n_tiles_x: int, color, depth, trans, g_color,
                 g_depth, g_trans, prefix=None, tiles_per_image=None,
-                box: bool = True) -> torch.Tensor:
+                box: bool = True, tile_size: int = TS) -> torch.Tensor:
     """K2 on CUDA tensors.  `prefix` is K1's for the same pack and counts;
     without it K2 recomputes it first."""
     global launches_bwd
     _check_inputs(pack, counts)
-    _check_pixels(pack, color=color, depth=depth, trans=trans,
+    ts = _tile_size(tile_size)
+    _check_pixels(pack, ts, color=color, depth=depth, trans=trans,
                   g_color=g_color, g_depth=g_depth, g_trans=g_trans)
     T, M, _ = pack.shape
     ti = _per_image(T, tiles_per_image)
     if prefix is None:
-        part = torch.empty(scratch_shape(T, M), dtype=torch.float32,
+        part = torch.empty(scratch_shape(T, M, ts), dtype=torch.float32,
                            device=pack.device)
-    elif (tuple(prefix.shape) != scratch_shape(T, M)
+    elif (tuple(prefix.shape) != scratch_shape(T, M, ts)
           or prefix.dtype != torch.float32 or prefix.device != pack.device
           or not prefix.is_contiguous()):
         raise ValueError("prefix must be K1's for this pack")
@@ -327,14 +373,16 @@ def _launch_bwd(pack, counts, n_tiles_x: int, color, depth, trans, g_color,
     grad = torch.empty_like(pack)
     if T == 0:
         return grad
+    resident = resident_blocks(pack.device.index or 0, ts)
+    plan = _plan_buffer(T, resident, ts, pack.device)
     _build.launch("raster_bwd", pack.device,
                   (pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
                    depth.data_ptr(), trans.data_ptr(), g_color.data_ptr(),
                    g_depth.data_ptr(), g_trans.data_ptr(), part.data_ptr(),
-                   _tile_tickets(T, pack.device).data_ptr(), grad.data_ptr()),
-                  (T, M, n_tiles_x, ti,
-                   resident_blocks(pack.device.index or 0),
-                   int(prefix is not None), int(box)))
+                   _tile_tickets(T, pack.device).data_ptr(),
+                   0 if plan is None else plan.data_ptr(), grad.data_ptr()),
+                  (T, M, n_tiles_x, ti, resident, int(prefix is not None),
+                   int(box), ts))
     launches_bwd += 1
     return grad
 
@@ -346,26 +394,30 @@ def _amplitude(phase_amplitude: float) -> Tuple[float, float]:
     return a, 1.0 - a
 
 
-def checkpoint_shape(T: int, M: int) -> Tuple[int, ...]:
-    """Shape of K1-phi's checkpoints: (T, ceil(M / CKPT), 2, 256)."""
-    return (T, max(1, -(-M // CKPT)), 2, PIX)
+def checkpoint_shape(T: int, M: int, tile_size: int = TS
+                     ) -> Tuple[int, ...]:
+    """Shape of K1-phi's checkpoints: (T, ceil(M / CKPT), 2, P)."""
+    return (T, max(1, -(-M // CKPT)), 2, tile_size * tile_size)
 
 
 def _launch_fwd_phase(pack: torch.Tensor, counts: torch.Tensor,
                       n_tiles_x: int, phase_amplitude: float,
                       keep_ckpt: bool = False, tiles_per_image=None,
-                      box: bool = True) -> Tuple[torch.Tensor, ...]:
+                      box: bool = True, tile_size: int = TS
+                      ) -> Tuple[torch.Tensor, ...]:
     """K1-phi on CUDA tensors: (color, depth, trans, ckpt), ckpt the
     per-pixel (T, acc_phase) checkpoints for K2-phi when `keep_ckpt`,
     else None."""
     global launches_phase
     _check_inputs(pack, counts)
+    ts = _tile_size(tile_size)
     T, M, _ = pack.shape
+    P = ts * ts
     ti = _per_image(T, tiles_per_image)
-    color = torch.empty((T, PIX, 3), dtype=torch.float32, device=pack.device)
-    depth = torch.empty((T, PIX), dtype=torch.float32, device=pack.device)
-    trans = torch.empty((T, PIX), dtype=torch.float32, device=pack.device)
-    ckpt = (torch.empty(checkpoint_shape(T, M), dtype=torch.float32,
+    color = torch.empty((T, P, 3), dtype=torch.float32, device=pack.device)
+    depth = torch.empty((T, P), dtype=torch.float32, device=pack.device)
+    trans = torch.empty((T, P), dtype=torch.float32, device=pack.device)
+    ckpt = (torch.empty(checkpoint_shape(T, M, ts), dtype=torch.float32,
                         device=pack.device) if keep_ckpt else None)
     if T == 0:
         return color, depth, trans, ckpt
@@ -373,28 +425,25 @@ def _launch_fwd_phase(pack: torch.Tensor, counts: torch.Tensor,
                   (pack.data_ptr(), counts.data_ptr(), color.data_ptr(),
                    depth.data_ptr(), trans.data_ptr(),
                    0 if ckpt is None else ckpt.data_ptr()),
-                  (T, M, n_tiles_x, ti, int(box)), _amplitude(phase_amplitude))
+                  (T, M, n_tiles_x, ti, int(box), ts),
+                  _amplitude(phase_amplitude))
     launches_phase += 1
     return color, depth, trans, ckpt
 
 
 def _launch_bwd_phase(pack, counts, n_tiles_x: int, phase_amplitude: float,
                       g_color, g_depth, g_trans, ckpt: torch.Tensor,
-                      tiles_per_image=None, box: bool = True
-                      ) -> torch.Tensor:
+                      tiles_per_image=None, box: bool = True,
+                      tile_size: int = TS) -> torch.Tensor:
     """K2-phi on CUDA tensors.  `ckpt` is the checkpoints K1-phi left for
     the same pack (`keep_ckpt=True`)."""
     global launches_phase_bwd
     _check_inputs(pack, counts)
+    ts = _tile_size(tile_size)
     T, M, _ = pack.shape
-    for name, t in (("g_color", g_color), ("g_depth", g_depth),
-                    ("g_trans", g_trans)):
-        shape = (T, PIX, 3) if name == "g_color" else (T, PIX)
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape
-                or not t.is_contiguous() or t.device != pack.device):
-            raise ValueError(f"{name} must be contiguous float32 {shape} "
-                             f"on {pack.device}")
-    if (ckpt is None or tuple(ckpt.shape) != checkpoint_shape(T, M)
+    _check_pixels(pack, ts, g_color=g_color, g_depth=g_depth,
+                  g_trans=g_trans)
+    if (ckpt is None or tuple(ckpt.shape) != checkpoint_shape(T, M, ts)
             or ckpt.dtype != torch.float32 or ckpt.device != pack.device
             or not ckpt.is_contiguous()):
         raise ValueError("ckpt must be K1-phi's for this pack")
@@ -406,15 +455,17 @@ def _launch_bwd_phase(pack, counts, n_tiles_x: int, phase_amplitude: float,
                   (pack.data_ptr(), counts.data_ptr(), g_color.data_ptr(),
                    g_depth.data_ptr(), g_trans.data_ptr(), ckpt.data_ptr(),
                    grad.data_ptr()),
-                  (T, M, n_tiles_x, ti, int(box)), _amplitude(phase_amplitude))
+                  (T, M, n_tiles_x, ti, int(box), ts),
+                  _amplitude(phase_amplitude))
     launches_phase_bwd += 1
     return grad
 
 
-def phase_residency(device) -> dict:
+def phase_residency(device, tile_size: int = TS) -> dict:
     """Registers, shared and local bytes, threads and blocks per SM of
-    K1-phi and K2-phi (their box-test kernels) on a CUDA `device`."""
-    return {key: _build.residency(name, device)
+    K1-phi and K2-phi (their box-test kernels at `tile_size`) on a CUDA
+    `device`."""
+    return {key: _build.residency(name, device, _tile_size(tile_size))
             for key, name in (("k1phi", "raster_phase_fwd"),
                               ("k2phi", "raster_phase_bwd"))}
 
@@ -439,8 +490,8 @@ def _device_of(pack: torch.Tensor) -> str:
 
 def composite_tiles_bwd(pack, counts, n_tiles_x: int, color, depth, trans,
                         g_color, g_depth, g_trans, chunk: int = 32,
-                        tiles_per_image=None, box: bool = True
-                        ) -> torch.Tensor:
+                        tiles_per_image=None, box: bool = True,
+                        tile_size: int = TS) -> torch.Tensor:
     """Gradient of the pack (T, M, 12) from the forward's outputs (color,
     depth before the background, final transmittance) and their
     cotangents: K2 for CUDA tensors, the plain version for CPU tensors.
@@ -448,10 +499,12 @@ def composite_tiles_bwd(pack, counts, n_tiles_x: int, color, depth, trans,
     if _device_of(pack) == "cuda":
         return _launch_bwd(pack, counts, n_tiles_x, color, depth, trans,
                            g_color, g_depth, g_trans,
-                           tiles_per_image=tiles_per_image, box=box)
+                           tiles_per_image=tiles_per_image, box=box,
+                           tile_size=tile_size)
     return composite_tiles_bwd_plain(pack, counts, n_tiles_x, color, depth,
                                      trans, g_color, g_depth, g_trans, chunk,
-                                     tiles_per_image, box=box)
+                                     tiles_per_image, box=box,
+                                     tile_size=tile_size)
 
 
 class _Composite(torch.autograd.Function):
@@ -462,19 +515,21 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pack, counts, n_tiles_x: int, chunk: int,
-                tiles_per_image, box: bool):
+                tiles_per_image, box: bool, tile_size: int):
         if _device_of(pack) == "cuda":
             *out, prefix = _launch_fwd(pack, counts, n_tiles_x,
                                        keep_prefix=ctx.needs_input_grad[0],
                                        tiles_per_image=tiles_per_image,
-                                       box=box)
+                                       box=box, tile_size=tile_size)
         else:
             out = composite_tiles_plain(pack, counts, n_tiles_x, chunk,
-                                        tiles_per_image, box=box)
+                                        tiles_per_image, box=box,
+                                        tile_size=tile_size)
             prefix = None
         ctx.save_for_backward(pack, counts, *out, prefix)
         ctx.n_tiles_x, ctx.chunk = n_tiles_x, chunk
         ctx.tiles_per_image, ctx.box = tiles_per_image, box
+        ctx.tile_size = tile_size
         return tuple(out)
 
     @staticmethod
@@ -489,13 +544,13 @@ class _Composite(torch.autograd.Function):
             grad = _launch_bwd(pack, counts, ctx.n_tiles_x, color, depth,
                                trans, *cots, prefix=prefix,
                                tiles_per_image=ctx.tiles_per_image,
-                               box=ctx.box)
+                               box=ctx.box, tile_size=ctx.tile_size)
         else:
             grad = composite_tiles_bwd_plain(
                 pack, counts, ctx.n_tiles_x, color, depth, trans, *cots,
                 chunk=ctx.chunk, tiles_per_image=ctx.tiles_per_image,
-                box=ctx.box)
-        return grad, None, None, None, None, None
+                box=ctx.box, tile_size=ctx.tile_size)
+        return grad, None, None, None, None, None, None
 
 
 class _CompositePhase(torch.autograd.Function):
@@ -505,21 +560,24 @@ class _CompositePhase(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pack, counts, n_tiles_x: int, phase_amplitude: float,
-                tiles_per_image, box: bool):
+                tiles_per_image, box: bool, tile_size: int):
         if _device_of(pack) == "cuda":
             *out, ckpt = _launch_fwd_phase(
                 pack, counts, n_tiles_x, phase_amplitude,
                 keep_ckpt=ctx.needs_input_grad[0],
-                tiles_per_image=tiles_per_image, box=box)
+                tiles_per_image=tiles_per_image, box=box,
+                tile_size=tile_size)
         else:
             with torch.no_grad():
                 out = composite_tiles_plain(
                     pack, counts, n_tiles_x, tiles_per_image=tiles_per_image,
-                    box=box, phase_amplitude=phase_amplitude)
+                    box=box, phase_amplitude=phase_amplitude,
+                    tile_size=tile_size)
             ckpt = None
         ctx.save_for_backward(pack, counts, ckpt)
         ctx.n_tiles_x, ctx.amp = n_tiles_x, phase_amplitude
         ctx.tiles_per_image, ctx.box = tiles_per_image, box
+        ctx.tile_size = tile_size
         return tuple(out)
 
     @staticmethod
@@ -532,17 +590,19 @@ class _CompositePhase(torch.autograd.Function):
             grad = _launch_bwd_phase(pack, counts, ctx.n_tiles_x, ctx.amp,
                                      *cots, ckpt=ckpt,
                                      tiles_per_image=ctx.tiles_per_image,
-                                     box=ctx.box)
+                                     box=ctx.box, tile_size=ctx.tile_size)
         else:
             grad = composite_tiles_phase_bwd_plain(
                 pack, counts, ctx.n_tiles_x, ctx.amp, *cots, box=ctx.box,
-                tiles_per_image=ctx.tiles_per_image)
-        return grad, None, None, None, None, None
+                tiles_per_image=ctx.tiles_per_image,
+                tile_size=ctx.tile_size)
+        return grad, None, None, None, None, None, None
 
 
 def composite_tiles_phase(pack: torch.Tensor, counts: torch.Tensor,
                           n_tiles_x: int, phase_amplitude: float,
-                          tiles_per_image=None, box: bool = True
+                          tiles_per_image=None, box: bool = True,
+                          tile_size: int = TS
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Phase-blended compositing of binned, depth-ordered tiles,
     differentiably in the pack (the phase in column 11 included): the
@@ -552,24 +612,26 @@ def composite_tiles_phase(pack: torch.Tensor, counts: torch.Tensor,
     K2-phi on backward), CPU tensors run the plain versions."""
     return _CompositePhase.apply(pack, counts, n_tiles_x,
                                  float(phase_amplitude), tiles_per_image,
-                                 bool(box))
+                                 bool(box), _tile_size(tile_size))
 
 
 def composite_tiles_packed(pack: torch.Tensor, counts: torch.Tensor,
                            n_tiles_x: int, chunk: int = 32,
-                           tiles_per_image=None, box: bool = True
+                           tiles_per_image=None, box: bool = True,
+                           tile_size: int = TS
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Composite binned, depth-ordered tiles, differentiably in the pack.
 
     pack: (T, M, 12) float32 [mean 2, conic 3, radius, rgb 3, opacity,
     depth, pad], dead slots masked (opacity 0, radius -1); counts: (T,)
-    int32 occupied slots.  Returns (color (T, 256, 3), depth (T, 256),
-    transmittance (T, 256)), the contract of the JAX package's
-    composite_tiles_pallas_packed.  CUDA tensors launch K1 (and K2 on
-    backward), CPU tensors run the plain versions.  `chunk` is the plain
-    versions' step and does not change the kernels.  A pack of B images
-    holds each one's `tiles_per_image` tiles in turn (default T: one
-    image), so a batch takes one launch of each kernel.  `box=False`
+    int32 occupied slots.  Returns (color (T, P, 3), depth (T, P),
+    transmittance (T, P)), P = tile_size^2 (256 at the default 16), the
+    contract of the JAX package's composite_tiles_pallas_packed (and, at
+    any other tile size, of its XLA scan).  CUDA tensors launch K1 (and K2
+    on backward), CPU tensors run the plain versions.  `chunk` is the
+    plain versions' step and does not change the kernels.  A pack of B
+    images holds each one's `tiles_per_image` tiles in turn (default T:
+    one image), so a batch takes one launch of each kernel.  `box=False`
     drops the 3-sigma box test (hard_cutoff=False)."""
     return _Composite.apply(pack, counts, n_tiles_x, chunk, tiles_per_image,
-                            bool(box))
+                            bool(box), _tile_size(tile_size))

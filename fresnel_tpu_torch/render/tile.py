@@ -4,8 +4,9 @@ Counterpart of fresnel_tpu/render/tile.py:
   1. project every Gaussian and take its 3-sigma radius;
   2. stable front-to-back depth sort ("exact"; `depth_sort` "counting"
      or "packed" sort quantised depths, as the JAX package's do);
-  3. binning: each 16x16 tile keeps up to M nearest intersecting Gaussians
-     in depth order.  Five binnings build the same tables, bit for bit
+  3. binning: each tile (16 x 16 pixels by default, `tile_size` any size
+     >= 1) keeps up to M nearest intersecting Gaussians in depth order.
+     Five binnings build the same tables, bit for bit
      (and bit-identical to the JAX package's):
        "pairs"    `_bin_gaussians`: dense rank cumsum + one scatter of the
                   (Gaussian, tile-window) pairs; "auto" below 98 304
@@ -39,8 +40,9 @@ given no phases, phase blending is off, as in the JAX package.
 `hard_cutoff=False` drops the 3-sigma box test, as the JAX package's XLA
 scan does (its TPU kernel keeps the box whatever the option says).
 
-The one option of the JAX renderer that is not ported, a tile size other
-than 16, raises NotImplementedError (ROADMAP Queue 1, item 5).
+Every tile size >= 1 renders, on both devices: the kernels take it
+(`render.raster`), as the JAX package's XLA scan takes it; a tile size
+below 1 raises ValueError.
 """
 
 from __future__ import annotations
@@ -624,10 +626,8 @@ def _composite_tiles_phase(px, py, g_mean, g_conic, g_color, g_op, g_depth,
 
 
 def _check_supported(cfg: TileRendererConfig) -> None:
-    if cfg.tile_size != raster.TS:
-        raise NotImplementedError(
-            f"tile_size {cfg.tile_size} is not ported (only {raster.TS}; "
-            "ROADMAP Queue 1, item 5)")
+    if cfg.tile_size < 1:
+        raise ValueError(f"tile_size must be at least 1, got {cfg.tile_size}")
     if cfg.binning not in BINNINGS:
         raise ValueError(f"unknown binning {cfg.binning!r}")
     if cfg.table_build not in TABLE_BUILDS:
@@ -822,14 +822,17 @@ def render_tiled(positions: torch.Tensor, scales: torch.Tensor,
 def _composite(cfg: TileRendererConfig, pack, counts, n_tiles_x: int,
                blended: bool, tiles_per_image=None):
     """The pack's compositing: phase-blended (K1-phi / K2-phi) when
-    `blended`, else K1 / K2; the box test per cfg.hard_cutoff."""
+    `blended`, else K1 / K2; the box test per cfg.hard_cutoff, at
+    cfg.tile_size."""
     if blended:
         return raster.composite_tiles_phase(
             pack, counts, n_tiles_x, cfg.phase_amplitude,
-            tiles_per_image=tiles_per_image, box=cfg.hard_cutoff)
+            tiles_per_image=tiles_per_image, box=cfg.hard_cutoff,
+            tile_size=cfg.tile_size)
     return raster.composite_tiles_packed(
         pack, counts, n_tiles_x, chunk=cfg.chunk,
-        tiles_per_image=tiles_per_image, box=cfg.hard_cutoff)
+        tiles_per_image=tiles_per_image, box=cfg.hard_cutoff,
+        tile_size=cfg.tile_size)
 
 
 def _overflow(means2d, radii, visible, n_tiles_x, n_tiles_y, tile_size,

@@ -29,7 +29,13 @@ the four renderers K5-K8 serve, the diffractive layers and the
 quantised depth sorts, card against CPU; the
 LPIPS distance and its gradients, ms_ssim and the matching loss, card
 against CPU; the v2 decoders, the structure predictor and a render-loss
-V2Trainer step (K1 twice, K2 once), card against CPU.
+V2Trainer step (K1 twice, K2 once), card against CPU.  K1, K2, K1-phi and
+K2-phi at tile sizes 1, 3, 4, 8, 12, 16, 24, 32 and 48 (the sizes other
+than 16 take one runtime instantiation: pixel groups of at most 256 a
+block, tail lanes that own no pixel) with the box on and off, on one
+image and on two, against their plain versions at the same tolerances,
+K1, K2 and K2-phi bit for bit from run to run; render_tiled at 8 and 32
+with both table binnings, card against CPU.
 """
 
 import numpy as np
@@ -604,8 +610,8 @@ def test_entry_point_launch_error_raises(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.launch("raster_fwd", pack.device,
                       (pack.data_ptr(), cnt.data_ptr(),
-                       *(t.data_ptr() for t in out + [part, tickets])),
-                      (4, 256, 2, 4, 0, 0, 1))
+                       *(t.data_ptr() for t in out + [part, tickets]), 0),
+                      (4, 256, 2, 4, 0, 0, 1, 16))
 
 
 def test_entry_points_refuse_bad_image_tiling(cuda):
@@ -620,8 +626,8 @@ def test_entry_points_refuse_bad_image_tiling(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.launch("raster_fwd", pack.device,
                       (pack.data_ptr(), cnt.data_ptr(),
-                       *(t.data_ptr() for t in out + [part, tickets])),
-                      (4, 256, 2, 0, raster.resident_blocks(0), 0, 1))
+                       *(t.data_ptr() for t in out + [part, tickets]), 0),
+                      (4, 256, 2, 0, raster.resident_blocks(0), 0, 1, 16))
     with pytest.raises(ValueError, match="whole images"):
         raster.composite_tiles_packed(pack, cnt, 2, tiles_per_image=3)
     outs = raster.composite_tiles_packed(pack, cnt, 2, tiles_per_image=2)
@@ -1287,6 +1293,150 @@ def test_phase_fast_paths_match_library(cuda):
     assert got["div_checked"] > 2 ** 29
     assert (got["cos_mismatches"], got["sin_mismatches"],
             got["div_mismatches"]) == (0, 0, 0)
+
+
+# ----------------------------------------------------------------------
+# Any tile size: K1, K2, K1-phi and K2-phi at tile sizes other than 16
+# (one runtime instantiation, pixel groups of at most 256 pixels) and at 16
+# (compiled in)
+# ----------------------------------------------------------------------
+
+TILE_SIZES = [1, 3, 4, 8, 12, 16, 24, 32, 48]
+
+
+def _ts_pack(ts, phases, seed):
+    """Two images of 4 x 2 tiles of ts x ts pixels (T = 16, M = 256):
+    counts 0, 1, at the cap and past one and several segments (and
+    checkpoint edges), radii from under a pixel to past the tile, so that
+    boxes hold one pixel, one warp's pixels or the whole tile."""
+    T, M, ntx = 16, 256, 4
+    counts = np.array([0, 1, 256, 65, 130, 17, 16, 200,
+                       64, 3, 255, 0, 129, 33, 256, 90])
+    rng = np.random.default_rng(seed)
+    w, h = ntx * ts, 2 * ts
+    pack = np.zeros((T, M, 12), np.float32)
+    pack[..., 0] = rng.uniform(-2, w + 2, (T, M))
+    pack[..., 1] = rng.uniform(-2, h + 2, (T, M))
+    scale = 1.0 / max(ts, 2) ** 2
+    pack[..., 2] = rng.uniform(0.05, 1.0, (T, M)) * scale
+    pack[..., 3] = rng.uniform(-0.02, 0.02, (T, M)) * scale
+    pack[..., 4] = rng.uniform(0.05, 1.0, (T, M)) * scale
+    pack[..., 5] = rng.uniform(0.4, 1.5 * ts + 1, (T, M))
+    pack[..., 6:9] = rng.uniform(0, 1, (T, M, 3))
+    pack[..., 9] = rng.uniform(0, 1, (T, M))
+    pack[..., 10] = rng.uniform(1, 4, (T, M))
+    if phases:
+        pack[..., 11] = rng.uniform(0, 1, (T, M))
+    dead = np.arange(M)[None, :] >= counts[:, None]
+    pack[dead] = 0.0
+    pack[dead, 5] = -1.0
+    return (torch.from_numpy(pack), torch.from_numpy(counts.astype(np.int32)),
+            ntx)
+
+
+def _ts_cots(T, ts, seed, device):
+    P = ts * ts
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+            for s in ((T, P, 3), (T, P), (T, P))]
+
+
+@pytest.mark.parametrize("ts", TILE_SIZES)
+@pytest.mark.parametrize("box", [True, False])
+def test_kernels_match_plain_at_tile_size(cuda, ts, box):
+    """K1 and K2 at tile size ts, on one image of 16 tiles and on two
+    images of 8 (tiles_per_image): K1 within 1e-5 of its plain version,
+    K2 within 1e-4 of each field's largest plain value, both bit for bit
+    from run to run, K2 handed K1's prefixes equal to K2 alone."""
+    pack, cnt, ntx = _ts_pack(ts, False, ts)
+    pack, cnt = pack.to(cuda), cnt.to(cuda)
+    T, M, _ = pack.shape
+    cots = _ts_cots(T, ts, ts + 1, cuda)
+    for ti in (None, 8):
+        kw = dict(tiles_per_image=ti, box=box, tile_size=ts)
+        f0, b0 = raster.launches, raster.launches_bwd
+        got = raster._launch_fwd(pack, cnt, ntx, keep_prefix=True, **kw)
+        again = raster._launch_fwd(pack, cnt, ntx, keep_prefix=True, **kw)
+        ref = raster.composite_tiles_plain(pack, cnt, ntx, **kw)
+        for g, a, r in zip(got[:3], again[:3], ref):
+            assert g.shape == r.shape == (T, ts * ts) + tuple(r.shape[2:])
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+            assert torch.equal(g, a)
+        handed = raster._launch_bwd(pack, cnt, ntx, *got[:3], *cots,
+                                    prefix=got[3], **kw)
+        alone = raster._launch_bwd(pack, cnt, ntx, *got[:3], *cots, **kw)
+        torch.cuda.synchronize()
+        assert (raster.launches - f0, raster.launches_bwd - b0) == (2, 2)
+        assert torch.equal(handed, alone)
+        _assert_fields_close(handed, raster.composite_tiles_bwd_plain(
+            pack, cnt, ntx, *got[:3], *cots, **kw))
+        dead = torch.arange(M, device=cuda)[None, :] >= cnt[:, None]
+        assert torch.all(handed[dead] == 0)
+
+
+@pytest.mark.parametrize("ts", TILE_SIZES)
+@pytest.mark.parametrize("box", [True, False])
+def test_phase_kernels_match_plain_at_tile_size(cuda, ts, box):
+    """K1-phi and K2-phi at tile size ts, on one image and on two:
+    K1-phi within 1e-5 of its plain version, K2-phi within 1e-4 of each
+    field's largest plain value and bit for bit from run to run."""
+    pack, cnt, ntx = _ts_pack(ts, True, ts + 2)
+    pack, cnt = pack.to(cuda), cnt.to(cuda)
+    T = pack.shape[0]
+    cots = _ts_cots(T, ts, ts + 3, cuda)
+    amp = 0.3
+    for ti in (None, 8):
+        kw = dict(tiles_per_image=ti, box=box, tile_size=ts)
+        f0, b0 = raster.launches_phase, raster.launches_phase_bwd
+        p = pack.clone().requires_grad_()
+        got = raster.composite_tiles_phase(p, cnt, ntx, amp, **kw)
+        ref = raster.composite_tiles_plain(pack, cnt, ntx,
+                                           phase_amplitude=amp, **kw)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+        (grad,) = torch.autograd.grad(got, p, cots)
+        assert (raster.launches_phase - f0,
+                raster.launches_phase_bwd - b0) == (1, 1)
+        _assert_fields_close(grad, raster.composite_tiles_phase_bwd_plain(
+            pack, cnt, ntx, amp, *cots, **kw))
+        ckpt = raster._launch_fwd_phase(pack, cnt, ntx, amp, keep_ckpt=True,
+                                        **kw)[3]
+        assert torch.equal(grad, raster._launch_bwd_phase(
+            pack, cnt, ntx, amp, *cots, ckpt, **kw))
+
+
+@pytest.mark.parametrize("ts", [8, 32])
+@pytest.mark.parametrize("binning_name", ["search", "stream"])
+def test_render_at_tile_size_on_card_matches_cpu(cuda, ts, binning_name):
+    """render_tiled at tile size ts, plain and phase-blended, with its
+    gradient: the card (K3 or K4, K1 / K2, K1-phi / K2-phi) against the
+    CPU, held on average as test_render_on_card_matches_cpu holds it."""
+    rng = np.random.default_rng(ts)
+    n, res = 3000, 128
+    pos = rng.normal(size=(n, 3)).astype(np.float32) * 0.5
+    pos[:, 2] -= 2.0
+    args = [torch.from_numpy(a) for a in (
+        pos, np.full((n, 3), 0.04, np.float32),
+        rng.normal(size=(n, 4)).astype(np.float32),
+        rng.uniform(size=(n, 3)).astype(np.float32),
+        rng.uniform(0.2, 1.0, size=n).astype(np.float32),
+        rng.uniform(0, 1, size=n).astype(np.float32))]
+    cam = Camera.default_training(res)
+    for phased in (False, True):
+        cfg = tile.TileRendererConfig(tile_size=ts, binning=binning_name,
+                                      use_phase_blending=phased)
+        outs = []
+        for dev in (cuda, "cpu"):
+            a = [x.to(dev).requires_grad_(i == 3) for i, x in
+                 enumerate(args)]
+            img = tile.render_tiled(*a[:5], cam, phases=a[5], config=cfg)
+            (g,) = torch.autograd.grad(img.square().sum(), a[3])
+            outs.append((img.detach().cpu(), g.cpu()))
+        (ig, gg), (ic, gc) = outs
+        assert ig.shape == (3, res, res)
+        assert (ig - ic).abs().mean().item() <= 1e-5
+        assert (gg - gc).abs().mean().item() <= 1e-4 * gc.abs().max().item()
 
 
 def _splat_inputs(B, N, size, mode, seed, opacity="some0"):

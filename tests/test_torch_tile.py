@@ -173,18 +173,26 @@ class TestCompositor:
 
 class TestNotPorted:
     # The depth sorts "counting" and "packed" and hard_cutoff=False are
-    # ported (tests/test_torch_dense_render.py, test_torch_wave_render.py);
-    # the cases keep their ids with tile sizes, which still raise.
+    # ported (tests/test_torch_dense_render.py, test_torch_wave_render.py),
+    # and so are the tile sizes these cases held raising: each case keeps
+    # its id and checks that its size renders on the CPU as the JAX
+    # package's XLA scan does (tests/test_torch_tile_sizes.py holds every
+    # size and route).
     @pytest.mark.parametrize("cfg", [
         tt.TileRendererConfig(tile_size=32),
         tt.TileRendererConfig(tile_size=8),
         tt.TileRendererConfig(tile_size=4),
     ])
     def test_options_raise(self, cfg):
-        arrs = _cloud_arrays(5, seed=0)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tt.render_tiled(*[_t(a) for a in arrs],
-                            TCamera.default_training(32), config=cfg)
+        arrs = _cloud_arrays(60, seed=0)
+        ref = jt.render_tiled(*[jnp.asarray(a) for a in arrs],
+                              JCamera.default_training(32),
+                              config=jt.TileRendererConfig(
+                                  tile_size=cfg.tile_size, backend="xla"))
+        out = tt.render_tiled(*[_t(a) for a in arrs],
+                              TCamera.default_training(32), config=cfg)
+        assert out.shape == (3, 32, 32)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
 
     def test_phase_blending_raises(self):
         """Phase blending (tests/test_torch_wave_render.py) and the four

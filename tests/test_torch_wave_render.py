@@ -264,8 +264,9 @@ def test_unported_renderers_raise(name):
     """The four renderers these cases held raising are ported
     (tests/test_torch_dense_render.py, test_torch_asm_fourier.py): each
     case keeps its id and checks that its renderer now renders through
-    make_renderer, and that the one option of item 5 left, a tile size
-    other than 16, still raises naming it."""
+    make_renderer, and that a tile size other than 16, which these cases
+    held raising after them, now renders (tests/test_torch_tile_sizes.py
+    holds it against the JAX package)."""
     arrays, ph = _cloud(0, n=4)
     targs = [torch.from_numpy(a) for a in arrays]
     cam = TCamera.default_training(16)
@@ -276,9 +277,10 @@ def test_unported_renderers_raise(name):
     if name == "fourier_true":
         assert torch.equal(img, fourier.render_fourier(
             *targs, cam, phases=torch.from_numpy(ph[:, 0]), mode="fourier"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tt.render_tiled(*targs, cam,
-                        config=tt.TileRendererConfig(tile_size=8))
+    at8 = tt.render_tiled(*targs, cam,
+                          config=tt.TileRendererConfig(tile_size=8))
+    at16 = tt.render_tiled(*targs, cam)
+    torch.testing.assert_close(at8, at16, atol=2e-5, rtol=0)
 
 
 def test_wave_renderer_needs_phases():
