@@ -644,6 +644,37 @@ non-zero:
                   size against their plain versions;
   93. item5_phases  the seconds of 89-92 beside a 45 s cap (over it
                   fails).
+  94. parallel_train  parallel/ on torch.distributed: two gloo ranks on
+                  card 0, started once for phases 94, 96 and 97
+                  (parallel.launch.run_job; NCCL refuses two ranks on one
+                  card), run Trainer.fit(mesh=...) at the flagship config
+                  (global batch 8, 4 a rank, dropout on) for 3 steps,
+                  and Trainer.gradients of the first batch at the init;
+                  against the same in one process on the card from the
+                  same seeds (the fit twice): the first step's loss within
+                  1e-4 relative, the gradient 1e-3 by its global norm and
+                  the later losses 1e-3 (the constants say why),
+                  the ranks' parameters bit for bit equal (sha256); leaf
+                  mean gaps, ms per step of both, the all-reduce's calls,
+                  bytes and ms (gloo goes through host copies), K1 / K2
+                  launches per rank (one each a step);
+  95. parallel_nccl  the same fit at world size 1 over NCCL against the
+                  single-process fit: losses within 1e-5 relative, leaf
+                  means 1e-6 (the card's fit is not bit for bit run to
+                  run), ms per step beside it; `train_gaussian_decoder --num_devices 2`
+                  on a one-card machine raises ValueError;
+  96. parallel_render  the three sharded renders on the two ranks against
+                  render_tiled in this process: batch-sharded (two decoded
+                  clouds, 512^2, 1e-5), Gaussian-sharded (the first
+                  depth-sorted, capacity for every tile's list, no pair
+                  dropped, 2e-3), pixel-sharded (the 10^6 cloud at 512^2,
+                  M 256, search and stream binning: K3 / K4 on each band,
+                  2e-3); the ranks' images bit for bit equal; ms per call;
+  97. parallel_tp  shard_state over a (1, 2) ("data", "model") mesh:
+                  tests/test_parallel.py's network (64 -> 256 -> 8), its
+                  loss and gradient within 1e-5 of the replicated step's;
+                  the sharded fraction of the flagship Trainer state; then
+                  the seconds of 94-97 beside a 90 s cap (over it fails).
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and as the last line {"ok": true, "device": {...}}.
 
@@ -687,6 +718,7 @@ busy share and kernels per step); one JSON line per root.
 Imports torch, numpy and fresnel_tpu_torch only.
 """
 
+import contextlib
 import dataclasses
 import hashlib
 import inspect
@@ -700,6 +732,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -7554,6 +7587,345 @@ def item5_phases(torch, dev, path_launches, dec_cloud):
     return res, errs
 
 
+# Phases 94-97 (parallel/): one start-up of two gloo ranks on card 0
+# (NCCL refuses two ranks on one card), the single-process references in
+# this process, and NCCL at world size 1.
+PARALLEL_PHASES_CAP_S = 90.0
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 3           # one step an epoch: 8 scenes at batch 8
+PARALLEL_TRAIN = dict(TRAIN, epochs=PARALLEL_STEPS, save_interval=1000)
+PARALLEL_SCENES = 8
+# World 2 against world 1 (one process, the same seeds): the first step's
+# loss (relative) and the global batch's gradient at the init (relative,
+# by its global norm).  cuDNN and cuBLAS pick other algorithms for 4
+# images than for 8, so the card's world-2 gradient parts from world 1's
+# by about 2e-4 where the CPU tests read 7.0e-7; it is held at 1e-3.
+# Adam divides by the gradient's scale and turns that rounding on
+# near-zero entries into steps of either sign, so from the second step
+# the states differ; the later losses are held at 1e-3 relative, beside
+# a second world-1 run.
+PARALLEL_LOSS_RTOL = 1e-4
+PARALLEL_GRAD_RTOL = 1e-3
+PARALLEL_LATER_LOSS_RTOL = 1e-3
+# NCCL at world size 1 against the single-process fit, bit for bit.  By
+# default the card's fit does not repeat itself bit for bit (two plain
+# fits: losses 3.1e-7 apart, leaf means 9.6e-8: library backward kernels
+# whose sums run in a varying order), so both fits of that phase run
+# under torch's deterministic algorithms (`deterministic_algorithms`).
+# The sharded renders against render_tiled (tests/test_parallel.py's
+# bounds: the batch is per-image work, the slab fold and the bands
+# reassociate).
+PARALLEL_RENDER_TOL = {"batch": 1e-5, "gaussian": 2e-3, "pixel": 2e-3}
+PARALLEL_RENDER_REPEATS = 3
+# tests/test_parallel.py's network and bounds (loss relative, gradients
+# absolute).
+TP_NET = dict(d_in=64, d_hidden=256, d_out=8, batch=8, min_elems=1024)
+TP_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """torch's deterministic algorithms, cuDNN's among them, for a block;
+    an op with no deterministic version warns (the warnings are yielded)
+    and runs as it is.  New tensors are not filled (the mode's default
+    fills torch.empty with NaN, which is not the run being checked).  The
+    settings and cuBLAS's workspace variable are restored after."""
+    import torch.utils.deterministic as tdet
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark,
+            os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+            tdet.fill_uninitialized_memory)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    tdet.fill_uninitialized_memory = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic = prev[2]
+        torch.backends.cudnn.benchmark = prev[3]
+        tdet.fill_uninitialized_memory = prev[5]
+        if prev[4] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev[4]
+
+
+def parallel_phases(torch, dev, path_launches, clouds, tmp):
+    """Phases 94-97: `parallel/` on the card.  Two gloo ranks on card 0,
+    started once (`parallel.launch.run_job`), run the data-parallel
+    flagship fit, the three sharded renders and the tensor-parallel step;
+    this process runs their single-process references, the fit at world
+    size 1 over NCCL and the `--num_devices 2` refusal.  `clouds` are two
+    decoded clouds (five fields each, on the card)."""
+    from fresnel_tpu_torch.core.camera import Camera
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+    from fresnel_tpu_torch.parallel import jobs, launch
+    from fresnel_tpu_torch.render import projection, tile
+    from fresnel_tpu_torch.render.tile import TileRendererConfig
+    from fresnel_tpu_torch.train import train_gaussian_decoder as tcli
+
+    phase_s, lap = lap_timer()
+    n = PARALLEL_RANKS
+    data_dir = os.path.join(tmp, "corpus")
+    synthetic_corpus.generate_corpus(data_dir, n_images=PARALLEL_SCENES,
+                                     image_size=TRAIN["image_size"], seed=0)
+    ds = dict(kind="image", data_dir=data_dir,
+              image_size=TRAIN["image_size"],
+              feature_dim=TRAIN["feature_dim"], use_augmentation=False)
+    ImageDataset(device=dev, **{k: v for k, v in ds.items()
+                                if k != "kind"})    # the caches, once
+    fit = {"task": "fit", "dataset": ds, "allreduce_timed": True,
+           "mesh": True,
+           "configs": {"config": dict(PARALLEL_TRAIN,
+                                      output_dir=os.path.join(tmp, "dp")),
+                       "hfgs": TRAIN_HFGS}}
+    grad = dict(fit, task="gradients")
+
+    # The render inputs: two decoded clouds; the first depth-sorted, with
+    # capacity for every tile's list; the 10^6 cloud.
+    cam = Camera.default_training(RENDER["res"]).to(dev)
+    batch = [torch.stack([a, b]).cpu() for a, b in zip(*clouds)]
+    proj = projection.project_gaussians(*clouds[0][:3], cam)
+    proj = dataclasses.replace(proj, visible=proj.visible
+                               & (clouds[0][4] > 0))
+    order = projection.depth_sort_indices(proj)
+    slab = [f[order].cpu() for f in clouds[0]]
+    ntx = -(-RENDER["res"] // 16)
+    totals = tile._tile_totals(proj.means2d, proj.radii, proj.visible, ntx,
+                               ntx, 16)
+    m_slab = int(totals.max().item())
+    big = [f.contiguous() for f in fields(render_cloud(0))]
+    m = RENDER["max_per_tile"]
+    renders = [("batch", batch, TileRendererConfig(max_per_tile=m)),
+               ("gaussian", slab, TileRendererConfig(max_per_tile=m_slab)),
+               ("pixel_search", big, TileRendererConfig(
+                   max_per_tile=m, binning="search")),
+               ("pixel_stream", big, TileRendererConfig(
+                   max_per_tile=m, binning="stream"))]
+    tasks = [fit, grad] + [{"task": "render", "kind": kind.split("_")[0],
+                      "fields": f, "camera": cam.to("cpu"), "config": cfg,
+                      "repeats": PARALLEL_RENDER_REPEATS}
+                     for kind, f, cfg in renders]
+    rng = np.random.default_rng(0)
+    net = {"w1": (rng.normal(size=(TP_NET["d_in"], TP_NET["d_hidden"]))
+                  * 0.1).astype(np.float32),
+           "b1": np.zeros(TP_NET["d_hidden"], np.float32),
+           "w2": (rng.normal(size=(TP_NET["d_hidden"], TP_NET["d_out"]))
+                  * 0.1).astype(np.float32)}
+    x = rng.normal(size=(TP_NET["batch"], TP_NET["d_in"])).astype(np.float32)
+    tasks.append({"task": "tp_step", "params": net, "x": x, "shape": (1, n),
+                  "min_elems": TP_NET["min_elems"],
+                  "trainer": {"configs": fit["configs"]}})
+    lap("inputs")
+    t0 = time.perf_counter()
+    res = launch.run_job(tasks, n, os.path.join(tmp, "job"), device="cuda:0",
+                         backend="gloo", timeout=PARALLEL_PHASES_CAP_S)
+    job_s = time.perf_counter() - t0
+    lap("ranks")
+
+    # 94. parallel_train: the world-2 fit against the single-process one
+    # (twice, for the card's own spread), and the first batch's gradient.
+    def world1(task, name):
+        return getattr(jobs, task["task"])(dict(task, mesh=False, configs={
+            **task["configs"], "config": dict(
+                PARALLEL_TRAIN, output_dir=os.path.join(tmp, name))}), dev)
+
+    one, again, g1 = (world1(fit, "one"), world1(fit, "again"),
+                      world1(grad, "grad"))
+    two = [r[0] for r in res]
+    g2 = res[0][1]["grads"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in
+                zip(two[0]["step_loss"], one["step_loss"])]
+    again_rel = [abs(a - b) / abs(b) for a, b in
+                 zip(again["step_loss"], one["step_loss"])]
+    norm = math.sqrt(sum(float((g1["grads"][k] ** 2).sum())
+                         for k in g1["grads"]))
+    grad_rel = math.sqrt(sum(float(((g2[k] - g1["grads"][k]) ** 2).sum())
+                             for k in g1["grads"])) / norm
+    leaf_rel = sorted(((k, ((g2[k] - g).norm() / g.norm()).item())
+                       for k, g in g1["grads"].items()
+                       if g.norm() > 0 and not re.search(REF_ZERO_GRAD, k)),
+                      key=lambda kv: -kv[1])[:3]
+
+    def mean_gaps(a):
+        gaps = {k: (a["params"][k] - v).abs().mean().item()
+                for k, v in one["params"].items()
+                if not re.search(REF_ZERO_GRAD, k)}
+        return dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:3])
+    ar = two[0]["allreduce"]
+    launches = {k: sum(t["launches"][k] for t in two)
+                for k in ("k1", "k2", "k3", "k4")}
+    path_launches["parallel_train"] = launches
+    log("parallel_train", ranks=n, backend="gloo", device="cuda:0",
+        config={k: PARALLEL_TRAIN[k] for k in (
+            "experiment", "gaussians_per_patch", "feature_size",
+            "encoder_width", "image_size", "max_per_tile", "batch_size")},
+        batch_per_rank=PARALLEL_TRAIN["batch_size"] // n, dropout=0.1,
+        steps=PARALLEL_STEPS, losses_world2=two[0]["step_loss"],
+        losses_world1=one["step_loss"], losses_world1_again=again[
+            "step_loss"], loss_rel=loss_rel, loss_rel_world1_again=again_rel,
+        loss_rtol_first=PARALLEL_LOSS_RTOL,
+        loss_rtol_later=PARALLEL_LATER_LOSS_RTOL, grad_rel=grad_rel,
+        grad_rtol=PARALLEL_GRAD_RTOL, grad_rel_worst_leaves=dict(leaf_rel),
+        grad_losses_world2=res[0][1]["losses"],
+        grad_losses_world1=g1["losses"],
+        param_mean_gap_worst=mean_gaps(two[0]),
+        param_mean_gap_world1_again=mean_gaps(again),
+        sha256_by_rank=[t["sha256"] for t in two],
+        ms_per_step_world2=two[0]["step_ms"],
+        ms_per_step_world1=one["step_ms"],
+        allreduce_calls=ar["calls"], allreduce_bytes=ar["bytes"],
+        allreduce_ms_per_call=1e3 * ar["seconds"] / max(ar["calls"], 1),
+        launches_by_rank=[t["launches"] for t in two],
+        note="gloo on one card: the all-reduce goes through host copies; "
+             "not what NCCL across cards would take")
+    if len({t["sha256"] for t in two}) != 1:
+        fail("the ranks' parameters differ after the data-parallel fit")
+    if not (loss_rel[0] <= PARALLEL_LOSS_RTOL
+            and max(loss_rel) <= PARALLEL_LATER_LOSS_RTOL
+            and grad_rel <= PARALLEL_GRAD_RTOL):
+        fail(f"the world-2 fit disagrees with world 1: losses {loss_rel}, "
+             f"gradient {grad_rel}")
+    if any(t["launches"] != dict(k1=PARALLEL_STEPS, k2=PARALLEL_STEPS,
+                                 k3=0, k4=0) for t in two) \
+            or ar["calls"] != PARALLEL_STEPS:
+        fail(f"the data-parallel fit launched {[t['launches'] for t in two]}"
+             f", all-reduced {ar['calls']} times in {PARALLEL_STEPS} steps")
+    lap("parallel_train")
+
+    # 95. parallel_nccl: the same fit at world size 1 over NCCL, against
+    # the plain fit, both under the deterministic algorithms.
+    with deterministic_algorithms(torch) as caught:
+        plain = world1(fit, "plain_det")
+        launch.init_distributed(0, 1, launch.file_init(tmp), dev)
+        from torch import distributed as tdist
+        backend = tdist.get_backend()
+        nccl = jobs.fit(dict(fit, configs={**fit["configs"], "config": dict(
+            PARALLEL_TRAIN, output_dir=os.path.join(tmp, "nccl"))}), dev)
+        launch.shutdown()
+    undetermined = sorted({str(w.message).split("\n")[0][:200]
+                           for w in caught
+                           if "deterministic" in str(w.message)})
+    path_launches["parallel_nccl"] = nccl["launches"]
+    want_refusal = torch.cuda.device_count() < n
+    refusal = None
+    if want_refusal:
+        try:
+            tcli.main(["--synthetic", "--epochs", "1", "--device", "cuda",
+                       "--num_devices", str(n), "--output_dir",
+                       os.path.join(tmp, "refused")])
+        except ValueError as e:
+            refusal = str(e)
+    bitwise = (nccl["sha256"] == plain["sha256"]
+               and nccl["step_loss"] == plain["step_loss"])
+    log("parallel_nccl", backend=backend, world=1, bitwise_equal=bitwise,
+        sha256=[nccl["sha256"], plain["sha256"]],
+        losses_nccl=nccl["step_loss"], losses_plain=plain["step_loss"],
+        param_mean_gap_worst=mean_gaps(nccl),
+        deterministic_algorithms=True, warned_not_deterministic=undetermined,
+        ms_per_step_nccl=nccl["step_ms"], ms_per_step_plain=plain["step_ms"],
+        allreduce_calls=nccl["allreduce"]["calls"],
+        allreduce_ms_per_call=1e3 * nccl["allreduce"]["seconds"]
+        / max(nccl["allreduce"]["calls"], 1),
+        launches=nccl["launches"], num_devices_refusal=refusal,
+        device_count=torch.cuda.device_count())
+    if not (backend == "nccl" and bitwise):
+        fail("the world-1 NCCL fit is not the plain fit bit for bit")
+    if nccl["launches"] != dict(k1=PARALLEL_STEPS, k2=PARALLEL_STEPS, k3=0,
+                                k4=0) \
+            or nccl["allreduce"]["calls"] != PARALLEL_STEPS:
+        fail(f"the world-1 NCCL fit launched {nccl['launches']}, "
+             f"all-reduced {nccl['allreduce']['calls']} times")
+    if want_refusal and not refusal:
+        fail(f"--num_devices {n} on {torch.cuda.device_count()} card(s) "
+             "did not raise ValueError")
+    lap("parallel_nccl")
+
+    # 96. parallel_render: each against render_tiled in this process.
+    out, render_launches = {}, {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    for i, (kind, f, cfg) in enumerate(renders, start=2):
+        got = [r[i]["image"] for r in res]
+        t = [a.to(dev) for a in f]
+        with torch.no_grad():
+            if kind == "batch":
+                ref = torch.stack([tile.render_tiled(
+                    *[a[b] for a in t], cam, config=cfg) for b in range(2)])
+            else:
+                ref = tile.render_tiled(*t, cam, config=cfg)
+            ovf = (tile.render_tiled(*t, cam, config=cfg,
+                                     return_overflow=True)[1].tolist()
+                   if kind != "batch" else None)
+            t0 = time.perf_counter()
+            for _ in range(PARALLEL_RENDER_REPEATS):
+                if kind == "batch":
+                    tile.render_tiled_batched(*t, cam, config=cfg)
+                else:
+                    tile.render_tiled(*t, cam, config=cfg)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3 \
+                / PARALLEL_RENDER_REPEATS
+        err = (got[0] - ref.cpu()).abs().max().item()
+        tol = PARALLEL_RENDER_TOL[kind.split("_")[0]]
+        for k in render_launches:
+            render_launches[k] += sum(r[i]["launches"][k] for r in res)
+        out[kind] = dict(max_abs_err=err, tol=tol, M=cfg.max_per_tile,
+                         ranks_equal=all(torch.equal(g, got[0])
+                                         for g in got),
+                         ms_by_rank=[r[i]["ms"] for r in res],
+                         one_process_ms=plain_ms, overflow=ovf,
+                         launches_by_rank=[r[i]["launches"] for r in res])
+        if not (err <= tol and out[kind]["ranks_equal"]):
+            fail(f"the {kind} sharded render disagrees: {out[kind]}")
+    path_launches["parallel_render"] = render_launches
+    log("parallel_render", ranks=n, size=RENDER["res"],
+        n_gaussians={"batch": 2 * clouds[0][0].shape[0],
+                     "gaussian": slab[0].shape[0], "pixel": RENDER["n"]},
+        renders=out, launches=render_launches)
+    if out["gaussian"]["overflow"][0] != 0:
+        fail(f"the slab render dropped pairs: {out['gaussian']['overflow']}")
+    if not (render_launches["k3"] >= n and render_launches["k4"] >= n):
+        fail(f"the pixel-sharded renders launched {render_launches}")
+    lap("parallel_render")
+
+    # 97. parallel_tp: against the replicated step on the card.
+    p = {k: torch.from_numpy(v).to(dev).requires_grad_() for k, v in
+         net.items()}
+    h = torch.tanh(torch.from_numpy(x).to(dev) @ p["w1"] + p["b1"])
+    loss = torch.mean((h @ p["w2"]) ** 2)
+    grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    tps = [r[-1] for r in res]
+    loss_gap = max(abs(r["loss"] - loss.item()) / abs(loss.item())
+                   for r in tps)
+    grad_gap = max((r["grads"][k] - g.cpu()).abs().max().item()
+                   for r in tps for k, g in grads.items())
+    log("parallel_tp", mesh=(1, n), axes=("data", "model"),
+        specs=tps[0]["specs"], loss_rel=loss_gap, grad_max_abs=grad_gap,
+        tol=TP_TOL, sharded_fraction=tps[0]["fraction"],
+        grad_placements=tps[0]["grad_placements"],
+        flagship_state_sharded_fraction=tps[0]["trainer_fraction"])
+    if not (loss_gap <= TP_TOL and grad_gap <= TP_TOL
+            and tps[0]["fraction"] > 0.9
+            and tps[0]["trainer_fraction"] > 0.9):
+        fail(f"the tensor-parallel step disagrees: {loss_gap} {grad_gap}")
+    lap("parallel_tp")
+
+    total = sum(phase_s.values())
+    log("parallel_phases", seconds=phase_s, ranks_job_seconds=job_s,
+        total_seconds=total, cap_seconds=PARALLEL_PHASES_CAP_S)
+    if total > PARALLEL_PHASES_CAP_S:
+        fail(f"phases 94-97 took {total:.1f} s, over their "
+             f"{PARALLEL_PHASES_CAP_S} s cap")
+
+
 def pack_kernels(torch, raster, pack, counts, ntx, ti, backward,
                  tile_size=16):
     """K1 (and with `backward` K2, cotangents from a seed) against their
@@ -7652,6 +8024,7 @@ def main():
     models = pipeline.build_models(seed=0, device=dev)
     tp, n_decoded = decoded_pack(torch, models, images[0])
     dec_cloud = decoded_cloud(torch, models, images[0])
+    dec_cloud2 = decoded_cloud(torch, models, images[1])
     pack, counts = tp.pack, tp.counts
     T, M, _ = pack.shape
     with torch.no_grad():
@@ -8028,6 +8401,13 @@ def main():
     # K2-phi), the refine step (K1 + K2), PHASE_AB (K1-phi, K2-phi) and the
     # large-cloud render (K3 or K4, K1)
     k_ts, ts_err = item5_phases(torch, dev, path_launches, dec_cloud)
+    # 94-97. parallel/: the data-parallel flagship fit on two gloo ranks
+    # (K1 + K2 per rank and step) against one process, the same at world
+    # size 1 over NCCL, the three sharded renders (K1; K3 or K4 per band
+    # at 10^6) and tensor-parallel state sharding
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    parallel_phases(torch, dev, path_launches, (dec_cloud, dec_cloud2), tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
     for kk, row in (("k1", k1), ("k2", k2), ("k3", k3), ("k4", k4),
                     ("k1phi", k_wave["k1phi"]), ("k2phi", k_wave["k2phi"])):
         row.update(k_ts[kk])

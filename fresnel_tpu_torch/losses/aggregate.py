@@ -7,7 +7,9 @@ resized to 128^2 as jax.image.resize does, antialiased when shrinking,
 and mapped to [-1, 1]), normalised depth L1, the residual regulariser,
 the Fresnel boundary term, the Helmholtz residual, HFGS phase retrieval
 and the frequency-domain loss.  Every value of the returned dict is a
-tensor on the inputs' device (no host read).
+tensor on the inputs' device (no host read).  Under a data-parallel step
+(`shard`) the normalised depth L1's moments are the global batch's; every
+other term is a per-sample mean that the step averages over ranks.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from fresnel_tpu_torch.losses.physics import (
     wave_equation_loss,
 )
 from fresnel_tpu_torch.losses.ssim import ssim
+from fresnel_tpu_torch.parallel.mesh import Shard
 from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones
 from fresnel_tpu_torch.train.config import (
     HFGSConfig, PhysicsConfig, TrainingConfig)
@@ -44,6 +47,7 @@ def compute_losses(
     learnable_wavelengths_raw: Optional[torch.Tensor] = None,   # raw (3,)
     fresnel_zones: Optional[FresnelZones] = None,
     boundary_emphasis: Optional[torch.Tensor] = None,  # (num_zones + 1,)
+    shard: Optional[Shard] = None,    # a data-parallel step's ranks
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     config = config or TrainingConfig()
     loss_dict: Dict[str, torch.Tensor] = {}
@@ -77,7 +81,7 @@ def compute_losses(
 
     if (rendered_depth is not None and target_depth is not None
             and config.depth_weight > 0):
-        d_l = normalized_depth_l1(rendered_depth, target_depth)
+        d_l = normalized_depth_l1(rendered_depth, target_depth, shard)
         loss_dict["depth"] = d_l
         total = total + config.depth_weight * d_l
 

@@ -16,12 +16,13 @@ matrices; both are the same transform in complex64 and differ by rounding
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from fresnel_tpu_torch.core.ops import fftfreq
+from fresnel_tpu_torch.parallel.mesh import Shard, global_sum
 
 HFGS_DEFAULT_WAVELENGTHS = (0.0635, 0.05, 0.041)  # R, G, B
 
@@ -98,12 +99,27 @@ def wave_equation_loss(wave_field: torch.Tensor, wavelength: float,
     return ((lap + (k * k) * wave_field) ** 2).mean()
 
 
+def _batch_moments(x: torch.Tensor, shard: Optional[Shard]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and population std of `x` over the whole batch: every rank's
+    rows under a data-parallel `shard` (two passes, each one
+    differentiable all-reduce), `x` alone for None."""
+    n = x.numel() * (1 if shard is None else shard.world)
+    mean = global_sum(x.sum(), shard) / n
+    var = global_sum(((x - mean) ** 2).sum(), shard) / n
+    return mean, torch.sqrt(var)
+
+
 def normalized_depth_l1(rendered_depth: torch.Tensor,
-                        target_depth: torch.Tensor) -> torch.Tensor:
+                        target_depth: torch.Tensor,
+                        shard: Optional[Shard] = None) -> torch.Tensor:
     """Scale/shift-invariant depth L1: both depths standardised (population
-    std, floored at 1e-4) before the comparison."""
-    rd_std = torch.clamp(rendered_depth.std(correction=0), min=1e-4)
-    td_std = torch.clamp(target_depth.std(correction=0), min=1e-4)
-    rd = (rendered_depth - rendered_depth.mean()) / rd_std
-    td = (target_depth - target_depth.mean()) / td_std
+    std, floored at 1e-4) before the comparison.  The mean and std are the
+    whole batch's: under a data-parallel step (`shard`, from
+    `parallel.mesh.step_shard`) every rank's; the L1 is this rank's mean,
+    which the step averages over ranks."""
+    rd_mean, rd_std = _batch_moments(rendered_depth, shard)
+    td_mean, td_std = _batch_moments(target_depth, shard)
+    rd = (rendered_depth - rd_mean) / torch.clamp(rd_std, min=1e-4)
+    td = (target_depth - td_mean) / torch.clamp(td_std, min=1e-4)
     return (rd - td).abs().mean()

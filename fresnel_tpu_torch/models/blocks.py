@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fresnel_tpu_torch.core.ops import Conv2d, resize_linear
+from fresnel_tpu_torch.parallel.mesh import rand_rows
 
 
 class Linear(nn.Linear):
@@ -57,12 +58,15 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Flax's Dropout: in training (deterministic False) each element is
     kept with probability 1 - rate and scaled by 1 / (1 - rate); the mask
-    is drawn from `generator` (the device's default one if None)."""
+    is drawn from `generator`: a torch.Generator (the device's default one
+    if None), or a `parallel.mesh.RowGenerator`, which draws a
+    data-parallel step's global mask and keeps this rank's rows (the
+    leading axis batch-major)."""
     if deterministic or rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = rand_rows(x.shape, generator, x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -11,8 +11,9 @@ names (`init_state_net.layers_0` is `init_state_net.0`).
 
 The stochastic update masks are an argument: with deterministic=False the
 caller passes `masks` (steps, B, N, 1), or they are drawn from
-`generator` (p = update_prob); the tests hand both sides the JAX package's
-draws.  The neighbours come from a stable ascending sort of the
+`generator` (p = update_prob; a `parallel.mesh.RowGenerator` draws a
+data-parallel step's global masks and keeps this rank's rows); the tests
+hand both sides the JAX package's draws.  The neighbours come from a stable ascending sort of the
 distances, which breaks ties toward the lower index as `lax.top_k` does
 (`torch.topk` promises no order for ties); the distances are computed
 without gradient, as top_k's indices carry none.
@@ -29,6 +30,7 @@ from torch import nn
 from fresnel_tpu_torch.core.gaussians import rotation_6d_to_quaternion
 from fresnel_tpu_torch.models.blocks import Linear, ZeroInitLinear, spiral_table
 from fresnel_tpu_torch.models.fibonacci import _spiral_samples
+from fresnel_tpu_torch.parallel.mesh import rand_rows
 
 
 def knn_indices(pos: torch.Tensor, k: int) -> torch.Tensor:
@@ -109,8 +111,8 @@ class NCAGaussianDecoder(nn.Module):
         if deterministic:
             masks = torch.ones((steps, B, N, 1), device=state.device)
         elif masks is None:
-            masks = (torch.rand((steps, B, N, 1), generator=generator,
-                                device=state.device)
+            masks = (rand_rows((steps, B, N, 1), generator, state.device,
+                               batch_dim=1)
                      < self.update_prob).to(state.dtype)
         for s in range(steps):
             state = self._nca_step(state, masks[s])

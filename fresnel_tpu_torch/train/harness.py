@@ -46,8 +46,20 @@ package's loss_fn runs them; the SAAG prior, the render, the losses,
 (`Trainer(lpips=losses.lpips.load_lpips(...))`) and `lpips_weight` > 0
 the step adds the LPIPS term of the 128^2 render and target; the module
 moves to the trainer's device, stays float32 under `use_amp`, and is
-neither a parameter nor a checkpoint leaf.  More than one device is not
-ported (NotImplementedError, queued in ROADMAP.md).
+neither a parameter nor a checkpoint leaf.
+
+`fit(..., mesh=parallel.get_mesh())` trains data-parallel, one process per
+device: every rank draws the whole host batch, its colour jitter, view
+indices and poses from identically seeded generators and keeps its rows
+(`parallel.shard_batch`); the step runs under `parallel.data_parallel_step`,
+where the decoders' dropout masks and experiment 5's update masks are
+drawn at the global shape and sliced, the batch-coupled reductions
+(normalised depth L1's mean and std, stochastic K's importance, the
+overflow statistics) are global, and one all-reduce averages the
+gradients and the loss terms, so the step equals world 1's on the same
+global batch and every rank applies the same update.  Rank 0 writes the
+checkpoints, the history and the plots.  `config.num_devices` is read by
+the CLI only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from fresnel_tpu_torch.core.camera import Camera
@@ -81,6 +94,9 @@ from fresnel_tpu_torch.models.image_encoder import ImageEncoder
 from fresnel_tpu_torch.models.nca import NCAGaussianDecoder
 from fresnel_tpu_torch.models.saag_refine import (
     FeatureGuidedSAAG, SAAGRefinementNet)
+from fresnel_tpu_torch.parallel.mesh import (
+    RowGenerator, batch_mean, data_parallel_step, global_max, global_sum,
+    pmean_gradients, replicate, shard_batch, step_shard)
 from fresnel_tpu_torch.physics.fresnel_zones import FresnelZones
 from fresnel_tpu_torch.render.factory import select_training_renderer
 from fresnel_tpu_torch.train.config import (
@@ -243,10 +259,20 @@ def distill_loss(raw: torch.Tensor, teacher_raw: torch.Tensor,
             + torch.mean((depth_offset - teacher_do) ** 2))
 
 
+# Loss-dict terms a data-parallel step computes from global sums already
+# (`loss`), so they are not averaged over ranks with the others.
+GLOBAL_LOSS_KEYS = ("overflow_dropped_frac", "overflow_tiles_frac",
+                    "overflow_max_tile_hits", "view_overflow_dropped_frac")
+
+
 def _split(params: Dict[str, torch.Tensor], prefix: str
            ) -> Dict[str, torch.Tensor]:
     n = len(prefix) + 1
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}
+
+
+def _quiet(*args, **kwargs):
+    pass
 
 
 def _to_cpu(tree):
@@ -273,9 +299,6 @@ class Trainer:
 
     def __post_init__(self):
         cfg = self.config
-        if (cfg.num_devices or 1) > 1:
-            raise NotImplementedError(
-                "not ported: num_devices > 1 (ROADMAP Queue 1, item 12)")
         self.device = resolve_device(self.device)
         if self.lpips is not None:
             self.lpips = self.lpips.to(self.device)
@@ -390,19 +413,30 @@ class Trainer:
              K: int, stochastic_k: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
              poses: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-             nca_masks: Optional[torch.Tensor] = None):
+             nca_masks: Optional[torch.Tensor] = None,
+             topk_indices: Optional[torch.Tensor] = None):
         """(total, loss dict) of one batch of device tensors.  `poses` are
         the multi-pose (elevation, azimuth) draws in radians, (B,) each;
         `nca_masks` experiment 5's update masks (steps, B, N, 1), drawn
-        from `generator` when None.  The decoder's "phases" go to the
-        renderer (the wave field's, or phase blending's), and the same
-        stochastic-K subsample as the Gaussians."""
+        from `generator` when None; `topk_indices` the (stochastic_k,)
+        Gaussians of the stochastic-K subsample, drawn from `generator`
+        (Gumbel top-k of the batch's mean opacity) when None.  The
+        decoder's "phases" go to the renderer (the wave field's, or phase
+        blending's), and the same stochastic-K subsample as the
+        Gaussians.  Under a data-parallel step the batch holds the rank's
+        rows and the batch-coupled terms are global (module docstring)."""
         cfg = self.config
         res = self.train_res
         depth, target = batch["depth"], batch["image"]
         feats = (self._features(params, target, cfg.use_amp)
                  if self.encoder is not None else batch["features"])
         B = feats.shape[0]
+        # Under a data-parallel step the batch holds this rank's B rows:
+        # the decoder's batch draws come from the global draw, and the
+        # batch-coupled reductions run over the step's ranks.
+        shard = step_shard()
+        dgen = (generator if shard is None
+                else RowGenerator(generator, shard, B))
         if target.shape[-1] != res:
             target = resize_linear(target, res, res)
         target_depth = resize_linear(depth, res, res)
@@ -410,7 +444,7 @@ class Trainer:
         distill = (cfg.distill_weight > 0 and "teacher_raw" in batch
                    and cfg.experiment in (2, 4)
                    and not physics_route(cfg, self.physics_config))
-        out = self.gaussians(params, feats, depth, K, generator, poses,
+        out = self.gaussians(params, feats, depth, K, dgen, poses,
                              nca_masks, return_raw=distill,
                              amp=cfg.use_amp)
         pos, sc, rot = out["positions"], out["scales"], out["rotations"]
@@ -418,9 +452,11 @@ class Trainer:
         phases = out.get("phases")
 
         if stochastic_k is not None and stochastic_k < pos.shape[1]:
-            importance = op.detach().mean(dim=0) + 1e-6
-            idx = gumbel_topk_indices(generator, importance / importance.sum(),
-                                      stochastic_k)
+            idx = topk_indices
+            if idx is None:
+                importance = batch_mean(op.detach(), shard) + 1e-6
+                idx = gumbel_topk_indices(
+                    generator, importance / importance.sum(), stochastic_k)
             pos, sc, rot = pos[:, idx], sc[:, idx], rot[:, idx]
             col, op = col[:, idx], op[:, idx]
             if phases is not None:
@@ -440,17 +476,19 @@ class Trainer:
             physics_config=self.physics_config, hfgs_config=self.hfgs_config,
             learnable_wavelengths_raw=params.get("wavelengths_raw"),
             fresnel_zones=self.fresnel_zones,
-            boundary_emphasis=params.get("boundary_emphasis"))
+            boundary_emphasis=params.get("boundary_emphasis"), shard=shard)
 
         if ovf is not None:
             # (B, 4) [dropped, total_pairs, overflow_tiles, max] per image;
             # only the tiled renderer bins.
             n_tiles = (-(-res // 16)) ** 2
-            ovf_sum = ovf.sum(dim=0).to(torch.float32)
+            ovf_sum = global_sum(ovf.sum(dim=0), shard).to(torch.float32)
             ld["overflow_dropped_frac"] = ovf_sum[0] / torch.clamp(
                 ovf_sum[1], min=1.0)
-            ld["overflow_tiles_frac"] = ovf_sum[2] / (B * n_tiles)
-            ld["overflow_max_tile_hits"] = ovf[:, 3].max().to(torch.float32)
+            world = 1 if shard is None else shard.world
+            ld["overflow_tiles_frac"] = ovf_sum[2] / (B * world * n_tiles)
+            ld["overflow_max_tile_hits"] = global_max(
+                ovf[:, 3].max(), shard).to(torch.float32)
 
         if cfg.view_weight > 0 and "view_gt" in batch:
             # One non-frontal GT orbit view per sample (drawn on the host
@@ -471,7 +509,8 @@ class Trainer:
             total = total + cfg.view_weight * v_loss
             ld["total"] = total
             if ovf_v is not None:
-                ovf_v_sum = ovf_v.sum(dim=0).to(torch.float32)
+                ovf_v_sum = global_sum(ovf_v.sum(dim=0), shard).to(
+                    torch.float32)
                 ld["view_overflow_dropped_frac"] = (
                     ovf_v_sum[0] / torch.clamp(ovf_v_sum[1], min=1.0))
 
@@ -493,29 +532,50 @@ class Trainer:
             ld["total"] = total
         return total, ld
 
+    def gradients(self, params: Dict[str, torch.Tensor], batch: Dict,
+                  K: int, stochastic_k: Optional[int] = None,
+                  generator: Optional[torch.Generator] = None,
+                  poses=None, nca_masks: Optional[torch.Tensor] = None,
+                  topk_indices: Optional[torch.Tensor] = None
+                  ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+        """(gradient dict, loss dict on the device) of one batch at
+        `params` (None for a parameter the loss does not reach).  Under a
+        data-parallel step (`parallel.data_parallel_step`) one all-reduce
+        averages the gradients and this rank's loss terms over the ranks,
+        so both are the global batch's on every rank."""
+        names = list(params)
+        params = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            total, ld = self.loss(params, batch, K, stochastic_k, generator,
+                                  poses, nca_masks, topk_indices)
+            grads = torch.autograd.grad(total, [params[k] for k in names],
+                                        allow_unused=True)
+        ld = {k: v.detach() for k, v in ld.items()}
+        own = {f"loss/{k}": v for k, v in ld.items()
+               if k not in GLOBAL_LOSS_KEYS}
+        avg = pmean_gradients({**dict(zip(names, grads)), **own})
+        ld.update({k[len("loss/"):]: avg[k] for k in own})
+        return {k: avg[k] for k in names}, ld
+
     def train_step(self, state: Dict, batch: Dict, K: int,
                    stochastic_k: Optional[int] = None,
                    generator: Optional[torch.Generator] = None,
-                   poses=None, nca_masks: Optional[torch.Tensor] = None
+                   poses=None, nca_masks: Optional[torch.Tensor] = None,
+                   topk_indices: Optional[torch.Tensor] = None
                    ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
         """One optimizer step; returns (new state, loss dict on the
         device).  A non-finite loss or gradient leaves params, moments and
         the schedule's count as they were (the step counter still
-        advances, as in the JAX trainer)."""
-        names = list(state["params"])
-        params = {k: v.detach().requires_grad_()
-                  for k, v in state["params"].items()}
-        with torch.enable_grad():
-            total, ld = self.loss(params, batch, K, stochastic_k, generator,
-                                  poses, nca_masks)
-            grads = torch.autograd.grad(total, [params[k] for k in names],
-                                        allow_unused=True)
+        advances, as in the JAX trainer).  Under a data-parallel step the
+        gradients, the guard and the loss dict are the global batch's on
+        every rank (`gradients`), so every rank applies the same update
+        and a non-finite gradient on one rank skips the step on all."""
+        grads, ld = self.gradients(state["params"], batch, K, stochastic_k,
+                                   generator, poses, nca_masks, topk_indices)
         new_params, new_opt = self.optimizer.update(
-            state["params"], dict(zip(names, grads)), state["opt_state"],
-            loss=total.detach())
+            state["params"], grads, state["opt_state"], loss=ld["total"])
         return ({"params": new_params, "opt_state": new_opt,
-                 "step": state["step"] + 1},
-                {k: v.detach() for k, v in ld.items()})
+                 "step": state["step"] + 1}, ld)
 
     # ------------------------------------------------------------------
     def device_batch(self, batch: Dict[str, np.ndarray],
@@ -560,11 +620,21 @@ class Trainer:
 
     def fit(self, dataset, epochs: Optional[int] = None,
             state: Optional[Dict] = None, log_fn: Callable = print,
-            start_epoch: int = 0, stop_epoch: Optional[int] = None) -> Dict:
+            mesh=None, start_epoch: int = 0,
+            stop_epoch: Optional[int] = None) -> Dict:
         """Train over `dataset`.  start_epoch / stop_epoch run a segment of
         the full schedule (progressive K, the cosine span and checkpoint
-        numbering follow the full `epochs`)."""
+        numbering follow the full `epochs`).  With a `mesh`
+        (`parallel.get_mesh()`, every rank calling `fit` alike) the steps
+        are data-parallel over its "data" axis: the state is broadcast
+        from rank 0, each rank steps on its rows of every global batch,
+        and rank 0 alone logs and writes the files."""
         cfg = self.config
+        rank0 = mesh is None or dist.get_rank() == 0
+        if not rank0:
+            log_fn = _quiet
+        step_fn = (self.train_step if mesh is None
+                   else data_parallel_step(self.train_step, mesh))
         epochs = cfg.epochs if epochs is None else epochs
         nprng = np.random.default_rng(cfg.seed)
         pose_rng = np.random.default_rng(cfg.seed + 2)
@@ -599,6 +669,8 @@ class Trainer:
                     do0, device=self.device)
                 log_fn(f"distill: depth_offset initialized at teacher "
                        f"mean {do0:.3f}")
+        if mesh is not None:
+            state = replicate(state, mesh)
 
         out_dir = Path(cfg.output_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -621,7 +693,10 @@ class Trainer:
                     jb["distill_scale"] = (1.0 if dec <= 0 else
                                            max(0.0, 1.0 - epoch / dec))
                 poses = self.draw_poses(pose_rng, cfg.batch_size)
-                state, ld = self.train_step(state, jb, K, sk, gen, poses)
+                if mesh is not None:
+                    jb, poses = shard_batch(jb, mesh), shard_batch(poses,
+                                                                   mesh)
+                state, ld = step_fn(state, jb, K, sk, gen, poses)
                 for k, v in ld.items():
                     epoch_losses.setdefault(k, []).append(v)
 
@@ -643,22 +718,28 @@ class Trainer:
                    f"({dt:.1f}s, {steps_per_epoch / max(dt, 1e-9):.2f} it/s)"
                    + ovf_str)
 
-            if (epoch + 1) % cfg.save_interval == 0:
+            if rank0 and (epoch + 1) % cfg.save_interval == 0:
                 self.save_checkpoint(
                     out_dir / f"checkpoint_epoch{epoch + 1}.pt", state, epoch)
             if means.get("total", float("inf")) < best_loss:
                 best_loss = means["total"]
-                self.save_checkpoint(out_dir / "best_model.pt", state, epoch)
+                if rank0:
+                    self.save_checkpoint(out_dir / "best_model.pt", state,
+                                         epoch)
 
-        if last_epoch >= epochs:
-            self.save_checkpoint(out_dir / "final_model.pt", state,
-                                 epochs - 1)
-        else:   # segment boundary: guarantee a resume point
-            self.save_checkpoint(out_dir / f"checkpoint_epoch{last_epoch}.pt",
-                                 state, last_epoch - 1)
-        with open(out_dir / "loss_history.json", "w") as f:
-            json.dump(self.history, f, indent=2)
-        save_loss_plots(self.history, out_dir / "loss_plots.png")
+        if rank0:
+            if last_epoch >= epochs:
+                self.save_checkpoint(out_dir / "final_model.pt", state,
+                                     epochs - 1)
+            else:   # segment boundary: guarantee a resume point
+                self.save_checkpoint(
+                    out_dir / f"checkpoint_epoch{last_epoch}.pt", state,
+                    last_epoch - 1)
+            with open(out_dir / "loss_history.json", "w") as f:
+                json.dump(self.history, f, indent=2)
+            save_loss_plots(self.history, out_dir / "loss_plots.png")
+        if mesh is not None:
+            dist.barrier()
         return state
 
     def _total_gaussians(self, K: int) -> int:
@@ -774,8 +855,8 @@ class Trainer:
 
 def trainer_from_checkpoint(path, device=None) -> Trainer:
     """The Trainer a checkpoint was trained with, from its `.json` sidecar
-    (the four configs).  A config that needs an option the port does not
-    have raises NotImplementedError naming it."""
+    (the four configs; `num_devices` is inert here, as in the JAX
+    package)."""
     meta_path = Path(str(path) + ".json")
     if not meta_path.exists():
         raise FileNotFoundError(f"no config sidecar at {meta_path}: the "

@@ -15,7 +15,14 @@ or a file found under $FRESNEL_TPU_MODELS, ./models or ~/models
 term is dropped, as in the JAX package).  --streaming reads batches from
 disk caches through `data.streaming.StreamingImageDataset` (after
 --synthetic, which takes precedence, as in the JAX package).
---num_devices > 1 is not ported and raises NotImplementedError.
+--num_devices N > 1 trains data-parallel, one process per device
+(`Trainer.fit(mesh=...)`): under torchrun (or any launcher that sets
+RANK, WORLD_SIZE, LOCAL_RANK), N must equal WORLD_SIZE; with no launcher
+this process is rank 0 and starts ranks 1 .. N - 1 itself
+(`parallel.launch.spawn`, a `file://` rendezvous in a temporary
+directory), one CUDA device each over NCCL (N at most the card count), or
+N gloo processes with --device cpu.  Rank 0 prints, writes the caches
+first and writes the checkpoints.
 Checkpoints are `.pt` files with the JAX package's JSON sidecars; a
 thin one (`train.thin_ckpt`) resumes with a fresh optimizer state.
 
@@ -27,6 +34,11 @@ Run:  python -m fresnel_tpu_torch.train.train_gaussian_decoder --synthetic \
       python -m fresnel_tpu_torch.train.train_gaussian_decoder \
           --data_dir DIR --experiment 4 --distill_weight 1.0 \
           --distill_decay_epochs 2 --no_augmentation --device cpu
+      python -m fresnel_tpu_torch.train.train_gaussian_decoder \
+          --data_dir DIR --num_devices 8
+      torchrun --nproc_per_node 8 -m \
+          fresnel_tpu_torch.train.train_gaussian_decoder \
+          --data_dir DIR --num_devices 8
 """
 
 from __future__ import annotations
@@ -126,8 +138,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Train on procedurally generated scenes (no data dir)")
     p.add_argument("--synthetic_samples", type=int, default=16)
     p.add_argument("--num_devices", type=int, default=None,
-                   help="Data-parallel devices (default: 1; >1 is not "
-                        "ported)")
+                   help="Data-parallel devices, one process each "
+                        "(default: 1; N > 1 starts N - 1 more processes "
+                        "unless a launcher such as torchrun started them)")
     p.add_argument("--streaming", action="store_true",
                    help="Stream batches from disk caches instead of "
                         "holding the dataset in memory")
@@ -317,16 +330,115 @@ def configs_from_args(args):
     return config, physics, hfgs, hfts
 
 
+def start_ranks(num_devices, device, argv):
+    """{rank, world, device, procs, tmp} of a data-parallel run of
+    `num_devices`, after joining its process group; None for a single
+    process.  Under a launcher the ranks exist already; else this process
+    becomes rank 0 and starts the others (`procs`) with the same `argv`,
+    meeting them through a file store in the directory `tmp`."""
+    import tempfile
+
+    import torch
+
+    from fresnel_tpu_torch.device import resolve_device
+    from fresnel_tpu_torch.parallel import launch
+
+    env = launch.launcher_env()
+    n = num_devices or 1
+    if env is None and n == 1:
+        return None
+    if env is not None and env["world_size"] != n:
+        raise ValueError(f"--num_devices {num_devices} but the launcher "
+                         f"started {env['world_size']} ranks")
+    ranks = {"rank": 0, "world": n, "procs": [], "tmp": None}
+    if env is None:
+        if resolve_device(device).type == "cuda" \
+                and n > torch.cuda.device_count():
+            raise ValueError(f"--num_devices {n} needs {n} CUDA devices; "
+                             f"{torch.cuda.device_count()} are visible")
+        ranks["tmp"] = tempfile.mkdtemp(prefix="fresnel_ranks_")
+        init = launch.file_init(ranks["tmp"])
+        ranks["procs"] = launch.spawn(
+            ["-m", "fresnel_tpu_torch.train.train_gaussian_decoder", *argv],
+            n, init, range(1, n))
+        env = {"rank": 0, "local_rank": 0, "init_method": init}
+    ranks["rank"] = env["rank"]
+    try:
+        ranks["device"] = launch.init_distributed(
+            env["rank"], n, env["init_method"], device,
+            local_rank=env["local_rank"])
+    except BaseException:
+        end_ranks(ranks, failed=True)
+        raise
+    return ranks
+
+
+def end_ranks(ranks, failed: bool = False) -> None:
+    """Leave the process group and reap the ranks this process started
+    (killed if `failed`); a rank that failed raises RuntimeError."""
+    import shutil
+
+    from fresnel_tpu_torch.parallel import launch
+
+    launch.shutdown()
+    if failed:
+        launch.terminate(ranks["procs"])
+    codes = [p.wait() for p in ranks["procs"]]
+    if ranks["tmp"]:
+        shutil.rmtree(ranks["tmp"], ignore_errors=True)
+    if not failed and any(codes):
+        raise RuntimeError(f"data-parallel ranks 1 .. {ranks['world'] - 1} "
+                           f"exited with {codes}")
+
+
 def main(argv=None):
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    config, physics, hfgs, hfts = configs_from_args(args)
+    ranks = start_ranks(args.num_devices, args.device, argv)
+    if ranks is None:
+        return _train(args, None)
+    try:
+        out = _train(args, ranks)
+    except BaseException:
+        end_ranks(ranks, failed=True)
+        raise
+    end_ranks(ranks)
+    return out
+
+
+def _train(args, ranks):
+    """One process's training: a rank of a data-parallel run (`ranks`
+    from `start_ranks`; ranks after 0 print nothing) or the only process
+    (None)."""
+    import contextlib
+    import os
+
+    if ranks is not None and ranks["rank"] > 0:
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            return _train_rank(args, ranks)
+    return _train_rank(args, ranks)
+
+
+def _train_rank(args, ranks):
+    import torch.distributed as dist
 
     from fresnel_tpu_torch.device import resolve_device
     from fresnel_tpu_torch.losses.lpips import load_lpips
     from fresnel_tpu_torch.models.encoders import _probe_weights
+    from fresnel_tpu_torch.parallel import get_mesh
     from fresnel_tpu_torch.train.harness import Trainer
 
-    device = resolve_device(args.device)
+    config, physics, hfgs, hfts = configs_from_args(args)
+    mesh = None
+    if ranks is None:
+        device = resolve_device(args.device)
+    else:
+        rank, device = ranks["rank"], ranks["device"]
+        mesh = get_mesh(ranks["world"], device_type=device.type)
+        print(f"data-parallel mesh: {ranks['world']} ranks over "
+              f"{dist.get_backend()} ({device.type})")
     lpips_path = args.lpips_weights
     if lpips_path is None:
         lpips_path = _probe_weights(
@@ -341,6 +453,10 @@ def main(argv=None):
               "$FRESNEL_TPU_MODELS or ./models to enable)")
         config.lpips_weight = 0.0
 
+    # Rank 0 builds the dataset first: missing caches are computed and
+    # written once, then read by the other ranks.
+    if mesh is not None and rank > 0:
+        dist.barrier()
     if args.synthetic:
         from fresnel_tpu_torch.data.dataset import SyntheticGaussianDataset
         dataset = SyntheticGaussianDataset(
@@ -361,6 +477,8 @@ def main(argv=None):
             use_augmentation=config.use_augmentation,
             max_images=config.max_images,
             teacher_experiment=config.experiment, device=device)
+    if mesh is not None and rank == 0:
+        dist.barrier()
     print(f"dataset: {len(dataset)} samples")
 
     trainer = Trainer(config, physics, hfgs, hfts, lpips=lpips,
@@ -377,8 +495,8 @@ def main(argv=None):
         print(f"resumed from {args.resume} (epoch {epoch}; "
               f"continuing at {start_epoch})")
 
-    state = trainer.fit(dataset, state=state, start_epoch=start_epoch,
-                        stop_epoch=args.stop_epoch)
+    state = trainer.fit(dataset, state=state, mesh=mesh,
+                        start_epoch=start_epoch, stop_epoch=args.stop_epoch)
     print("training complete")
     return trainer, state
 

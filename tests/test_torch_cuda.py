@@ -35,7 +35,9 @@ than 16 take one runtime instantiation: pixel groups of at most 256 a
 block, tail lanes that own no pixel) with the box on and off, on one
 image and on two, against their plain versions at the same tolerances,
 K1, K2 and K2-phi bit for bit from run to run; render_tiled at 8 and 32
-with both table binnings, card against CPU.
+with both table binnings, card against CPU.  parallel/ with two gloo ranks
+on card 0: the mesh units and a small config's global-batch gradient
+against one process.
 """
 
 import numpy as np
@@ -1999,3 +2001,60 @@ def test_module_traced_on_card_runs_on_cpu(cuda, name, tmp_path):
         err = ex.field_errors(loaded(*x),
                               ex.ExportWrapper(dec, config["experiment"])(*x))
     assert err <= 1e-5
+
+
+def test_parallel_ranks_on_card(cuda, tmp_path):
+    """parallel/ with two gloo ranks on card 0 (`parallel.launch.run_job`;
+    NCCL refuses two ranks on one card), each collective staged through a
+    host copy: `shard_batch`'s rows, `replicate` from rank 0,
+    `pmean_gradients` against the hand mean, `rand_rows` from a CUDA
+    generator against the global draw; and the global batch's gradient of
+    a small Trainer config (experiment 2, 32^2, batch 4, dropout on,
+    depth, SSIM and boundary terms on) against one process on the card:
+    within 1e-3 by global norm (4 images a rank pick other cuDNN / cuBLAS
+    algorithms than 8), the loss terms within 1e-5, the ranks'
+    gradients bit for bit equal."""
+    from fresnel_tpu_torch.data import synthetic_corpus
+    from fresnel_tpu_torch.data.dataset import ImageDataset
+    from fresnel_tpu_torch.parallel import jobs, launch
+
+    data = str(tmp_path / "corpus")
+    synthetic_corpus.generate_corpus(data, n_images=4, image_size=32,
+                                     seed=3)
+    ds = dict(kind="image", data_dir=data, image_size=32, feature_dim=48,
+              use_augmentation=True)
+    ImageDataset(device=cuda, **{k: v for k, v in ds.items()
+                                 if k != "kind"})
+    grad = {"task": "gradients", "dataset": ds, "mesh": True, "configs": {
+        "config": dict(experiment=2, batch_size=4, image_size=32,
+                       feature_size=5, feature_dim=48, encoder_width=8,
+                       gaussians_per_patch=2, max_per_tile=64,
+                       train_encoder=True, depth_weight=0.1,
+                       boundary_weight=0.1, lpips_weight=0.0,
+                       output_dir=str(tmp_path / "out")),
+        "hfgs": dict(use_phase_retrieval_loss=False,
+                     use_frequency_loss=False, learnable_wavelengths=False)}}
+    res = launch.run_job([{"task": "mesh_units", "batch": 4}, grad], 2,
+                         tmp_path / "job", device="cuda:0", backend="gloo",
+                         timeout=300)
+    units = [r[0] for r in res]
+    want = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    hand = {k: sum(u["grads"][k] for u in units) / 2 for k in ("w", "s")}
+    for r, u in enumerate(units):
+        assert torch.equal(u["local"]["image"], want[2 * r:2 * r + 2])
+        assert torch.equal(u["replicated"]["a"], torch.ones(4))
+        for k, w in hand.items():
+            torch.testing.assert_close(u["pmean"][k], w, rtol=0, atol=1e-6)
+    full = torch.rand((2, 4, 3), generator=torch.Generator(cuda).manual_seed(
+        7), device=cuda).cpu()
+    assert torch.equal(torch.cat([u["rand_rows"] for u in units], 1), full)
+    one = jobs.gradients(dict(grad, mesh=False), cuda)
+    two = [r[1] for r in res]
+    num = sum(float(((two[0]["grads"][k] - g) ** 2).sum())
+              for k, g in one["grads"].items())
+    den = sum(float((g ** 2).sum()) for g in one["grads"].values())
+    assert (num / den) ** 0.5 <= 1e-3, (num / den) ** 0.5
+    for k, v in one["losses"].items():
+        assert abs(two[0]["losses"][k] - v) <= 1e-5 * max(abs(v), 1.0), k
+    for k, g in two[0]["grads"].items():
+        assert torch.equal(g, two[1]["grads"][k]), k

@@ -178,10 +178,20 @@ def test_feature_upsample_init_is_flax_like():
     dict(feature_upsample=3, use_depth_fusion=True)])
 def test_unported_options_raise(flag):
     """Each option builds (held against Flax in
-    tests/test_torch_decoder_options.py); with it, the Trainer's
-    still-unported `num_devices > 1` raises."""
+    tests/test_torch_decoder_options.py); with it, a Trainer of
+    `num_devices` 2 builds too (data parallelism is ported: the Trainer
+    does not read the count, as the JAX Trainer does not) and starts from
+    the same parameters as one with the count unset."""
     td.DirectPatchDecoder(gaussians_per_patch=4, **flag)
     cfg = TrainingConfig(experiment=2, gaussians_per_patch=4, num_devices=2,
                          **flag)
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        Trainer(cfg, device="cpu")
+    t = Trainer(cfg, device="cpu")
+    assert t.config.num_devices == 2
+    for k, v in flag.items():
+        assert getattr(t.model, k) == v
+    want = Trainer(TrainingConfig(experiment=2, gaussians_per_patch=4,
+                                  **flag), device="cpu").init_state()
+    got = t.init_state()
+    assert set(got["params"]) == set(want["params"])
+    for k, v in want["params"].items():
+        assert torch.equal(got["params"][k], v), k

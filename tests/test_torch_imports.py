@@ -30,6 +30,9 @@ ITEM9 = ("models/slat.py", "data/trellis.py", "train/train_direct_decoder.py",
 # The modules of ROADMAP Queue 1, item 11 (`smoke`, the bridges, export).
 ITEM11 = ("cli.py", "inference/bridges.py", "export/__init__.py",
           "export/export_decoder.py")
+# The modules of ROADMAP Queue 1, item 12 (parallel/ on torch.distributed).
+ITEM12 = ("parallel/__init__.py", "parallel/mesh.py", "parallel/tp.py",
+          "parallel/render.py", "parallel/launch.py", "parallel/jobs.py")
 
 
 def _imported_roots(path):
@@ -67,6 +70,32 @@ def test_item11_module_checked(rel):
     path = ROOT / "fresnel_tpu_torch" / rel
     assert path in PORT_FILES
     assert not _imported_roots(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize("rel", ITEM12)
+def test_item12_module_checked(rel):
+    path = ROOT / "fresnel_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_parallel_exports_jax_all():
+    """`fresnel_tpu_torch.parallel` exports what the JAX package's does,
+    and `parallel.render` its three sharded renders."""
+    import fresnel_tpu_torch.parallel as tpar
+    from fresnel_tpu_torch.parallel import render as trender
+
+    jax_init = (ROOT / "fresnel_tpu" / "parallel" / "__init__.py")
+    tree = ast.parse(jax_init.read_text())
+    want = next(ast.literal_eval(n.value) for n in tree.body
+                if isinstance(n, ast.Assign)
+                and n.targets[0].id == "__all__")
+    assert tpar.__all__ == want
+    for name in want:
+        assert callable(getattr(tpar, name))
+    for name in ("render_batch_sharded", "render_gaussian_sharded",
+                 "render_pixel_sharded"):
+        assert callable(getattr(trender, name))
 
 
 def test_importing_the_port_loads_no_jax():

@@ -6,9 +6,9 @@ draw different random bits): the same kept count after compaction, and
 positions, scales, rotations, colours and opacities read back from the
 files within 1e-4 absolute (measured below 2e-5).  A checkpoint whose
 sidecar sets `use_amp` decodes in float32 to the same cloud as without
-it (JAX's `cmd_infer` never reads the flag).  A checkpoint that needs an
-unported option (`num_devices > 1`) raises NotImplementedError naming
-the queue (--saag, --no_model and --html are held by
+it (JAX's `cmd_infer` never reads the flag), and so does one whose
+sidecar sets `num_devices > 1` (data parallelism is ported; the count
+is read by the training CLI only, as in the JAX package) (--saag, --no_model and --html are held by
 tests/test_torch_viewer.py; --fused_encoder and found backbone weights by
 tests/test_torch_backbones.py)."""
 
@@ -16,6 +16,7 @@ import json
 from pathlib import Path
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -78,17 +79,23 @@ def test_infer_without_checkpoint_matches_jax(image_path, tmp_path,
 
 def test_infer_refuses_unported_options(image_path, tmp_path):
     """`--fused_encoder` is ported (tests/test_torch_backbones.py); a
-    checkpoint whose sidecar sets the unported `num_devices > 1` raises,
-    naming the queue, with or without it."""
+    checkpoint whose sidecar sets `num_devices > 1` infers, with or
+    without it, the cloud the unchanged sidecar gives, bit for bit."""
     meta = json.loads(Path(K8 + ".json").read_text())
     meta["config"]["num_devices"] = 2
     ckpt = tmp_path / "ddp_model.msgpack"
+    ckpt.symlink_to(Path(K8).resolve())
     (tmp_path / "ddp_model.msgpack.json").write_text(json.dumps(meta))
-    out = str(tmp_path / "x.ply")
-    for extra in ([], ["--fused_encoder"], ["--html", "v.html"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["infer", image_path, out, "--device", "cpu",
-                      "--checkpoint", str(ckpt)] + extra)
+    for i, extra in enumerate(([], ["--fused_encoder"],
+                               ["--html", str(tmp_path / "v.html")])):
+        outs = {}
+        for name, path in (("ddp", str(ckpt)), ("one", K8)):
+            outs[name] = str(tmp_path / f"{name}{i}.ply")
+            assert cli.main(["infer", image_path, outs[name], "--device",
+                             "cpu", "--checkpoint", path] + extra) == 0
+        got, want = _ply_fields(outs["ddp"]), _ply_fields(outs["one"])
+        for k in FIELDS:
+            np.testing.assert_array_equal(got[k], want[k])
 
 
 def test_infer_with_amp_sidecar_runs_float32(image_path, tmp_path):

@@ -113,14 +113,20 @@ def test_cli_train_subcommand(tmp_path):
 
 
 # The wave-optics flags, --use_amp (bf16 decoder training),
-# --lpips_weights and --streaming are ported: their cases (same ids) train
-# one epoch on the renderer the JAX package picks.  --lpips_weights names
+# --lpips_weights, --streaming and --num_devices are ported: their cases
+# (same ids) train one epoch on the renderer the JAX package picks.
+# --num_devices 2 trains on two gloo ranks (this process and one it
+# starts, on 2 threads each): its history is held against --num_devices
+# 1's within 1e-5 relative (the decoder's dropout masks are drawn at the
+# global batch's shape, so the runs differ only in the order the
+# all-reduce sums), with the same files written.  --lpips_weights names
 # a file in tmp_path: lpips.pth is written there (an lpips-alex checkpoint
 # at the published shapes) and trains with the term at weight 0.1;
 # missing.pth is not, and the term is dropped, as the JAX CLI drops it.
 # --streaming with --synthetic trains on the synthetic scenes; with
 # --data_dir (the last case) over a 2-image corpus in tmp_path.
 PORTED_FLAGS = {"--use_amp": "TileRenderer",
+                "--num_devices": "TileRenderer",
                 "--streaming": "TileRenderer",
                 "--use_phase_blending": "TileRenderer",
                 "--use_qsr": "WaveRenderer",
@@ -138,7 +144,7 @@ PORTED_FLAGS = {"--use_amp": "TileRenderer",
                                    ["--lpips_weights", "lpips.pth"],
                                    ["--lpips_weights", "missing.pth"],
                                    ["--streaming", "--data_dir", "corpus"]])
-def test_unported_flags_raise(extra, tmp_path):
+def test_unported_flags_raise(extra, tmp_path, monkeypatch):
     argv = FLAGS + ["--output_dir", str(tmp_path), "--device", "cpu",
                     "--synthetic_samples", "2"] + extra
     if "--data_dir" in extra:
@@ -153,6 +159,8 @@ def test_unported_flags_raise(extra, tmp_path):
         argv[argv.index("--lpips_weight") + 1] = "0.1"
         if extra[1] == "lpips.pth":
             save_checkpoint(str(path), lpips_checkpoint("lpips", seed=0))
+    if extra[0] == "--num_devices":
+        monkeypatch.setenv("OMP_NUM_THREADS", "2")
     if extra[0] in PORTED_FLAGS:
         argv[argv.index("--epochs") + 1] = "1"
         trainer, _ = tcli.main(argv)
@@ -169,6 +177,18 @@ def test_unported_flags_raise(extra, tmp_path):
                 assert trainer.history["lpips"][0] > 0
         if "--data_dir" in extra:
             assert len(list(corpus.glob("*_rgb32.bin"))) == 2
+        if extra[0] == "--num_devices":
+            assert trainer.config.num_devices == 2
+            one = tmp_path / "one"
+            argv[argv.index(str(tmp_path))] = str(one)
+            argv[argv.index("--num_devices") + 1] = "1"
+            one_trainer, _ = tcli.main(argv)
+            h1, h2 = one_trainer.history, trainer.history
+            assert set(h1) == set(h2)
+            for k, v in h1.items():
+                assert abs(h2[k][0] - v[0]) <= 1e-5 * max(abs(v[0]), 1e-6), k
+            assert sorted(p.name for p in one.iterdir()) == sorted(
+                p.name for p in tmp_path.iterdir() if p.name != "one")
         return
     with pytest.raises(NotImplementedError):
         tcli.main(argv)

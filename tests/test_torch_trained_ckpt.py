@@ -211,18 +211,41 @@ def test_exp2_g74zi_decodes_like_jax(scenes):
     pytest.param(dict(use_amp=True, num_devices=3), "num_devices",
                  id="over0-use_amp"),
     (dict(num_devices=2), "num_devices"),
-    # The Fresnel zones, phase blending and use_amp are ported; with them,
-    # num_devices still raises (the case keeps its earlier id).
+    # The Fresnel zones, phase blending and use_amp are ported; with them
+    # (an experiment-2 sidecar beside exp4's weights: the Trainer builds
+    # and decodes from its init) the case keeps its earlier id.
     pytest.param(dict(experiment=2, use_fresnel_zones=True,
                       use_phase_blending=True, use_amp=True, num_devices=2),
                  "num_devices", id="over2-use_fresnel_zones")])
 def test_unported_configs_raise(tmp_path, over, missing):
-    meta = _meta("exp4")
-    meta["config"].update(over)
-    path = tmp_path / "model.msgpack"
-    (tmp_path / "model.msgpack.json").write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match=missing):
-        trainer_from_checkpoint(path, device="cpu")
+    """Data parallelism is ported and `num_devices` is inert outside the
+    CLI, as in the JAX package: a sidecar that sets it rebuilds the
+    Trainer, which loads the checkpoint (or, for another experiment,
+    starts from its init) and decodes the same cloud, bit for bit, as the
+    sidecar without it."""
+    clouds = {}
+    for name, cfg in (("set", over), ("unset", {k: v for k, v in
+                                                 over.items()
+                                                 if k != missing})):
+        meta = _meta("exp4")
+        meta["config"].update(cfg)
+        path = tmp_path / name / "model.msgpack"
+        path.parent.mkdir()
+        path.symlink_to(os.path.abspath(_ckpt("exp4")))
+        (path.parent / "model.msgpack.json").write_text(json.dumps(meta))
+        t = trainer_from_checkpoint(path, device="cpu")
+        assert t.config.num_devices == cfg.get(missing)
+        if t.config.experiment == 4:
+            state, epoch = t.load_checkpoint(path)
+            assert epoch == meta["epoch"]
+        else:
+            state = t.init_state()
+        rng = np.random.default_rng(0)
+        feats = rng.normal(size=(1, 37, 37, 384)).astype(np.float32)
+        depth = rng.uniform(size=(1, 256, 256)).astype(np.float32)
+        clouds[name] = t.decode(state["params"], feats, depth)
+    for k in FIELDS:
+        assert torch.equal(clouds["set"][k], clouds["unset"][k]), k
 
 
 @pytest.mark.parametrize("exp,module", [
